@@ -1,0 +1,160 @@
+"""float32 ``exp``, ``log``, ``log1p`` and ``erfinv`` as plain torch ops.
+
+The JAX package computes its swap acceptances (``exp``), its streaming
+logsumexp recorders (``log1p`` of ``exp``) and its normal draws (``erf_inv``)
+with the float32 polynomials that XLA emits: the Cephes ``expf``/``logf``/
+``log1pf`` approximations and Giles' single-precision ``erfinv``. torch's own
+``exp``/``log1p``/``erfinv`` are accurate too, but round differently in about
+one case in ten (up to tens of ulp for ``erfinv``), which would make swap
+decisions, Kahan stacks and normal draws drift from the reference.
+
+The functions below evaluate the same polynomials operation for operation.
+XLA's CPU backend contracts each multiply that feeds an add into a fused
+multiply-add, so those steps go through :func:`fma`, an exact emulation of
+the float32 fused multiply-add in float64 (the card's ``fmaf`` gives the same
+bits). XLA's CPU code also flushes subnormal results to zero, which
+:func:`exp` and :func:`log` reproduce. Everything else is a separate IEEE
+multiply, add, divide or ``sqrt``.
+
+``exp``, ``log``, ``log1p`` and ``logaddexp`` are bitwise equal to the JAX
+package's on the CPU (checked in ``tests/test_torch_rng.py``). ``erfinv``
+is too, except in its tail branch (``|x| > 0.9966``), where XLA takes
+``sqrt`` from the CPU's reciprocal-square-root estimate refined by one
+Newton step, which can be 1 ulp off the correctly rounded ``sqrt`` used here;
+normal draws then differ by at most 2 ulp. All of them give identical bits
+on torch's CPU and CUDA backends.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import torch
+
+
+def _f(bits: int) -> float:
+    """The float32 with IEEE bit pattern ``bits``, as an exact Python float."""
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+# Cephes expf
+_EXP_LO, _EXP_HI = _f(0xC2AF999A), _f(0x42B1999A)  # -87.8, 88.8
+_LOG2EF = _f(0x3FB8AA3B)
+_C1 = _f(0x3F318000)  # 0.693359375
+_C2 = _f(0xB95E8083)  # -2.12194440e-4
+_EXP_P = [_f(b) for b in (0x39506967, 0x3AB743CE, 0x3C088908, 0x3D2AA9C1, 0x3E2AAAAA)]
+
+# Cephes logf
+_FLT_MIN = _f(0x00800000)
+_SQRTHF = _f(0x3F3504F3)
+_LOG_A = [_f(b) for b in (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A)]
+_LOG_B = [_f(b) for b in (0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50)]
+_LOG_C = [_f(b) for b in (0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)]
+
+# Cephes log1pf rational approximation on |x| < sqrt(2) - 1
+_LOG1P_SMALL = _f(0x3ED413CD)
+_LOG1P_P = [_f(b) for b in (0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C,
+                            0x4273CC76, 0x426473AD, 0x41A05101)]
+_LOG1P_Q = [_f(b) for b in (0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3,
+                            0x43586D8A, 0x42707982)]
+
+# Giles' single-precision erfinv, branches w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+               1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+               2.83297682)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with a single rounding.
+
+    The float64 product of two float32 values is exact. The float64 sum is
+    rounded to odd (its error, from TwoSum, sets the last bit), and a
+    53-bit round-to-odd result rounds to the correct 24-bit one."""
+    a = a.double() if torch.is_tensor(a) else a
+    b = b.double() if torch.is_tensor(b) else b
+    c = c.double() if torch.is_tensor(c) else c
+    prod = a * b
+    s = prod + c
+    bb = s - prod
+    err = (prod - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    inexact = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    s = torch.where(inexact, (bits + step).view(torch.float64), s)
+    return s.float()
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    fx = torch.clamp(torch.floor(fma(x, _LOG2EF, 0.5)), -127.0, 127.0)
+    x = fma(-fx, _C1, x)
+    x = fma(-fx, _C2, x)
+    y = fma(x, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = fma(y, x, c)
+    y = fma(y, x, 0.5)
+    y = fma(y, x * x, x) + 1.0
+    pow2 = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = y * pow2
+    return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+
+
+def log(y: torch.Tensor) -> torch.Tensor:
+    y = torch.where(torch.abs(y) < _FLT_MIN, torch.zeros_like(y), y)
+    yc = torch.where(y > _FLT_MIN, y, torch.full_like(y, _FLT_MIN))
+    bits = yc.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    lt = m < _SQRTHF
+    e = e - lt.to(torch.float32)
+    x = (m + -1.0) + torch.where(lt, m, torch.zeros_like(m))
+    z = x * x
+    x3 = z * x
+    ya = fma(fma(x, _LOG_A[0], _LOG_A[1]), x, _LOG_A[2])
+    yb = fma(fma(x, _LOG_B[0], _LOG_B[1]), x, _LOG_B[2])
+    yc = fma(fma(x, _LOG_C[0], _LOG_C[1]), x, _LOG_C[2])
+    yb = fma(ya, x3, yb)
+    yc = fma(yb, x3, yc)
+    r = fma(yc, x3, e * _C2)
+    r = fma(e, _C1, (x - z * 0.5) + r)
+    nan = torch.full_like(r, float("nan"))
+    r = torch.where((y <= 0) | torch.isnan(y), nan, r)
+    r = torch.where(y == 0, torch.full_like(r, -float("inf")), r)
+    return torch.where(y == float("inf"), y, r)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    x2 = x * x
+    p = fma(x, _LOG1P_P[0], _LOG1P_P[1])
+    for c in _LOG1P_P[2:]:
+        p = fma(p, x, c)
+    q = x + _LOG1P_Q[0]
+    for c in _LOG1P_Q[1:]:
+        q = fma(q, x, c)
+    small = x + fma(x2, -0.5, (x * x2) * (p / q))
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, log(x + 1.0))
+
+
+def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.logaddexp``: ``max + log1p(exp(-|a - b|))``, ``a + b`` where
+    ``a - b`` is NaN (both infinite of one sign, or a NaN operand)."""
+    delta = a - b
+    out = torch.maximum(a, b) + log1p(exp(-torch.abs(delta)))
+    return torch.where(torch.isnan(delta), a + b, out)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    w = -log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    lo = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
+    coef = torch.where(lt[..., None], lo, hi)
+    p = coef[..., 0]
+    for i in range(1, len(_ERFINV_LT5)):
+        p = fma(p, w, coef[..., i])
+    out = p * x
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), out)

@@ -1,0 +1,2 @@
+from .base import Explorer, NoOpExplorer, StepOut, ToyExplorer
+from .cuda_slice import SliceSamplerCUDA

@@ -1,0 +1,61 @@
+"""Explorer interface: within-chain MCMC moves over the whole replica batch.
+
+Counterpart of ``pigeons_tpu/ops/base.py``. The JAX package writes an
+explorer's ``step`` for one replica and vmaps it; here an explorer takes the
+batch ``[B, d]`` at once through ``step_batched(keys, xs, betas, path)``,
+with ``keys [B, 2]`` the lanes' keys and ``betas [B]`` their annealing
+parameters. It returns a :class:`StepOut` whose statistics are ``[B]``
+tensors. The runtime computes the density of the moved states itself, fused
+with the swap's partner-beta evaluation, so ``StepOut.lp`` may be ``None``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+
+class StepOut(NamedTuple):
+    x: torch.Tensor
+    lp: Optional[torch.Tensor]  # log density at the lane's beta, when computed
+    accept_sum: torch.Tensor  # contribution to explorer_acceptance_pr
+    accept_n: torch.Tensor
+    n_steps: torch.Tensor  # contribution to explorer_n_steps (density evals)
+
+
+def _zero_stats(B: int, device):
+    z = torch.zeros(B, dtype=torch.float32, device=device)
+    return z, z, z
+
+
+class Explorer:
+    extra_names: tuple = ()
+
+    def check_path(self, path) -> None:
+        """Raise if this explorer cannot move along ``path``."""
+
+    def step_batched(self, keys, xs, betas, path) -> StepOut:
+        raise NotImplementedError
+
+    def adapt(self, state, reduced, round_idx: int):
+        return state
+
+
+class ToyExplorer(Explorer):
+    """iid regeneration at every chain, for paths that are iid-sampleable at
+    every beta (reference ``src/explorers/ToyExplorer.jl``)."""
+
+    def __init__(self, path=None):
+        self.path = path  # provides sample_at(keys, betas); the run's path if None
+
+    def step_batched(self, keys, xs, betas, path) -> StepOut:
+        x_new = (self.path or path).sample_at(keys, betas)
+        return StepOut(x_new, None, *_zero_stats(xs.shape[0], xs.device))
+
+
+class NoOpExplorer(Explorer):
+    """Identity move (the TestSwapper toy target's explorer)."""
+
+    def step_batched(self, keys, xs, betas, path) -> StepOut:
+        return StepOut(xs, None, *_zero_stats(xs.shape[0], xs.device))

@@ -1,0 +1,413 @@
+"""The PT runtime: rounds of (explore, communicate) scans with adaptation.
+
+Counterpart of ``pigeons_tpu/pt.py`` on one device (reference
+``src/pt/pigeons.jl``). Round r runs 2^r scans. Each scan:
+
+* explore: the explorer moves the whole batch of ``R * N`` lanes (``R``
+  independent ladders of ``N`` chains, flattened), and the reference chain
+  of every ladder regenerates iid;
+* densities: own-beta and partner-beta log densities of the moved states in
+  one pass (the swap's partner evaluation shares ``sum(x * x)``);
+* recorders, then the DEO swap as a permutation update of ``[R, N]`` index
+  tensors (``swaps.py``).
+
+Between rounds, numpy on the host estimates barriers and regrids the
+schedule. Where the JAX package traces the round into one ``lax.scan`` and
+vmaps the per-ladder work, the port runs a Python loop of scans over
+tensors with the ladder axis written out. A single ladder is the case
+``R = 1`` of the same code, keyed by the master key itself as in the
+reference, so one scan body serves both (the reference's ``scan_body`` and
+``scan_body_flat``).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import rng
+from .adaptation import (
+    CommunicationBarriers,
+    communication_barriers,
+    optimal_schedule,
+    rejections_from_acceptance,
+)
+from .checks import check_device, preflight_checks, unsupported_options
+from .inputs import Inputs
+from .recorders import (
+    ReducedRecorders,
+    init_recorders,
+    kadd,
+    reduce_recorders,
+    update_logsum,
+    update_round_trips,
+)
+from .schedule import equally_spaced_schedule
+from .swaps import deo_partner_map, metropolis_accept_pr, swap_scan
+
+
+@dataclass
+class RoundReport:
+    round_idx: int
+    n_scans: int
+    n_tempered_restarts: int
+    n_round_trips: int
+    global_barrier: float
+    log_z_estimate: float
+    min_swap_accept: float
+    mean_swap_accept: float
+    wall_time_s: float
+    peak_memory_bytes: int = 0
+    max_energy_ac1: float = float("nan")
+    mean_explorer_accept: float = float("nan")
+
+
+class PT:
+    """Run state + driver (reference ``src/pt/PT.jl``). Chains 0..N-1 run
+    beta from the reference (0) to the target (N-1)."""
+
+    def __init__(self, inputs: Inputs):
+        self.inputs = inputs
+        target = inputs.target
+        if target is None:
+            raise ValueError(
+                "Inputs.target is required, e.g. pigeons(target=toy_mvn_target(10))"
+            )
+        unsupported_options(inputs)
+        self.device = check_device(inputs.device)
+        n = inputs.n_chains
+        self.n_chains = n
+        self.n_replicates = R = inputs.n_replicates
+        self.dim = target.dim
+
+        self.reference = target.default_reference()
+        self.path = target.create_path(self.reference)
+        self.explorer = inputs.explorer or target.default_explorer()
+        self.explorer.check_path(self.path)
+        self.exp_state = ()
+        self.accept_fn = metropolis_accept_pr
+        self.schedule = equally_spaced_schedule(n)
+        self.barriers: Optional[CommunicationBarriers] = None
+
+        # R independent ladders: ladder r's streams derive from
+        # fold_in(master, r); a single ladder uses the master key itself
+        master = rng.master_key(inputs.seed, self.device)
+        if R > 1:
+            self._key = rng.keys_for(master, torch.arange(R, device=self.device))
+            init_keys = rng.replica_keys(rng.fold_in(self._key, rng.INIT), n)
+        else:
+            self._key = master[None]
+            init_keys = rng.replica_keys(rng.fold_in(master, rng.INIT), n)[None]
+        self._states = target.initialization(init_keys).reshape(R * n, self.dim)
+        idx = torch.arange(n, dtype=torch.int64, device=self.device)
+        self._chain_of = idx.repeat(R, 1)
+        self._replica_of = idx.repeat(R, 1)
+
+        rec_set = set(inputs.record)
+        self._record_online = "online" in rec_set
+        self._record_traces = "traces" in rec_set
+        self._record_energy = "energy_ac1" in rec_set
+        self._record_round_trip = "round_trip" in rec_set
+        self._record_swap_stats = "log_sum_ratio" in rec_set
+        self._use_iid_reference = getattr(self.path, "has_iid_reference", False) and n > 1
+        self.ref_positions = (0,)
+        self.target_positions = (n - 1,)
+
+        self.round_idx = 0
+        self.reduced: Optional[ReducedRecorders] = None
+        self.reports: list[RoundReport] = []
+        self.traces = None  # last round's target-chain samples [iterations, d+1]
+
+    # ------------------------------------------------------------------
+    # run state in the JAX package's shapes: [(R,) N, d] and [(R,) N]
+
+    def _ladder_shape(self, t):
+        return t[0] if self.n_replicates == 1 else t
+
+    @property
+    def states(self) -> torch.Tensor:
+        return self._ladder_shape(self._states.reshape(self.n_replicates, self.n_chains, self.dim))
+
+    @property
+    def chain_of(self) -> torch.Tensor:
+        return self._ladder_shape(self._chain_of)
+
+    @property
+    def replica_of(self) -> torch.Tensor:
+        return self._ladder_shape(self._replica_of)
+
+    @property
+    def betas(self) -> torch.Tensor:
+        return torch.as_tensor(self.schedule.grids, dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------
+
+    def _log_density(self, x, beta):
+        """The reference's ``ld``: path log density with NaN read as -inf
+        (the guard for out-of-support evaluations)."""
+        lp = self.path.log_density(x, beta)
+        return torch.where(torch.isnan(lp), torch.full_like(lp, -float("inf")), lp)
+
+    def _blend_iid_x(self, x_after, replica_of, k_iid):
+        """Regenerate each ladder's reference-chain state iid. The key of the
+        replica at a reference chain is ``fold_in(k_iid, replica)``, the key
+        the reference draws for every lane before keeping the reference
+        lanes' draws; only those lanes are drawn here."""
+        R, n = replica_of.shape
+        x = x_after.clone()
+        for pos in self.ref_positions:
+            ridx = replica_of[:, pos]  # [R]
+            keys = rng.fold_in(k_iid, ridx)
+            lanes = torch.arange(R, device=x.device) * n + ridx
+            x[lanes] = self.path.sample_reference(keys).to(x.dtype)
+        return x
+
+    def _fused_post_densities(self, x_after, chain_flat, partner_map, betas):
+        """Own-beta and partner-beta densities of the moved states in one pass."""
+        b = torch.stack([betas[chain_flat], betas[partner_map[chain_flat]]])
+        lp = self._log_density(x_after, b)
+        return lp[0], lp[1]
+
+    def _scan_body(self, scan_idx, states, chain_of, replica_of, lp_cur, rec, betas, masks):
+        """One scan of all ``R`` ladders: explore the flat batch of lanes (each
+        lane keyed by ``fold_in(scan key of its ladder, replica)``, the
+        reference's ``_explore``), regenerate the reference chains, evaluate
+        own- and partner-beta densities, then :meth:`_post_one`."""
+        R, n = self.n_replicates, self.n_chains
+        chain_flat = chain_of.reshape(-1)
+        k_explore = rng.scan_key(self._key, self.round_idx, scan_idx, rng.EXPLORE)
+        lane_keys = rng.keys_for(k_explore, torch.arange(n, device=self.device)).reshape(R * n, 2)
+        out = self.explorer.step_batched(lane_keys, states, betas[chain_flat], self.path)
+        x_after = out.x.to(states.dtype)
+        if self._use_iid_reference:
+            k_iid = rng.scan_key(self._key, self.round_idx, scan_idx, rng.IID)
+            x_after = self._blend_iid_x(x_after, replica_of, k_iid)
+        partner_map = deo_partner_map(n, scan_idx, self.device)
+        lp_after, lp_partner = self._fused_post_densities(x_after, chain_flat, partner_map, betas)
+        return self._post_one(scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of,
+                              replica_of, rec, partner_map, masks)
+
+    def _post_one(self, scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of,
+                  replica_of, rec, partner_map, masks):
+        """Recorder updates and the DEO swap of all ladders. Returns the next
+        run state, the density carried into the next scan, the recorders and
+        the scan's target-chain extract ``[R, T, d+1]``."""
+        R, n, d = self.n_replicates, self.n_chains, self.dim
+        ref_mask, target_mask = masks
+
+        # per-chain recorder rows: reorder each ladder's replica rows into
+        # chain order (a permutation gather by chain -> replica)
+        def by_chain(v):
+            return torch.gather(v.reshape(R, n), 1, replica_of)
+
+        if self._record_energy:
+            lp_b, lp_a = lp_cur.reshape(R, n), lp_after.reshape(R, n)
+            rows = torch.stack([torch.ones_like(lp_b), lp_b, lp_a, lp_b**2, lp_a**2, lp_b * lp_a], -1)
+            rows = torch.gather(rows, 1, replica_of[..., None].expand(R, n, 6))
+            rec = rec._replace(energy=kadd(rec.energy, rows))
+        rec = rec._replace(
+            exp_accept_sum=kadd(rec.exp_accept_sum, by_chain(out.accept_sum)),
+            exp_accept_n=kadd(rec.exp_accept_n, by_chain(out.accept_n)),
+            exp_steps=kadd(rec.exp_steps, by_chain(out.n_steps)),
+        )
+
+        trace = None
+        if self._record_online or self._record_traces:
+            ridx = replica_of[:, list(self.target_positions)]  # [R, T]
+            x_t = torch.gather(x_after.reshape(R, n, d), 1, ridx[..., None].expand(-1, -1, d))
+            lp_t = torch.gather(lp_after.reshape(R, n), 1, ridx)
+            trace = torch.cat([x_t, lp_t[..., None]], dim=-1)  # [R, T, d+1]
+        if self._record_online:
+            rec = rec._replace(
+                online_n=kadd(rec.online_n, float(len(self.target_positions))),
+                online_sum=kadd(rec.online_sum, trace.sum(1)),
+                online_sumsq=kadd(rec.online_sumsq, (trace**2).sum(1)),
+            )
+
+        # round trips use the PRE-swap chain (reference swap.jl:106-126)
+        if self._record_round_trip:
+            rec = update_round_trips(rec, ref_mask[chain_of] & (n > 1), target_mask[chain_of])
+
+        log_ratio = (lp_partner - lp_after).reshape(R, n)
+        k_swap = rng.scan_key(self._key, self.round_idx, scan_idx, rng.SWAP_UNIFORM)
+        res = swap_scan(k_swap, scan_idx, chain_of, replica_of, log_ratio,
+                        self.accept_fn, partner_map=partner_map)
+        active = res.pair_active
+        rec = rec._replace(
+            accept_sum=kadd(rec.accept_sum, torch.where(active, res.accept_pr, 0.0)),
+            accept_n=kadd(rec.accept_n, active.to(torch.float32)),
+        )
+        if self._record_swap_stats:
+            lsr_fwd, lsr_fwd_n = update_logsum(rec.lsr_fwd, rec.lsr_fwd_n, res.ratio_fwd, active)
+            lsr_bwd, lsr_bwd_n = update_logsum(rec.lsr_bwd, rec.lsr_bwd_n, res.ratio_bwd, active)
+            rec = rec._replace(lsr_fwd=lsr_fwd, lsr_fwd_n=lsr_fwd_n,
+                               lsr_bwd=lsr_bwd, lsr_bwd_n=lsr_bwd_n)
+
+        # a swapped replica's new own-beta density is the partner-beta density
+        # it just computed: the next scan's lp_before costs nothing
+        swapped = (res.chain_of != chain_of).reshape(-1)
+        lp_next = torch.where(swapped, lp_partner, lp_after)
+        return x_after, res.chain_of, res.replica_of, lp_next, rec, trace
+
+    def _run_scans(self, n_scans: int):
+        """One round of ``n_scans`` scans on the device. Returns the new run
+        state, the recorders and the list of per-scan target extracts."""
+        R, n = self.n_replicates, self.n_chains
+        betas = self.betas
+        ref_mask = torch.zeros(n, dtype=torch.bool, device=self.device)
+        target_mask = torch.zeros(n, dtype=torch.bool, device=self.device)
+        ref_mask[list(self.ref_positions)] = True
+        target_mask[list(self.target_positions)] = True
+        rec = init_recorders(n, self.dim + 1, len(self.explorer.extra_names), R, self.device)
+        states, chain_of, replica_of = self._states, self._chain_of, self._replica_of
+        lp = self._log_density(states, betas[chain_of.reshape(-1)])
+        traces = []
+        for scan_idx in range(1, n_scans + 1):
+            states, chain_of, replica_of, lp, rec, trace = self._scan_body(
+                scan_idx, states, chain_of, replica_of, lp, rec, betas, (ref_mask, target_mask)
+            )
+            if self._record_traces:
+                traces.append(trace)
+        return states, chain_of, replica_of, rec, traces
+
+    def run_round(self, n_scans: Optional[int] = None) -> ReducedRecorders:
+        self.round_idx += 1
+        if n_scans is None:
+            n_scans = 2**self.round_idx
+        t0 = time.perf_counter()
+        states, chain_of, replica_of, rec, traces = self._run_scans(n_scans)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        self._states, self._chain_of, self._replica_of = states, chain_of, replica_of
+        # [n_scans, R, T, d+1] -> pooled [iterations, d+1]
+        self.traces = (
+            torch.stack(traces).reshape(-1, self.dim + 1).cpu().numpy() if traces else None
+        )
+        reduced = reduce_recorders(rec, self.n_replicates)
+        self.reduced = reduced
+        self._adapt(reduced)
+        self._report(reduced, n_scans, wall)
+        return reduced
+
+    def _adapt(self, reduced: ReducedRecorders) -> None:
+        if self.n_chains > 1:
+            rej = rejections_from_acceptance(
+                np.nan_to_num(reduced.accept_mean, nan=0.5), reduced.accept_n
+            )
+            self.barriers = communication_barriers(rej, self.schedule.grids)
+            self.schedule = optimal_schedule(rej, self.schedule.grids)
+        else:
+            # single chain: no pairs, no barrier, schedule stays [1.0]
+            self.barriers = communication_barriers([0.0], [0.0, 1.0])
+        self.exp_state = self.explorer.adapt(self.exp_state, reduced, self.round_idx)
+
+    def _report(self, reduced: ReducedRecorders, n_scans: int, wall: float) -> None:
+        from .evidence import stepping_stone_from_reduced
+
+        with np.errstate(invalid="ignore"):
+            obs = reduced.accept_n > 0
+            min_acc = float(np.min(reduced.accept_mean[obs])) if obs.any() else np.nan
+            mean_acc = float(np.mean(reduced.accept_mean[obs])) if obs.any() else np.nan
+            ac1 = reduced.energy_ac1[np.isfinite(reduced.energy_ac1)]
+            max_ac1 = float(np.max(np.abs(ac1))) if ac1.size else np.nan
+            eacc = reduced.exp_accept[np.isfinite(reduced.exp_accept)]
+            mean_eacc = float(np.mean(eacc)) if eacc.size else np.nan
+        peak = 0
+        if self.device.type == "cuda":
+            peak = int(torch.cuda.max_memory_allocated(self.device))
+        report = RoundReport(
+            round_idx=self.round_idx,
+            n_scans=n_scans,
+            n_tempered_restarts=reduced.n_tempered_restarts,
+            n_round_trips=reduced.n_round_trips,
+            global_barrier=self.barriers.global_barrier,
+            log_z_estimate=stepping_stone_from_reduced(reduced),
+            min_swap_accept=min_acc,
+            mean_swap_accept=mean_acc,
+            wall_time_s=wall,
+            peak_memory_bytes=peak,
+            max_energy_ac1=max_ac1,
+            mean_explorer_accept=mean_eacc,
+        )
+        self.reports.append(report)
+        if self.inputs.show_report:
+            if self.round_idx == 1:
+                print(
+                    f"{'round':>5} {'scans':>6} {'restarts':>8} {'trips':>6} "
+                    f"{'Λ':>7} {'logZ':>9} {'min(α)':>7} {'mean(α)':>7} "
+                    f"{'max|ρ|':>7} {'mean(αe)':>8} {'time(s)':>8}"
+                )
+            print(
+                f"{report.round_idx:>5} {report.n_scans:>6} {report.n_tempered_restarts:>8} "
+                f"{report.n_round_trips:>6} {report.global_barrier:>7.3f} "
+                f"{report.log_z_estimate:>9.3f} {report.min_swap_accept:>7.3f} "
+                f"{report.mean_swap_accept:>7.3f} {report.max_energy_ac1:>7.3f} "
+                f"{report.mean_explorer_accept:>8.3f} {report.wall_time_s:>8.3f}"
+            )
+
+    def run(self) -> "PT":
+        preflight_checks(self.inputs)
+        while self.round_idx < self.inputs.n_rounds:
+            self.run_round()
+        return self
+
+    # ------------------------------------------------------------------
+    # results API (reference src/pt/process_sample.jl, OnlineStateRecorder.jl)
+
+    def sample_array(self) -> np.ndarray:
+        """Last-round target-chain samples, [iterations, dim + 1]; the final
+        column is the interpolated log density."""
+        if self.traces is None:
+            if self.round_idx > 0 and not self._record_traces:
+                raise RuntimeError(
+                    "the traces recorder is disabled by Inputs.record; add 'traces'"
+                )
+            raise RuntimeError("run() first")
+        return self.traces
+
+    def _require_online(self):
+        if not self._record_online:
+            raise RuntimeError(
+                "the online-moments recorder is disabled by Inputs.record; "
+                "add 'online' to compute mean()/var()"
+            )
+
+    def mean(self) -> np.ndarray:
+        self._require_online()
+        return self.reduced.online_mean[:-1]
+
+    def var(self) -> np.ndarray:
+        self._require_online()
+        return self.reduced.online_var[:-1]
+
+    @property
+    def n_round_trips(self) -> int:
+        return self.reduced.n_round_trips
+
+    @property
+    def n_tempered_restarts(self) -> int:
+        return self.reduced.n_tempered_restarts
+
+    @property
+    def global_barrier(self) -> float:
+        return self.barriers.global_barrier
+
+
+def pigeons(target=None, on=None, **kwargs):
+    """Main entry point (reference ``src/submission/api.jl``): a target plus
+    ``Inputs`` keywords, or an ``Inputs``."""
+    if on is not None:
+        raise NotImplementedError(
+            "submission backends (on=...) are not ported yet (ROADMAP queue 1, item 16)"
+        )
+    if isinstance(target, str):
+        raise NotImplementedError(
+            "resuming from a checkpoint folder is not ported yet (ROADMAP queue 1, item 13)"
+        )
+    inputs = target if isinstance(target, Inputs) else Inputs(target=target, **kwargs)
+    return PT(inputs).run()

@@ -1,0 +1,145 @@
+"""The port's PT runtime against the JAX package's, end to end on the CPU.
+
+(a) Continuation: a JAX run's state after round 2 (the checkpoint arrays)
+    is carried into the port with ``convert.state_from_numpy``, and both
+    packages run round 3 with the banded slice sampler.
+(b) From seed: both ``pigeons()`` entry points, ToyExplorer, 3 rounds.
+
+Tolerances and why: swap decisions, permutations, round trips and restarts
+must be exact. Log densities sum ``x * x`` in another order than XLA's fused
+reduction, so log-ratios differ in the last bits: the barrier is held to
+1e-4 and logZ to 1e-3 (they sum rejection rates and log-ratios over rounds).
+States of (a) within 1e-5, with flipped elements counted (none expected: the
+sweep's draws do not depend on the densities); states of (b) come from
+``rsqrt(precision)`` times normals, where XLA's ``rsqrt`` may be 2 ulp off
+torch's, so 1e-6 relative.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import pigeons_tpu as J
+import pigeons_tpu_torch as T
+from pigeons_tpu_torch.convert import state_from_numpy
+
+
+def _assert_reports_close(ja, ta, barrier_tol, logz_tol):
+    for rj, rt in zip(ja.reports, ta.reports, strict=True):
+        assert rj.n_scans == rt.n_scans
+        assert rj.n_tempered_restarts == rt.n_tempered_restarts
+        assert rj.n_round_trips == rt.n_round_trips
+        assert abs(rj.global_barrier - rt.global_barrier) < barrier_tol
+        assert abs(rj.log_z_estimate - rt.log_z_estimate) < logz_tol
+        assert abs(rj.mean_swap_accept - rt.mean_swap_accept) < barrier_tol
+
+
+def _same_permutations(ja, ta):
+    return (np.array_equal(np.asarray(ja.chain_of), ta.chain_of.numpy())
+            and np.array_equal(np.asarray(ja.replica_of), ta.replica_of.numpy()))
+
+
+@pytest.mark.parametrize("R", [1, 4])
+def test_continuation_round_matches_jax(R):
+    common = dict(n_chains=4, seed=3, n_replicates=R, n_rounds=3, show_report=False)
+    ja = J.PT(J.Inputs(target=J.toy_mvn_target(4),
+                       explorer=J.SliceSamplerPallas(interpret=True, n_passes=1), **common))
+    ja.run_round()
+    ja.run_round()
+    arrays = {"states": np.asarray(ja.states), "chain_of": np.asarray(ja.chain_of),
+              "replica_of": np.asarray(ja.replica_of), "schedule": np.asarray(ja.schedule.grids)}
+    ta = T.PT(T.Inputs(target=T.toy_mvn_target(4), explorer=T.SliceSamplerCUDA(n_passes=1),
+                       device="cpu", **common))
+    state_from_numpy(ta, arrays, round_idx=2)
+    ja.run_round()
+    ta.run_round()
+
+    assert _same_permutations(ja, ta)
+    _assert_reports_close(_Last(ja), _Last(ta), 1e-4, 1e-3)
+    sj, st = np.asarray(ja.states), ta.states.numpy()
+    flipped = np.abs(st - sj) > 1e-5
+    print(f"R={R}: {int(flipped.sum())} flipped of {sj.size} state elements")
+    assert flipped.sum() <= 1e-3 * sj.size
+    assert np.array_equal(ja.reduced.exp_steps, ta.reduced.exp_steps)
+    assert np.array_equal(ja.reduced.accept_n, ta.reduced.accept_n)
+
+
+class _Last:
+    """The last round's report only (round 3 is the one both packages ran)."""
+
+    def __init__(self, pt):
+        self.reports = pt.reports[-1:]
+
+
+@pytest.mark.parametrize("R", [1, 4])
+def test_pigeons_from_seed_matches_jax(R):
+    kw = dict(n_chains=4, n_rounds=3, seed=1, n_replicates=R, show_report=False)
+    ja = J.pigeons(target=J.toy_mvn_target(5), **kw)
+    ta = T.pigeons(target=T.toy_mvn_target(5), device="cpu", **kw)
+    assert isinstance(ta.explorer, T.ToyExplorer)
+    _assert_reports_close(ja, ta, 1e-4, 1e-3)
+    assert _same_permutations(ja, ta)
+    np.testing.assert_allclose(ta.states.numpy(), np.asarray(ja.states), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(ta.sample_array(), ja.sample_array(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ta.mean(), ja.mean(), atol=1e-6)
+    np.testing.assert_allclose(ta.var(), ja.var(), rtol=1e-5)
+
+
+def test_same_seed_same_run_on_cpu():
+    def run():
+        return T.pigeons(target=T.toy_mvn_target(3), n_chains=4, n_rounds=3, seed=7,
+                         n_replicates=2, explorer=T.SliceSamplerCUDA(), device="cpu",
+                         show_report=False)
+
+    a, b = run(), run()
+    assert torch.equal(a.states, b.states) and torch.equal(a.chain_of, b.chain_of)
+    assert np.array_equal(a.sample_array(), b.sample_array())
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cuda"))
+
+
+def test_cuda_slice_sampler_on_non_separable_path_raises():
+    class Quartic(T.models.Target):
+        dim = 3
+
+        def log_density(self, x):
+            return -(x**4).sum(-1)
+
+        def default_reference(self):
+            return T.models.Reference(log_density=lambda x: -0.5 * (x**2).sum(-1))
+
+    with pytest.raises(NotImplementedError, match="K2"):
+        T.PT(T.Inputs(target=Quartic(), explorer=T.SliceSamplerCUDA(), device="cpu"))
+
+
+@pytest.mark.parametrize(
+    "option",
+    [
+        {"mesh": object()},
+        {"checkpoint": True},
+        {"checked_round": 1},
+        {"n_chains_variational": 4},
+        {"extended_traces": True},
+        {"record": ("traces", "index_process")},
+        {"dtype": "float64"},
+        {"swap_graph": lambda n, s: None},
+    ],
+)
+def test_unported_options_raise(option):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", **option))
+
+
+def test_import_pulls_no_jax():
+    code = "import sys, pigeons_tpu_torch; print('jax' in sys.modules, any(m == 'pigeons_tpu' or m.startswith('pigeons_tpu.') for m in sys.modules))"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.stdout.split() == ["False", "False"]
