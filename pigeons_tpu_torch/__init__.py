@@ -8,7 +8,7 @@ and numpy only; kernels build with ``nvcc`` at first use
 """
 
 from .inputs import Inputs
-from .models import toy_mvn_target
+from .models import StandardNormalReference, banana, funnel, mvn_target, toy_mvn_target
 from .ops import NoOpExplorer, SliceSamplerCUDA, ToyExplorer
 from .paths import ScaledPrecisionNormalPath, toy_mvn_path
 from .pt import PT, RoundReport, pigeons
@@ -22,8 +22,12 @@ __all__ = [
     "Schedule",
     "ScaledPrecisionNormalPath",
     "SliceSamplerCUDA",
+    "StandardNormalReference",
     "ToyExplorer",
+    "banana",
     "equally_spaced_schedule",
+    "funnel",
+    "mvn_target",
     "pigeons",
     "toy_mvn_path",
     "toy_mvn_target",

@@ -2,9 +2,10 @@
 
 ``nvcc`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, never at import, into ``pigeons_tpu_torch/_build/``, under a name
-keyed by a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one is reused.
+first use, never at import, into ``pigeons_tpu_torch/_build/``: one ``nvcc``
+call over all sources, which it compiles in parallel (``--threads``). The
+library's name is keyed by a hash of the sources, the shared headers and the
+flags, so a changed source or header rebuilds and an unchanged tree is reused.
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "banded_slice.cu",)
+_CSRC = _PKG / "csrc"
+SOURCES = (_CSRC / "banded_slice.cu", _CSRC / "sweep_slice.cu")  # kernels K1, K2
+HEADERS = (_CSRC / "common.cuh", _CSRC / "densities.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "--threads", str(len(SOURCES)),
 )
 
 
@@ -41,7 +44,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpigeons_kernels-{h.hexdigest()[:16]}.so"
@@ -74,7 +77,12 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.banded_slice_sweep.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, i, i, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # x, a, seeds, x_out, stats, B, d, w, p, n_passes, max_iter, stream
+    lib.banded_slice_sweep.argtypes = [p, p, p, p, p, i, i, f, i, i, i, p]
     lib.banded_slice_sweep.restype = i
+    # x, betas, seeds, x_out, lp, stats, B, d, density, coord_deltas,
+    # params (host), w, p, n_passes, max_iter, stream
+    lib.slice_sweep.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.POINTER(f), f, i, i, i, p]
+    lib.slice_sweep.restype = i
     return lib

@@ -15,73 +15,17 @@
 //
 // Numerics follow the JAX kernel as XLA's CPU backend runs it: the uniforms
 // are (bits >> 8) * 2^-24 + 2^-25 of chained murmur3 finalizers, log is the
-// Cephes polynomial, and the step-out and shrink draws are fused multiply-adds.
+// Cephes polynomial (common.cuh), the coordinate term comes from
+// densities.cuh, and the step-out and shrink draws are fused multiply-adds.
 // Build with --fmad=false so that nvcc fuses nothing else; the plain torch twin
 // (pigeons_tpu_torch/ops/cuda_slice.py:banded_sweep_reference) then gives the
 // same bits.
 
-#include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
-#include <stdint.h>
+#include "densities.cuh"
 
 namespace {
 
-constexpr int ENTER = 0, DOUBLE = 2, SHRINK = 3, CHECK = 4, DONE = 5;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
-  return (float)(bits >> 8) * 5.9604644775390625e-08f + 2.98023223876953125e-08f;
-}
-
-__device__ __forceinline__ float f32(uint32_t bits) { return __uint_as_float(bits); }
-
-// Cephes logf, step for step as pigeons_tpu_torch/f32math.py:log (constants
-// given by their float32 bit patterns).
-__device__ float cephes_logf(float y) {
-  if (fabsf(y) < FLT_MIN) y = 0.0f;
-  const float yc = y > FLT_MIN ? y : FLT_MIN;
-  const int32_t bits = __float_as_int(yc);
-  float e = (float)((bits >> 23) - 127) + 1.0f;
-  const float m = __int_as_float((bits & 0x7FFFFF) | 0x3F000000);
-  const bool lt = m < f32(0x3F3504F3u);  // sqrt(1/2)
-  e = e - (lt ? 1.0f : 0.0f);
-  const float x = (m + -1.0f) + (lt ? m : 0.0f);
-  const float z = x * x;
-  const float x3 = z * x;
-  const float ya = __fmaf_rn(__fmaf_rn(x, f32(0x3D9021BBu), f32(0xBDEBD1B8u)), x, f32(0x3DEF251Au));
-  float yb = __fmaf_rn(__fmaf_rn(x, f32(0xBDFE5D4Fu), f32(0x3E11E9BFu)), x, f32(0xBE2AAE50u));
-  float yc2 = __fmaf_rn(__fmaf_rn(x, f32(0x3E4CCEACu), f32(0xBE7FFFFCu)), x, f32(0x3EAAAAAAu));
-  yb = __fmaf_rn(ya, x3, yb);
-  yc2 = __fmaf_rn(yb, x3, yc2);
-  float r = __fmaf_rn(yc2, x3, e * f32(0xB95E8083u));    // -2.12194440e-4
-  r = __fmaf_rn(e, f32(0x3F318000u), (x - z * 0.5f) + r);  // 0.693359375
-  if (y <= 0.0f || isnan(y)) r = NAN;
-  if (y == 0.0f) r = -INFINITY;
-  if (y == INFINITY) r = INFINITY;
-  return r;
-}
-
-// The coordinate terms f(v) the kernel can evaluate, each with a per-lane
-// factor a; NaN reads as -inf (the runtime's guard). The toy path's term is
-// (a v) v with a = -precision(beta) / 2. The variational leg's mean-field
-// Gaussian term (ROADMAP queue 1, item 9a) is the next case.
-enum CoordTerm { kToyQuadratic = 0 };
-
-template <CoordTerm kTerm>
-__device__ __forceinline__ float coord_term(float a, float v) {
-  static_assert(kTerm == kToyQuadratic, "unknown coordinate term");
-  const float f = (a * v) * v;
-  return isnan(f) ? -INFINITY : f;
-}
+using namespace pigeons;
 
 template <CoordTerm kTerm>
 __global__ void banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,

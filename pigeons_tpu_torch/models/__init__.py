@@ -1,2 +1,3 @@
-from .target import Reference, Target
+from .library import MVN, Banana, Funnel, banana, funnel, mvn_target
+from .target import Reference, StandardNormalReference, Target
 from .toy_mvn import ToyMVNTarget, toy_mvn_target

@@ -11,9 +11,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from ..paths import InterpolatingPath
+from .. import rng
+from ..paths import DeviceDensity, InterpolatingPath, sum_squares
 
 
 @dataclass(frozen=True)
@@ -22,6 +24,9 @@ class Reference:
 
     log_density: Callable  # x [..., d] -> [...]
     sample_iid: Optional[Callable] = None  # keys [..., 2] -> x [..., d]
+    # set when the reference is N(0, sigma^2 I), the one reference the
+    # general-density slice kernel evaluates on the device
+    normal_sigma: Optional[float] = None
 
 
 class Target:
@@ -36,14 +41,27 @@ class Target:
     def default_explorer(self):
         raise NotImplementedError(
             f"{type(self).__name__} has no default explorer in the port; pass "
-            "Inputs.explorer (the XLA SliceSampler is ROADMAP queue 1, item 8b)"
+            "Inputs.explorer, e.g. SliceSamplerCUDA() (the default of the JAX "
+            "package, the XLA SliceSampler, is ROADMAP queue 1, item 8b)"
         )
 
+    def device_target(self) -> Optional[tuple]:
+        """``(kind, params)`` of ``csrc/densities.cuh`` when the slice kernel
+        can evaluate this target on the device, else ``None``."""
+        return None
+
     def create_path(self, reference: Reference):
+        device = None
+        target = self.device_target()
+        if target is not None and reference.normal_sigma is not None:
+            kind, params = target
+            inv_sigma = np.float32(1.0) / np.float32(reference.normal_sigma)
+            device = DeviceDensity(kind, (float(inv_sigma), *params))
         return InterpolatingPath(
             ref_log_density=reference.log_density,
             target_log_density=self.log_density,
             sample_reference=reference.sample_iid,
+            device=device,
         )
 
     def initialization(self, keys):
@@ -52,3 +70,25 @@ class Target:
             return torch.zeros(keys.shape[:-1] + (self.dim,), dtype=torch.float32,
                                device=keys.device)
         return ref.sample_iid(keys)
+
+
+@dataclass(frozen=True)
+class StandardNormalReference:
+    """N(0, sigma^2 I) reference, the generic default."""
+
+    dim: int
+    sigma: float = 1.0
+
+    def as_reference(self) -> Reference:
+        sigma, dim = self.sigma, self.dim
+        inv_sigma = float(np.float32(1.0) / np.float32(sigma))
+
+        def log_density(x):
+            # -0.5 sum((x / sigma)^2) as XLA evaluates it: the division by a
+            # constant is a multiplication by its float32 reciprocal
+            return sum_squares(x * inv_sigma) * -0.5
+
+        def sample_iid(keys):
+            return float(np.float32(sigma)) * rng.normal(keys, (dim,))
+
+        return Reference(log_density=log_density, sample_iid=sample_iid, normal_sigma=sigma)

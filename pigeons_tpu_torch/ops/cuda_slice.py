@@ -1,38 +1,48 @@
-"""Banded slice sampler for separable densities: CUDA kernel K1 and its twin.
+"""Slice sampler over the whole replica batch: CUDA kernels K1 and K2 and
+their plain torch twins.
 
-Counterpart of the banded branch of ``SliceSamplerPallas.step_batched``
-(``pigeons_tpu/ops/pallas_slice.py:598-840``). The TPU kernel it replaces is
-``pallas_slice.py:_banded_sweep_kernel``. For a density that is a sum of
-per-coordinate terms, ``lp(x) = sum_c f(x_c)``, the joint density cancels
-from every coordinate's slice test, so each (lane, coordinate) element runs
-its own one-dimensional Neal slice sampler (doubling, shrinking, halving
-check) for ``n_passes`` passes, independently of every other element.
+Counterpart of ``SliceSamplerPallas.step_batched``
+(``pigeons_tpu/ops/pallas_slice.py:598-896``) and of its two TPU kernels.
 
-Two implementations of that machine, which agree bit for bit on the card:
+**K1, banded sweep** (replaces ``pallas_slice.py:_banded_sweep_kernel``). For
+a density that is a sum of per-coordinate terms, ``lp(x) = sum_c f(x_c)``,
+the joint density cancels from every coordinate's slice test, so each (lane,
+coordinate) element runs its own one-dimensional Neal slice sampler
+(doubling, shrinking, halving check) for ``n_passes`` passes, independently
+of every other element. ``csrc/banded_slice.cu`` gives one CUDA thread to
+each element of the row-major ``[B, d]`` state; it is bound by integer and
+float ALU work and by warp divergence (a warp runs until its slowest element
+is DONE). :func:`banded_sweep_reference` is the same machine as torch ops
+over all elements at once.
 
-* ``csrc/banded_slice.cu``: one CUDA thread per element, working on the
-  row-major ``[B, d]`` states in place of the TPU kernel's padded ``[d, B]``
-  bands. It reads and writes the 8 MB of state of bench config 1 once, so
-  on an H100 it is bound by integer and float ALU work and by warp
-  divergence: a warp runs until its slowest element is DONE. The design does
-  nothing about that divergence yet.
-* :func:`banded_sweep_reference`, the same machine as torch ops over all
-  ``[B, d]`` elements at once: the JAX kernel with one band of all ``d``
-  rows. CPU tensors run here; a CUDA tensor reaches the kernel or raises.
+**K2, general sweep** (replaces ``pallas_slice.py:_sweep_kernel``). For any
+density, each lane runs ONE machine ENTER / INIT_R / DOUBLE / SHRINK / CHECK
+/ DONE through all ``n_passes * d`` coordinate steps, one density evaluation
+per loop iteration, and never waits for another lane at a coordinate
+boundary. ``csrc/sweep_slice.cu`` gives one CUDA thread to each lane and
+keeps the lane's state, its machine and the density evaluation
+(``csrc/densities.cuh``, selected by the path's :class:`~..paths.DeviceDensity`)
+inside one launch for the whole sweep. In delta mode a separable path's query
+is answered as ``base + f_c(query)`` and the final density is recomputed.
+:func:`sweep_reference` is the same machine as torch ops over ``[B]`` rows.
 
-Random numbers are counter-based, as in the JAX kernel: the element of lane
-``b`` and coordinate ``c`` draws its two uniforms of loop iteration ``it``
-from ``fmix32(fmix32(0x9E3779B9 ^ s) ^ (2 it + k))``, with
-``s = fmix32(lane_seed[b] ^ c * 0x85EBCA77)`` and the lane seed the first
-word of ``jax.random.bits`` of the lane's key. Each element counts its own
-iterations from 0, as every element of a TPU band does, so the draws do not
-depend on how the batch is cut into blocks or bands.
+CPU tensors run the twins; a CUDA tensor reaches the kernel or raises. Each
+kernel agrees with its twin bit for bit on the card.
 
-XLA's CPU backend, which runs the JAX kernel in the tests, evaluates the
+Random numbers are counter-based, as in the JAX kernels. In K1 the element
+of lane ``b`` and coordinate ``c`` draws its two uniforms of loop iteration
+``it`` from ``fmix32(fmix32(0x9E3779B9 ^ s) ^ (2 it + k))``, with
+``s = fmix32(lane_seed[b] ^ c * 0x85EBCA77)``; in K2 lane ``b`` draws its
+four from ``fmix32(fmix32(0x9E3779B9 ^ lane_seed[b]) ^ (4 it + k))``. The
+lane seed is the first word of ``jax.random.bits`` of the lane's key. Each
+element or lane counts its own iterations from 0, as every lane of a TPU
+block does, so the draws do not depend on how the batch is cut into blocks.
+
+XLA's CPU backend, which runs the JAX kernels in the tests, evaluates the
 coordinate term's ``precision(beta)``, the step-out ``old - w * u`` and the
 shrink draw ``Lb + u * (Rb - Lb)`` as fused multiply-adds and ``log`` as the
-Cephes polynomial. Both implementations here do the same (``__fmaf_rn`` and
-an exact torch emulation of it), and nothing else is fused.
+Cephes polynomial. Kernels and twins do the same (``__fmaf_rn`` and an exact
+torch emulation of it), and nothing else is fused.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ import torch
 from .. import f32math, rng
 from .base import Explorer, StepOut
 
-ENTER, DOUBLE, SHRINK, CHECK, DONE = 0, 2, 3, 4, 5  # the JAX kernel's phase codes
+ENTER, INIT_R, DOUBLE, SHRINK, CHECK, DONE = range(6)  # the JAX kernels' phase codes
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -96,13 +106,15 @@ def element_uniforms(base: torch.Tensor, it: int):
 
 
 def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
-                           n_passes: int = 3, max_iter: int = 1024):
+                           n_passes: int = 3, max_iter: int = 1024, phase_counts=None):
     """Plain torch twin of kernel K1.
 
     ``x [B, d]`` float32 states, ``a [B]`` float32 coordinate-term factors
     (the term is ``f(v) = (a v) v``, NaN read as -inf), ``lane_seeds [B]``
     uint32 seeds as int64. Returns ``(x_new [B, d], stats [3, B])`` with the
-    rows accept_sum, accept_n and n_evals summed over coordinates.
+    rows accept_sum, accept_n and n_evals summed over coordinates. To
+    ``phase_counts``, an int64 ``[6]`` tensor on the states' device, every
+    loop iteration adds the number of elements in each phase.
     """
     B, d = x.shape
     dev = x.device
@@ -126,6 +138,8 @@ def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
 
     it = 0
     while bool((phase != DONE).any()):
+        if phase_counts is not None:
+            phase_counts += torch.bincount(phase.reshape(-1), minlength=6)
         uA, uB = element_uniforms(base, it)
         is_enter = phase == ENTER
         active = phase != DONE
@@ -218,42 +232,239 @@ def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
     return x, stats
 
 
-class SliceSamplerCUDA(Explorer):
-    """Coordinate-wise slice sampler over the whole replica batch, for paths
-    whose density is a sum of per-coordinate terms (``coord_factor``).
+def lane_hash_base(seeds: torch.Tensor) -> torch.Tensor:
+    """``[B]`` int64: ``fmix32(0x9E3779B9 ^ seed)``, the per-lane state of
+    ``_hash_words`` in K2 before the draw counter."""
+    return fmix32(seeds ^ _GOLDEN)
 
-    Same defaults as ``SliceSamplerPallas``: ``w=10, p=20, n_passes=3,
-    max_iter=1024``. ``n_kernel_launches`` counts launches of the CUDA kernel,
+
+def lane_uniforms(base: torch.Tensor, it: int):
+    """The four uniforms ``(u_init, u_z, u_side, u_shr)`` every lane of K2
+    draws at iteration ``it`` (``pallas_slice.py:167-171``)."""
+    return tuple(uniform_from_bits(fmix32(base ^ (4 * it + k))) for k in range(4))
+
+
+def nan_to_neg_inf(lp):
+    """NaN read as -inf, the runtime's guard for out-of-support queries."""
+    return torch.where(torch.isnan(lp), torch.full_like(lp, -float("inf")), lp)
+
+
+def sweep_density(path):
+    """The batched density ``(x [B, d], betas [B]) -> [B]`` that K2 evaluates
+    for ``path``: its ``sweep_log_density`` where it has one (coordinates
+    summed in the kernel's order), else its ``log_density``; NaN reads as
+    -inf."""
+    density = getattr(path, "sweep_log_density", path.log_density)
+    return lambda x, betas: nan_to_neg_inf(density(x, betas))
+
+
+def sweep_reference(x, betas, lane_seeds, path, coord_deltas: bool = False,
+                    w: float = 10.0, p: int = 20, n_passes: int = 3, max_iter: int = 1024,
+                    phase_counts=None):
+    """Plain torch twin of kernel K2.
+
+    ``x [B, d]`` float32 states, ``betas [B]`` float32, ``lane_seeds [B]``
+    uint32 seeds as int64. The density is :func:`sweep_density` of the path;
+    with ``coord_deltas`` a query of coordinate ``c`` is
+    answered as ``base + path.coord_log_density(query, c, beta)``. Returns
+    ``(x_new [B, d], lp [B], stats [3, B])`` with ``lp`` the density of
+    ``x_new`` and the stats rows accept_sum, accept_n and n_evals. To
+    ``phase_counts``, an int64 ``[6]`` tensor on the states' device, every
+    loop iteration adds the number of lanes in each phase.
+    """
+    B, d = x.shape
+    dev = x.device
+    W = float(np.float32(w))
+    narrow_w = float(np.float32(1.1) * np.float32(w))  # the kernel's 1.1f * w
+    density = sweep_density(path)
+
+    def lp_eval(xv):
+        return density(xv, betas)
+
+    def coord_eval(v, c):
+        return nan_to_neg_inf(path.coord_log_density(v, c, betas))
+
+    hash_base = lane_hash_base(lane_seeds)
+    x = x.clone()
+    lp_cur = lp_eval(x)
+    fz = torch.zeros(B, dtype=torch.float32, device=dev)
+    iz = torch.zeros(B, dtype=torch.int64, device=dev)
+    (old, z, L, R, lpL, lpR, Lb, Rb, cand, lp_cand, Lh, Rh, lpLh, lpRh, base) = (
+        fz.clone() for _ in range(15))
+    acc_sum, acc_n, n_evals = fz.clone(), fz.clone(), fz.clone()
+    n_steps = n_passes * d
+    phase = iz + (ENTER if n_steps > 0 else DONE)
+    j, K, n_shr = iz.clone(), iz.clone(), iz.clone()
+
+    it = 0
+    while bool((phase != DONE).any()):
+        if phase_counts is not None:
+            phase_counts += torch.bincount(phase, minlength=6)
+        u_init, u_z, u_side, u_shr = lane_uniforms(hash_base, it)
+        e_z = -f32math.log(u_z)
+
+        c = (j % d)[:, None]
+        is_enter = phase == ENTER
+        xc = x.gather(1, c)[:, 0]
+        old = torch.where(is_enter, xc, old)
+        z = torch.where(is_enter, lp_cur - e_z, z)
+        L = torch.where(is_enter, f32math.fma(u_init, -W, old), L)
+        R = torch.where(is_enter, L + W, R)
+
+        grow_left = u_side <= 0.5
+        span = R - L
+        dbl_q = torch.where(grow_left, L - span, R + span)
+        cand_draw = f32math.fma(u_shr, Rb - Lb, Lb)
+        M = (Lh + Rh) * 0.5
+        query = torch.where(
+            is_enter, L,
+            torch.where(phase == INIT_R, R,
+            torch.where(phase == DOUBLE, dbl_q,
+            torch.where(phase == SHRINK, cand_draw,
+            torch.where(phase == CHECK, M, old)))))
+
+        if coord_deltas:
+            base = torch.where(is_enter, lp_cur - coord_eval(xc, c[:, 0]), base)
+            lp_q = base + coord_eval(query, c[:, 0])
+        else:
+            lp_q = lp_eval(x.scatter(1, c, query[:, None]))
+        n_evals = n_evals + (phase != DONE).to(torch.float32)
+
+        lpL = torch.where(is_enter, lp_q, lpL)
+        ph_initr = phase == INIT_R
+        lpR = torch.where(ph_initr, lp_q, lpR)
+        K = torch.where(ph_initr, p, K)
+
+        ph_dbl = phase == DOUBLE
+        L = torch.where(ph_dbl & grow_left, dbl_q, L)
+        R = torch.where(ph_dbl & ~grow_left, dbl_q, R)
+        lpL = torch.where(ph_dbl & grow_left, lp_q, lpL)
+        lpR = torch.where(ph_dbl & ~grow_left, lp_q, lpR)
+        K = torch.where(ph_dbl, K - 1, K)
+
+        more_dbl = (K > 0) & ((z < lpL) | (z < lpR))
+        start_shrink = (ph_initr | ph_dbl) & ~more_dbl
+        Lb = torch.where(start_shrink, L, Lb)
+        Rb = torch.where(start_shrink, R, Rb)
+        n_shr = torch.where(start_shrink, 0, n_shr)
+
+        ph_shr = phase == SHRINK
+        cand = torch.where(ph_shr, cand_draw, cand)
+        lp_cand = torch.where(ph_shr, lp_q, lp_cand)
+        n_shr = torch.where(ph_shr, n_shr + 1, n_shr)
+        consider = ph_shr & (z < lp_q)
+        acc_n = acc_n + consider.to(torch.float32)
+        narrow = (R - L) <= narrow_w
+        accept_shr = consider & narrow
+        to_check = consider & ~narrow
+        Lh = torch.where(to_check, L, Lh)
+        Rh = torch.where(to_check, R, Rh)
+        lpLh = torch.where(to_check, lpL, lpLh)
+        lpRh = torch.where(to_check, lpR, lpRh)
+
+        ph_chk = phase == CHECK
+        take_left = cand < M
+        crossed = (old < M) ^ take_left
+        Lh = torch.where(ph_chk & ~take_left, M, Lh)
+        Rh = torch.where(ph_chk & take_left, M, Rh)
+        lpLh = torch.where(ph_chk & ~take_left, lp_q, lpLh)
+        lpRh = torch.where(ph_chk & take_left, lp_q, lpRh)
+        chk_rej = ph_chk & crossed & (z >= lpLh) & (z >= lpRh)
+        chk_more = ph_chk & ~chk_rej & ((Rh - Lh) > narrow_w)
+        accept_chk = ph_chk & ~chk_rej & ~chk_more
+
+        rejected = (ph_shr & ~consider) | chk_rej
+        shrink_left = cand < old
+        Lb = torch.where(rejected & shrink_left, cand, Lb)
+        Rb = torch.where(rejected & ~shrink_left, cand, Rb)
+        degenerate = torch.abs(Rb - Lb) <= torch.maximum(torch.abs(Lb), torch.abs(Rb)) * 3.5e-4
+        bail = rejected & (degenerate | (n_shr >= max_iter))
+
+        accepted = accept_shr | accept_chk
+        finish = accepted | bail
+        x = x.scatter(1, c, torch.where(accepted, cand, xc)[:, None])
+        lp_cur = torch.where(accepted, lp_cand, lp_cur)
+        acc_sum = acc_sum + accepted.to(torch.float32)
+
+        j = torch.where(finish, j + 1, j)
+        all_done = j >= n_steps
+        phase = torch.where(
+            finish,
+            torch.where(all_done, DONE, ENTER),
+            torch.where(is_enter, INIT_R,
+            torch.where(more_dbl & (ph_initr | ph_dbl), DOUBLE,
+            torch.where(start_shrink | (rejected & ~bail), SHRINK,
+            torch.where(to_check | chk_more, CHECK, phase)))))
+        it += 1
+
+    if coord_deltas:
+        # the deltas drift by float32 rounding over the sweep: hand back the
+        # exactly recomputed density of the final state, as the JAX kernel does
+        lp_cur = lp_eval(x)
+    return x, lp_cur, torch.stack([acc_sum, acc_n, n_evals])
+
+
+class SliceSamplerCUDA(Explorer):
+    """Coordinate-wise slice sampler over the whole replica batch.
+
+    Same defaults and meaning as ``SliceSamplerPallas``: ``w=10, p=20,
+    n_passes=3, max_iter=1024``. A path that is a sum of per-coordinate terms
+    (``coord_factor``) runs the banded kernel K1 when ``coord_deltas`` and
+    ``parallel_coords`` are both true; every other case runs the general
+    kernel K2, in delta mode when ``coord_deltas`` is true and the path has a
+    coordinate term. ``launches`` counts the launches of each CUDA kernel,
     for every instance.
     """
 
-    n_kernel_launches = 0
+    launches = {"banded_slice_sweep": 0, "slice_sweep": 0}
 
     def __init__(self, w: float = 10.0, p: int = 20, n_passes: int = 3,
-                 max_iter: int = 1024):
+                 max_iter: int = 1024, coord_deltas: bool = True,
+                 parallel_coords: bool = True):
         self.w = float(w)
         self.p = int(p)
         self.n_passes = int(n_passes)
         self.max_iter = int(max_iter)
+        self.coord_deltas = bool(coord_deltas)
+        self.parallel_coords = bool(parallel_coords)
+
+    @classmethod
+    def reset_launches(cls) -> None:
+        for name in cls.launches:
+            cls.launches[name] = 0
+
+    def _banded(self, path) -> bool:
+        return self.coord_deltas and self.parallel_coords and hasattr(path, "coord_factor")
 
     def check_path(self, path) -> None:
-        if not hasattr(path, "coord_factor"):
+        if self._banded(path):
+            return
+        describe = getattr(path, "device_density", None)
+        if describe is None or describe() is None:
             raise NotImplementedError(
-                f"SliceSamplerCUDA needs a path whose density is a sum of "
-                f"per-coordinate terms; {type(path).__name__} has none. The "
-                "general-density kernel K2 (_sweep_kernel) is not ported yet "
-                "(ROADMAP queue 2, K2)."
+                f"SliceSamplerCUDA: {type(path).__name__} has no device density "
+                "for the general slice kernel K2, which evaluates the density "
+                "inside the kernel (csrc/densities.cuh). Densities of "
+                "BayesianModel targets and user-supplied densities are ROADMAP "
+                "queue 1, item 11b."
             )
 
     def step_batched(self, keys, xs, betas, path) -> StepOut:
         """One sweep over ``xs [B, d]``; ``keys [B, 2]`` are the lanes' keys,
-        ``betas [B]`` their annealing parameters. The joint density is not
-        computed: the runtime evaluates it fused with the swap's."""
+        ``betas [B]`` their annealing parameters. K1 does not compute the
+        joint density (``lp`` is ``None``); K2 returns it. Either way the
+        runtime evaluates it again, fused with the swap's."""
         self.check_path(path)
-        a = path.coord_factor(betas)
-        x_new, stats = banded_sweep(xs, a, lane_seeds(keys), self.w, self.p,
-                                    self.n_passes, self.max_iter)
-        return StepOut(x=x_new, lp=None, accept_sum=stats[0], accept_n=stats[1],
+        seeds = lane_seeds(keys)
+        if self._banded(path):
+            x_new, stats = banded_sweep(xs, path.coord_factor(betas), seeds, self.w, self.p,
+                                        self.n_passes, self.max_iter)
+            lp = None
+        else:
+            deltas = self.coord_deltas and hasattr(path, "coord_log_density")
+            x_new, lp, stats = sweep(xs, betas, seeds, path, deltas, self.w, self.p,
+                                     self.n_passes, self.max_iter)
+        return StepOut(x=x_new, lp=lp, accept_sum=stats[0], accept_n=stats[1],
                        n_steps=stats[2])
 
 
@@ -263,6 +474,14 @@ def banded_sweep(x, a, seeds, w: float = 10.0, p: int = 20, n_passes: int = 3,
     if x.device.type == "cpu":
         return banded_sweep_reference(x, a, seeds, w, p, n_passes, max_iter)
     return banded_sweep_cuda(x, a, seeds, w, p, n_passes, max_iter)
+
+
+def sweep(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0, p: int = 20,
+          n_passes: int = 3, max_iter: int = 1024):
+    """Run one sweep: the twin for CPU tensors, kernel K2 for CUDA tensors."""
+    if x.device.type == "cpu":
+        return sweep_reference(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter)
+    return sweep_cuda(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter)
 
 
 def _check(t, name, dtype, shape, device):
@@ -300,5 +519,43 @@ def banded_sweep_cuda(x, a, seeds, w: float = 10.0, p: int = 20,
     )
     if err != 0:
         raise RuntimeError(f"banded_slice_sweep launch failed: CUDA error {err}")
-    SliceSamplerCUDA.n_kernel_launches += 1
+    SliceSamplerCUDA.launches["banded_slice_sweep"] += 1
     return x_out, stats
+
+
+MAX_DENSITY_PARAMS = 8  # csrc/densities.cuh: DensityParams
+
+
+def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0,
+               p: int = 20, n_passes: int = 3, max_iter: int = 1024):
+    """Launch kernel K2 on the current stream. Same contract as
+    :func:`sweep_reference`; the density is the path's ``device_density()``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"sweep_cuda needs CUDA tensors, got {x.device}")
+    B, d = x.shape
+    _check(x, "x", torch.float32, (B, d), x.device)
+    _check(betas, "betas", torch.float32, (B,), x.device)
+    _check(seeds, "lane_seeds", torch.int64, (B,), x.device)
+    density = path.device_density()
+    if density is None or len(density.params) > MAX_DENSITY_PARAMS:
+        raise ValueError(f"{type(path).__name__} has no device density for kernel K2")
+    from .._build import load_library
+
+    lib = load_library()
+    params = (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params)
+    x_out = torch.empty_like(x)
+    lp = torch.empty(B, dtype=torch.float32, device=x.device)
+    stats = torch.empty((3, B), dtype=torch.float32, device=x.device)
+    err = lib.slice_sweep(
+        x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), lp.data_ptr(),
+        stats.data_ptr(), B, d, density.kind, int(coord_deltas), params, w, p, n_passes,
+        max_iter, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"slice_sweep failed for density kind {density.kind}, d={d}, "
+            f"coord_deltas={coord_deltas}: error {err} (negative: the kernel "
+            "does not take this case; positive: CUDA error code)"
+        )
+    SliceSamplerCUDA.launches["slice_sweep"] += 1
+    return x_out, lp, stats

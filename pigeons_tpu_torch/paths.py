@@ -10,11 +10,35 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from . import f32math, rng
+
+
+# density kinds of csrc/densities.cuh (enum Density)
+TOY_MVN, FUNNEL, BANANA, MVN = 0, 1, 2, 3
+
+
+class DeviceDensity(NamedTuple):
+    """How a path describes itself to the general-density slice kernel: a
+    density kind of ``csrc/densities.cuh`` and its float32 parameters. For the
+    interpolating kinds ``params[0]`` is the normal reference's ``1 / sigma``
+    and the rest are the target's constants."""
+
+    kind: int
+    params: tuple
+
+
+def sum_squares(m):
+    """``sum(m * m)`` over the last axis, summed in coordinate order with one
+    fused multiply-add per term. This is how the slice kernel and XLA's CPU
+    code accumulate it, so that densities agree bit for bit."""
+    acc = m[..., 0] * m[..., 0]
+    for i in range(1, m.shape[-1]):
+        acc = f32math.fma(m[..., i], m[..., i], acc)
+    return acc
 
 
 def _guarded_mul(w, v):
@@ -32,11 +56,16 @@ class InterpolatingPath:
     ref_log_density: Callable
     target_log_density: Callable
     sample_reference: Optional[Callable] = None
+    # set when the slice kernel can evaluate both endpoints on the device
+    device: Optional[DeviceDensity] = None
 
     def log_density(self, x, beta):
         lref = self.ref_log_density(x)
         ltgt = self.target_log_density(x)
         return _guarded_mul(1.0 - beta, lref) + _guarded_mul(beta, ltgt)
+
+    def device_density(self) -> Optional[DeviceDensity]:
+        return self.device
 
     @property
     def has_iid_reference(self) -> bool:
@@ -70,6 +99,15 @@ class ScaledPrecisionNormalPath:
 
     def log_density(self, x, beta):
         return self.coord_factor(beta) * torch.sum(x * x, dim=-1)
+
+    def sweep_log_density(self, x, beta):
+        """The density as the general slice kernel evaluates it: the same
+        value as :meth:`log_density` with the squares summed in coordinate
+        order (last bits may differ from ``torch.sum``)."""
+        return self.coord_factor(beta) * sum_squares(x)
+
+    def device_density(self) -> DeviceDensity:
+        return DeviceDensity(TOY_MVN, (float(self.precision0), float(self.precision1)))
 
     def sample_at(self, keys, beta):
         """iid draws at ``beta`` for keys ``[..., 2]``: ``[..., dim]``."""

@@ -65,11 +65,11 @@ def _jax_sweep(xs, betas, key_seed, n_passes):
 
 def _port_sweep(xs, betas, key_seed, n_passes):
     keys = trng.keys_for(trng.key(key_seed), torch.arange(B))
-    before = SliceSamplerCUDA.n_kernel_launches
+    before = dict(SliceSamplerCUDA.launches)
     out = SliceSamplerCUDA(n_passes=n_passes).step_batched(
         keys, torch.from_numpy(xs), torch.from_numpy(betas), toy_mvn_path(D)
     )
-    assert SliceSamplerCUDA.n_kernel_launches == before  # CPU tensors: the twin
+    assert SliceSamplerCUDA.launches == before  # CPU tensors: the twin
     stats = torch.stack([out.accept_sum, out.accept_n, out.n_steps]).numpy()
     return out.x.numpy(), stats
 

@@ -15,6 +15,7 @@ sweep's draws do not depend on the densities); states of (b) come from
 torch's, so 1e-6 relative.
 """
 
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -87,6 +88,47 @@ def test_pigeons_from_seed_matches_jax(R):
     np.testing.assert_allclose(ta.sample_array(), ja.sample_array(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(ta.mean(), ja.mean(), atol=1e-6)
     np.testing.assert_allclose(ta.var(), ja.var(), rtol=1e-5)
+
+
+def _state_flips(sj, st):
+    rel = np.abs(st - sj) / np.maximum(np.abs(sj), 1e-30)
+    return int((rel > 1e-5).sum())
+
+
+def test_funnel_run_matches_jax():
+    common = dict(n_chains=4, seed=5, n_replicates=2, n_rounds=3, show_report=False)
+    ja = J.PT(J.Inputs(target=J.funnel(3),
+                       explorer=J.SliceSamplerPallas(interpret=True, n_passes=1), **common))
+
+    def port():
+        return T.PT(T.Inputs(target=T.funnel(3), explorer=T.SliceSamplerCUDA(n_passes=1),
+                             device="cpu", **common))
+
+    ta = port()
+    assert ta.path.device_density().kind == T.paths.FUNNEL
+    for _ in range(2):
+        ja.run_round()
+        ta.run_round()
+    arrays = {"states": np.asarray(ja.states), "chain_of": np.asarray(ja.chain_of),
+              "replica_of": np.asarray(ja.replica_of), "schedule": np.asarray(ja.schedule.grids)}
+    carried = state_from_numpy(port(), arrays, round_idx=2)
+    ja.run_round()
+    ta.run_round()
+    carried.run_round()
+
+    _assert_reports_close(ja, ta, 1e-3, 1e-3)
+    _assert_reports_close(_Last(ja), _Last(carried), 1e-3, 1e-3)
+    sj = np.asarray(ja.states)
+    for name, run in (("from seed", ta), ("carried over", carried)):
+        assert _same_permutations(ja, run), name
+        n_flip = _state_flips(sj, run.states.numpy())
+        print(f"{name}: {n_flip} flipped of {sj.size} state elements, "
+              f"{int((sj != run.states.numpy()).sum())} not bitwise equal")
+        assert n_flip == 0, name
+        assert np.array_equal(ja.reduced.exp_steps, run.reduced.exp_steps), name
+        assert np.array_equal(ja.reduced.accept_n, run.reduced.accept_n), name
+    np.testing.assert_allclose(ta.sample_array(), ja.sample_array(), rtol=1e-5, atol=1e-5)
+    assert math.isfinite(ta.reports[-1].log_z_estimate)
 
 
 def test_same_seed_same_run_on_cpu():
