@@ -6,6 +6,8 @@ first use, never at import, into ``pigeons_tpu_torch/_build/``: one ``nvcc``
 call over all sources, which it compiles in parallel (``--threads``). The
 library's name is keyed by a hash of the sources, the shared headers and the
 flags, so a changed source or header rebuilds and an unchanged tree is reused.
+``build`` also takes preprocessor definitions and another source directory,
+for ``tools/torch_kernel_variants.py``, which times variants side by side.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_CSRC = _PKG / "csrc"
-SOURCES = (_CSRC / "banded_slice.cu", _CSRC / "sweep_slice.cu")  # kernels K1, K2
-HEADERS = (_CSRC / "common.cuh", _CSRC / "densities.cuh")
+CSRC = _PKG / "csrc"
+SOURCES = ("banded_slice.cu", "sweep_slice.cu")  # kernels K1, K2
+HEADERS = ("common.cuh", "densities.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,23 +44,26 @@ def nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(defines: tuple = (), csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
-    for src in (*SOURCES, *HEADERS):
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for name in (*SOURCES, *HEADERS):
+        h.update((csrc / name).read_bytes())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return BUILD_DIR / f"libpigeons_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> tuple[Path, float]:
-    """Compile the kernels unless the keyed library exists. Returns its path
-    and the seconds spent compiling (0.0 when it was already built)."""
-    out = library_path()
+def build(verbose: bool = False, defines: tuple = (), csrc: Path = CSRC) -> tuple[Path, float]:
+    """Compile the kernels of ``csrc`` with ``-D`` for each of ``defines``,
+    unless the keyed library exists. Returns its path and the seconds spent
+    compiling (0.0 when it was already built). ``verbose`` prints what
+    ``ptxas -v`` says of each kernel: registers, shared memory, spills."""
+    out = library_path(defines, csrc)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           *(str(csrc / name) for name in SOURCES)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     t0 = time.perf_counter()
@@ -82,7 +87,7 @@ def load_library() -> ctypes.CDLL:
     lib.banded_slice_sweep.argtypes = [p, p, p, p, p, i, i, f, i, i, i, p]
     lib.banded_slice_sweep.restype = i
     # x, betas, seeds, x_out, lp, stats, B, d, density, coord_deltas,
-    # params (host), w, p, n_passes, max_iter, stream
-    lib.slice_sweep.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.POINTER(f), f, i, i, i, p]
+    # params (host), w, p, n_passes, max_iter, group, stream
+    lib.slice_sweep.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.POINTER(f), f, i, i, i, i, p]
     lib.slice_sweep.restype = i
     return lib

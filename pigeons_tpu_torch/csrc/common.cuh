@@ -1,7 +1,8 @@
 // Device helpers shared by the slice-sampler kernels (banded_slice.cu,
 // sweep_slice.cu): the machines' phase codes, the counter-based random
 // numbers of pigeons_tpu/ops/pallas_slice.py (_fmix32, _hash_words,
-// _uniform_from_bits) and the Cephes float32 log and exp.
+// _uniform_from_bits), the Cephes float32 log and exp, the kernels' dynamic
+// shared memory and the launch macro.
 //
 // log and exp follow pigeons_tpu_torch/f32math.py step for step, which in
 // turn follows the polynomials XLA's CPU backend emits, with a fused
@@ -16,7 +17,32 @@
 #include <math.h>
 #include <stdint.h>
 
+// A kernel launch on a stream. nvcc takes the <<<>>> form; a host compiler
+// that rehearses these sources against a stub runtime (tests/cuda_stub)
+// defines the macro itself, before this header is read.
+#ifndef PIGEONS_LAUNCH
+#define PIGEONS_LAUNCH(kernel, grid, block, shared_bytes, stream, ...) \
+  kernel<<<grid, block, shared_bytes, stream>>>(__VA_ARGS__)
+#endif
+
 namespace pigeons {
+
+constexpr size_t kMaxSharedBytes = 232448;  // 227 KB: what one block may use on sm_90
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+
+// The block's dynamic shared memory. Every kernel takes all its shared
+// memory from here, so that the launch alone decides its size.
+__device__ __forceinline__ float* dynamic_shared() {
+  extern __shared__ float pigeons_dynamic_shared[];
+  return pigeons_dynamic_shared;
+}
+
+// Sets the opt-in a kernel needs for more than 48 KB of dynamic shared memory.
+template <class Kernel>
+inline cudaError_t allow_shared_bytes(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
 constexpr int ENTER = 0, INIT_R = 1, DOUBLE = 2, SHRINK = 3, CHECK = 4, DONE = 5;
 
@@ -31,6 +57,12 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 
 __device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
   return (float)(bits >> 8) * 5.9604644775390625e-08f + 2.98023223876953125e-08f;
+}
+
+// Draw number `counter` of the stream with hash state `base`: a function of
+// the two alone, so a draw that no phase uses need not be computed.
+__device__ __forceinline__ float draw(uint32_t base, uint32_t counter) {
+  return uniform_from_bits(fmix32(base ^ counter));
 }
 
 __device__ __forceinline__ float f32(uint32_t bits) { return __uint_as_float(bits); }

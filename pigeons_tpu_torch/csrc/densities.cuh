@@ -38,13 +38,26 @@ struct LaneView {
   __device__ __forceinline__ float operator()(int i) const { return i == c ? q : x[i * stride]; }
 };
 
-// sum_i (scale x_i)^2 in coordinate order.
-__device__ inline float sum_squares(const LaneView& s, int d, float scale) {
-  const float m0 = s(0) * scale;
+// sum_i m_i^2 in coordinate order, m_i = term(i): one fused multiply-add per
+// term after the first.
+template <class Term>
+__device__ __forceinline__ float sum_squares(const Term& term, int d) {
+  const float m0 = term(0);
   float acc = m0 * m0;
   for (int i = 1; i < d; ++i) {
-    const float m = s(i) * scale;
+    const float m = term(i);
     acc = __fmaf_rn(m, m, acc);
+  }
+  return acc;
+}
+
+// term(first) + term(first + 1) + ... in coordinate order; 0 without terms.
+template <class Term>
+__device__ __forceinline__ float sum_in_order(const Term& term, int first, int d) {
+  float acc = 0.0f;
+  for (int i = first; i < d; ++i) {
+    const float t = term(i);
+    acc = i == first ? t : acc + t;
   }
   return acc;
 }
@@ -68,54 +81,82 @@ __device__ __forceinline__ float normal_term(float y, float loc, float inv_scale
   return __fmaf_rn(-__fmaf_rn(z, z, f32(0x3FEB3F8Eu)), 0.5f, neg_log_scale);  // log(2 pi)
 }
 
-__device__ inline float funnel_target(const LaneView& s, int d, float inv_scale) {
-  const float y = s(0);
-  const float m = y * f32(0x3EAAAAABu);                            // y / 3
-  const float lp_y = __fmaf_rn(-(m * m), 0.5f, f32(0xC0011F8Eu));  // -log 3 - log(2 pi) / 2
-  const float u = y * inv_scale;                                   // log of the x's deviation
-  const float sd = cephes_expf(u);
-  float lp_x = 0.0f;
-  for (int i = 1; i < d; ++i) {
-    const float q = s(i) / sd;
-    const float t = __fmaf_rn(q * q, -0.5f, -u) + f32(0xBF6B3F8Eu);  // -log(2 pi) / 2
-    lp_x = i == 1 ? t : lp_x + t;
-  }
-  return lp_y + lp_x;
-}
+// A density is evaluated in three steps, so that the threads of a group can
+// share out the middle one (sweep_slice.cu) while every operation and its
+// order stay those of the batched torch density:
+//   prepare      what all terms need; it depends on coordinate 0 alone
+//                (funnel: u = y / scale, sd = exp(u) and y's own term; banana:
+//                x^2 and x's own term);
+//   target_term  the target's term of one coordinate i >= first_term
+//                (funnel, banana: x_i's normal term; kMvn, kToyMvn: the m_i of
+//                the sum of squares);
+//   finish       the reference's and the target's in-order sums over the
+//                terms, the interpolation and the NaN guard.
+struct Prepared {
+  float shift;  // funnel: u; banana: x^2
+  float sd;     // funnel: exp(u)
+  float lp0;    // coordinate 0's own term
+};
 
-__device__ inline float banana_target(const LaneView& s, int d, const DensityParams& p) {
-  const float x = s(0);
-  const float lp_x = normal_term(x, 0.0f, p.v[1], p.v[2]);
-  const float xx = x * x;
-  float lp_y = 0.0f;
-  for (int i = 1; i < d; ++i) {
-    const float t = normal_term(s(i), xx, p.v[3], p.v[4]);
-    lp_y = i == 1 ? t : lp_y + t;
-  }
-  return lp_x + lp_y;
-}
-
-// The path's log density at beta, NaN read as -inf (the runtime's guard for
-// out-of-support queries).
 template <Density K>
-__device__ inline float log_density(const LaneView& s, int d, float beta, const DensityParams& p) {
+constexpr int first_term = (K == kFunnel || K == kBanana) ? 1 : 0;
+
+template <Density K>
+__device__ inline Prepared prepare(float x0, const DensityParams& p) {
+  Prepared r{0.0f, 0.0f, 0.0f};
+  if constexpr (K == kFunnel) {
+    const float m = x0 * f32(0x3EAAAAABu);                          // y / 3
+    r.lp0 = __fmaf_rn(-(m * m), 0.5f, f32(0xC0011F8Eu));            // -log 3 - log(2 pi) / 2
+    r.shift = x0 * p.v[1];                                          // log of the x's deviation
+    r.sd = cephes_expf(r.shift);
+  } else if constexpr (K == kBanana) {
+    r.lp0 = normal_term(x0, 0.0f, p.v[1], p.v[2]);
+    r.shift = x0 * x0;
+  }
+  return r;
+}
+
+template <Density K>
+__device__ __forceinline__ float target_term(float v, const Prepared& pr, const DensityParams& p) {
+  if constexpr (K == kFunnel) {
+    const float q = v / pr.sd;
+    return __fmaf_rn(q * q, -0.5f, -pr.shift) + f32(0xBF6B3F8Eu);  // -log(2 pi) / 2
+  } else if constexpr (K == kBanana) {
+    return normal_term(v, pr.shift, p.v[3], p.v[4]);
+  } else {
+    return v * 1.0f;
+  }
+}
+
+// The path's log density at beta from the target's terms, NaN read as -inf
+// (the runtime's guard for out-of-support queries). `s` is the state, for the
+// reference's sum of squares; term(i) is target_term of coordinate i.
+template <Density K, class Term>
+__device__ inline float finish(const LaneView& s, const Term& term, int d, float beta,
+                               const Prepared& pr, const DensityParams& p) {
   float lp;
   if constexpr (K == kToyMvn) {
-    lp = toy_coord_factor(beta, p.v[0], p.v[1]) * sum_squares(s, d, 1.0f);
+    lp = toy_coord_factor(beta, p.v[0], p.v[1]) * sum_squares(term, d);
   } else {
-    const float lref = sum_squares(s, d, p.v[0]) * -0.5f;
+    const float inv_sigma = p.v[0];
+    const float lref = sum_squares([&](int i) { return s(i) * inv_sigma; }, d) * -0.5f;
     float ltgt;
-    if constexpr (K == kFunnel) {
-      ltgt = funnel_target(s, d, p.v[1]);
-    } else if constexpr (K == kBanana) {
-      ltgt = banana_target(s, d, p);
+    if constexpr (K == kFunnel || K == kBanana) {
+      ltgt = pr.lp0 + sum_in_order(term, 1, d);
     } else {
       static_assert(K == kMvn, "unknown density");
-      ltgt = sum_squares(s, d, 1.0f) * p.v[1];
+      ltgt = sum_squares(term, d) * p.v[1];
     }
     lp = interpolate(beta, lref, ltgt);
   }
   return nan_to_neg_inf(lp);
+}
+
+// The three steps by one thread: the form the torch twin follows.
+template <Density K>
+__device__ inline float log_density(const LaneView& s, int d, float beta, const Prepared& pr,
+                                    const DensityParams& p) {
+  return finish<K>(s, [&](int i) { return target_term<K>(s(i), pr, p); }, d, beta, pr, p);
 }
 
 // Coordinate terms f(v) of the separable densities, each with a per-lane

@@ -11,6 +11,12 @@ constants are multiplications by float32 reciprocals, ``log(exp(u))`` is
 ``u``, added constants are folded into one, and a multiply feeding an add is
 one fused multiply-add. The slice kernel's ``csrc/densities.cuh`` follows the
 same steps, so the three agree bit for bit.
+
+Each density is written in the three steps in which the kernel evaluates it,
+so that a group of threads can share out the middle one: ``prepare`` (what
+all terms need, a function of coordinate 0 alone), ``term`` (one coordinate's
+term, elementwise) and ``finish`` (the in-order sum of the terms and what
+``prepare`` kept of coordinate 0); ``log_density`` is the three in a row.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 from .. import f32math, rng
 from ..paths import BANANA, FUNNEL, MVN as MVN_KIND, sum_squares
-from .distributions import LOG_2PI, normal_constants, normal_logpdf
+from .distributions import LOG_2PI, normal_constants, normal_terms, sum_in_order
 from .target import Reference, StandardNormalReference, Target
 
 _NEG_HALF_LOG_2PI = float(np.float32(-0.5 * LOG_2PI))
@@ -56,17 +62,26 @@ class Funnel(Target):
     def _inv_scale(self) -> float:
         return float(np.float32(1.0) / np.float32(self.scale))
 
-    def log_density(self, s):
-        y, x = s[..., 0], s[..., 1:]
+    def prepare(self, y):
+        """``(u, sd, lp_y)``: the log of the x's deviation, the deviation and
+        y's own term."""
         m = y * _INV_3
         lp_y = f32math.fma(-(m * m), 0.5, _FUNNEL_Y_CONST)
-        u = y * self._inv_scale  # log(sd)
-        q = x / f32math.exp(u)[..., None]
-        terms = f32math.fma(q * q, -0.5, -u[..., None]) + _NEG_HALF_LOG_2PI
-        lp_x = terms[..., 0]
-        for i in range(1, self.n_x):
-            lp_x = lp_x + terms[..., i]
-        return lp_y + lp_x
+        u = y * self._inv_scale
+        return u, f32math.exp(u), lp_y
+
+    def term(self, x, prep):
+        """The terms of ``x [..., k]``, any of the x coordinates."""
+        u, sd, _ = prep
+        q = x / sd[..., None]
+        return f32math.fma(q * q, -0.5, -u[..., None]) + _NEG_HALF_LOG_2PI
+
+    def finish(self, prep, terms):
+        return prep[2] + sum_in_order(terms)
+
+    def log_density(self, s):
+        prep = self.prepare(s[..., 0])
+        return self.finish(prep, self.term(s[..., 1:], prep))
 
     def device_target(self):
         return FUNNEL, (self._inv_scale,)
@@ -94,9 +109,20 @@ class Banana(Target):
     def dim(self):
         return self.n_y + 1
 
+    def prepare(self, x):
+        """``(x^2, lp_x)``: the y's mean and x's own term."""
+        return x * x, normal_terms(x, 0.0, _S_A)
+
+    def term(self, y, prep):
+        """The terms of ``y [..., k]``, any of the y coordinates."""
+        return normal_terms(y, prep[0][..., None], self.scale * _S_B)
+
+    def finish(self, prep, terms):
+        return prep[1] + sum_in_order(terms)
+
     def log_density(self, s):
-        x, y = s[..., :1], s[..., 1:]
-        return normal_logpdf(x, 0.0, _S_A) + normal_logpdf(y, x * x, self.scale * _S_B)
+        prep = self.prepare(s[..., 0])
+        return self.finish(prep, self.term(s[..., 1:], prep))
 
     def device_target(self):
         return BANANA, (*normal_constants(_S_A), *normal_constants(self.scale * _S_B))
@@ -123,8 +149,23 @@ class MVN(Target):
     def _factor(self) -> float:
         return float(np.float32(-0.5 * self.precision))
 
+    def prepare(self, x0):
+        """Nothing: no term needs another coordinate."""
+        del x0
+        return ()
+
+    def term(self, x, prep):
+        """The ``m_i`` of the sum of squares, for every coordinate."""
+        del prep
+        return x * 1.0
+
+    def finish(self, prep, terms):
+        del prep
+        return sum_squares(terms) * self._factor
+
     def log_density(self, x):
-        return sum_squares(x) * self._factor
+        prep = self.prepare(x[..., 0])
+        return self.finish(prep, self.term(x, prep))
 
     def device_target(self):
         return MVN_KIND, (self._factor,)

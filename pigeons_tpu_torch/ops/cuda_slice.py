@@ -9,22 +9,27 @@ a density that is a sum of per-coordinate terms, ``lp(x) = sum_c f(x_c)``,
 the joint density cancels from every coordinate's slice test, so each (lane,
 coordinate) element runs its own one-dimensional Neal slice sampler
 (doubling, shrinking, halving check) for ``n_passes`` passes, independently
-of every other element. ``csrc/banded_slice.cu`` gives one CUDA thread to
-each element of the row-major ``[B, d]`` state; it is bound by integer and
-float ALU work and by warp divergence (a warp runs until its slowest element
-is DONE). :func:`banded_sweep_reference` is the same machine as torch ops
-over all elements at once.
+of every other element. ``csrc/banded_slice.cu`` runs as many blocks as stay
+resident on the card; each owns a contiguous share of the row-major
+``[B, d]`` state, and a warp hands the next elements of its run of the share
+to whichever of its lanes have finished theirs, so that the lanes stay busy
+although elements need anything from 6 to over 100 iterations.
+:func:`banded_sweep_reference` is the same machine as torch ops over all
+elements at once.
 
 **K2, general sweep** (replaces ``pallas_slice.py:_sweep_kernel``). For any
 density, each lane runs ONE machine ENTER / INIT_R / DOUBLE / SHRINK / CHECK
 / DONE through all ``n_passes * d`` coordinate steps, one density evaluation
 per loop iteration, and never waits for another lane at a coordinate
-boundary. ``csrc/sweep_slice.cu`` gives one CUDA thread to each lane and
-keeps the lane's state, its machine and the density evaluation
-(``csrc/densities.cuh``, selected by the path's :class:`~..paths.DeviceDensity`)
-inside one launch for the whole sweep. In delta mode a separable path's query
-is answered as ``base + f_c(query)`` and the final density is recomputed.
-:func:`sweep_reference` is the same machine as torch ops over ``[B]`` rows.
+boundary. ``csrc/sweep_slice.cu`` keeps the lane's state, its machine and the
+density evaluation (``csrc/densities.cuh``, selected by the path's
+:class:`~..paths.DeviceDensity`) inside one launch for the whole sweep. In
+full mode a group of 8, 16 or 32 threads works for one lane: each computes
+the density's terms of its own coordinates, and all of them run the short
+in-order sums and the machine, so nothing is broadcast. In delta mode a
+separable path's query is answered as ``base + f_c(query)`` by one thread per
+lane, and the final density is recomputed. :func:`sweep_reference` is the
+same machine as torch ops over ``[B]`` rows.
 
 CPU tensors run the twins; a CUDA tensor reaches the kernel or raises. Each
 kernel agrees with its twin bit for bit on the card.
@@ -106,7 +111,8 @@ def element_uniforms(base: torch.Tensor, it: int):
 
 
 def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
-                           n_passes: int = 3, max_iter: int = 1024, phase_counts=None):
+                           n_passes: int = 3, max_iter: int = 1024, phase_counts=None,
+                           element_iterations=None):
     """Plain torch twin of kernel K1.
 
     ``x [B, d]`` float32 states, ``a [B]`` float32 coordinate-term factors
@@ -114,7 +120,10 @@ def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
     uint32 seeds as int64. Returns ``(x_new [B, d], stats [3, B])`` with the
     rows accept_sum, accept_n and n_evals summed over coordinates. To
     ``phase_counts``, an int64 ``[6]`` tensor on the states' device, every
-    loop iteration adds the number of elements in each phase.
+    loop iteration adds the number of elements in each phase; to
+    ``element_iterations``, an int64 ``[B, d]`` tensor, it adds one for every
+    element that is not DONE (what the kernel's mapping of elements to warps
+    has to balance).
     """
     B, d = x.shape
     dev = x.device
@@ -140,6 +149,8 @@ def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
     while bool((phase != DONE).any()):
         if phase_counts is not None:
             phase_counts += torch.bincount(phase.reshape(-1), minlength=6)
+        if element_iterations is not None:
+            element_iterations += phase != DONE
         uA, uB = element_uniforms(base, it)
         is_enter = phase == ENTER
         active = phase != DONE
@@ -527,9 +538,13 @@ MAX_DENSITY_PARAMS = 8  # csrc/densities.cuh: DensityParams
 
 
 def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0,
-               p: int = 20, n_passes: int = 3, max_iter: int = 1024):
+               p: int = 20, n_passes: int = 3, max_iter: int = 1024, group: int = 0):
     """Launch kernel K2 on the current stream. Same contract as
-    :func:`sweep_reference`; the density is the path's ``device_density()``."""
+    :func:`sweep_reference`; the density is the path's ``device_density()``.
+    ``group`` is the number of threads that share a lane's density evaluation
+    in full mode (1, 8, 16 or 32; the result does not depend on it); 0 leaves
+    the choice to the launcher, which makes it from the density, ``B`` and
+    ``d``."""
     if x.device.type != "cuda":
         raise ValueError(f"sweep_cuda needs CUDA tensors, got {x.device}")
     B, d = x.shape
@@ -549,12 +564,12 @@ def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.
     err = lib.slice_sweep(
         x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), lp.data_ptr(),
         stats.data_ptr(), B, d, density.kind, int(coord_deltas), params, w, p, n_passes,
-        max_iter, torch.cuda.current_stream(x.device).cuda_stream,
+        max_iter, group, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"slice_sweep failed for density kind {density.kind}, d={d}, "
-            f"coord_deltas={coord_deltas}: error {err} (negative: the kernel "
+            f"coord_deltas={coord_deltas}, group={group}: error {err} (negative: the kernel "
             "does not take this case; positive: CUDA error code)"
         )
     SliceSamplerCUDA.launches["slice_sweep"] += 1

@@ -100,11 +100,20 @@ class ScaledPrecisionNormalPath:
     def log_density(self, x, beta):
         return self.coord_factor(beta) * torch.sum(x * x, dim=-1)
 
+    def sweep_term(self, x):
+        """The ``m_i`` of the sum of squares, for every coordinate: the step
+        of :meth:`sweep_log_density` that the slice kernel shares out over a
+        group of threads."""
+        return x * 1.0
+
+    def sweep_finish(self, terms, beta):
+        return self.coord_factor(beta) * sum_squares(terms)
+
     def sweep_log_density(self, x, beta):
         """The density as the general slice kernel evaluates it: the same
         value as :meth:`log_density` with the squares summed in coordinate
         order (last bits may differ from ``torch.sum``)."""
-        return self.coord_factor(beta) * sum_squares(x)
+        return self.sweep_finish(self.sweep_term(x), beta)
 
     def device_density(self) -> DeviceDensity:
         return DeviceDensity(TOY_MVN, (float(self.precision0), float(self.precision1)))

@@ -6,6 +6,8 @@ machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,62 @@ def test_kernel_matches_twin_on_card(cuda_device, n_passes):
     assert SliceSamplerCUDA.launches["banded_slice_sweep"] == before + 1
     xt, st = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=n_passes)
     assert torch.equal(xk, xt) and torch.equal(sk, st)
+
+
+def _lane_inputs(n, d, seed, device):
+    rs = np.random.RandomState(seed)
+    x = torch.tensor((rs.normal(size=(n, d)) * 2.0).astype(np.float32), device=device)
+    betas = torch.tensor(rs.uniform(size=n).astype(np.float32), device=device)
+    betas[0], betas[-1] = 0.0, 1.0
+    seeds = cuda_slice.lane_seeds(rng.keys_for(rng.key(2, device), torch.arange(n, device=device)))
+    return x, betas, seeds
+
+
+# B * d below a warp, a prime, config 1's; no pass at all, one, the default
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_passes", [0, 1, 3])
+@pytest.mark.parametrize("n,d", [(1, 5), (1, 4099), (20480, 100)])
+def test_kernel_matches_twin_at_the_edges(cuda_device, n, d, n_passes):
+    """Bitwise, and the same bits from a second launch on the same inputs
+    (the per-lane sums are integer-valued, so their order does not show)."""
+    x, betas, seeds = _lane_inputs(n, d, n_passes, cuda_device)
+    a = toy_mvn_path(d).coord_factor(betas)
+    first = cuda_slice.banded_sweep(x, a, seeds, n_passes=n_passes)
+    again = cuda_slice.banded_sweep(x, a, seeds, n_passes=n_passes)
+    want = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=n_passes)
+    for name, f, g, w in zip(("x", "stats"), first, again, want, strict=True):
+        assert torch.equal(f.view(torch.int32), w.view(torch.int32)), name
+        assert torch.equal(f.view(torch.int32), g.view(torch.int32)), name
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_full_case(name, d, n):
+    """A path, inputs on the card and the twin's result for them, made once
+    for all group sizes."""
+    device = torch.device("cuda")
+    target = {"funnel": lambda: T.funnel(d - 1), "banana": lambda: T.banana(d - 1, 1.5),
+              "mvn": lambda: T.mvn_target(d, 2.5)}[name]()
+    path = target.create_path(target.default_reference())
+    x, betas, seeds = _lane_inputs(n, d, d, device)
+    return path, x, betas, seeds, cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1)
+
+
+# d = 1, below, just above and far above a group of 8; one lane, a last block
+# that is not full, the funnel cell's batch
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 8, 16, 32])
+@pytest.mark.parametrize("n", [1, 33, 3072])
+@pytest.mark.parametrize("d", [1, 7, 10, 40])
+@pytest.mark.parametrize("name", ["funnel", "banana", "mvn"])
+def test_general_kernel_matches_twin_for_each_group(cuda_device, name, d, n, group):
+    """Full mode with 1, 8, 16 and 32 threads per lane: bitwise the twin, and
+    the same bits from a second launch."""
+    path, x, betas, seeds, want = _k2_full_case(name, d, n)
+    first = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, group=group)
+    again = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, group=group)
+    for tensor_name, f, g, w in zip(("x", "lp", "stats"), first, again, want, strict=True):
+        assert torch.equal(f.view(torch.int32), w.view(torch.int32)), tensor_name
+        assert torch.equal(f.view(torch.int32), g.view(torch.int32)), tensor_name
 
 
 def _k2_cases():
@@ -115,6 +173,11 @@ def test_general_kernel_rejects_bad_inputs(cuda_device):
         cuda_slice.sweep_cuda(x, betas, seeds, target.create_path(target.default_reference()), True)
     with pytest.raises(RuntimeError, match="does not take"):  # a state too wide for shared memory
         cuda_slice.sweep_cuda(torch.zeros(4, 2000, device=cuda_device), betas, seeds, toy_mvn_path(2000))
+    with pytest.raises(RuntimeError, match="does not take"):  # and for groups of 8: d above 1,816
+        cuda_slice.sweep_cuda(torch.zeros(4, 2000, device=cuda_device), betas, seeds,
+                              toy_mvn_path(2000), group=8)
+    with pytest.raises(RuntimeError, match="does not take"):  # no such group size
+        cuda_slice.sweep_cuda(x, betas, seeds, toy_mvn_path(3), group=3)
 
 
 @pytest.mark.cuda
