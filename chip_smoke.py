@@ -5,14 +5,17 @@
 Run from the repository root. It builds the port's CUDA kernels from
 ``pigeons_tpu_torch/csrc`` (one ``nvcc`` call, the sources in parallel),
 holds each against its plain torch twin at the main paths' shapes (no bit
-may differ), and
-drives two paths end to end through ``PT(Inputs(...))``:
+may differ; K1 with each of its two coordinate terms), and
+drives three paths end to end through ``PT(Inputs(...))``:
 
 * bench config 1: NRPT on the d=100 toy MVN, 10 chains x 2048 ladders, banded
   slice sampler (kernel K1);
 * Neal's funnel, the target of bench config 3: 12 chains x 256 ladders, d=10,
   general slice sampler (kernel K2, full mode). K2's delta mode is held
-  against its twin at config 1's shape.
+  against its twin at config 1's shape;
+* bench config 4: stabilized variational PT on the d=100 toy MVN, 10 + 10
+  chains x 256 ladders, K1 with its variational coordinate term; the timed
+  round is the first that runs under the fitted reference.
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU. Every phase
@@ -32,7 +35,8 @@ CUDA sources): an ENTER iteration two uniform draws and the log, a DOUBLE or
 SHRINK iteration one draw, INIT_R and CHECK none, each its density queries.
 
 ``--profile`` also writes ``torch.profiler`` tables of one round of each
-path to ``chiprun_out/profile_config1.txt`` and ``profile_funnel.txt``.
+path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt`` and
+``profile_config4.txt``.
 """
 
 from __future__ import annotations
@@ -69,6 +73,15 @@ F_JAX_BARRIER = 3.0
 # (tests/test_torch_sweep_slice.py, tests/test_torch_cuda.py).
 F_JAX_Y_MEAN, F_JAX_Y_VAR = 5.402001, 38.623566
 F_JAX_RUN_BARRIER, F_JAX_LOG_Z, F_JAX_ROUND_TRIPS = 3.122683, -20.181302, 105
+
+# bench config 4 (bench.py:266-295): two legs of 10 chains, 256 ladders; six
+# warm-up rounds, so that the reference fitted after round 6 is first used in
+# the timed round
+V_CHAINS, V_REPLICATES, V_WARMUP_ROUNDS, V_WARMUP_SCANS = 10, 256, 6, 8
+V_MEASURE_SCANS, V_CONFIG4_SCANS = 64, 1024
+# log of the integral of exp(-5 |x|^2) over R^100: the variational leg's
+# stepping stone starts from a normalized reference, so it estimates this
+V_LOG_Z = 0.5 * D * math.log(2.0 * math.pi / 10.0)
 
 # Published peaks of one H100 SXM at 700 W: 3.35 TB/s of device memory, and
 # 67 TFLOP/s in float32 = 132 SMs x 128 lanes x 2 (a fused multiply-add) x
@@ -119,6 +132,11 @@ M_REJECT = ops(10, 1)
 M_CHECK = ops(8, 3)
 # a coordinate term (a v) v with its NaN guard; the toy path's factor a(beta)
 COORD_TERM, TOY_FACTOR = ops(4), ops(5)
+# the variational term of a lane that follows the fitted reference: the
+# branch (1), q (a subtract and a division), its square and half of it (2),
+# l_ref (1), the target's term (2), two guarded products (a comparison, a
+# select and a multiply each), their sum and the NaN guard (2)
+VARIATIONAL_TERM = ops(17)
 # interpolate() with its two guarded products (8) and the NaN guard (2)
 INTERPOLATE = ops(10)
 ENTER, INIT_R, DOUBLE, SHRINK, CHECK = range(5)  # the machines' phase codes
@@ -145,7 +163,7 @@ def toy_density_ops(d):
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, n):
@@ -265,14 +283,7 @@ def k1_phase():
     n_evals = float(got[1][2].double().sum())
     if n_evals != iterations + n[ENTER] or n[ENTER] != 3 * B * D or n[INIT_R]:
         raise AssertionError(f"K1: phase counts {n} do not add up to the kernel's n_evals")
-    # per element: its index pair (2) and its hash state (2 fmix32, a
-    # multiply, 2 xors). ENTER queries the terms at R, the old point and L and
-    # decides whether to double; every other iteration queries one term.
-    need = (B * D * ops(0, 21) + iterations * LOOP
-            + n[ENTER] * (2 * DRAW + LOG + M_ENTER + MORE_DBL + 3 * COORD_TERM)
-            + n[DOUBLE] * (DRAW + M_DOUBLE + COORD_TERM)
-            + n[SHRINK] * (DRAW + M_SHRINK + COORD_TERM) + (n[SHRINK] - considered) * M_REJECT
-            + n[CHECK] * (M_CHECK + COORD_TERM))
+    need = k1_need(B * D, n, considered, COORD_TERM)
     bound_ms, bound_by = bound(2 * 4 * B * D + (4 + 8 + 12) * B, need)
     print(f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms (medians, B={B}, d={D}, 3 passes); "
           f"{iterations:.0f} iterations: ENTER {n[ENTER]:.0f}, DOUBLE {n[DOUBLE]:.0f}, SHRINK "
@@ -283,6 +294,96 @@ def k1_phase():
             "source": "pigeons_tpu_torch/csrc/banded_slice.cu",
             "replaces": "pigeons_tpu/ops/pallas_slice.py:305",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def k1_need(elements, n, considered, term):
+    """Operations of K1 for ``elements`` elements whose machines spent ``n``
+    iterations in each phase, ``considered`` of the SHRINK ones passing the
+    vertical test, with ``term`` operations to a query. Per element: its index
+    pair (2) and its hash state (2 fmix32, a multiply, 2 xors). ENTER queries
+    the terms at R, the old point and L and decides whether to double; every
+    other iteration queries one term."""
+    return (elements * ops(0, 21) + sum(n) * LOOP
+            + n[ENTER] * (2 * DRAW + LOG + M_ENTER + MORE_DBL + 3 * term)
+            + n[DOUBLE] * (DRAW + M_DOUBLE + term)
+            + n[SHRINK] * (DRAW + M_SHRINK + term) + (n[SHRINK] - considered) * M_REJECT
+            + n[CHECK] * (M_CHECK + term))
+
+
+def k1_variational_phase():
+    """Kernel K1 with its variational term against the twin at config 4's
+    shape: lanes of both legs, the reference active with a mean and std that
+    differ by coordinate; and, with the reference not active yet, against the
+    toy term's launch."""
+    phase("2c kernel K1, variational term, vs twin")
+    from pigeons_tpu_torch.ops import cuda_slice
+    from pigeons_tpu_torch.paths import toy_mvn_path
+
+    B = 2 * V_CHAINS * V_REPLICATES
+    x, betas, seeds = lane_inputs(B, D, 0.5, 13)
+    dev = x.device
+    path = toy_mvn_path(D)
+    a = path.coord_factor(betas)
+    rs = np.random.RandomState(4)
+    # each ladder's first V_CHAINS lanes are its variational leg
+    is_var = (torch.arange(B, device=dev) % (2 * V_CHAINS)) < V_CHAINS
+    mean = torch.tensor((rs.normal(size=D) * 0.05).astype(np.float32), device=dev)
+    std = torch.tensor((np.sqrt(0.1) * np.exp(rs.normal(size=D) * 0.2)).astype(np.float32),
+                       device=dev)
+    a_target = float(path.coord_factor(torch.ones(())))
+
+    def term(active, lanes=slice(None)):
+        return cuda_slice.VariationalTerm(betas[lanes], is_var.float()[lanes],
+                                          torch.tensor([active], device=dev), a_target, mean, std)
+
+    term_on = term(1.0)
+    got = cuda_slice.banded_sweep_cuda(x, a, seeds, variational=term_on)
+    # the twin leg by leg (elements are independent), so that each leg's
+    # iterations are counted by phase for the bound
+    want_x, want_stats = torch.empty_like(x), torch.empty((3, B), device=dev)
+    counts = {}
+    for leg, lanes in (("variational", is_var), ("fixed", ~is_var)):
+        counts[leg] = torch.zeros(6, dtype=torch.int64, device=dev)
+        want_x[lanes], want_stats[:, lanes] = cuda_slice.banded_sweep_reference(
+            x[lanes], a[lanes], seeds[lanes], phase_counts=counts[leg],
+            variational=term(1.0, lanes))
+    torch.cuda.synchronize()
+    max_abs = compare("K1 variational", got, (want_x, want_stats))
+    toy = cuda_slice.banded_sweep_cuda(x, a, seeds)
+    compare("K1 variational, reference not active, vs the toy term's launch",
+            cuda_slice.banded_sweep_cuda(x, a, seeds, variational=term(0.0)), toy)
+    if torch.equal(got[0], toy[0]):
+        raise AssertionError("K1 variational: the active reference changed nothing")
+    ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds, variational=term_on), 20)
+    toy_ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), 20)
+    _, plain_ms = timed_once(lambda: cuda_slice.banded_sweep_reference(x, a, seeds,
+                                                                       variational=term_on))
+    need, iterations = ops(0), 0.0
+    for leg, lanes, term_ops in (("variational", is_var, VARIATIONAL_TERM),
+                                 ("fixed", ~is_var, COORD_TERM)):
+        n = [float(v) for v in counts[leg][:5]]
+        stats = got[1][:, lanes].double().sum(1)
+        n_lanes = int(lanes.sum())
+        if float(stats[2]) != sum(n) + n[ENTER] or n[ENTER] != 3 * n_lanes * D or n[INIT_R]:
+            raise AssertionError(f"K1 variational: {leg} leg's phase counts {n} do not add up")
+        need = need + k1_need(n_lanes * D, n, float(stats[1]), term_ops)
+        iterations += sum(n)
+        print(f"{leg} leg: {n_lanes} lanes, {sum(n):.0f} iterations: ENTER {n[ENTER]:.0f}, DOUBLE "
+              f"{n[DOUBLE]:.0f}, SHRINK {n[SHRINK]:.0f} ({float(stats[1]):.0f} considered), CHECK "
+              f"{n[CHECK]:.0f}")
+    # once for a coordinate its log_norm (a log, two multiplies and the half);
+    # once for a variational lane 1 - beta and the flag
+    need = need + D * (LOG + ops(3)) + B * ops(1, 2)
+    bound_ms, bound_by = bound(2 * 4 * B * D + (4 + 8 + 12 + 4 + 4) * B + 8 * D + 4, need)
+    print(f"kernel {ms:.4f} ms, the toy term on the same inputs {toy_ms:.4f} ms (medians of 20), "
+          f"twin {plain_ms:.4f} ms (one run), B={B}, d={D}, 3 passes; {iterations:.0f} iterations; "
+          f"needs {need[0]:.4g} float32 and {need[1]:.4g} int32 operations, "
+          f"bound {bound_ms:.6f} ms by {bound_by}")
+    return {"name": "banded_slice_sweep (variational term)", "route": "cuda",
+            "source": "pigeons_tpu_torch/csrc/banded_slice.cu",
+            "replaces": "pigeons_tpu/ops/pallas_slice.py:305",
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "toy_term_ms": toy_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
@@ -383,7 +484,8 @@ def config1_phase():
     print(f"logZ {rep.log_z_estimate:.4f} (analytic {pt.path.analytic_lognormalization():.4f})")
     print(f"round trips {pt.n_round_trips}, restarts {pt.n_tempered_restarts}, "
           f"swap accept mean {rep.mean_swap_accept:.4f}")
-    if launches != {"banded_slice_sweep": scans, "slice_sweep": 0}:
+    if launches != {"banded_slice_sweep": scans, "banded_slice_sweep_variational": 0,
+                    "slice_sweep": 0}:
         raise AssertionError(f"kernel launches {launches} for {scans} scans of K1")
     if not (np.abs(mean).max() < 0.02 and np.abs(var / 0.1 - 1).max() < 0.05):
         raise AssertionError("target moments off")
@@ -433,7 +535,8 @@ def funnel_phase():
           f"{exact_log_z:.4f})")
     print(f"round trips {pt.n_round_trips}, restarts {pt.n_tempered_restarts}, "
           f"swap accept mean {rep.mean_swap_accept:.4f}")
-    if launches != {"banded_slice_sweep": 0, "slice_sweep": scans}:
+    if launches != {"banded_slice_sweep": 0, "banded_slice_sweep_variational": 0,
+                    "slice_sweep": scans}:
         raise AssertionError(f"kernel launches {launches} for {scans} scans of K2")
     if not abs(rep.log_z_estimate - exact_log_z) < 0.1:
         raise AssertionError("logZ off")
@@ -451,25 +554,116 @@ def funnel_phase():
     return launches["slice_sweep"]
 
 
+def config4_inputs(**kw):
+    from pigeons_tpu_torch import Inputs, SliceSamplerCUDA, toy_mvn_target
+
+    return Inputs(target=toy_mvn_target(D), n_chains=V_CHAINS, n_chains_variational=V_CHAINS,
+                  n_replicates=V_REPLICATES, seed=SEED, explorer=SliceSamplerCUDA(),
+                  show_report=False, device="cuda", **kw)
+
+
+def config4_phase():
+    """Bench config 4 end to end: two-leg stabilized variational PT at full
+    width; returns the launches of K1's variational term it made."""
+    phase("3c config 4")
+    from pigeons_tpu_torch import PT, SliceSamplerCUDA
+
+    print(f"timed round cut from config 4's {V_CONFIG4_SCANS} scans to {V_MEASURE_SCANS}: "
+          "the port's scan is still bound by eager launches")
+    SliceSamplerCUDA.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pt = PT(config4_inputs())
+    for _ in range(V_WARMUP_ROUNDS):
+        pt.run_round(n_scans=V_WARMUP_SCANS)
+    fitted_from = pt.reduced.online_n
+    pt.run_round(n_scans=V_MEASURE_SCANS)  # round 7: the first under the fitted reference
+    launches = dict(SliceSamplerCUDA.launches)
+    scans = V_WARMUP_ROUNDS * V_WARMUP_SCANS + V_MEASURE_SCANS
+    rep = pt.reports[-1]
+    mean, var = pt.mean(), pt.var()
+    var_barriers = [round(float(r.global_barrier_variational), 4) for r in pt.reports]
+    active = float(pt._ref_params["active"])
+    print(f"kernel launches {launches} for {scans} scans")
+    print(f"timed round: {V_MEASURE_SCANS} scans in {rep.wall_time_s:.4f} s "
+          f"({rep.wall_time_s / V_MEASURE_SCANS * 1e3:.3f} ms per scan), {eval_rate(pt):.6g} evals/s, "
+          f"peak device memory {rep.peak_memory_bytes} B")
+    print(f"reference active {active}, fitted after round {V_WARMUP_ROUNDS} from {fitted_from:.0f} "
+          f"pooled target samples; variational barrier by round {var_barriers}")
+    print(f"restarts {pt.n_tempered_restarts} ({pt.n_tempered_restarts / rep.wall_time_s * 3600:.6g} "
+          f"per hour), round trips {pt.n_round_trips}, swap accept mean {rep.mean_swap_accept:.4f}")
+    print(f"max|mean| {np.abs(mean).max():.5f}, max|var/0.1-1| {np.abs(var / 0.1 - 1).max():.5f}")
+    print(f"variational barrier {pt.global_barrier_variational:.4f}, fixed-leg barrier "
+          f"{pt.global_barrier:.4f} (config 1: {JAX_BARRIER})")
+    print(f"logZ {rep.log_z_estimate:.4f} (exact {V_LOG_Z:.4f})")
+    if launches != {"banded_slice_sweep": 0, "banded_slice_sweep_variational": scans,
+                    "slice_sweep": 0}:
+        raise AssertionError(f"kernel launches {launches} for {scans} scans of K1's variational term")
+    if active != 1.0 or pt.round_idx != V_WARMUP_ROUNDS + 1:
+        raise AssertionError("the timed round did not run under the fitted reference")
+    if not (np.abs(mean).max() < 0.02 and np.abs(var / 0.1 - 1).max() < 0.05):
+        raise AssertionError("target moments off")
+    if not pt.global_barrier_variational <= 0.5:
+        raise AssertionError("variational barrier did not collapse")
+    if not abs(pt.global_barrier - JAX_BARRIER) < 0.5:
+        raise AssertionError("fixed-leg barrier off")
+    if not abs(rep.log_z_estimate - V_LOG_Z) < 0.5:
+        raise AssertionError("logZ off")
+    if not pt.n_tempered_restarts > 0:
+        raise AssertionError("no tempered restart")
+    return launches["banded_slice_sweep_variational"]
+
+
 def small_reference_phase():
     """Small runs on the card (kernels) against the same runs on the CPU
-    (twins), for the toy path (K1) and the funnel path (K2): same swaps, same
-    states within 1e-6."""
+    (twins), for the toy path (K1), the funnel path (K2) and a two-leg
+    variational run whose last round uses the fitted reference (K1's
+    variational term): same swaps and restarts, same states within 1e-6."""
     phase("6 small runs, card vs CPU")
-    from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA, funnel, toy_mvn_target
+    from pigeons_tpu_torch import (PT, GaussianReference, Inputs, SliceSamplerCUDA, funnel,
+                                   toy_mvn_target)
 
-    for name, target, explorer in (("toy MVN", toy_mvn_target(6), SliceSamplerCUDA()),
-                                   ("funnel", funnel(3), SliceSamplerCUDA(n_passes=F_PASSES))):
-        g, c = (PT(Inputs(target=target, n_chains=5, n_replicates=8, seed=4, n_rounds=4,
-                          explorer=explorer, show_report=False, device=dev)).run()
+    two_leg = dict(n_chains=4, n_chains_variational=4,
+                   variational=GaussianReference(first_tuning_round=3))
+    for name, target, explorer, kw in (
+            ("toy MVN", toy_mvn_target(6), SliceSamplerCUDA(), dict(n_chains=5)),
+            ("funnel", funnel(3), SliceSamplerCUDA(n_passes=F_PASSES), dict(n_chains=5)),
+            ("two legs", toy_mvn_target(6), SliceSamplerCUDA(), two_leg)):
+        g, c = (PT(Inputs(target=target, n_replicates=8, seed=4, n_rounds=4, explorer=explorer,
+                          show_report=False, device=dev, **kw)).run()
                 for dev in ("cuda", "cpu"))
         same_perm = (torch.equal(g.chain_of.cpu(), c.chain_of)
-                     and torch.equal(g.replica_of.cpu(), c.replica_of))
+                     and torch.equal(g.replica_of.cpu(), c.replica_of)
+                     and g.n_tempered_restarts == c.n_tempered_restarts)
         diff = float((g.states.cpu() - c.states).abs().max())
-        print(f"{name}: permutations equal {same_perm}, max |state diff| {diff}, "
+        print(f"{name}: permutations and restarts equal {same_perm}, max |state diff| {diff}, "
               f"barrier {g.global_barrier:.6f} vs {c.global_barrier:.6f}")
         if not same_perm or diff > 1e-6 or not np.isfinite(g.sample_array()).all():
             raise AssertionError(f"{name}: card run disagrees with the CPU run")
+        if g.variational is not None and float(g._ref_params["active"]) != 1.0:
+            raise AssertionError(f"{name}: the reference was never fitted")
+
+
+def torch_sampler_phase():
+    """The torch ``SliceSampler`` (a torch module, not a kernel: the explorer
+    for paths without a device density) on the small funnel run, card against
+    CPU, with its time per scan. It must launch none of the port's kernels."""
+    phase("7 torch SliceSampler on the small funnel run")
+    from pigeons_tpu_torch import PT, Inputs, SliceSampler, SliceSamplerCUDA, funnel
+
+    SliceSamplerCUDA.reset_launches()
+    # two rounds, 6 scans: a scan is some 10^5 eager launches on the card
+    g, c = (PT(Inputs(target=funnel(3), n_chains=5, n_replicates=8, seed=4, n_rounds=2,
+                      explorer=SliceSampler(n_passes=F_PASSES), show_report=False,
+                      device=dev)).run() for dev in ("cuda", "cpu"))
+    same = (torch.equal(g.chain_of.cpu(), c.chain_of) and torch.equal(g.states.cpu(), c.states)
+            and np.array_equal(g.reduced.exp_steps, c.reduced.exp_steps))
+    rep = g.reports[-1]
+    print(f"card and CPU runs bitwise equal: {same}; last round on the card: {rep.n_scans} scans "
+          f"of 40 lanes, d=4, in {rep.wall_time_s:.4f} s ({rep.wall_time_s / rep.n_scans * 1e3:.1f} "
+          f"ms per scan, {float(np.sum(g.reduced.exp_steps)) / (rep.n_scans * 40):.2f} queries per "
+          f"lane and scan); on the CPU {c.reports[-1].wall_time_s / rep.n_scans * 1e3:.1f} ms per scan")
+    if not same or any(SliceSamplerCUDA.launches.values()):
+        raise AssertionError("torch SliceSampler: card run disagrees with the CPU run")
 
 
 def determinism_phase():
@@ -481,7 +675,13 @@ def determinism_phase():
                       seed=SEED, n_rounds=2, explorer=SliceSamplerCUDA(), show_report=False,
                       device="cuda")
 
-    for name, make in (("config 1", config1), ("funnel", lambda: funnel_inputs(n_rounds=3))):
+    from pigeons_tpu_torch import GaussianReference
+
+    def config4():  # three rounds, the last under the reference fitted after the second
+        return config4_inputs(n_rounds=3, variational=GaussianReference(first_tuning_round=2))
+
+    for name, make in (("config 1", config1), ("funnel", lambda: funnel_inputs(n_rounds=3)),
+                       ("config 4", config4)):
         a, b = (PT(make()).run() for _ in range(2))
         same = (torch.equal(a.chain_of, b.chain_of) and torch.equal(a.replica_of, b.replica_of)
                 and torch.equal(a.states, b.states))
@@ -515,8 +715,13 @@ def profile_phase():
     config1 = Inputs(target=toy_mvn_target(D), n_chains=N_CHAINS, n_replicates=N_REPLICATES,
                      seed=SEED, explorer=SliceSamplerCUDA(), show_report=False, device="cuda")
     os.makedirs("chiprun_out", exist_ok=True)
+    from pigeons_tpu_torch import GaussianReference
+
+    # config 4's profiled round runs under a reference fitted after the first
+    config4 = config4_inputs(variational=GaussianReference(first_tuning_round=1))
     for name, inputs, n_scans, kernel in (("config1", config1, WARMUP_SCANS, "banded_slice"),
-                                          ("funnel", funnel_inputs(), F_WARMUP_SCANS, "slice_sweep")):
+                                          ("funnel", funnel_inputs(), F_WARMUP_SCANS, "slice_sweep"),
+                                          ("config4", config4, V_WARMUP_SCANS, "banded_slice")):
         pt = PT(inputs)
         pt.run_round(n_scans=n_scans)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -539,18 +744,20 @@ def profile_phase():
 def main():
     device_phase()
     build_phase()
-    k1, k2 = k1_phase(), k2_phase()
+    k1, k2, k1v = k1_phase(), k2_phase(), k1_variational_phase()
     k1["launches"] = config1_phase()
     k2["launches"] = funnel_phase()
+    k1v["launches"] = config4_phase()
     determinism_phase()
     quickstart_phase()
     small_reference_phase()
+    torch_sampler_phase()
     if "--profile" in sys.argv[1:]:
         profile_phase()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k1v]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

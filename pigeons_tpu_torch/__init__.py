@@ -7,28 +7,56 @@ and numpy only; kernels build with ``nvcc`` at first use
 (``pigeons_tpu_torch/_build.py``).
 """
 
+from . import diagnostics, plots
+from .adaptation import communication_barriers, optimal_schedule
+from .diagnostics import ess, reports_dataframe, split_rhat, summary, swap_prs_dataframe
+from .evidence import stepping_stone, stepping_stone_pair
 from .inputs import Inputs
-from .models import StandardNormalReference, banana, funnel, mvn_target, toy_mvn_target
-from .ops import NoOpExplorer, SliceSamplerCUDA, ToyExplorer
-from .paths import ScaledPrecisionNormalPath, toy_mvn_path
+from .models import (
+    StandardNormalReference,
+    TestSwapper,
+    banana,
+    funnel,
+    mvn_target,
+    toy_mvn_target,
+)
+from .ops import NoOpExplorer, SliceSampler, SliceSamplerCUDA, ToyExplorer
+from .paths import InterpolatingPath, ScaledPrecisionNormalPath, VariationalPath, toy_mvn_path
 from .pt import PT, RoundReport, pigeons
 from .schedule import Schedule, equally_spaced_schedule
+from .variational import GaussianReference
 
 __all__ = [
+    "GaussianReference",
     "Inputs",
+    "InterpolatingPath",
     "NoOpExplorer",
     "PT",
     "RoundReport",
     "Schedule",
     "ScaledPrecisionNormalPath",
+    "SliceSampler",
     "SliceSamplerCUDA",
     "StandardNormalReference",
+    "TestSwapper",
     "ToyExplorer",
+    "VariationalPath",
     "banana",
+    "communication_barriers",
+    "diagnostics",
     "equally_spaced_schedule",
+    "ess",
     "funnel",
     "mvn_target",
+    "optimal_schedule",
     "pigeons",
+    "plots",
+    "reports_dataframe",
+    "split_rhat",
+    "stepping_stone",
+    "stepping_stone_pair",
+    "summary",
+    "swap_prs_dataframe",
     "toy_mvn_path",
     "toy_mvn_target",
 ]

@@ -83,8 +83,10 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # x, a, seeds, x_out, stats, B, d, w, p, n_passes, max_iter, stream
-    lib.banded_slice_sweep.argtypes = [p, p, p, p, p, i, i, f, i, i, i, p]
+    # x, a, seeds, x_out, stats, B, d, w, p, n_passes, max_iter, term, then the
+    # variational term's beta, isvar, active, mean, std (null for the toy
+    # term) and a_target, stream
+    lib.banded_slice_sweep.argtypes = [p, p, p, p, p, i, i, f, i, i, i, i, p, p, p, p, p, f, p]
     lib.banded_slice_sweep.restype = i
     # x, betas, seeds, x_out, lp, stats, B, d, density, coord_deltas,
     # params (host), w, p, n_passes, max_iter, group, stream

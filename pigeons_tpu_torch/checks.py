@@ -19,18 +19,12 @@ _NOT_YET = (
     ("checkpoint", lambda i: bool(i.checkpoint) or i.checkpoint_folder is not None,
      "queue 1, item 13 (checkpointing)"),
     ("checked_round", lambda i: bool(i.checked_round), "queue 1, item 13 (checks)"),
-    ("n_chains_variational/variational",
-     lambda i: i.n_chains_variational > 0 or i.variational is not None,
-     "queue 1, item 10 (variational reference)"),
     ("extended_traces", lambda i: bool(i.extended_traces), "queue 1, item 13 (checks)"),
     ("record=index_process/disk",
      lambda i: bool({"index_process", "disk"} & set(i.record)), "queue 1, item 13 (checks)"),
     ("dtype=float64", lambda i: i.dtype is not None and str(i.dtype).endswith("float64"),
-     "queue 1, item 6b (runtime options)"),
-    ("swap_graph", lambda i: i.swap_graph is not None, "queue 1, item 6b (runtime options)"),
+     "queue 1, item 6c (float64 runs)"),
     ("profile_round", lambda i: bool(i.profile_round), "queue 1, item 13 (checks)"),
-    ("reference", lambda i: i.reference is not None, "queue 1, item 6b (runtime options)"),
-    ("extractor", lambda i: i.extractor is not None, "queue 1, item 6b (runtime options)"),
 )
 
 

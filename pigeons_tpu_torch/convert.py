@@ -1,7 +1,10 @@
 """Carry run state across from the JAX package.
 
 ``pigeons_tpu/checkpoint.py:write_checkpoint`` stores a run's state as the
-numpy arrays ``states``, ``chain_of``, ``replica_of`` and ``schedule``.
+numpy arrays ``states``, ``chain_of``, ``replica_of`` and ``schedule``; a run
+with a variational reference also has ``schedule_var`` (two legs) and the
+reference's parameters ``ref_params_mean``, ``ref_params_std`` and
+``ref_params_active``.
 :func:`state_from_numpy` loads such arrays into a port :class:`~.pt.PT`
 built from the same ``Inputs``, so that both packages continue one run from
 one state: round ``round_idx + 1`` then draws from the same keys in both.
@@ -17,8 +20,11 @@ from .schedule import Schedule
 
 def state_from_numpy(pt, arrays, round_idx: int):
     """Load ``arrays`` (a mapping with ``states [(R,) N, d]``, ``chain_of``
-    and ``replica_of [(R,) N]``, ``schedule [N]``) as the state after round
-    ``round_idx``. Returns ``pt``."""
+    and ``replica_of [(R,) N]``, ``schedule``: the fixed leg's grid; for a
+    two-leg run ``schedule_var``, the variational leg's; for a run with a
+    variational reference ``ref_params_mean [d]``, ``ref_params_std [d]`` and
+    ``ref_params_active``) as the state after round ``round_idx``. Returns
+    ``pt``."""
     R, n, d = pt.n_replicates, pt.n_chains, pt.dim
     states = np.asarray(arrays["states"], dtype=np.float32)
     chain_of = np.asarray(arrays["chain_of"])
@@ -34,5 +40,13 @@ def state_from_numpy(pt, arrays, round_idx: int):
     pt._chain_of = torch.tensor(chain_of.reshape(R, n), dtype=torch.int64, device=dev)
     pt._replica_of = torch.tensor(replica_of.reshape(R, n), dtype=torch.int64, device=dev)
     pt.schedule = Schedule(np.asarray(arrays["schedule"], dtype=np.float64))
+    if pt.two_leg:
+        pt.schedule_var = Schedule(np.asarray(arrays["schedule_var"], dtype=np.float64))
+    if pt.variational is not None:
+        pt._ref_params = {
+            "mean": torch.tensor(np.asarray(arrays["ref_params_mean"], dtype=np.float32), device=dev),
+            "std": torch.tensor(np.asarray(arrays["ref_params_std"], dtype=np.float32), device=dev),
+            "active": torch.tensor(float(arrays["ref_params_active"]), dtype=torch.float32, device=dev),
+        }
     pt.round_idx = int(round_idx)
     return pt

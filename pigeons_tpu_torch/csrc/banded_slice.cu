@@ -33,6 +33,18 @@
 // is the same bits from run to run. Nothing in device memory outlives the
 // launch.
 //
+// The coordinate term is a template argument (densities.cuh). With
+// kVariationalQuadratic the lanes bring beta and isvar besides their factor,
+// and the coordinates the reference's mean and std: the lane's are staged with
+// the tile's lanes, the coordinate's (with log_norm, computed once for each)
+// in a table of min(d, tile) entries, and a thread reads both when it takes an
+// element, so the loop itself reads registers only. The toy term's kernel is
+// the same instructions as before (47 registers; 63 with the variational
+// term, no spills). Side by side (tools/torch_kernel_variants.py, NVIDIA H100
+// 80GB HBM3, 700.00 W, d = 100, 3 passes, half the lanes variational): toy
+// 0.1727 ms and variational 0.2088 ms at B = 5,120, 0.4560 ms and 0.6259 ms
+// at B = 20,480.
+//
 // Times (tools/torch_kernel_variants.py, NVIDIA H100 80GB HBM3, 700.00 W, one
 // run, B = 20,480, d = 100, 3 passes): 0.407 ms against 0.542 ms for one
 // thread per element; tiles of 1,024 / 2,048 / 4,096 / 8,192 elements 0.490 /
@@ -77,25 +89,55 @@ static_assert(kRefill >= 1 && kRefill <= 32, "a warp has 32 lanes");
 // Lanes b that a tile of kChunk consecutive elements of the [B, d] state can touch.
 inline int max_tile_lanes(int d) { return min(kChunk, (kChunk - 1) / d + 2); }
 
+// Entries of the table of coordinate parameters: every coordinate when a tile
+// can hold them all (entry = coordinate), else one for each element of the
+// tile (entry = place in the tile).
+inline __host__ __device__ int coord_table_entries(int d) { return d <= kChunk ? d : kChunk; }
+
 // Shared memory of a block: for each element of the tile its value, its hash
 // state and the place of its lane b among the tile's lanes; for each of those
-// lanes the three sums, the factor a and the seed.
-inline size_t shared_bytes(int max_lanes) {
-  return (size_t)kChunk * 10 + (size_t)max_lanes * 20;
+// lanes the three sums, the factor a and the seed. The variational term adds
+// each lane's beta and use_var and the table of coordinate parameters (mean,
+// std, log_norm).
+inline size_t shared_bytes(int max_lanes, CoordTerm term, int d) {
+  const size_t toy = (size_t)kChunk * 10 + (size_t)max_lanes * 20;
+  if (term == kToyQuadratic) return toy;
+  return toy + (size_t)max_lanes * 8 + (size_t)coord_table_entries(d) * 12;
 }
+
+// What the variational term reads besides x, a and seeds: [B] beta and isvar,
+// the reference's one-element active flag, its [d] mean and std, and the
+// path's factor at beta = 1. Unused (null) with kToyQuadratic.
+struct VariationalArgs {
+  const float* beta;
+  const float* isvar;
+  const float* active;
+  const float* mean;
+  const float* std;
+  float a_target;
+};
 
 template <CoordTerm kTerm>
 __global__ void __launch_bounds__(kThreads)
 banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
                     const int64_t* __restrict__ seeds, float* __restrict__ x_out,
                     float* __restrict__ stats, int B, int d, float W, float narrow_w, int p,
-                    int n_passes, int max_iter, int share, int max_lanes) {
+                    int n_passes, int max_iter, int share, int max_lanes, VariationalArgs va) {
+  constexpr bool kVariational = kTerm == kVariationalQuadratic;
   float* tile = dynamic_shared();                                      // [kChunk]
   uint32_t* hash = reinterpret_cast<uint32_t*>(tile + kChunk);          // [kChunk]
   int* sums = reinterpret_cast<int*>(hash + kChunk);                    // [3][max_lanes]
   float* lane_a = reinterpret_cast<float*>(sums + 3 * max_lanes);       // [max_lanes]
   uint32_t* lane_seed = reinterpret_cast<uint32_t*>(lane_a + max_lanes);  // [max_lanes]
-  uint16_t* lane_of = reinterpret_cast<uint16_t*>(lane_seed + max_lanes);  // [kChunk]
+  // the variational term's: [max_lanes] beta and use_var, then the table
+  float* lane_beta = reinterpret_cast<float*>(lane_seed + max_lanes);
+  int* lane_use = reinterpret_cast<int*>(lane_beta + (kVariational ? max_lanes : 0));
+  const int n_table = kVariational ? coord_table_entries(d) : 0;
+  float* c_mean = reinterpret_cast<float*>(lane_use + (kVariational ? max_lanes : 0));
+  float* c_std = c_mean + n_table;
+  float* c_log_norm = c_std + n_table;
+  uint16_t* lane_of = reinterpret_cast<uint16_t*>(c_log_norm + n_table);  // [kChunk]
+  const bool table_by_coord = d <= kChunk;
   const int tid = threadIdx.x;
   const unsigned below = (1u << (tid & 31)) - 1u;  // the warp's lanes before this one
   const int64_t n = (int64_t)B * d;
@@ -106,6 +148,18 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const int n_tiles = (share_len + kChunk - 1) / kChunk;
   const int tile_len = ((share_len + n_tiles - 1) / n_tiles + 31) / 32 * 32;
 
+  bool ref_active = false;
+  if constexpr (kVariational) {
+    ref_active = va.active[0] > 0.0f;
+    if (table_by_coord) {  // once for the block; the first tile's barrier covers it
+      for (int c = tid; c < d; c += blockDim.x) {
+        c_mean[c] = va.mean[c];
+        c_std[c] = va.std[c];
+        c_log_norm[c] = gaussian_log_norm(va.std[c]);
+      }
+    }
+  }
+
   for (int t = 0; t < n_tiles; ++t) {
     const int64_t start = share0 + (int64_t)t * tile_len;
     const int len = min(tile_len, share_len - t * tile_len);
@@ -115,6 +169,10 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
     for (int i = tid; i < n_lanes; i += blockDim.x) {
       lane_a[i] = a[b0 + i];
       lane_seed[i] = (uint32_t)seeds[b0 + i];
+      if constexpr (kVariational) {
+        lane_beta[i] = va.beta[b0 + i];
+        lane_use[i] = (ref_active && va.isvar[b0 + i] > 0.0f) ? 1 : 0;
+      }
     }
     for (int i = tid; i < 3 * n_lanes; i += blockDim.x) sums[i] = 0;
     __syncthreads();
@@ -126,6 +184,13 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
       tile[i] = x[start + i];
       hash[i] = fmix32(fmix32(lane_seed[bl] ^ (c * 0x85EBCA77u)) ^ 0x9E3779B9u);
       lane_of[i] = (uint16_t)bl;
+      if constexpr (kVariational) {
+        if (!table_by_coord) {
+          c_mean[i] = va.mean[c];
+          c_std[i] = va.std[c];
+          c_log_norm[i] = gaussian_log_norm(va.std[c]);
+        }
+      }
     }
     __syncthreads();
 
@@ -138,7 +203,8 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
     int next = min(tid / 32 * run, len);
     const int run_end = min(next + run, len);
     int taken = -1, bl = 0;
-    float ab = 0.f, xv = 0.f;
+    CoordParams cp{0.f, 0.f, 0.f, false, va.a_target, 0.f, 1.f, 0.f};
+    float xv = 0.f;
     uint32_t base = 0u, it = 0u;
     float z = 0.f, L = 0.f, R = 0.f, lcL = 0.f, lcR = 0.f, Lb = 0.f, Rb = 0.f, cand = 0.f;
     float Lh = 0.f, Rh = 0.f, lcLh = 0.f, lcRh = 0.f;
@@ -163,7 +229,16 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
         if (phase == DONE && mine < run_end) {
           taken = mine;
           bl = lane_of[mine];
-          ab = lane_a[bl];
+          cp.a = lane_a[bl];
+          if constexpr (kVariational) {
+            cp.beta = lane_beta[bl];
+            cp.w0 = 1.0f - cp.beta;
+            cp.use_var = lane_use[bl] != 0;
+            const int entry = table_by_coord ? (c0 + mine) % d : mine;
+            cp.mean = c_mean[entry];
+            cp.std = c_std[entry];
+            cp.log_norm = c_log_norm[entry];
+          }
           base = hash[mine];
           xv = tile[mine];
           it = 0u;
@@ -195,11 +270,11 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
                           : phase == SHRINK ? cand_draw
                           : ph_chk          ? M
                                             : old;
-      const float lp_q = coord_term<kTerm>(ab, query);
+      const float lp_q = coord_term<kTerm>(cp, query);
       n_evals += is_enter ? 2 : 1;
       if (is_enter) {
-        z = coord_term<kTerm>(ab, old) - (-cephes_logf(draw(base, 2u * it + 1u)));
-        lcL = coord_term<kTerm>(ab, L);
+        z = coord_term<kTerm>(cp, old) - (-cephes_logf(draw(base, 2u * it + 1u)));
+        lcL = coord_term<kTerm>(cp, L);
         lcR = lp_q;
         K = p;
       }
@@ -313,21 +388,14 @@ cudaError_t resident_blocks(Kernel kernel, size_t shared, int* blocks) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// x, a, seeds, x_out, stats: device pointers of the [B, d] float32 states, the
-// [B] float32 coordinate-term factors, the [B] int64 lane seeds (uint32 values),
-// the [B, d] float32 output and the zeroed [3, B] float32 stats (accept_sum,
-// accept_n, n_evals). Launches on `stream`; returns cudaGetLastError(), or the
-// error of the runtime query that failed.
-extern "C" int banded_slice_sweep(const float* x, const float* a, const int64_t* seeds,
-                                  float* x_out, float* stats, int B, int d, float w, int p,
-                                  int n_passes, int max_iter, void* stream) {
+template <CoordTerm kTerm>
+int launch_banded(const float* x, const float* a, const int64_t* seeds, float* x_out,
+                  float* stats, int B, int d, float w, int p, int n_passes, int max_iter,
+                  const VariationalArgs& va, void* stream) {
   const int64_t n = (int64_t)B * d;
-  if (n == 0) return (int)cudaSuccess;
-  auto kernel = banded_slice_kernel<kToyQuadratic>;
+  auto kernel = banded_slice_kernel<kTerm>;
   const int max_lanes = max_tile_lanes(d);
-  const size_t shared = shared_bytes(max_lanes);
+  const size_t shared = shared_bytes(max_lanes, kTerm, d);
   cudaError_t err = allow_shared_bytes(kernel, shared);
   if (err != cudaSuccess) return (int)err;
   int resident;
@@ -339,6 +407,32 @@ extern "C" int banded_slice_sweep(const float* x, const float* a, const int64_t*
   if (share > INT32_MAX) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + share - 1) / share);
   PIGEONS_LAUNCH(kernel, blocks, kThreads, shared, (cudaStream_t)stream, x, a, seeds, x_out,
-                 stats, B, d, w, 1.1f * w, p, n_passes, max_iter, (int)share, max_lanes);
+                 stats, B, d, w, 1.1f * w, p, n_passes, max_iter, (int)share, max_lanes, va);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, a, seeds, x_out, stats: device pointers of the [B, d] float32 states, the
+// [B] float32 coordinate-term factors, the [B] int64 lane seeds (uint32 values),
+// the [B, d] float32 output and the zeroed [3, B] float32 stats (accept_sum,
+// accept_n, n_evals). `term` is a CoordTerm; kVariationalQuadratic also reads
+// the [B] float32 beta and isvar, the one-element active flag, the [d] float32
+// mean and std (device pointers, all null for kToyQuadratic) and a_target.
+// Launches on `stream`; returns cudaGetLastError(), or the error of the runtime
+// query that failed.
+extern "C" int banded_slice_sweep(const float* x, const float* a, const int64_t* seeds,
+                                  float* x_out, float* stats, int B, int d, float w, int p,
+                                  int n_passes, int max_iter, int term, const float* beta,
+                                  const float* isvar, const float* active, const float* mean,
+                                  const float* std, float a_target, void* stream) {
+  if ((int64_t)B * d == 0) return (int)cudaSuccess;
+  const VariationalArgs va{beta, isvar, active, mean, std, a_target};
+  if (term == kToyQuadratic)
+    return launch_banded<kToyQuadratic>(x, a, seeds, x_out, stats, B, d, w, p, n_passes,
+                                        max_iter, va, stream);
+  if (term != kVariationalQuadratic || !beta || !isvar || !active || !mean || !std)
+    return (int)cudaErrorInvalidValue;
+  return launch_banded<kVariationalQuadratic>(x, a, seeds, x_out, stats, B, d, w, p, n_passes,
+                                              max_iter, va, stream);
 }

@@ -159,16 +159,55 @@ __device__ inline float log_density(const LaneView& s, int d, float beta, const 
   return finish<K>(s, [&](int i) { return target_term<K>(s(i), pr, p); }, d, beta, pr, p);
 }
 
-// Coordinate terms f(v) of the separable densities, each with a per-lane
-// factor a; NaN reads as -inf. The toy path's term is (a v) v with
-// a = toy_coord_factor(beta). The variational leg's mean-field Gaussian term
-// (ROADMAP queue 1, item 9a) is the next case.
-enum CoordTerm { kToyQuadratic = 0 };
+// Coordinate terms f(v) of the separable densities, NaN read as -inf.
+//
+// kToyQuadratic: (a v) v with the lane's factor a; the toy path's
+// a = toy_coord_factor(beta).
+//
+// kVariationalQuadratic: the term of a variational leg over such a path
+// (pigeons_tpu/pt.py:703-712; paths.py: VariationalPath.coord_log_density with
+// a mean-field Gaussian reference). A lane with use_var set (isvar > 0 and the
+// reference active) has gm(1 - beta, l_ref) + gm(beta, (a_target v) v), gm the
+// guarded multiply of interpolate(), a_target the factor at beta = 1 and
+//   l_ref = -0.5 log((2 pi std_c) std_c) - 0.5 ((v - mean_c) / std_c)^2
+// for the coordinate's own mean_c and std_c; every other lane keeps (a v) v,
+// so before activation and on the fixed leg the bits are kToyQuadratic's. As
+// XLA's CPU backend evaluates it: a true division, the Cephes log, no fused
+// multiply-add (both products by 0.5 are exact). log_norm, the first summand
+// of l_ref, depends on the coordinate alone and is computed once for it.
+enum CoordTerm { kToyQuadratic = 0, kVariationalQuadratic = 1 };
+
+struct CoordParams {
+  float a;                    // the lane's factor
+  float beta, w0;             // the lane's beta and 1 - beta
+  bool use_var;               // the lane follows the variational reference
+  float a_target;             // the path's factor at beta = 1
+  float mean, std, log_norm;  // the coordinate's
+};
+
+__device__ __forceinline__ float quadratic_term(float a, float v) {
+  return nan_to_neg_inf((a * v) * v);
+}
+
+__device__ __forceinline__ float gaussian_log_norm(float std) {
+  return -0.5f * cephes_logf((f32(0x40C90FDBu) * std) * std);  // 2 pi
+}
 
 template <CoordTerm kTerm>
-__device__ __forceinline__ float coord_term(float a, float v) {
-  static_assert(kTerm == kToyQuadratic, "unknown coordinate term");
-  return nan_to_neg_inf((a * v) * v);
+__device__ __forceinline__ float coord_term(const CoordParams& t, float v) {
+  static_assert(kTerm == kToyQuadratic || kTerm == kVariationalQuadratic,
+                "unknown coordinate term");
+  if constexpr (kTerm == kVariationalQuadratic) {
+    if (t.use_var) {
+      const float q = (v - t.mean) / t.std;
+      const float l_ref = t.log_norm - 0.5f * (q * q);
+      const float l_tgt = (t.a_target * v) * v;
+      const float from_ref = t.w0 == 0.0f ? 0.0f : t.w0 * l_ref;
+      const float from_tgt = t.beta == 0.0f ? 0.0f : t.beta * l_tgt;
+      return nan_to_neg_inf(from_ref + from_tgt);
+    }
+  }
+  return quadratic_term(t.a, v);
 }
 
 }  // namespace pigeons

@@ -176,8 +176,8 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
       if constexpr (kDelta) {
         static_assert(!kDelta || K == kToyMvn, "no coordinate term for this density");
         const float a = toy_coord_factor(beta, params.v[0], params.v[1]);
-        if (is_enter) base = lp_cur - coord_term<kToyQuadratic>(a, xc);
-        lp_q = base + coord_term<kToyQuadratic>(a, query);
+        if (is_enter) base = lp_cur - quadratic_term(a, xc);
+        lp_q = base + quadratic_term(a, query);
       } else {
         lp_q = evaluate(c, query, c == 0 ? prepare<K>(query, params) : pr_cur);
       }

@@ -39,11 +39,13 @@ class Target:
         raise NotImplementedError
 
     def default_explorer(self):
-        raise NotImplementedError(
-            f"{type(self).__name__} has no default explorer in the port; pass "
-            "Inputs.explorer, e.g. SliceSamplerCUDA() (the default of the JAX "
-            "package, the XLA SliceSampler, is ROADMAP queue 1, item 8b)"
-        )
+        """The slice sampler, with a target's ``integer_mask`` /
+        ``binary_mask`` handed on (the port's sampler raises for them)."""
+        from ..ops import SliceSampler
+
+        masks = {name: getattr(self, name) for name in ("integer_mask", "binary_mask")
+                 if getattr(self, name, None) is not None}
+        return SliceSampler(**masks)
 
     def device_target(self) -> Optional[tuple]:
         """``(kind, params)`` of ``csrc/densities.cuh`` when the slice kernel

@@ -2,9 +2,12 @@
 
 Counterpart of ``pigeons_tpu/ops/base.py``. The JAX package writes an
 explorer's ``step`` for one replica and vmaps it; here an explorer takes the
-batch ``[B, d]`` at once through ``step_batched(keys, xs, betas, path)``,
-with ``keys [B, 2]`` the lanes' keys and ``betas [B]`` their annealing
-parameters. It returns a :class:`StepOut` whose statistics are ``[B]``
+batch ``[B, d]`` at once through ``step_batched(keys, xs, betas, path,
+isvar=None, ref_params=None, lp=None)``, with ``keys [B, 2]`` the lanes' keys,
+``betas [B]`` their annealing parameters and, for a run with a variational
+reference (``path`` is then a :class:`~..paths.VariationalPath`), the lanes'
+``isvar [B]`` and the reference's parameters; ``lp [B]`` is the density
+of ``xs`` that the runtime carries from scan to scan. It returns a :class:`StepOut` whose statistics are ``[B]``
 tensors. The runtime computes the density of the moved states itself, fused
 with the swap's partner-beta evaluation, so ``StepOut.lp`` may be ``None``.
 """
@@ -35,7 +38,7 @@ class Explorer:
     def check_path(self, path) -> None:
         """Raise if this explorer cannot move along ``path``."""
 
-    def step_batched(self, keys, xs, betas, path) -> StepOut:
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None) -> StepOut:
         raise NotImplementedError
 
     def adapt(self, state, reduced, round_idx: int):
@@ -49,13 +52,13 @@ class ToyExplorer(Explorer):
     def __init__(self, path=None):
         self.path = path  # provides sample_at(keys, betas); the run's path if None
 
-    def step_batched(self, keys, xs, betas, path) -> StepOut:
-        x_new = (self.path or path).sample_at(keys, betas)
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None) -> StepOut:
+        x_new = (self.path or getattr(path, "fixed", path)).sample_at(keys, betas)
         return StepOut(x_new, None, *_zero_stats(xs.shape[0], xs.device))
 
 
 class NoOpExplorer(Explorer):
     """Identity move (the TestSwapper toy target's explorer)."""
 
-    def step_batched(self, keys, xs, betas, path) -> StepOut:
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None) -> StepOut:
         return StepOut(xs, None, *_zero_stats(xs.shape[0], xs.device))

@@ -53,11 +53,14 @@ torch emulation of it), and nothing else is fused.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import f32math, rng
+from ..paths import VariationalPath, _guarded_mul
+from ..variational import GaussianReference
 from .base import Explorer, StepOut
 
 ENTER, INIT_R, DOUBLE, SHRINK, CHECK, DONE = range(6)  # the JAX kernels' phase codes
@@ -110,13 +113,47 @@ def element_uniforms(base: torch.Tensor, it: int):
     return ua, ub
 
 
+class VariationalTerm(NamedTuple):
+    """What kernel K1's second coordinate term needs besides the factors
+    ``a``: the term of a :class:`~..paths.VariationalPath` over a path with a
+    quadratic coordinate term and a mean-field Gaussian reference. A lane
+    with ``isvar > 0``, once ``active > 0``, has the term
+    ``gm(1 - beta, l_ref) + gm(beta, (a_target v) v)`` with ``l_ref =
+    -0.5 log(2 pi std_c^2) - 0.5 ((v - mean_c) / std_c)^2`` and ``gm`` the
+    guarded multiply; every other lane keeps ``(a v) v``."""
+
+    beta: torch.Tensor  # [B] float32
+    isvar: torch.Tensor  # [B] float32
+    active: torch.Tensor  # [] or [1] float32, on the states' device
+    a_target: float  # the path's factor at beta = 1
+    mean: torch.Tensor  # [d] float32
+    std: torch.Tensor  # [d] float32
+
+
+def coord_term(v, a, variational: VariationalTerm = None, log_norm=None):
+    """K1's coordinate term of ``v [B, d]`` for factors ``a [B]``: ``(a v) v``,
+    or with ``variational`` the term of :class:`VariationalTerm`
+    (``pigeons_tpu/pt.py:703-712``); NaN reads as -inf. ``log_norm [d]`` is
+    the reference's ``coord_log_norm(std)``, where the caller keeps it."""
+    f = (a[:, None] * v) * v
+    if variational is not None:
+        vt = variational
+        beta = vt.beta[:, None]
+        l_ref = GaussianReference.coord_log_density(v, vt.mean, vt.std, log_norm)
+        l_tgt = (vt.a_target * v) * v
+        use_var = ((vt.isvar > 0) & (vt.active.reshape(()) > 0))[:, None]
+        f = torch.where(use_var, _guarded_mul(1.0 - beta, l_ref) + _guarded_mul(beta, l_tgt), f)
+    return nan_to_neg_inf(f)
+
+
 def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
                            n_passes: int = 3, max_iter: int = 1024, phase_counts=None,
-                           element_iterations=None):
+                           element_iterations=None, variational: VariationalTerm = None):
     """Plain torch twin of kernel K1.
 
     ``x [B, d]`` float32 states, ``a [B]`` float32 coordinate-term factors
-    (the term is ``f(v) = (a v) v``, NaN read as -inf), ``lane_seeds [B]``
+    (the term is ``f(v) = (a v) v``, NaN read as -inf; with ``variational``
+    the term of :class:`VariationalTerm`), ``lane_seeds [B]``
     uint32 seeds as int64. Returns ``(x_new [B, d], stats [3, B])`` with the
     rows accept_sum, accept_n and n_evals summed over coordinates. To
     ``phase_counts``, an int64 ``[6]`` tensor on the states' device, every
@@ -129,12 +166,11 @@ def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
     dev = x.device
     W = float(np.float32(w))
     narrow_w = float(np.float32(1.1) * np.float32(w))  # the kernel's 1.1f * w
-    a2 = a[:, None]
-    neg_inf = torch.full((), -float("inf"), device=dev)
+    # once for a coordinate, as in the kernel
+    log_norm = None if variational is None else GaussianReference.coord_log_norm(variational.std)
 
     def ceval(v):
-        f = (a2 * v) * v
-        return torch.where(torch.isnan(f), neg_inf, f)
+        return coord_term(v, a, variational, log_norm)
 
     base = element_hash_base(lane_seeds, d)
     x = x.clone()
@@ -423,11 +459,12 @@ class SliceSamplerCUDA(Explorer):
     (``coord_factor``) runs the banded kernel K1 when ``coord_deltas`` and
     ``parallel_coords`` are both true; every other case runs the general
     kernel K2, in delta mode when ``coord_deltas`` is true and the path has a
-    coordinate term. ``launches`` counts the launches of each CUDA kernel,
-    for every instance.
+    coordinate term. ``launches`` counts the launches of each CUDA kernel
+    (K1 with the toy term, K1 with the variational term, K2), for every
+    instance.
     """
 
-    launches = {"banded_slice_sweep": 0, "slice_sweep": 0}
+    launches = {"banded_slice_sweep": 0, "banded_slice_sweep_variational": 0, "slice_sweep": 0}
 
     def __init__(self, w: float = 10.0, p: int = 20, n_passes: int = 3,
                  max_iter: int = 1024, coord_deltas: bool = True,
@@ -445,11 +482,23 @@ class SliceSamplerCUDA(Explorer):
             cls.launches[name] = 0
 
     def _banded(self, path) -> bool:
+        if isinstance(path, VariationalPath):
+            if not hasattr(path.variational, "coord_param_arrays"):
+                return False
+            path = path.fixed
         return self.coord_deltas and self.parallel_coords and hasattr(path, "coord_factor")
 
     def check_path(self, path) -> None:
         if self._banded(path):
             return
+        if isinstance(path, VariationalPath):
+            raise NotImplementedError(
+                "SliceSamplerCUDA: under a variational reference only the banded kernel K1 "
+                "runs (a separable path with coord_deltas and parallel_coords, and a "
+                "mean-field reference). The general kernel K2 needs the reference's [d] "
+                "arrays on the device (ROADMAP queue 1, item 11b); pass "
+                "explorer=SliceSampler() for this run."
+            )
         describe = getattr(path, "device_density", None)
         if describe is None or describe() is None:
             raise NotImplementedError(
@@ -460,16 +509,24 @@ class SliceSamplerCUDA(Explorer):
                 "queue 1, item 11b."
             )
 
-    def step_batched(self, keys, xs, betas, path) -> StepOut:
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None) -> StepOut:
         """One sweep over ``xs [B, d]``; ``keys [B, 2]`` are the lanes' keys,
         ``betas [B]`` their annealing parameters. K1 does not compute the
         joint density (``lp`` is ``None``); K2 returns it. Either way the
-        runtime evaluates it again, fused with the swap's."""
+        runtime evaluates it again, fused with the swap's. Under a
+        :class:`~..paths.VariationalPath` K1 runs with its variational term,
+        from ``isvar [B]`` and the reference's ``ref_params``."""
         self.check_path(path)
         seeds = lane_seeds(keys)
         if self._banded(path):
+            term = None
+            if isinstance(path, VariationalPath):
+                mean, std = path.variational.coord_param_arrays(ref_params)
+                path = path.fixed
+                a_target = float(path.coord_factor(torch.ones((), dtype=torch.float32)))
+                term = VariationalTerm(betas, isvar, ref_params["active"], a_target, mean, std)
             x_new, stats = banded_sweep(xs, path.coord_factor(betas), seeds, self.w, self.p,
-                                        self.n_passes, self.max_iter)
+                                        self.n_passes, self.max_iter, term)
             lp = None
         else:
             deltas = self.coord_deltas and hasattr(path, "coord_log_density")
@@ -480,11 +537,12 @@ class SliceSamplerCUDA(Explorer):
 
 
 def banded_sweep(x, a, seeds, w: float = 10.0, p: int = 20, n_passes: int = 3,
-                 max_iter: int = 1024):
+                 max_iter: int = 1024, variational: VariationalTerm = None):
     """Run one sweep: the twin for CPU tensors, kernel K1 for CUDA tensors."""
     if x.device.type == "cpu":
-        return banded_sweep_reference(x, a, seeds, w, p, n_passes, max_iter)
-    return banded_sweep_cuda(x, a, seeds, w, p, n_passes, max_iter)
+        return banded_sweep_reference(x, a, seeds, w, p, n_passes, max_iter,
+                                      variational=variational)
+    return banded_sweep_cuda(x, a, seeds, w, p, n_passes, max_iter, variational)
 
 
 def sweep(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0, p: int = 20,
@@ -505,8 +563,12 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+TOY_QUADRATIC, VARIATIONAL_QUADRATIC = 0, 1  # csrc/densities.cuh: enum CoordTerm
+
+
 def banded_sweep_cuda(x, a, seeds, w: float = 10.0, p: int = 20,
-                      n_passes: int = 3, max_iter: int = 1024):
+                      n_passes: int = 3, max_iter: int = 1024,
+                      variational: VariationalTerm = None):
     """Launch kernel K1 on the current stream. Same contract as
     :func:`banded_sweep_reference`."""
     if x.device.type != "cuda":
@@ -515,22 +577,32 @@ def banded_sweep_cuda(x, a, seeds, w: float = 10.0, p: int = 20,
     _check(x, "x", torch.float32, (B, d), x.device)
     _check(a, "a", torch.float32, (B,), x.device)
     _check(seeds, "lane_seeds", torch.int64, (B,), x.device)
+    term, term_args = TOY_QUADRATIC, (None, None, None, None, None, 0.0)
+    if variational is not None:
+        vt = variational
+        active = vt.active.reshape(1)
+        _check(vt.beta, "beta", torch.float32, (B,), x.device)
+        _check(vt.isvar, "isvar", torch.float32, (B,), x.device)
+        _check(active, "active", torch.float32, (1,), x.device)
+        _check(vt.mean, "mean", torch.float32, (d,), x.device)
+        _check(vt.std, "std", torch.float32, (d,), x.device)
+        term = VARIATIONAL_QUADRATIC
+        term_args = (vt.beta.data_ptr(), vt.isvar.data_ptr(), active.data_ptr(),
+                     vt.mean.data_ptr(), vt.std.data_ptr(), float(vt.a_target))
     from .._build import load_library
 
     lib = load_library()
     x_out = torch.empty_like(x)
     stats = torch.zeros((3, B), dtype=torch.float32, device=x.device)
     err = lib.banded_slice_sweep(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(a.data_ptr()),
-        ctypes.c_void_p(seeds.data_ptr()), ctypes.c_void_p(x_out.data_ptr()),
-        ctypes.c_void_p(stats.data_ptr()), ctypes.c_int(B), ctypes.c_int(d),
-        ctypes.c_float(w), ctypes.c_int(p), ctypes.c_int(n_passes),
-        ctypes.c_int(max_iter),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        x.data_ptr(), a.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), stats.data_ptr(), B, d,
+        w, p, n_passes, max_iter, term, *term_args,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"banded_slice_sweep launch failed: CUDA error {err}")
-    SliceSamplerCUDA.launches["banded_slice_sweep"] += 1
+        raise RuntimeError(f"banded_slice_sweep (term {term}) launch failed: CUDA error {err}")
+    SliceSamplerCUDA.launches[
+        "banded_slice_sweep" if variational is None else "banded_slice_sweep_variational"] += 1
     return x_out, stats
 
 

@@ -147,6 +147,44 @@ class ScaledPrecisionNormalPath:
         return 0.5 * self.dim * (math.log(self.precision0) - math.log(self.precision1))
 
 
+@dataclass(frozen=True)
+class VariationalPath:
+    """A path whose variational chains anneal from a fitted reference.
+
+    The blend of ``pigeons_tpu/pt.py:646-658``: a lane with ``isvar > 0``,
+    once ``ref_params["active"] > 0``, follows ``(1 - beta) q(x) + beta
+    target(x)`` with ``q`` the variational reference's density under
+    ``ref_params``; every other lane follows the fixed path. The runtime and
+    the explorers evaluate a run's density through this one object
+    (:func:`lane_log_density`), with ``isvar`` broadcasting against
+    ``beta``."""
+
+    fixed: object
+    variational: object
+
+    def use_variational(self, isvar, ref_params):
+        return (isvar > 0) & (ref_params["active"] > 0)
+
+    def log_density(self, x, beta, isvar, ref_params):
+        l_fixed = self.fixed.log_density(x, beta)
+        l_var_ref = self.variational.log_density(x, ref_params)
+        l_target = self.fixed.log_density(x, torch.ones_like(beta))
+        l_var = _guarded_mul(1.0 - beta, l_var_ref) + _guarded_mul(beta, l_target)
+        return torch.where(self.use_variational(isvar, ref_params), l_var, l_fixed)
+
+
+def lane_log_density(path, x, beta, isvar=None, ref_params=None):
+    """The run's density of ``x [..., d]`` at ``beta``, NaN read as -inf (the
+    guard for out-of-support evaluations): the one function through which the
+    runtime and the explorers evaluate a path. ``isvar`` and ``ref_params``
+    are read by a :class:`VariationalPath` only."""
+    if isinstance(path, VariationalPath):
+        lp = path.log_density(x, beta, isvar, ref_params)
+    else:
+        lp = path.log_density(x, beta)
+    return torch.where(torch.isnan(lp), torch.full_like(lp, -float("inf")), lp)
+
+
 def toy_mvn_path(dim: int) -> ScaledPrecisionNormalPath:
     """Reference ``ScaledPrecisionNormalPath(dim) = (1.0, 10.0, dim)``."""
     return ScaledPrecisionNormalPath(1.0, 10.0, dim)

@@ -11,6 +11,14 @@ Counterpart of ``pigeons_tpu/pt.py`` on one device (reference
 * recorders, then the DEO swap as a permutation update of ``[R, N]`` index
   tensors (``swaps.py``).
 
+With ``n_chains_variational > 0`` the ladder has two legs (stabilized
+variational PT, reference ``src/tempering/StabilizedPT.jl``): chains
+``0..n_var-1`` anneal from a Gaussian reference fitted between rounds to the
+target at ``n_var-1``, chains ``n_var..N-1`` are the fixed leg reversed
+(target at ``n_var``, fixed reference at ``N-1``). Both references regenerate
+iid, the two middle chains are both targets, and each leg adapts its own
+schedule. The blend of the two references is :class:`~.paths.VariationalPath`.
+
 Between rounds, numpy on the host estimates barriers and regrids the
 schedule. Where the JAX package traces the round into one ``lax.scan`` and
 vmaps the per-ladder work, the port runs a Python loop of scans over
@@ -37,7 +45,8 @@ from .adaptation import (
     rejections_from_acceptance,
 )
 from .checks import check_device, preflight_checks, unsupported_options
-from .inputs import Inputs
+from .inputs import KNOWN_RECORDERS, Inputs
+from .paths import VariationalPath, lane_log_density
 from .recorders import (
     ReducedRecorders,
     init_recorders,
@@ -61,14 +70,22 @@ class RoundReport:
     min_swap_accept: float
     mean_swap_accept: float
     wall_time_s: float
+    global_barrier_variational: float = float("nan")
     peak_memory_bytes: int = 0
     max_energy_ac1: float = float("nan")
     mean_explorer_accept: float = float("nan")
 
 
+def _default_extractor(x, lp):
+    """A sample's record: the state with its interpolated log density."""
+    return torch.cat([x, lp[..., None]], dim=-1)
+
+
 class PT:
-    """Run state + driver (reference ``src/pt/PT.jl``). Chains 0..N-1 run
-    beta from the reference (0) to the target (N-1)."""
+    """Run state and round loop (reference ``src/pt/PT.jl``). With a single leg,
+    chains 0..N-1 run beta from the reference (0) to the target (N-1); with
+    two legs the variational leg comes first and the fixed leg follows
+    reversed (module docstring)."""
 
     def __init__(self, inputs: Inputs):
         self.inputs = inputs
@@ -79,19 +96,50 @@ class PT:
             )
         unsupported_options(inputs)
         self.device = check_device(inputs.device)
-        n = inputs.n_chains
-        self.n_chains = n
+        self.n_chains_fixed = inputs.n_chains
+        self.n_chains_var = inputs.n_chains_variational
+        self.variational = inputs.variational
+        if self.n_chains_var > 0 and self.variational is None:
+            from .variational import GaussianReference
+
+            self.variational = GaussianReference()
+        self.two_leg = self.n_chains_fixed > 0 and self.n_chains_var > 0
+        if self.n_chains_var > 0 and self.n_chains_fixed == 0:
+            # a single variational leg: one ladder whose reference is refitted
+            # between rounds (reference tempering.jl:65-70)
+            self.n_chains_fixed, self.n_chains_var = self.n_chains_var, 0
+            self.single_leg_variational = True
+        else:
+            self.single_leg_variational = self.variational is not None and not self.two_leg
+        self.n_chains = n = self.n_chains_fixed + self.n_chains_var
         self.n_replicates = R = inputs.n_replicates
         self.dim = target.dim
 
-        self.reference = target.default_reference()
+        self.reference = inputs.reference or target.default_reference()
         self.path = target.create_path(self.reference)
+        # what the runtime and the explorer evaluate: the path itself, or its
+        # blend with the variational reference under the current ref_params
+        self._density_path = self.path
+        self._ref_params = None
+        if self.variational is not None:
+            self._density_path = VariationalPath(self.path, self.variational)
+            self._ref_params = self.variational.init_params(self.dim, self.device)
         self.explorer = inputs.explorer or target.default_explorer()
-        self.explorer.check_path(self.path)
+        self.explorer.check_path(self._density_path)
         self.exp_state = ()
         self.accept_fn = metropolis_accept_pr
-        self.schedule = equally_spaced_schedule(n)
+        record_swap_stats = True
+        if hasattr(target, "swap_accept_fn"):
+            self.accept_fn = target.swap_accept_fn()
+            record_swap_stats = False  # reference pair_swapper.jl:133-135
+        if self.two_leg:
+            self.schedule = equally_spaced_schedule(self.n_chains_fixed)
+            self.schedule_var = equally_spaced_schedule(self.n_chains_var)
+        else:
+            self.schedule = equally_spaced_schedule(n)
+            self.schedule_var = None
         self.barriers: Optional[CommunicationBarriers] = None
+        self.barriers_var: Optional[CommunicationBarriers] = None
 
         # R independent ladders: ladder r's streams derive from
         # fold_in(master, r); a single ladder uses the master key itself
@@ -108,19 +156,44 @@ class PT:
         self._replica_of = idx.repeat(R, 1)
 
         rec_set = set(inputs.record)
-        self._record_online = "online" in rec_set
+        unknown = rec_set - KNOWN_RECORDERS
+        if unknown:
+            raise ValueError(
+                f"unknown recorder name(s) {sorted(unknown)}; known recorders: "
+                f"{sorted(KNOWN_RECORDERS)}"
+            )
+        # the variational fit reads the online moments, whatever Inputs.record says
+        self._record_online = "online" in rec_set or self.variational is not None
         self._record_traces = "traces" in rec_set
         self._record_energy = "energy_ac1" in rec_set
         self._record_round_trip = "round_trip" in rec_set
-        self._record_swap_stats = "log_sum_ratio" in rec_set
+        self._record_swap_stats = record_swap_stats and "log_sum_ratio" in rec_set
         self._use_iid_reference = getattr(self.path, "has_iid_reference", False) and n > 1
-        self.ref_positions = (0,)
-        self.target_positions = (n - 1,)
+
+        # the ladder: which chains are variational, references and targets
+        is_var = np.zeros(n, np.float32)
+        if self.two_leg:
+            is_var[: self.n_chains_var] = 1.0
+            self.ref_positions = (0, n - 1)
+            # the targets sit at the junction of the legs (StabilizedPT.jl)
+            self.target_positions = (self.n_chains_var - 1, self.n_chains_var)
+        else:
+            if self.single_leg_variational:
+                is_var[:] = 1.0
+            self.ref_positions = (0,)
+            self.target_positions = (n - 1,)
+        self._is_var_host = is_var
+        self._is_var = torch.tensor(is_var, device=self.device)
+
+        self._extract = inputs.extractor or _default_extractor
+        probe = self._extract(torch.zeros(1, self.dim), torch.zeros(1))
+        self._extract_dim = int(probe.shape[-1])
+        self._swap_graph = inputs.swap_graph
 
         self.round_idx = 0
         self.reduced: Optional[ReducedRecorders] = None
         self.reports: list[RoundReport] = []
-        self.traces = None  # last round's target-chain samples [iterations, d+1]
+        self.traces = None  # last round's target-chain samples [iterations, extract_dim]
 
     # ------------------------------------------------------------------
     # run state in the JAX package's shapes: [(R,) N, d] and [(R,) N]
@@ -142,37 +215,58 @@ class PT:
 
     @property
     def betas(self) -> torch.Tensor:
-        return torch.as_tensor(self.schedule.grids, dtype=torch.float32, device=self.device)
+        """Per-chain annealing parameters of the combined ladder."""
+        grids = self.schedule.grids
+        if self.two_leg:
+            grids = np.concatenate([self.schedule_var.grids, grids[::-1]])
+        return torch.as_tensor(grids, dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
 
-    def _log_density(self, x, beta):
-        """The reference's ``ld``: path log density with NaN read as -inf
-        (the guard for out-of-support evaluations)."""
-        lp = self.path.log_density(x, beta)
-        return torch.where(torch.isnan(lp), torch.full_like(lp, -float("inf")), lp)
+    def _log_density(self, x, beta, isvar):
+        """The reference's ``ld``: the run's log density with NaN read as -inf."""
+        return lane_log_density(self._density_path, x, beta, isvar, self._ref_params)
 
-    def _blend_iid_x(self, x_after, replica_of, k_iid):
-        """Regenerate each ladder's reference-chain state iid. The key of the
+    def _blend_iid_x(self, x_after, replica_of, k_iid, ref_active):
+        """Regenerate each ladder's reference-chain states iid. The key of the
         replica at a reference chain is ``fold_in(k_iid, replica)``, the key
         the reference draws for every lane before keeping the reference
-        lanes' draws; only those lanes are drawn here."""
+        lanes' draws; only those lanes are drawn here. The reference draws
+        the fixed and the variational sample from that same key and keeps one
+        by the lane's ``is_var`` and the ``active`` flag; both are known on
+        the host (``ref_active`` is the flag for this round), so only the one
+        that is kept is drawn."""
         R, n = replica_of.shape
         x = x_after.clone()
         for pos in self.ref_positions:
             ridx = replica_of[:, pos]  # [R]
             keys = rng.fold_in(k_iid, ridx)
             lanes = torch.arange(R, device=x.device) * n + ridx
-            x[lanes] = self.path.sample_reference(keys).to(x.dtype)
+            if ref_active and self._is_var_host[pos] > 0:
+                draws = self.variational.sample(keys, self._ref_params)
+            else:
+                draws = self.path.sample_reference(keys)
+            x[lanes] = draws.to(x.dtype)
         return x
 
     def _fused_post_densities(self, x_after, chain_flat, partner_map, betas):
-        """Own-beta and partner-beta densities of the moved states in one pass."""
-        b = torch.stack([betas[chain_flat], betas[partner_map[chain_flat]]])
-        lp = self._log_density(x_after, b)
+        """Own-beta and partner-beta densities of the moved states in one
+        pass; the partner's density is evaluated with the partner chain's
+        ``is_var``."""
+        partner_flat = partner_map[chain_flat]
+        b = torch.stack([betas[chain_flat], betas[partner_flat]])
+        iv = torch.stack([self._is_var[chain_flat], self._is_var[partner_flat]])
+        lp = self._log_density(x_after, b, iv)
         return lp[0], lp[1]
 
-    def _scan_body(self, scan_idx, states, chain_of, replica_of, lp_cur, rec, betas, masks):
+    def _partner_map(self, scan_idx: int) -> torch.Tensor:
+        if self._swap_graph is None:
+            return deo_partner_map(self.n_chains, scan_idx, self.device)
+        return torch.as_tensor(self._swap_graph(self.n_chains, scan_idx), dtype=torch.int64,
+                               device=self.device)
+
+    def _scan_body(self, scan_idx, states, chain_of, replica_of, lp_cur, rec, betas, masks,
+                   ref_active):
         """One scan of all ``R`` ladders: explore the flat batch of lanes (each
         lane keyed by ``fold_in(scan key of its ladder, replica)``, the
         reference's ``_explore``), regenerate the reference chains, evaluate
@@ -181,12 +275,14 @@ class PT:
         chain_flat = chain_of.reshape(-1)
         k_explore = rng.scan_key(self._key, self.round_idx, scan_idx, rng.EXPLORE)
         lane_keys = rng.keys_for(k_explore, torch.arange(n, device=self.device)).reshape(R * n, 2)
-        out = self.explorer.step_batched(lane_keys, states, betas[chain_flat], self.path)
+        out = self.explorer.step_batched(lane_keys, states, betas[chain_flat], self._density_path,
+                                         isvar=self._is_var[chain_flat],
+                                         ref_params=self._ref_params, lp=lp_cur)
         x_after = out.x.to(states.dtype)
         if self._use_iid_reference:
             k_iid = rng.scan_key(self._key, self.round_idx, scan_idx, rng.IID)
-            x_after = self._blend_iid_x(x_after, replica_of, k_iid)
-        partner_map = deo_partner_map(n, scan_idx, self.device)
+            x_after = self._blend_iid_x(x_after, replica_of, k_iid, ref_active)
+        partner_map = self._partner_map(scan_idx)
         lp_after, lp_partner = self._fused_post_densities(x_after, chain_flat, partner_map, betas)
         return self._post_one(scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of,
                               replica_of, rec, partner_map, masks)
@@ -195,7 +291,7 @@ class PT:
                   replica_of, rec, partner_map, masks):
         """Recorder updates and the DEO swap of all ladders. Returns the next
         run state, the density carried into the next scan, the recorders and
-        the scan's target-chain extract ``[R, T, d+1]``."""
+        the scan's target-chain extract ``[R, T, extract_dim]``."""
         R, n, d = self.n_replicates, self.n_chains, self.dim
         ref_mask, target_mask = masks
 
@@ -220,7 +316,7 @@ class PT:
             ridx = replica_of[:, list(self.target_positions)]  # [R, T]
             x_t = torch.gather(x_after.reshape(R, n, d), 1, ridx[..., None].expand(-1, -1, d))
             lp_t = torch.gather(lp_after.reshape(R, n), 1, ridx)
-            trace = torch.cat([x_t, lp_t[..., None]], dim=-1)  # [R, T, d+1]
+            trace = self._extract(x_t, lp_t)  # [R, T, extract_dim]
         if self._record_online:
             rec = rec._replace(
                 online_n=kadd(rec.online_n, float(len(self.target_positions))),
@@ -262,13 +358,17 @@ class PT:
         target_mask = torch.zeros(n, dtype=torch.bool, device=self.device)
         ref_mask[list(self.ref_positions)] = True
         target_mask[list(self.target_positions)] = True
-        rec = init_recorders(n, self.dim + 1, len(self.explorer.extra_names), R, self.device)
+        rec = init_recorders(n, self._extract_dim, len(self.explorer.extra_names), R, self.device)
         states, chain_of, replica_of = self._states, self._chain_of, self._replica_of
-        lp = self._log_density(states, betas[chain_of.reshape(-1)])
+        chain_flat = chain_of.reshape(-1)
+        lp = self._log_density(states, betas[chain_flat], self._is_var[chain_flat])
+        # the reference's flag, read once a round (fit() sets it on the host)
+        ref_active = self._ref_params is not None and float(self._ref_params["active"]) > 0
         traces = []
         for scan_idx in range(1, n_scans + 1):
             states, chain_of, replica_of, lp, rec, trace = self._scan_body(
-                scan_idx, states, chain_of, replica_of, lp, rec, betas, (ref_mask, target_mask)
+                scan_idx, states, chain_of, replica_of, lp, rec, betas, (ref_mask, target_mask),
+                ref_active
             )
             if self._record_traces:
                 traces.append(trace)
@@ -284,9 +384,9 @@ class PT:
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
         self._states, self._chain_of, self._replica_of = states, chain_of, replica_of
-        # [n_scans, R, T, d+1] -> pooled [iterations, d+1]
+        # [n_scans, R, T, extract_dim] -> pooled [iterations, extract_dim]
         self.traces = (
-            torch.stack(traces).reshape(-1, self.dim + 1).cpu().numpy() if traces else None
+            torch.stack(traces).reshape(-1, self._extract_dim).cpu().numpy() if traces else None
         )
         reduced = reduce_recorders(rec, self.n_replicates)
         self.reduced = reduced
@@ -295,16 +395,45 @@ class PT:
         return reduced
 
     def _adapt(self, reduced: ReducedRecorders) -> None:
-        if self.n_chains > 1:
-            rej = rejections_from_acceptance(
-                np.nan_to_num(reduced.accept_mean, nan=0.5), reduced.accept_n
-            )
-            self.barriers = communication_barriers(rej, self.schedule.grids)
-            self.schedule = optimal_schedule(rej, self.schedule.grids)
+        rej_all = rejections_from_acceptance(
+            np.nan_to_num(reduced.accept_mean, nan=0.5), reduced.accept_n
+        )
+        trivial = communication_barriers([0.0], [0.0, 1.0])
+        if self.two_leg:
+            # each leg adapts over its own pairs; the target-target pair at
+            # the junction belongs to neither (reference StabilizedPT.jl:52-62)
+            n_var, n = self.n_chains_var, self.n_chains
+            rej_var = rej_all[: n_var - 1]
+            # the fixed leg's pairs in increasing-beta order: the slice reversed
+            rej_fixed = rej_all[n_var : n - 1][::-1]
+            if n_var > 1:
+                self.barriers_var = communication_barriers(rej_var, self.schedule_var.grids)
+                self.schedule_var = optimal_schedule(rej_var, self.schedule_var.grids)
+            else:  # a 1-chain leg has no pairs to adapt
+                self.barriers_var = trivial
+            if self.n_chains_fixed > 1:
+                self.barriers = communication_barriers(rej_fixed, self.schedule.grids)
+                self.schedule = optimal_schedule(rej_fixed, self.schedule.grids)
+            else:
+                self.barriers = trivial
+        elif self.n_chains > 1:
+            self.barriers = communication_barriers(rej_all, self.schedule.grids)
+            self.schedule = optimal_schedule(rej_all, self.schedule.grids)
         else:
             # single chain: no pairs, no barrier, schedule stays [1.0]
-            self.barriers = communication_barriers([0.0], [0.0, 1.0])
+            self.barriers = trivial
+        if self.variational is not None:
+            self._ref_params = self.variational.fit(self._ref_params, reduced, self.round_idx)
         self.exp_state = self.explorer.adapt(self.exp_state, reduced, self.round_idx)
+
+    def _stepping_stone_pair_mask(self) -> Optional[np.ndarray]:
+        """Two-leg runs estimate log Z on the variational leg only (reference
+        ``evidence/stepping_stone.jl:53-67``)."""
+        if not self.two_leg:
+            return None
+        mask = np.zeros(self.n_chains - 1, bool)
+        mask[: self.n_chains_var - 1] = True
+        return mask
 
     def _report(self, reduced: ReducedRecorders, n_scans: int, wall: float) -> None:
         from .evidence import stepping_stone_from_reduced
@@ -326,25 +455,30 @@ class PT:
             n_tempered_restarts=reduced.n_tempered_restarts,
             n_round_trips=reduced.n_round_trips,
             global_barrier=self.barriers.global_barrier,
-            log_z_estimate=stepping_stone_from_reduced(reduced),
+            log_z_estimate=stepping_stone_from_reduced(reduced, self._stepping_stone_pair_mask()),
             min_swap_accept=min_acc,
             mean_swap_accept=mean_acc,
             wall_time_s=wall,
+            global_barrier_variational=(
+                self.barriers_var.global_barrier if self.barriers_var else float("nan")
+            ),
             peak_memory_bytes=peak,
             max_energy_ac1=max_ac1,
             mean_explorer_accept=mean_eacc,
         )
         self.reports.append(report)
         if self.inputs.show_report:
+            var_col = f" {'Λ_var':>7}" if self.two_leg else ""
             if self.round_idx == 1:
                 print(
                     f"{'round':>5} {'scans':>6} {'restarts':>8} {'trips':>6} "
-                    f"{'Λ':>7} {'logZ':>9} {'min(α)':>7} {'mean(α)':>7} "
+                    f"{'Λ':>7}{var_col} {'logZ':>9} {'min(α)':>7} {'mean(α)':>7} "
                     f"{'max|ρ|':>7} {'mean(αe)':>8} {'time(s)':>8}"
                 )
+            var_val = f" {report.global_barrier_variational:>7.3f}" if self.two_leg else ""
             print(
                 f"{report.round_idx:>5} {report.n_scans:>6} {report.n_tempered_restarts:>8} "
-                f"{report.n_round_trips:>6} {report.global_barrier:>7.3f} "
+                f"{report.n_round_trips:>6} {report.global_barrier:>7.3f}{var_val} "
                 f"{report.log_z_estimate:>9.3f} {report.min_swap_accept:>7.3f} "
                 f"{report.mean_swap_accept:>7.3f} {report.max_energy_ac1:>7.3f} "
                 f"{report.mean_explorer_accept:>8.3f} {report.wall_time_s:>8.3f}"
@@ -361,7 +495,8 @@ class PT:
 
     def sample_array(self) -> np.ndarray:
         """Last-round target-chain samples, [iterations, dim + 1]; the final
-        column is the interpolated log density."""
+        column is the interpolated log density (with ``Inputs.extractor``,
+        whatever it extracts)."""
         if self.traces is None:
             if self.round_idx > 0 and not self._record_traces:
                 raise RuntimeError(
@@ -376,6 +511,18 @@ class PT:
                 "the online-moments recorder is disabled by Inputs.record; "
                 "add 'online' to compute mean()/var()"
             )
+
+    def sample_names(self) -> list:
+        """Column names of :meth:`sample_array`: the target's own when it
+        declares them (``sample_names()``) and they match the array's width,
+        else ``x[i]`` with the interpolated log density last."""
+        target = self.inputs.target
+        if self.inputs.extractor is None and hasattr(target, "sample_names"):
+            names = list(target.sample_names())
+            if len(names) == self._extract_dim:
+                return names
+        d = self._extract_dim - 1
+        return [f"x[{i}]" for i in range(d)] + ["log_density"]
 
     def mean(self) -> np.ndarray:
         self._require_online()
@@ -395,7 +542,14 @@ class PT:
 
     @property
     def global_barrier(self) -> float:
+        """Barrier to the fixed reference."""
         return self.barriers.global_barrier
+
+    @property
+    def global_barrier_variational(self) -> float:
+        if self.barriers_var is None:
+            raise ValueError("no variational leg in this run")
+        return self.barriers_var.global_barrier
 
 
 def pigeons(target=None, on=None, **kwargs):

@@ -16,15 +16,20 @@ def _ptr(a):
     return a.ctypes.data_as(VP)
 
 
-def banded_slice_sweep(lib_path, x, a, seeds, w, p, n_passes, max_iter, out):
+def banded_slice_sweep(lib_path, x, a, seeds, w, p, n_passes, max_iter, variational, out):
     """Kernel K1's entry point on ``x [B, d]`` float32, ``a [B]`` float32 and
-    ``seeds [B]`` int64; puts ``(err, x_out, stats)`` on ``out``."""
+    ``seeds [B]`` int64; ``variational`` is ``None`` (the toy term) or the
+    variational term's ``(beta [B], isvar [B], active [1], mean [d], std [d],
+    a_target)``. Puts ``(err, x_out, stats)`` on ``out``."""
     lib = ctypes.CDLL(str(lib_path))
-    lib.banded_slice_sweep.argtypes = [VP] * 5 + [CI, CI, CF, CI, CI, CI, VP]
+    lib.banded_slice_sweep.argtypes = [VP] * 5 + [CI, CI, CF, CI, CI, CI, CI] + [VP] * 5 + [CF, VP]
     B, d = x.shape
     x_out, stats = np.empty_like(x), np.zeros((3, B), np.float32)
+    term, term_args = 0, (None,) * 5 + (0.0,)
+    if variational is not None:
+        term, term_args = 1, tuple(_ptr(t) for t in variational[:5]) + (variational[5],)
     err = lib.banded_slice_sweep(_ptr(x), _ptr(a), _ptr(seeds), _ptr(x_out), _ptr(stats), B, d,
-                                 w, p, n_passes, max_iter, None)
+                                 w, p, n_passes, max_iter, term, *term_args, None)
     out.put((err, x_out, stats))
 
 

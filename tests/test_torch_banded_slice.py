@@ -13,6 +13,12 @@ elements; the stats (accept_sum, accept_n, n_evals) exact on every lane with
 no flip. The twin follows the kernel's fused multiply-adds and Cephes log,
 so no flips are expected; the count is printed.
 
+With the variational coordinate term (``pigeons_tpu/pt.py:703-712``, the
+two-leg runtime's ``ld_coord`` with the reference's mean and std as
+``coord_arrays``) the target is bitwise states and stats, lanes on both legs,
+the reference active and not yet active; before activation the twin's result
+must also be the toy term's, bit for bit.
+
 The kernel itself runs only on a card: see ``tests/test_torch_cuda.py``.
 """
 
@@ -94,6 +100,115 @@ def test_twin_matches_pallas_kernel(n_passes, seed):
     xt, st = _port_sweep(xs, betas, seed + 7, n_passes)
     compare_sweeps(xj, sj, xt, st)
     assert not np.array_equal(xt, xs)  # the sweep moved
+
+
+def _variational_inputs(seed):
+    """Lanes of both legs, a reference whose mean and std differ by
+    coordinate, one std the smallest a fit can give (sqrt of the 1e-12 floor)."""
+    rs = np.random.RandomState(seed)
+    xs = rs.normal(size=(B, D)).astype(np.float32)
+    betas = rs.uniform(0.0, 1.0, B).astype(np.float32)
+    betas[[0, 1, -2, -1]] = 0.0, 1.0, 0.0, 1.0  # both ends on both legs
+    isvar = (np.arange(B) < B // 2).astype(np.float32)
+    mean = (rs.normal(size=D) * 0.2).astype(np.float32)
+    std = np.exp(rs.normal(size=D) * 0.5 - 1.0).astype(np.float32)
+    std[3] = 1e-6
+    return xs, betas, isvar, mean, std
+
+
+def _jax_variational_sweep(xs, betas, isvar, mean, std, active, key_seed, n_passes):
+    import pigeons_tpu as J
+
+    pt = J.PT(J.Inputs(target=J.toy_mvn_target(D), n_chains=3, n_chains_variational=3,
+                       explorer=SliceSamplerPallas(interpret=True), show_report=False))
+    ref_params = {"mean": jnp.asarray(mean), "std": jnp.asarray(std),
+                  "active": jnp.asarray(active, jnp.float32)}
+
+    def ld(x, beta, iv, rp):  # the runtime's guarded density, pt.py:122-127
+        lp = pt._path_log_density(x, beta, iv, rp)
+        return jnp.where(jnp.isnan(lp), -jnp.inf, lp)
+
+    keys = jrng.keys_for(jax.random.key(key_seed), jnp.arange(B))
+    out = SliceSamplerPallas(interpret=True, n_passes=n_passes).step_batched(
+        keys, jnp.asarray(xs), jnp.zeros(B), ld, jnp.asarray(betas), jnp.asarray(isvar),
+        ref_params, (), 1, ld_coord=pt._ld_coord, coord_arrays=pt._coord_arrays_fn(ref_params),
+        compute_final_lp=False,
+    )
+    stats = np.stack([np.asarray(out.accept_sum), np.asarray(out.accept_n), np.asarray(out.n_steps)])
+    return np.asarray(out.x), stats
+
+
+def _port_variational_sweep(xs, betas, isvar, mean, std, active, key_seed, n_passes):
+    from pigeons_tpu_torch import GaussianReference, VariationalPath
+
+    keys = trng.keys_for(trng.key(key_seed), torch.arange(B))
+    ref_params = {"mean": torch.from_numpy(mean), "std": torch.from_numpy(std),
+                  "active": torch.tensor(active)}
+    out = SliceSamplerCUDA(n_passes=n_passes).step_batched(
+        keys, torch.from_numpy(xs), torch.from_numpy(betas),
+        VariationalPath(toy_mvn_path(D), GaussianReference()),
+        isvar=torch.from_numpy(isvar), ref_params=ref_params)
+    assert out.lp is None
+    return out.x.numpy(), torch.stack([out.accept_sum, out.accept_n, out.n_steps]).numpy()
+
+
+@pytest.mark.parametrize("n_passes", [1, 3])
+@pytest.mark.parametrize("active", [0.0, 1.0])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_variational_twin_matches_pallas_kernel(seed, active, n_passes):
+    inputs = _variational_inputs(seed)
+    xj, sj = _jax_variational_sweep(*inputs, active, seed + 7, n_passes)
+    xt, st = _port_variational_sweep(*inputs, active, seed + 7, n_passes)
+    n_diff = int((xj.view(np.int32) != xt.view(np.int32)).sum())
+    print(f"{n_diff} of {xj.size} state elements differ in their bits")
+    assert n_diff == 0 and np.array_equal(sj, st)
+    toy, toy_stats = _port_sweep(inputs[0], inputs[1], seed + 7, n_passes)
+    assert (active == 0.0) == np.array_equal(toy.view(np.int32), xt.view(np.int32))
+    assert (active == 0.0) == np.array_equal(toy_stats, st)
+
+
+def test_variational_coordinate_term_matches_jax():
+    """The twin's variational term (``cuda_slice.coord_term``) against the
+    JAX runtime's ``ld_coord`` under ``jit(vmap(...))``, bitwise, over both
+    legs, both ends of the path and a std of 1e-6."""
+    import pigeons_tpu as J
+
+    n = 512
+    rs = np.random.RandomState(5)
+    v = (rs.normal(size=n) * 2).astype(np.float32)
+    beta = rs.uniform(size=n).astype(np.float32)
+    beta[:40], beta[40:80] = 0.0, 1.0
+    isvar = (rs.uniform(size=n) < 0.7).astype(np.float32)
+    mean = (rs.normal(size=n) * 0.3).astype(np.float32)
+    std = (np.exp(rs.normal(size=n)) * 0.3).astype(np.float32)
+    std[80:90] = 1e-6
+    pt = J.PT(J.Inputs(target=J.toy_mvn_target(D), n_chains=3, n_chains_variational=3,
+                       show_report=False))
+    rp = {"mean": jnp.zeros(D), "std": jnp.ones(D), "active": jnp.ones(())}
+    j = np.asarray(jax.jit(jax.vmap(lambda *a: pt._ld_coord(a[0], 0, a[1], a[2], rp, a[3], a[4])))(
+        v, beta, isvar, mean, std))
+    # one lane, n coordinates with their own mean and std, for each beta / isvar
+    path = toy_mvn_path(D)
+    tbeta, tisvar = torch.from_numpy(beta), torch.from_numpy(isvar)
+    a_target = float(path.coord_factor(torch.ones(())))
+    t = torch.stack([cuda_slice.coord_term(
+        torch.from_numpy(v[i:i + 1])[None], path.coord_factor(tbeta[i:i + 1]),
+        cuda_slice.VariationalTerm(tbeta[i:i + 1], tisvar[i:i + 1], torch.ones(()), a_target,
+                                   torch.from_numpy(mean[i:i + 1]), torch.from_numpy(std[i:i + 1])))
+        for i in range(n)]).reshape(-1).numpy()
+    assert np.array_equal(j.view(np.int32), t.view(np.int32))
+
+
+def test_variational_path_on_the_general_kernel_raises():
+    """Only K1 runs under a variational reference: the general kernel needs
+    the reference's arrays on the device."""
+    from pigeons_tpu_torch import GaussianReference, VariationalPath
+
+    vp = VariationalPath(toy_mvn_path(D), GaussianReference())
+    for explorer in (SliceSamplerCUDA(parallel_coords=False), SliceSamplerCUDA(coord_deltas=False)):
+        with pytest.raises(NotImplementedError, match="11b"):
+            explorer.check_path(vp)
+    SliceSamplerCUDA().check_path(vp)
 
 
 def test_coordinate_term_matches_jax_density():

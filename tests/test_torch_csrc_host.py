@@ -101,10 +101,78 @@ def test_k1_host_build_matches_twin(host_libraries, B, d, n_passes):
     x, betas, seeds = _inputs(B, d, n_passes)
     a = toy_mvn_path(d).coord_factor(betas)
     got = _in_child(host_call.banded_slice_sweep, host_libraries["banded_slice"], x, a, seeds,
-                    *SAMPLER, n_passes, MAX_ITER)
+                    *SAMPLER, n_passes, MAX_ITER, None)
     want = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=n_passes)
     _assert_bitwise(got, want, ("x", "stats"))
     assert (n_passes == 0) == torch.equal(got[0], x)
+
+
+def _variational_term(betas, d, seed, active):
+    """Lanes of both legs in turn, a mean and std for every coordinate, one of
+    them the smallest std a fit can give (the square root of its 1e-12 floor)."""
+    rs = np.random.RandomState(seed)
+    isvar = torch.from_numpy((np.arange(len(betas)) % 3 != 1).astype(np.float32))
+    mean = torch.from_numpy((rs.normal(size=d) * 0.3).astype(np.float32))
+    std = torch.from_numpy(np.exp(rs.normal(size=d) * 0.5 - 1.0).astype(np.float32))
+    std[d // 2] = 1e-6
+    a_target = float(toy_mvn_path(d).coord_factor(torch.ones(())))
+    return cuda_slice.VariationalTerm(betas, isvar, torch.tensor([active]), a_target, mean, std)
+
+
+def _k1_variational(lib_path, x, a, seeds, term, n_passes):
+    return _in_child(host_call.banded_slice_sweep, lib_path, x, a, seeds, *SAMPLER, n_passes,
+                     MAX_ITER, (*(t.numpy() for t in (*term[:3], *term[4:])), term.a_target))
+
+
+# the same shapes with the variational term: d = 1, ragged tiles, more than one
+# tile a block; and a d above the tile size (the table then goes by element)
+@pytest.mark.parametrize("B,d,n_passes", [(1, 5, 3), (37, 13, 1), (700, 13, 3), (300, 1, 2),
+                                          (40, 100, 3), (3, 4100, 1)])
+def test_k1_variational_host_build_matches_twin(host_libraries, B, d, n_passes):
+    x, betas, seeds = _inputs(B, d, n_passes)
+    a = toy_mvn_path(d).coord_factor(betas)
+    term = _variational_term(betas, d, B, 1.0)
+    got = _k1_variational(host_libraries["banded_slice"], x, a, seeds, term, n_passes)
+    want = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=n_passes, variational=term)
+    _assert_bitwise(got, want, ("x", "stats"))
+    toy = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=n_passes)
+    assert B == 1 or not torch.equal(want[0], toy[0])  # (the one lane of B = 1 has beta = 1)
+
+
+def test_k1_variational_before_activation_is_the_toy_term(host_libraries):
+    x, betas, seeds = _inputs(37, 13, 2)
+    a = toy_mvn_path(13).coord_factor(betas)
+    term = _variational_term(betas, 13, 5, 0.0)
+    got = _k1_variational(host_libraries["banded_slice"], x, a, seeds, term, 3)
+    toy = _in_child(host_call.banded_slice_sweep, host_libraries["banded_slice"], x, a, seeds,
+                    *SAMPLER, 3, MAX_ITER, None)
+    _assert_bitwise(got, toy, ("x", "stats"))
+    _assert_bitwise(got, cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=3), ("x", "stats"))
+
+
+def test_k1_rejects_the_variational_term_without_its_arrays(host_libraries):
+    x, betas, seeds = _inputs(4, 3, 0)
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    a = toy_mvn_path(3).coord_factor(betas)
+    args = [t.numpy() for t in (x, a, seeds)]
+    child = ctx.Process(target=_unknown_term, args=(host_libraries["banded_slice"], *args, out))
+    child.start()
+    assert out.get(timeout=CALL_TIMEOUT_S) != 0
+    child.join()
+
+
+def _unknown_term(lib_path, x, a, seeds, out):
+    import ctypes
+
+    lib = ctypes.CDLL(str(lib_path))
+    lib.banded_slice_sweep.argtypes = ([host_call.VP] * 5 + [host_call.CI] * 2 + [host_call.CF]
+                                       + [host_call.CI] * 4 + [host_call.VP] * 5
+                                       + [host_call.CF, host_call.VP])
+    p = host_call._ptr
+    # term 1 without its arrays
+    out.put(lib.banded_slice_sweep(p(x), p(a), p(seeds), p(x), p(x), x.shape[0], x.shape[1], 10.0,
+                                   20, 1, 1024, 1, None, None, None, None, None, 0.0, None))
 
 
 def _k2(lib_path, x, betas, seeds, path, coord_deltas, n_passes, group):

@@ -69,6 +69,77 @@ def test_kernel_matches_twin_at_the_edges(cuda_device, n, d, n_passes):
         assert torch.equal(f.view(torch.int32), g.view(torch.int32)), name
 
 
+def _variational_term(betas, d, active):
+    """Lanes of both legs in turn and a reference that differs by coordinate,
+    one std the smallest a fit can give."""
+    rs = np.random.RandomState(d)
+    dev = betas.device
+    isvar = (torch.arange(len(betas), device=dev) % 3 != 1).float()
+    mean = torch.tensor((rs.normal(size=d) * 0.3).astype(np.float32), device=dev)
+    std = torch.tensor(np.exp(rs.normal(size=d) * 0.5 - 1.0).astype(np.float32), device=dev)
+    std[d // 2] = 1e-6
+    a_target = float(toy_mvn_path(d).coord_factor(torch.ones(())))
+    return cuda_slice.VariationalTerm(betas, isvar, torch.tensor([active], device=dev), a_target,
+                                      mean, std)
+
+
+# B * d below a warp, a d above the tile (the coordinate table then goes by
+# element), config 4's shape; one pass and the default
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_passes", [1, 3])
+@pytest.mark.parametrize("n,d", [(1, 5), (2, 4099), (5120, 100)])
+def test_variational_kernel_matches_twin(cuda_device, n, d, n_passes):
+    """K1 with its variational term: bitwise against the twin, the same bits
+    from a second launch, and with the reference not active the toy term's."""
+    x, betas, seeds = _lane_inputs(n, d, n_passes, cuda_device)
+    a = toy_mvn_path(d).coord_factor(betas)
+    term = _variational_term(betas, d, 1.0)
+    before = dict(SliceSamplerCUDA.launches)
+    first = cuda_slice.banded_sweep(x, a, seeds, n_passes=n_passes, variational=term)
+    assert SliceSamplerCUDA.launches["banded_slice_sweep_variational"] == (
+        before["banded_slice_sweep_variational"] + 1)
+    assert SliceSamplerCUDA.launches["banded_slice_sweep"] == before["banded_slice_sweep"]
+    again = cuda_slice.banded_sweep(x, a, seeds, n_passes=n_passes, variational=term)
+    want = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=n_passes, variational=term)
+    for name, f, g, w in zip(("x", "stats"), first, again, want, strict=True):
+        assert torch.equal(f.view(torch.int32), w.view(torch.int32)), name
+        assert torch.equal(f.view(torch.int32), g.view(torch.int32)), name
+    idle = cuda_slice.banded_sweep(x, a, seeds, n_passes=n_passes,
+                                   variational=_variational_term(betas, d, 0.0))
+    toy = cuda_slice.banded_sweep(x, a, seeds, n_passes=n_passes)
+    for name, f, w in zip(("x", "stats"), idle, toy, strict=True):
+        assert torch.equal(f.view(torch.int32), w.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+def test_two_leg_run_on_card_matches_cpu(cuda_device):
+    """A two-leg run whose last round uses the fitted reference: the card's
+    kernel against the twin-driven run on the CPU."""
+    def run(device):
+        return T.pigeons(target=T.toy_mvn_target(5), n_chains=4, n_chains_variational=4,
+                         n_replicates=4, n_rounds=4, seed=3, explorer=T.SliceSamplerCUDA(),
+                         variational=T.GaussianReference(3), show_report=False, device=device)
+
+    g, c = run("cuda"), run("cpu")
+    assert float(g._ref_params["active"]) == 1.0
+    assert torch.equal(g.chain_of.cpu(), c.chain_of) and torch.equal(g.states.cpu(), c.states)
+    assert g.n_tempered_restarts == c.n_tempered_restarts
+
+
+@pytest.mark.cuda
+def test_torch_slice_sampler_on_card_matches_cpu(cuda_device):
+    """The torch ``SliceSampler`` launches no kernel of the port and gives the
+    CPU's bits on the card."""
+    def run(device):
+        return T.pigeons(target=T.funnel(3), n_chains=4, n_replicates=4, n_rounds=2, seed=3,
+                         explorer=T.SliceSampler(n_passes=1), show_report=False, device=device)
+
+    before = dict(SliceSamplerCUDA.launches)
+    g, c = run("cuda"), run("cpu")
+    assert SliceSamplerCUDA.launches == before
+    assert torch.equal(g.chain_of.cpu(), c.chain_of) and torch.equal(g.states.cpu(), c.states)
+
+
 @functools.lru_cache(maxsize=None)
 def _k2_full_case(name, d, n):
     """A path, inputs on the card and the twin's result for them, made once

@@ -4,6 +4,9 @@
     is carried into the port with ``convert.state_from_numpy``, and both
     packages run round 3 with the banded slice sampler.
 (b) From seed: both ``pigeons()`` entry points, ToyExplorer, 3 rounds.
+(c) The runtime options ``swap_graph`` (a shifted DEO graph), ``extractor``
+    and ``reference`` (an override of the target's default) against the same
+    options of the JAX runtime, and the diagnostics tables of a run.
 
 Tolerances and why: swap decisions, permutations, round trips and restarts
 must be exact. Log densities sum ``x * x`` in another order than XLA's fused
@@ -168,11 +171,11 @@ def test_cuda_slice_sampler_on_non_separable_path_raises():
         {"mesh": object()},
         {"checkpoint": True},
         {"checked_round": 1},
-        {"n_chains_variational": 4},
+        {"checkpoint_folder": "results"},
         {"extended_traces": True},
         {"record": ("traces", "index_process")},
         {"dtype": "float64"},
-        {"swap_graph": lambda n, s: None},
+        {"profile_round": 1},
     ],
 )
 def test_unported_options_raise(option):
@@ -185,3 +188,132 @@ def test_import_pulls_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.stdout.split() == ["False", "False"]
+
+
+def test_shifted_swap_graph_matches_jax():
+    """``Inputs.swap_graph`` (the shifted DEO graph of ``tests/test_swaps.py``)
+    drives the swaps and the fused partner-beta pass: exact counts."""
+    from pigeons_tpu.swaps import deo_partner_map as jax_deo
+    from pigeons_tpu_torch.swaps import deo_partner_map as port_deo
+
+    kw = dict(n_chains=4, n_rounds=5, seed=1, show_report=False)
+    ja = J.pigeons(target=J.TestSwapper(1.0), swap_graph=lambda n, s: jax_deo(n, s + 1), **kw)
+    ta = T.pigeons(target=T.TestSwapper(1.0), swap_graph=lambda n, s: port_deo(n, s + 1),
+                   device="cpu", **kw)
+    plain = T.pigeons(target=T.TestSwapper(1.0), device="cpu", **kw)
+    for rj, rt in zip(ja.reports, ta.reports, strict=True):
+        assert (rj.n_tempered_restarts, rj.n_round_trips) == (rt.n_tempered_restarts, rt.n_round_trips)
+    assert _same_permutations(ja, ta)
+    assert not torch.equal(plain.chain_of, ta.chain_of)  # the graph was used
+
+
+def test_swap_graph_with_densities_matches_jax():
+    """A graph given as a list, on a path whose swaps depend on densities."""
+    import jax.numpy as jnp
+
+    def idle_ends(n, scan_idx):  # only the middle pair ever interacts
+        return [0, 2, 1, 3]
+
+    kw = dict(n_chains=4, n_rounds=3, seed=2, show_report=False)
+    ja = J.pigeons(target=J.toy_mvn_target(3), swap_graph=lambda n, s: jnp.asarray(idle_ends(n, s)),
+                   **kw)
+    ta = T.pigeons(target=T.toy_mvn_target(3), swap_graph=idle_ends, device="cpu", **kw)
+    assert _same_permutations(ja, ta)
+    assert np.array_equal(ja.reduced.accept_n, ta.reduced.accept_n)
+    assert ta.reduced.accept_n.tolist() == [0.0, 8.0, 0.0]
+
+
+def test_extractor_matches_jax():
+    import jax.numpy as jnp
+
+    kw = dict(n_chains=4, n_rounds=4, seed=1, show_report=False)
+    ja = J.pigeons(target=J.toy_mvn_target(3),
+                   extractor=lambda x, lp: jnp.array([jnp.sum(x**2), lp]), **kw)
+    ta = T.pigeons(target=T.toy_mvn_target(3), device="cpu",
+                   extractor=lambda x, lp: torch.stack([(x**2).sum(-1), lp], dim=-1), **kw)
+    assert ta.sample_array().shape == ja.sample_array().shape == (16, 2)
+    np.testing.assert_allclose(ta.sample_array(), ja.sample_array(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ta.reduced.online_mean, ja.reduced.online_mean, rtol=1e-5)
+    assert ta.sample_names() == ja.sample_names() == ["x[0]", "log_density"]
+    assert _same_permutations(ja, ta)
+
+
+def test_sample_names_match_jax():
+    kw = dict(n_chains=3, n_rounds=2, seed=1, show_report=False)
+    ja = J.pigeons(target=J.toy_mvn_target(3), **kw)
+    ta = T.pigeons(target=T.toy_mvn_target(3), device="cpu", **kw)
+    assert ta.sample_names() == ja.sample_names() == ["x[0]", "x[1]", "x[2]", "log_density"]
+
+
+def test_reference_override_matches_jax():
+    """``Inputs.reference`` replaces the funnel's N(0, 9 I) by N(0, 4 I): the
+    path, the iid draws of the reference chain and the kernel's description of
+    the density follow it."""
+    from pigeons_tpu.models.target import StandardNormalReference as JaxNormal
+
+    kw = dict(n_chains=4, n_replicates=2, n_rounds=3, seed=6, show_report=False)
+    ja = J.PT(J.Inputs(target=J.funnel(2), reference=JaxNormal(3, sigma=2.0).as_reference(),
+                       explorer=J.SliceSamplerPallas(interpret=True, n_passes=1), **kw)).run()
+    ta = T.PT(T.Inputs(target=T.funnel(2),
+                       reference=T.StandardNormalReference(3, sigma=2.0).as_reference(),
+                       explorer=T.SliceSamplerCUDA(n_passes=1), device="cpu", **kw)).run()
+    default = T.PT(T.Inputs(target=T.funnel(2), explorer=T.SliceSamplerCUDA(n_passes=1),
+                            device="cpu", **kw))
+    assert ta.path.device_density().params[0] == 0.5 != default.path.device_density().params[0]
+    _assert_reports_close(ja, ta, 1e-3, 1e-3)
+    assert _same_permutations(ja, ta)
+    assert _state_flips(np.asarray(ja.states), ta.states.numpy()) == 0
+    assert np.array_equal(ja.reduced.exp_steps, ta.reduced.exp_steps)
+
+
+def test_float64_still_raises_naming_its_item():
+    with pytest.raises(NotImplementedError, match="6c"):
+        T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", dtype="float64"))
+
+
+def test_unknown_recorder_raises_at_construction():
+    with pytest.raises(ValueError, match="unknown recorder"):
+        T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", record=("trace",)))
+
+
+def test_diagnostics_match_jax():
+    pd = pytest.importorskip("pandas")
+    kw = dict(n_chains=4, n_rounds=5, seed=1, show_report=False)
+    ja = J.pigeons(target=J.toy_mvn_target(2), **kw)
+    ta = T.pigeons(target=T.toy_mvn_target(2), device="cpu", **kw)
+    sj, st = J.summary(ja), T.summary(ta)
+    assert list(st["variable"]) == list(sj["variable"]) == ["x[0]", "x[1]", "log_density"]
+    np.testing.assert_allclose(st.drop(columns="variable").to_numpy(float),
+                               sj.drop(columns="variable").to_numpy(float), rtol=1e-4, atol=1e-5)
+    rj, rt = J.reports_dataframe(ja), T.reports_dataframe(ta)
+    assert isinstance(rt, pd.DataFrame) and len(rt) == 5
+    assert set(rj.columns) == set(rt.columns)
+    assert list(rt["n_tempered_restarts"]) == list(rj["n_tempered_restarts"])
+    wj, wt = J.swap_prs_dataframe(ja), T.swap_prs_dataframe(ta)
+    np.testing.assert_allclose(wt.to_numpy(float), wj.to_numpy(float), atol=1e-6)
+    x = np.random.default_rng(0).normal(size=(4, 500))
+    assert T.ess(x[0]) == J.ess(x[0]) and T.split_rhat(x) == J.split_rhat(x)
+    assert T.diagnostics.ess is T.ess
+
+
+def test_plots_draw_both_legs():
+    pytest.importorskip("matplotlib")
+    import matplotlib
+
+    matplotlib.use("Agg")
+    ta = T.pigeons(target=T.toy_mvn_target(2), n_chains=3, n_chains_variational=3, n_rounds=3,
+                   seed=1, show_report=False, device="cpu")
+    for plot in (T.plots.plot_local_barrier, T.plots.plot_cumulative_barrier):
+        ax = plot(ta)
+        assert [line.get_label() for line in ax.get_lines()][:2] == ["fixed leg", "variational leg"]
+    with pytest.raises(RuntimeError, match="index_process"):
+        T.plots.plot_index_process(ta)
+
+
+def test_evidence_functions_use_the_variational_leg():
+    ta = T.pigeons(target=T.toy_mvn_target(2), n_chains=3, n_chains_variational=3, n_rounds=3,
+                   seed=1, show_report=False, device="cpu")
+    assert ta._stepping_stone_pair_mask().tolist() == [True, True, False, False, False]
+    assert T.stepping_stone(ta) == ta.reports[-1].log_z_estimate
+    fwd, bwd = T.stepping_stone_pair(ta)
+    assert abs(0.5 * (fwd + bwd) - T.stepping_stone(ta)) < 1e-12

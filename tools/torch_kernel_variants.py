@@ -1,18 +1,22 @@
 """Times variants of the port's CUDA kernels side by side on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py [--parent-csrc DIR]
+    python3 tools/torch_kernel_variants.py [--parent-csrc DIR [--parent-abi N]]
 
 Run from the repository root. Builds ``pigeons_tpu_torch/csrc`` once for each
 setting of kernel K1's tile size and refill threshold (``-DPIGEONS_K1_CHUNK=
 -DPIGEONS_K1_REFILL=``) and, with ``--parent-csrc``,
 an earlier version of the sources from ``DIR`` (for example
 ``git archive <commit> pigeons_tpu_torch/csrc | tar -x -C <dir>``, then
-``<dir>/pigeons_tpu_torch/csrc``), whose entry points must be the first
-version's (one thread per element in K1 and per lane in K2, no ``group``
-argument). It then times, at the shapes of ``chip_smoke.py``:
+``<dir>/pigeons_tpu_torch/csrc``). ``--parent-abi`` says which entry points
+that version has: 1, the first (no ``group`` argument in K2, no coordinate
+term in K1); 3, the default (``group``, no coordinate term); 4, this tree's.
+It then times, at the shapes of ``chip_smoke.py``:
 
 * K1 (config 1: B=20,480, d=100, 3 passes) for each such setting and the
   parent, and the spread of iterations per element that K1 has to balance;
+* K1 with the toy term and with the variational term side by side (the
+  reference active, half the lanes variational, a mean and std that differ
+  by coordinate) at B=5,120 (config 4) and B=20,480, d=100, 3 passes;
 * K2 in full mode on the funnel path (d=10, 1 pass; B=3,072, 8,192 and
   20,480) and on the toy MVN path (B=20,480, d=100, 1 pass) for 1, 8, 16 and
   32 threads per lane, the launcher's own choice and the parent;
@@ -57,20 +61,29 @@ def load(defines=(), csrc=_build.CSRC, verbose=False):
     path, seconds = _build.build(verbose=verbose, defines=defines, csrc=csrc)
     print(f"built {path.name} ({' '.join(defines) or 'defaults'}, {csrc}) in {seconds:.2f} s",
           flush=True)
-    lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.banded_slice_sweep.argtypes = [p, p, p, p, p, i, i, f, i, i, i, p]
-    return lib
+    return ctypes.CDLL(str(path))
 
 
-def k1_call(lib, x, a, seeds, n_passes):
+def k1_call(lib, x, a, seeds, n_passes, variational=None, first_version=False):
+    """``variational``: a ``cuda_slice.VariationalTerm`` or ``None`` (the toy
+    term). ``first_version``: the entry point without a coordinate term."""
     B, d = x.shape
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    head = [p, p, p, p, p, i, i, f, i, i, i]
+    term_args = ()
+    if not first_version:
+        term_args = (0, None, None, None, None, None, 0.0)
+        if variational is not None:
+            vt = variational
+            term_args = (1, vt.beta.data_ptr(), vt.isvar.data_ptr(), vt.active.data_ptr(),
+                         vt.mean.data_ptr(), vt.std.data_ptr(), vt.a_target)
+    lib.banded_slice_sweep.argtypes = head + ([] if first_version else [i, p, p, p, p, p, f]) + [p]
 
     def call():
         x_out = torch.empty_like(x)
         stats = torch.zeros((3, B), dtype=torch.float32, device=x.device)
         err = lib.banded_slice_sweep(x.data_ptr(), a.data_ptr(), seeds.data_ptr(), x_out.data_ptr(),
-                                     stats.data_ptr(), B, d, W, P, n_passes, MAX_ITER,
+                                     stats.data_ptr(), B, d, W, P, n_passes, MAX_ITER, *term_args,
                                      torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"banded_slice_sweep: error {err}")
@@ -79,9 +92,36 @@ def k1_call(lib, x, a, seeds, n_passes):
     return call
 
 
+def race_terms(lib, B, d):
+    """K1's two coordinate terms on the same inputs, timed in turns (their
+    outputs differ: the terms are different densities)."""
+    x, betas, seeds = chip_smoke.lane_inputs(B, d, 0.5, 13)
+    dev = x.device
+    path = toy_mvn_path(d)
+    a = path.coord_factor(betas)
+    rs = np.random.RandomState(4)
+    half = chip_smoke.V_CHAINS
+    term = cuda_slice.VariationalTerm(
+        betas, ((torch.arange(B, device=dev) % (2 * half)) < half).float(),
+        torch.ones(1, device=dev), float(path.coord_factor(torch.ones(()))),
+        torch.tensor((rs.normal(size=d) * 0.05).astype(np.float32), device=dev),
+        torch.tensor((np.sqrt(0.1) * np.exp(rs.normal(size=d) * 0.2)).astype(np.float32),
+                     device=dev))
+    calls = {"toy term": k1_call(lib, x, a, seeds, 3),
+             "variational term": k1_call(lib, x, a, seeds, 3, term)}
+    times = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]) * 2:
+        for name in order:
+            times[name].append(chip_smoke.cuda_ms(calls[name], 20))
+    print(f"-- K1's terms, B={B}, d={d}, 3 passes")
+    for name in calls:
+        print(f"{name:>36}: median {np.median(times[name]):.4f} ms, turns "
+              + " ".join(f"{t:.4f}" for t in times[name]), flush=True)
+    return times
+
+
 def k2_call(lib, x, betas, seeds, path, coord_deltas, group):
-    """``group=None``: the first version's entry point, which has no such
-    argument."""
+    """``group=None``: an entry point of before the ``group`` argument."""
     B, d = x.shape
     density = path.device_density()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -148,6 +188,7 @@ def k1_iterations(x, a, seeds):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent-csrc", type=Path, default=None)
+    ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4))
     args = ap.parse_args()
     chip_smoke.device_phase()
 
@@ -155,6 +196,7 @@ def main():
     k1_libs = {v: load(defines=(f"PIGEONS_K1_CHUNK={v[0]}", f"PIGEONS_K1_REFILL={v[1]}"))
                for v in K1_VARIANTS}
     parent = load(csrc=args.parent_csrc.resolve()) if args.parent_csrc else None
+    parent_group = None if args.parent_abi < 3 else 0  # the launcher's choice, where it has one
     results = {}
 
     B, D = chip_smoke.N_CHAINS * chip_smoke.N_REPLICATES, chip_smoke.D
@@ -165,15 +207,17 @@ def main():
           for (c, r), lib in k1_libs.items()}
     k1["default build"] = k1_call(default, x, a, seeds, 3)
     if parent:
-        k1["parent"] = k1_call(parent, x, a, seeds, 3)
+        k1["parent"] = k1_call(parent, x, a, seeds, 3, first_version=args.parent_abi < 4)
     results["K1 banded, B=20480 d=100 3 passes"] = race("K1", k1)
     iterations = k1_iterations(x, a, seeds)
+    for many in (2 * chip_smoke.V_CHAINS * chip_smoke.V_REPLICATES, B):
+        results[f"K1 terms, B={many} d=100 3 passes"] = race_terms(default, many, D)
 
     def k2_variants(xs, bs, sds, path):
         out = {f"group {g}": k2_call(default, xs, bs, sds, path, False, g) for g in GROUPS}
         out["launcher's choice"] = k2_call(default, xs, bs, sds, path, False, 0)
         if parent:
-            out["parent"] = k2_call(parent, xs, bs, sds, path, False, None)
+            out["parent"] = k2_call(parent, xs, bs, sds, path, False, parent_group)
         return out
 
     target = funnel(chip_smoke.F_NX)
@@ -190,7 +234,7 @@ def main():
                                                             k2_variants(x, betas, seeds, toy))
     delta = {"this tree": k2_call(default, x, betas, seeds, toy, True, 0)}
     if parent:
-        delta["parent"] = k2_call(parent, x, betas, seeds, toy, True, None)
+        delta["parent"] = k2_call(parent, x, betas, seeds, toy, True, parent_group)
     results["K2 delta, toy MVN B=20480 d=100 1 pass"] = race("K2 delta, toy MVN", delta)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
