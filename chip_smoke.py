@@ -5,8 +5,11 @@
 Run from the repository root. It builds the port's CUDA kernels from
 ``pigeons_tpu_torch/csrc`` (one ``nvcc`` call, the sources in parallel),
 holds each against its plain torch twin at the main paths' shapes (no bit
-may differ; K1 with each of its two coordinate terms), and
-drives three paths end to end through ``PT(Inputs(...))``:
+may differ; K1 with each of its two coordinate terms, K2 in both modes, with
+each ``BayesianModel`` density for 1, 8, 16 and 32 threads per lane, and under
+a variational reference, each at the batch of the path that launches it), and
+drives these paths end to end through
+``PT(Inputs(...))``:
 
 * bench config 1: NRPT on the d=100 toy MVN, 10 chains x 2048 ladders, banded
   slice sampler (kernel K1);
@@ -15,7 +18,15 @@ drives three paths end to end through ``PT(Inputs(...))``:
   against its twin at config 1's shape;
 * bench config 4: stabilized variational PT on the d=100 toy MVN, 10 + 10
   chains x 256 ladders, K1 with its variational coordinate term; the timed
-  round is the first that runs under the fitted reference.
+  round is the first that runs under the fitted reference;
+* the hierarchical normal model of bench config 5 (20 groups x 10
+  observations, d=23) from its prior to its posterior: 32 chains x 256
+  ladders, K2 reading the observations and the prior table from device
+  arrays; the same at 16 ladders, held to the JAX package's numbers;
+* the unidentifiable binomial (logZ against its exact value), the
+  non-centred eight schools, logistic regression on 200 observations (bench
+  config 2's target), and the funnel under a fitted Gaussian reference on two
+  legs (K2 with ``isvar``, ``mean``, ``std`` and ``active`` as arrays).
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU. Every phase
@@ -35,8 +46,8 @@ CUDA sources): an ENTER iteration two uniform draws and the log, a DOUBLE or
 SHRINK iteration one draw, INIT_R and CHECK none, each its density queries.
 
 ``--profile`` also writes ``torch.profiler`` tables of one round of each
-path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt`` and
-``profile_config4.txt``.
+path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt``,
+``profile_config4.txt`` and ``profile_hierarchical.txt``.
 """
 
 from __future__ import annotations
@@ -82,6 +93,25 @@ V_MEASURE_SCANS, V_CONFIG4_SCANS = 64, 1024
 # log of the integral of exp(-5 |x|^2) over R^100: the variational leg's
 # stepping stone starts from a normalized reference, so it estimates this
 V_LOG_Z = 0.5 * D * math.log(2.0 * math.pi / 10.0)
+
+# the hierarchical normal path: bench config 5's target (BASELINE.json: "30+
+# chains"; pigeons_tpu/models/library.py:409-430) at the funnel cell's ladder
+# count; rounds of doubling length, the last one timed
+H_CHAINS, H_REPLICATES, H_PASSES, H_ROUNDS = 32, 256, 1, (2, 4, 8, 16, 32, 64)
+# The same rounds at 16 ladders as the JAX package runs them on the CPU
+# (``JAX_PLATFORMS=cpu python tests/bayesian_reference_run.py --ladders 16``,
+# the line of the 64-scan round): pooled posterior means of the scalar
+# parameters, barrier and logZ. The packages run the same law from initial
+# states that differ in last bits (the prior's half-Cauchy draws), so the
+# card's runs are held to these within Monte Carlo error, as stated beside
+# each tolerance in hierarchical_phase.
+H_JAX_LADDERS = 16
+H_JAX = {"mu": 0.667063, "tau": 1.017755, "sigma": 0.477138, "barrier": 7.937929,
+         "logZ": -176.510125}
+# the smaller BayesianModel paths (unid, eight schools, logistic regression):
+# 10 chains x 64 ladders; the funnel on two legs: 6 + 6 chains x 64 ladders
+S_CHAINS, S_REPLICATES, S_ROUNDS = 10, 64, (2, 4, 8, 16, 32)
+VF_CHAINS, VF_REPLICATES = 6, 64
 
 # Published peaks of one H100 SXM at 700 W: 3.35 TB/s of device memory, and
 # 67 TFLOP/s in float32 = 132 SMs x 128 lanes x 2 (a fused multiply-add) x
@@ -139,6 +169,17 @@ COORD_TERM, TOY_FACTOR = ops(4), ops(5)
 VARIATIONAL_TERM = ops(17)
 # interpolate() with its two guarded products (8) and the NaN guard (2)
 INTERPOLATE = ops(10)
+# cephes_log1pf below sqrt(2) - 1 (the branch a prior's z^2 mostly takes is
+# charged for all): x^2, six and five fused multiply-adds and an add for the
+# two polynomials, a division, two multiplies, an fma, an add, the branch (3)
+LOG1P = ops(33)
+# softplus: max (2), |x| and its negation (2), exp, log1p, the add, the NaN
+# select (2); sigmoid: a negation, exp, an add, a division
+SOFTPLUS, SIGMOID = EXP + LOG1P + ops(7), EXP + ops(3)
+# one observation's normal term with a scale that is no constant: the mean by
+# fma (2), z (a subtract and a division), two fused multiply-adds, and the
+# index of the observation's group
+OBSERVATION = ops(8, 1)
 ENTER, INIT_R, DOUBLE, SHRINK, CHECK = range(5)  # the machines' phase codes
 
 
@@ -387,42 +428,197 @@ def k1_variational_phase():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_ops):
+def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_ops,
+            prepare_ops=ops(0), prepare_coords=(), variational=None, variational_ops=ops(0),
+            extra_bytes=0, groups=()):
     """Kernel K2 against its twin for one path and mode, one pass. A density
-    query needs ``query_ops``, an ENTER iteration ``enter_ops`` besides, a
-    lane ``lane_ops`` once. Returns the timings and the bound of this run's
+    query needs ``query_ops`` (a query of a coordinate in ``prepare_coords``
+    ``prepare_ops`` besides; a query of a lane that follows the variational
+    reference ``variational_ops`` instead), an ENTER iteration ``enter_ops``
+    besides, a lane ``lane_ops`` once. ``variational`` is ``None`` or the
+    keywords ``isvar`` and ``ref_params`` of a variational launch. ``groups``:
+    numbers of threads per lane that must give the same bits as the
+    launcher's own choice. Returns the timings and the bound of this run's
     work."""
     from pigeons_tpu_torch.ops import cuda_slice
 
+    kw = variational or {}
     x, betas, seeds = lane_inputs(B, d, scale, 11)
-    got = cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas, n_passes=F_PASSES)
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas, n_passes=F_PASSES, **kw)
     counts = torch.zeros(6, dtype=torch.int64, device=x.device)
+    by_coord = torch.zeros(d, dtype=torch.int64, device=x.device)
     want, plain_ms = timed_once(
-        lambda: cuda_slice.sweep_reference(x, betas, seeds, path, coord_deltas,
-                                           n_passes=F_PASSES, phase_counts=counts))
-    max_abs = compare(name, got, want, lp_fresh=cuda_slice.sweep_density(path)(got[0], betas))
+        lambda: cuda_slice.sweep_reference(x, betas, seeds, path, coord_deltas, n_passes=F_PASSES,
+                                           phase_counts=counts, coord_counts=by_coord, **kw))
+    max_abs = compare(name, got, want,
+                      lp_fresh=cuda_slice.sweep_density(path, **kw)(got[0], betas))
+    for group in groups:
+        compare(f"{name}, {group} threads per lane",
+                cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas, n_passes=F_PASSES,
+                                      group=group, **kw), want)
     ms = cuda_ms(lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas,
-                                               n_passes=F_PASSES), 20)
+                                               n_passes=F_PASSES, **kw), 20)
     n = [float(v) for v in counts[:5]]
     iterations, considered = sum(n), float(got[2][1].double().sum())
     n_evals = float(got[2][2].double().sum())
     if n_evals != iterations or n[ENTER] != F_PASSES * B * d or n[INIT_R] != n[ENTER]:
         raise AssertionError(f"{name}: phase counts {n} do not add up to the kernel's n_evals")
+    # a lane's queries are its n_evals; its starting density is one more
+    follows = torch.zeros(B, dtype=torch.bool, device=x.device)
+    if variational is not None and float(kw["ref_params"]["active"]) > 0:
+        follows = kw["isvar"] > 0
+    q_var = float(got[2][2][follows].double().sum()) + float(follows.sum())
+    q_prepare = float(by_coord[list(prepare_coords)].sum()) if prepare_coords else 0.0
     # per lane: its hash state (an xor and fmix32) and what the mode needs
-    need = (B * (ops(0, 9) + lane_ops) + iterations * (LOOP + query_ops)
+    need = (B * (ops(0, 9) + lane_ops) + iterations * LOOP + (iterations - (q_var - float(follows.sum()))) * query_ops
+            + q_var * variational_ops + q_prepare * prepare_ops
             + n[ENTER] * (2 * DRAW + LOG + M_ENTER + enter_ops) + n[INIT_R] * MORE_DBL
             + n[DOUBLE] * (DRAW + M_DOUBLE)
             + n[SHRINK] * (DRAW + M_SHRINK) + (n[SHRINK] - considered) * M_REJECT
             + n[CHECK] * M_CHECK)
-    bound_ms, bound_by = bound(2 * 4 * B * d + (4 + 8 + 4 + 12) * B, need)
+    bound_ms, bound_by = bound(2 * 4 * B * d + (4 + 8 + 4 + 12) * B + extra_bytes, need)
     print(f"{name}: kernel {ms:.4f} ms (median of 20), twin {plain_ms:.4f} ms (one run, counting "
           f"phases), B={B}, d={d}, {F_PASSES} pass; {iterations:.0f} iterations, slowest lane "
           f"{float(got[2][2].max()):.0f}: ENTER {n[ENTER]:.0f}, INIT_R {n[INIT_R]:.0f}, DOUBLE "
           f"{n[DOUBLE]:.0f}, SHRINK {n[SHRINK]:.0f} ({considered:.0f} considered), CHECK "
-          f"{n[CHECK]:.0f}; needs {need[0]:.4g} float32 and {need[1]:.4g} int32 operations, "
-          f"bound {bound_ms:.6f} ms by {bound_by}")
+          f"{n[CHECK]:.0f}; {q_prepare:.0f} queries of coordinates that prepare reads, {q_var:.0f} "
+          f"of lanes under the variational reference; needs {need[0]:.4g} float32 and "
+          f"{need[1]:.4g} int32 operations, bound {bound_ms:.6f} ms by {bound_by}")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
+
+
+def prior_ops(prior):
+    """One evaluation of a prior table (densities.cuh: log_prior): a row's
+    log-Jacobian (positive: the sum of its coordinates; interval: two
+    softplus, a negation each and two adds a coordinate), its density (normal:
+    six operations a coordinate; half-Cauchy: exp, a multiply, a square,
+    log1p and a subtract; uniform: a constant) and their adds."""
+    from pigeons_tpu_torch.models import distributions as D_
+
+    total = ops(0)
+    for _, size, dist, bijector, *_ in prior:
+        if bijector == D_.POSITIVE:
+            total = total + ops(size)
+        elif bijector == D_.INTERVAL:
+            total = total + size * (2 * SOFTPLUS + ops(5))
+        if dist == D_.NORMAL:
+            total = total + ops(6 * size + 1)
+        elif dist == D_.HALF_CAUCHY:
+            total = total + size * (EXP + LOG1P + ops(4)) + ops(1)
+    return total
+
+
+def k2_bayesian_phase():
+    """Kernel K2 with each ``BayesianModel`` density against its twin at the
+    batch of the model's own path below (the hierarchical cell's 8,192 lanes,
+    640 for the others), for the launcher's choice of threads per lane and
+    for 1, 8, 16 and 32. Returns the kernels' entries by name."""
+    phase("2d kernel K2, BayesianModel densities, vs twin")
+    from pigeons_tpu_torch import (eight_schools, hierarchical_normal, logistic_regression,
+                                   unid_target)
+
+    B, B_small = H_CHAINS * H_REPLICATES, S_CHAINS * S_REPLICATES
+    dev = torch.device("cuda")
+    out = {}
+    # hierarchical normal: 200 observation terms and their 199 + 3 adds, the
+    # prior, prior + likelihood and the interpolation; prepare (two exp and a
+    # negation) for a query of mu, log tau or log sigma
+    model = hierarchical_normal().to(dev)
+    path = model.create_path(model.default_reference())
+    density = path.device_density()
+    n_obs = density.arrays[0].numel()
+    query = n_obs * OBSERVATION + ops(n_obs + 2) + prior_ops(density.prior) + ops(1) + INTERPOLATE
+    d = model.dim
+    out["hierarchical_normal"] = k2_mode(
+        "K2 full (hierarchical normal)", path, False, B, d, 1.0, query, ops(0),
+        query + 2 * EXP + ops(1), prepare_ops=2 * EXP + ops(1), prepare_coords=(d - 3, d - 2, d - 1),
+        extra_bytes=4 * n_obs, groups=(1, 8, 16, 32))
+    # eight schools: 8 observation terms (their scale's log is read, not
+    # computed: one negation more) and 7 adds; prepare is one exp
+    model = eight_schools().to(dev)
+    path = model.create_path(model.default_reference())
+    density = path.device_density()
+    d = model.dim
+    query = 8 * (OBSERVATION + ops(1)) + ops(7) + prior_ops(density.prior) + ops(1) + INTERPOLATE
+    out["eight_schools"] = k2_mode(
+        "K2 full (eight schools)", path, False, B_small, d, 1.0, query, ops(0), query + EXP,
+        prepare_ops=EXP, prepare_coords=(d - 2, d - 1), extra_bytes=4 * 3 * 8,
+        groups=(1, 8, 16, 32))
+    # unid: two sigmoids and their product for every query, then log, log1p of
+    # the negation and two fused multiply-adds
+    model = unid_target()
+    path = model.create_path(model.default_reference())
+    density = path.device_density()
+    query = (2 * SIGMOID + ops(1) + LOG + LOG1P + ops(5) + prior_ops(density.prior) + ops(1)
+             + INTERPOLATE)
+    out["unid"] = k2_mode("K2 full (unid)", path, False, B_small, 2, 1.0, query, ops(0), query,
+                          groups=(1,))
+    # logistic regression: for each observation a row of the design matrix
+    # times w (a multiply and d - 2 fused multiply-adds), + b, y z - softplus(z)
+    # (a multiply, softplus, a subtract); their sum by windows (n + 7 adds)
+    model = logistic_regression().to(dev)
+    path = model.create_path(model.default_reference())
+    density = path.device_density()
+    d, n_obs = model.dim, density.arrays[1].numel()
+    query = (n_obs * (ops(2 * (d - 2) + 1 + 3) + SOFTPLUS) + ops(n_obs + 7)
+             + prior_ops(density.prior) + ops(1) + INTERPOLATE)
+    out["logistic_regression"] = k2_mode(
+        "K2 full (logistic regression)", path, False, B_small, d, 1.0, query, ops(0), query,
+        extra_bytes=4 * n_obs * d, groups=(1, 8, 16, 32))
+    return {name: {"name": f"slice_sweep ({name})", "route": "cuda",
+                   "source": "pigeons_tpu_torch/csrc/sweep_slice.cu",
+                   "replaces": "pigeons_tpu/ops/pallas_slice.py:94", **entry}
+            for name, entry in out.items()}
+
+
+def k2_variational_phase():
+    """Kernel K2 under a variational reference at the shape of the funnel's
+    two-leg path below (6 + 6 chains x 64 ladders): lanes of both legs, the reference active with a mean and std that differ
+    by coordinate; and, with the reference not active yet, against the plain
+    funnel launch."""
+    phase("2e kernel K2 under a variational reference vs twin")
+    from pigeons_tpu_torch import GaussianReference, VariationalPath, funnel
+    from pigeons_tpu_torch.ops import cuda_slice
+
+    target = funnel(F_NX)
+    d, B = F_NX + 1, 2 * VF_CHAINS * VF_REPLICATES
+    fixed = target.create_path(target.default_reference())
+    path = VariationalPath(fixed, GaussianReference())
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(4)
+    # each ladder's first half is its variational leg
+    isvar = ((torch.arange(B, device=dev) % (2 * VF_CHAINS)) < VF_CHAINS).float()
+
+    mean = torch.tensor((rs.normal(size=d) * 0.3).astype(np.float32), device=dev)
+    std = torch.tensor((2.0 * np.exp(rs.normal(size=d) * 0.3)).astype(np.float32), device=dev)
+
+    def reference(active):
+        return {"isvar": isvar, "ref_params": {"mean": mean, "std": std,
+                                               "active": torch.tensor(active, device=dev)}}
+
+    # a variational lane's query: the target as before, the reference's sum of
+    # squares replaced by d terms of five operations and their adds, one add
+    # for 0 + target
+    var_query = funnel_density_ops(d) - sum_squares_ops(d) - ops(1) + ops(6 * d)
+    entry = k2_mode("K2 full (funnel, variational reference)", path, False, B, d, 2.0,
+                    funnel_density_ops(d), ops(0), funnel_density_ops(d),
+                    variational=reference(1.0), variational_ops=var_query,
+                    extra_bytes=4 * B + 8 * d + 4, groups=(1, 8, 16, 32))
+    x, betas, seeds = lane_inputs(B, d, 2.0, 11)
+    plain = cuda_slice.sweep_cuda(x, betas, seeds, fixed, n_passes=F_PASSES)
+    off = reference(0.0)
+    compare("K2 variational, reference not active, vs the plain funnel launch",
+            cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=F_PASSES, **off), plain)
+    on = reference(1.0)
+    if torch.equal(cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=F_PASSES, **on)[0], plain[0]):
+        raise AssertionError("K2 variational: the active reference changed nothing")
+    entry["fixed_path_ms"] = cuda_ms(
+        lambda: cuda_slice.sweep_cuda(x, betas, seeds, fixed, n_passes=F_PASSES), 20)
+    print(f"the plain funnel launch on the same inputs {entry['fixed_path_ms']:.4f} ms")
+    return {"name": "slice_sweep (funnel, variational reference)", "route": "cuda",
+            "source": "pigeons_tpu_torch/csrc/sweep_slice.cu",
+            "replaces": "pigeons_tpu/ops/pallas_slice.py:94", **entry}
 
 
 def k2_phase():
@@ -613,22 +809,205 @@ def config4_phase():
     return launches["banded_slice_sweep_variational"]
 
 
+def bayesian_run(target, n_chains, n_replicates, rounds, **kw):
+    """NRPT from a ``BayesianModel``'s prior to its posterior on the card with
+    kernel K2, one slice pass per scan, rounds of the given lengths; returns
+    the run and the launches it made (K2's must equal the scans, K1's be 0)."""
+    from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA
+
+    SliceSamplerCUDA.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pt = PT(Inputs(target=target, n_chains=n_chains, n_replicates=n_replicates, seed=SEED,
+                   explorer=SliceSamplerCUDA(n_passes=H_PASSES), show_report=False, device="cuda",
+                   **kw))
+    for n_scans in rounds:
+        pt.run_round(n_scans=n_scans)
+    launches = dict(SliceSamplerCUDA.launches)
+    scans = sum(rounds)
+    print(f"kernel launches {launches} for {scans} scans")
+    if launches["slice_sweep"] != scans or launches["banded_slice_sweep"] or \
+            launches["banded_slice_sweep_variational"]:
+        raise AssertionError(f"kernel launches {launches} for {scans} scans of K2")
+    return pt, launches["slice_sweep"]
+
+
+def print_round(pt, n_lanes):
+    rep = pt.reports[-1]
+    print(f"timed round: {rep.n_scans} scans in {rep.wall_time_s:.4f} s "
+          f"({rep.wall_time_s / rep.n_scans * 1e3:.3f} ms per scan), {eval_rate(pt):.6g} evals/s, "
+          f"{float(np.sum(pt.reduced.exp_steps)) / (rep.n_scans * n_lanes):.2f} queries per lane "
+          f"and scan, peak device memory {rep.peak_memory_bytes} B")
+    print(f"barrier {pt.global_barrier:.6f}, logZ {rep.log_z_estimate:.6f}, round trips "
+          f"{pt.n_round_trips}, restarts {pt.n_tempered_restarts}, swap accept mean "
+          f"{rep.mean_swap_accept:.4f}")
+
+
+def hierarchical_phase():
+    """The hierarchical normal model (bench config 5's target) end to end at
+    32 chains x 256 ladders, and the same rounds at the ladder count of the
+    JAX package's reference run; returns the launches of K2 the full-width
+    run made. At the JAX run's ladder count the port's run is that run
+    (the same permutations and, to the last digits, the same statistics; only
+    the reference chains' draws differ, by up to 2 ulp), so it is held within
+    1e-3 relative. The full-width run is 256 other ladders of the same law:
+    it is held within three standard errors of the JAX run's pooled mean,
+    taking its 16 ladders as 16 independent draws (mu 3 x 1.264 / 4, tau
+    3 x 1.231 / 4, sigma 3 x 0.0255 / 4), the barrier within 1 and logZ
+    within 3 (after 126 scans both still move by that much from round to
+    round: the run is inside its initial transient, mu's pooled deviation is
+    1.26 where the posterior's is about 0.2)."""
+    phase("3d hierarchical normal")
+    from pigeons_tpu_torch import hierarchical_normal
+
+    wide = {"mu": 0.95, "tau": 0.92, "sigma": 0.019, "barrier": 1.0, "logZ": 3.0}
+    launches = None
+    for ladders in (H_REPLICATES, H_JAX_LADDERS):
+        tolerance = wide if ladders != H_JAX_LADDERS else {k: 1e-3 * abs(v) for k, v in H_JAX.items()}
+        print(f"{H_CHAINS} chains x {ladders} ladders, rounds of {H_ROUNDS} scans")
+        target = hierarchical_normal()
+        pt, n_launches = bayesian_run(target, H_CHAINS, ladders, H_ROUNDS)
+        launches = launches or n_launches
+        print_round(pt, H_CHAINS * ladders)
+        q = target.constrained_samples(pt)
+        got = {name: float(np.mean(q[name])) for name in ("mu", "tau", "sigma")}
+        got.update(barrier=pt.global_barrier, logZ=pt.reports[-1].log_z_estimate)
+        print("pooled over the timed round: " + ", ".join(
+            f"{k} {v:.6f} (JAX package at {H_JAX_LADDERS} ladders {H_JAX[k]}, tolerance "
+            f"{tolerance[k]:.4g})" for k, v in got.items()))
+        if not np.isfinite(pt.sample_array()).all():
+            raise AssertionError("hierarchical normal: non-finite samples")
+        for k, v in got.items():
+            if not abs(v - H_JAX[k]) <= tolerance[k]:
+                raise AssertionError(f"hierarchical normal, {ladders} ladders: {k} {v} is off the "
+                                     f"JAX package's {H_JAX[k]}")
+    return launches
+
+
+def unid_phase():
+    """The unidentifiable binomial, the one ``BayesianModel`` here whose logZ
+    is known exactly: 10 chains x 64 ladders, rounds doubling to 32 scans."""
+    phase("3e unid")
+    from pigeons_tpu_torch import unid_target
+    from pigeons_tpu_torch.models import unid_analytic_log_z
+
+    pt, launches = bayesian_run(unid_target(), S_CHAINS, S_REPLICATES, S_ROUNDS)
+    print_round(pt, S_CHAINS * S_REPLICATES)
+    exact = unid_analytic_log_z()
+    by_round = [round(r.log_z_estimate, 4) for r in pt.reports]
+    print(f"logZ by round {by_round}, exact {exact:.6f}")
+    if not abs(pt.reports[-1].log_z_estimate - exact) < 0.1:
+        raise AssertionError("unid: logZ off its exact value")
+    if not pt.n_tempered_restarts > 0:
+        raise AssertionError("unid: no tempered restart")
+    return launches
+
+
+def eight_schools_phase():
+    """Non-centred eight schools: 10 chains x 64 ladders. The posterior means
+    of mu and tau are about 4.4 and 3.6 (Gelman et al., Bayesian Data Analysis,
+    section 5.5, under this model's half-Cauchy(5) prior on tau); the pooled
+    means of the last round are held within 1 of them."""
+    phase("3f eight schools")
+    from pigeons_tpu_torch import eight_schools
+
+    target = eight_schools()
+    pt, launches = bayesian_run(target, S_CHAINS, S_REPLICATES, S_ROUNDS)
+    print_round(pt, S_CHAINS * S_REPLICATES)
+    q = target.constrained_samples(pt)
+    mu, tau = float(np.mean(q["mu"])), float(np.mean(q["tau"]))
+    print(f"pooled over the timed round: mu {mu:.4f} (sd {np.std(q['mu']):.4f}), tau {tau:.4f} "
+          f"(sd {np.std(q['tau']):.4f})")
+    if not (abs(mu - 4.4) < 1.0 and abs(tau - 3.6) < 1.0):
+        raise AssertionError("eight schools: posterior means off")
+    if not (math.isfinite(pt.reports[-1].log_z_estimate) and pt.n_tempered_restarts > 0):
+        raise AssertionError("eight schools: no finite logZ or no tempered restart")
+    return launches
+
+
+def logistic_regression_phase():
+    """Bayesian logistic regression on 200 synthetic observations, d=11
+    (bench config 2's target): 10 chains x 64 ladders. The posterior mean of
+    the weights is held to the sign of every true weight it can resolve: the
+    data come from ``w_true`` drawn with the model's seed, and the pooled
+    mean of a coordinate must lie within 1 of it (the posterior's deviation
+    is about 0.3 per weight at 200 observations)."""
+    phase("3h logistic regression")
+    from pigeons_tpu_torch import logistic_regression, rng
+
+    target = logistic_regression()
+    pt, launches = bayesian_run(target, S_CHAINS, S_REPLICATES, H_ROUNDS)
+    print_round(pt, S_CHAINS * S_REPLICATES)
+    w_true = rng.normal(rng.fold_in(rng.key(0), 1), (10,)).numpy()
+    w = target.constrained_samples(pt)["w"].mean(0)
+    print(f"pooled posterior mean of w {[round(float(v), 3) for v in w]}, the weights that made "
+          f"the data {[round(float(v), 3) for v in w_true]}, largest gap "
+          f"{np.abs(w - w_true).max():.4f}")
+    if not np.abs(w - w_true).max() < 1.0:
+        raise AssertionError("logistic regression: posterior mean of the weights off")
+    if not (math.isfinite(pt.reports[-1].log_z_estimate) and pt.n_tempered_restarts > 0):
+        raise AssertionError("logistic regression: no finite logZ or no tempered restart")
+    return launches
+
+
+def variational_funnel_phase():
+    """The funnel on two legs, 6 + 6 chains x 64 ladders: not separable, so
+    K2 runs under the Gaussian reference fitted after round 6 (config 4's
+    rounds). The funnel's density is normalized, so the variational leg's stepping
+    stone estimates logZ = 0 once the chains have forgotten the states they
+    inherited from the fixed reference's rounds: a replica that carries one
+    far out in the fitted reference's tails gives a swap ratio that alone
+    carries the estimate (it is printed by round, not gated), as in the JAX
+    package, whose run this is (tests/test_torch_sweep_bayesian.py)."""
+    phase("3g funnel under a variational reference")
+    from pigeons_tpu_torch import funnel
+
+    rounds = (V_WARMUP_SCANS,) * V_WARMUP_ROUNDS + (V_MEASURE_SCANS,)
+    pt, launches = bayesian_run(funnel(F_NX), VF_CHAINS, VF_REPLICATES, rounds,
+                                n_chains_variational=VF_CHAINS)
+    print_round(pt, 2 * VF_CHAINS * VF_REPLICATES)
+    active = float(pt._ref_params["active"])
+    var_barriers = [round(float(r.global_barrier_variational), 4) for r in pt.reports]
+    print(f"reference active {active}; variational barrier by round {var_barriers}; logZ by round "
+          f"{[round(r.log_z_estimate, 4) for r in pt.reports]} (exact 0 under the fitted "
+          f"reference); fitted std of y {float(pt._ref_params['std'][0]):.4f}")
+    if active != 1.0:
+        raise AssertionError("the timed round did not run under the fitted reference")
+    if not (math.isfinite(pt.reports[-1].log_z_estimate)
+            and math.isfinite(pt.global_barrier_variational) and pt.n_tempered_restarts > 0):
+        raise AssertionError("variational funnel: no finite logZ or barrier, or no tempered restart")
+    if not np.isfinite(pt.sample_array()).all():
+        raise AssertionError("variational funnel: non-finite samples")
+    return launches
+
+
 def small_reference_phase():
     """Small runs on the card (kernels) against the same runs on the CPU
-    (twins), for the toy path (K1), the funnel path (K2) and a two-leg
-    variational run whose last round uses the fitted reference (K1's
-    variational term): same swaps and restarts, same states within 1e-6."""
+    (twins), for the toy path (K1), the funnel path (K2), two-leg variational
+    runs whose last round uses the fitted reference (K1's variational term on
+    the toy path, K2 on the funnel) and three ``BayesianModel`` targets
+    (K2 with array inputs): same swaps and restarts, same states within 1e-6."""
     phase("6 small runs, card vs CPU")
-    from pigeons_tpu_torch import (PT, GaussianReference, Inputs, SliceSamplerCUDA, funnel,
-                                   toy_mvn_target)
+    from pigeons_tpu_torch import (PT, GaussianReference, Inputs, SliceSamplerCUDA, eight_schools,
+                                   funnel, hierarchical_normal, toy_mvn_target, unid_target)
 
     two_leg = dict(n_chains=4, n_chains_variational=4,
                    variational=GaussianReference(first_tuning_round=3))
+    one_pass = SliceSamplerCUDA(n_passes=F_PASSES)
+    # the BayesianModel runs are smaller: their twins are slow on a CPU
+    small = dict(n_chains=3, n_replicates=1, n_rounds=2)
     for name, target, explorer, kw in (
             ("toy MVN", toy_mvn_target(6), SliceSamplerCUDA(), dict(n_chains=5)),
-            ("funnel", funnel(3), SliceSamplerCUDA(n_passes=F_PASSES), dict(n_chains=5)),
-            ("two legs", toy_mvn_target(6), SliceSamplerCUDA(), two_leg)):
-        g, c = (PT(Inputs(target=target, n_replicates=8, seed=4, n_rounds=4, explorer=explorer,
+            ("funnel", funnel(3), one_pass, dict(n_chains=5, n_rounds=3)),
+            ("two legs", toy_mvn_target(6), SliceSamplerCUDA(), two_leg),
+            ("funnel on two legs (K2)", funnel(3), one_pass,
+             dict(two_leg, variational=GaussianReference(first_tuning_round=2), n_replicates=2,
+                  n_rounds=3)),
+            ("hierarchical normal", hierarchical_normal(), one_pass, small),
+            ("eight schools", eight_schools(), one_pass, small),
+            ("unid", unid_target(), one_pass, small)):
+        kw = {"n_replicates": 8, "n_rounds": 4, **kw}
+        t0 = time.perf_counter()
+        g, c = (PT(Inputs(target=target, seed=4, explorer=explorer,
                           show_report=False, device=dev, **kw)).run()
                 for dev in ("cuda", "cpu"))
         same_perm = (torch.equal(g.chain_of.cpu(), c.chain_of)
@@ -636,7 +1015,8 @@ def small_reference_phase():
                      and g.n_tempered_restarts == c.n_tempered_restarts)
         diff = float((g.states.cpu() - c.states).abs().max())
         print(f"{name}: permutations and restarts equal {same_perm}, max |state diff| {diff}, "
-              f"barrier {g.global_barrier:.6f} vs {c.global_barrier:.6f}")
+              f"barrier {g.global_barrier:.6f} vs {c.global_barrier:.6f} "
+              f"({time.perf_counter() - t0:.1f} s for both runs)")
         if not same_perm or diff > 1e-6 or not np.isfinite(g.sample_array()).all():
             raise AssertionError(f"{name}: card run disagrees with the CPU run")
         if g.variational is not None and float(g._ref_params["active"]) != 1.0:
@@ -651,8 +1031,8 @@ def torch_sampler_phase():
     from pigeons_tpu_torch import PT, Inputs, SliceSampler, SliceSamplerCUDA, funnel
 
     SliceSamplerCUDA.reset_launches()
-    # two rounds, 6 scans: a scan is some 10^5 eager launches on the card
-    g, c = (PT(Inputs(target=funnel(3), n_chains=5, n_replicates=8, seed=4, n_rounds=2,
+    # one round, 2 scans: a scan is some 10^5 eager launches on the card
+    g, c = (PT(Inputs(target=funnel(3), n_chains=5, n_replicates=8, seed=4, n_rounds=1,
                       explorer=SliceSampler(n_passes=F_PASSES), show_report=False,
                       device=dev)).run() for dev in ("cuda", "cpu"))
     same = (torch.equal(g.chain_of.cpu(), c.chain_of) and torch.equal(g.states.cpu(), c.states)
@@ -680,8 +1060,15 @@ def determinism_phase():
     def config4():  # three rounds, the last under the reference fitted after the second
         return config4_inputs(n_rounds=3, variational=GaussianReference(first_tuning_round=2))
 
+    from pigeons_tpu_torch import hierarchical_normal
+
+    def hierarchical():
+        return Inputs(target=hierarchical_normal(), n_chains=H_CHAINS, n_replicates=H_REPLICATES,
+                      seed=SEED, n_rounds=3, explorer=SliceSamplerCUDA(n_passes=H_PASSES),
+                      show_report=False, device="cuda")
+
     for name, make in (("config 1", config1), ("funnel", lambda: funnel_inputs(n_rounds=3)),
-                       ("config 4", config4)):
+                       ("config 4", config4), ("hierarchical normal", hierarchical)):
         a, b = (PT(make()).run() for _ in range(2))
         same = (torch.equal(a.chain_of, b.chain_of) and torch.equal(a.replica_of, b.replica_of)
                 and torch.equal(a.states, b.states))
@@ -719,9 +1106,16 @@ def profile_phase():
 
     # config 4's profiled round runs under a reference fitted after the first
     config4 = config4_inputs(variational=GaussianReference(first_tuning_round=1))
+    from pigeons_tpu_torch import hierarchical_normal
+
+    hierarchical = Inputs(target=hierarchical_normal(), n_chains=H_CHAINS,
+                          n_replicates=H_REPLICATES, seed=SEED,
+                          explorer=SliceSamplerCUDA(n_passes=H_PASSES), show_report=False,
+                          device="cuda")
     for name, inputs, n_scans, kernel in (("config1", config1, WARMUP_SCANS, "banded_slice"),
                                           ("funnel", funnel_inputs(), F_WARMUP_SCANS, "slice_sweep"),
-                                          ("config4", config4, V_WARMUP_SCANS, "banded_slice")):
+                                          ("config4", config4, V_WARMUP_SCANS, "banded_slice"),
+                                          ("hierarchical", hierarchical, 8, "slice_sweep")):
         pt = PT(inputs)
         pt.run_round(n_scans=n_scans)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -745,9 +1139,15 @@ def main():
     device_phase()
     build_phase()
     k1, k2, k1v = k1_phase(), k2_phase(), k1_variational_phase()
+    bayesian, k2v = k2_bayesian_phase(), k2_variational_phase()
     k1["launches"] = config1_phase()
     k2["launches"] = funnel_phase()
     k1v["launches"] = config4_phase()
+    bayesian["hierarchical_normal"]["launches"] = hierarchical_phase()
+    bayesian["unid"]["launches"] = unid_phase()
+    bayesian["eight_schools"]["launches"] = eight_schools_phase()
+    bayesian["logistic_regression"]["launches"] = logistic_regression_phase()
+    k2v["launches"] = variational_funnel_phase()
     determinism_phase()
     quickstart_phase()
     small_reference_phase()
@@ -757,7 +1157,7 @@ def main():
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    print(json.dumps({"kernels": [k1, k2, k1v]}))
+    print(json.dumps({"kernels": [k1, k2, k1v, *bayesian.values(), k2v]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -13,12 +13,17 @@ from .diagnostics import ess, reports_dataframe, split_rhat, summary, swap_prs_d
 from .evidence import stepping_stone, stepping_stone_pair
 from .inputs import Inputs
 from .models import (
+    BayesianModel,
     StandardNormalReference,
     TestSwapper,
     banana,
+    eight_schools,
     funnel,
+    hierarchical_normal,
+    logistic_regression,
     mvn_target,
     toy_mvn_target,
+    unid_target,
 )
 from .ops import NoOpExplorer, SliceSampler, SliceSamplerCUDA, ToyExplorer
 from .paths import InterpolatingPath, ScaledPrecisionNormalPath, VariationalPath, toy_mvn_path
@@ -27,6 +32,7 @@ from .schedule import Schedule, equally_spaced_schedule
 from .variational import GaussianReference
 
 __all__ = [
+    "BayesianModel",
     "GaussianReference",
     "Inputs",
     "InterpolatingPath",
@@ -44,9 +50,12 @@ __all__ = [
     "banana",
     "communication_barriers",
     "diagnostics",
+    "eight_schools",
     "equally_spaced_schedule",
     "ess",
     "funnel",
+    "hierarchical_normal",
+    "logistic_regression",
     "mvn_target",
     "optimal_schedule",
     "pigeons",
@@ -59,4 +68,5 @@ __all__ = [
     "swap_prs_dataframe",
     "toy_mvn_path",
     "toy_mvn_target",
+    "unid_target",
 ]

@@ -88,8 +88,13 @@ def load_library() -> ctypes.CDLL:
     # term) and a_target, stream
     lib.banded_slice_sweep.argtypes = [p, p, p, p, p, i, i, f, i, i, i, i, p, p, p, p, p, f, p]
     lib.banded_slice_sweep.restype = i
-    # x, betas, seeds, x_out, lp, stats, B, d, density, coord_deltas,
-    # params (host), w, p, n_passes, max_iter, group, stream
-    lib.slice_sweep.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.POINTER(f), f, i, i, i, i, p]
+    # x, betas, seeds, x_out, lp, stats, B, d, density, coord_deltas, then in
+    # host memory params, the arrays' device pointers, their lengths and the
+    # prior table with its number of rows, then the variational run's isvar,
+    # mean, std, active (null otherwise), w, p, n_passes, max_iter, group,
+    # stream
+    lib.slice_sweep.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.POINTER(f),
+                                ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(f), i,
+                                p, p, p, p, f, i, i, i, i, p]
     lib.slice_sweep.restype = i
     return lib

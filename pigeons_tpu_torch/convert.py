@@ -1,6 +1,8 @@
 """Carry run state across from the JAX package.
 
-``pigeons_tpu/checkpoint.py:write_checkpoint`` stores a run's state as the
+A library model's observations come across as numpy arrays
+(:func:`bayesian_model_from_numpy`), so that both packages compute on the
+same data; ``pigeons_tpu/checkpoint.py:write_checkpoint`` stores a run's state as the
 numpy arrays ``states``, ``chain_of``, ``replica_of`` and ``schedule``; a run
 with a variational reference also has ``schedule_var`` (two legs) and the
 reference's parameters ``ref_params_mean``, ``ref_params_std`` and
@@ -16,6 +18,29 @@ import numpy as np
 import torch
 
 from .schedule import Schedule
+
+
+def bayesian_model_from_numpy(name: str, **data):
+    """The port's library model ``name`` on the JAX model's own data, given
+    as numpy arrays: ``hierarchical_normal`` takes ``data [n_groups,
+    n_per_group]`` (the observations its likelihood closes over),
+    ``eight_schools`` ``y [J]`` and ``sigma [J]``, ``logistic_regression``
+    ``X [n, d]`` and ``y [n]``, ``unid_target`` ``n_trials`` and
+    ``n_successes``."""
+    from .models import library
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, dtype=np.float32))
+
+    if name == "hierarchical_normal":
+        return library.hierarchical_normal(data=f32(data["data"]))
+    if name == "eight_schools":
+        return library.eight_schools(y=f32(data["y"]), sigma=f32(data["sigma"]))
+    if name == "logistic_regression":
+        return library.logistic_regression(X=f32(data["X"]), y=f32(data["y"]))
+    if name == "unid_target":
+        return library.unid_target(int(data["n_trials"]), int(data["n_successes"]))
+    raise ValueError(f"no library model {name!r} in the port (ROADMAP queue 1, item 11b)")
 
 
 def state_from_numpy(pt, arrays, round_idx: int):

@@ -1,8 +1,9 @@
 // Device helpers shared by the slice-sampler kernels (banded_slice.cu,
 // sweep_slice.cu): the machines' phase codes, the counter-based random
 // numbers of pigeons_tpu/ops/pallas_slice.py (_fmix32, _hash_words,
-// _uniform_from_bits), the Cephes float32 log and exp, the kernels' dynamic
-// shared memory and the launch macro.
+// _uniform_from_bits), the Cephes float32 log, exp and log1p, softplus and
+// sigmoid on top of them, the kernels' dynamic shared memory and the launch
+// macro.
 //
 // log and exp follow pigeons_tpu_torch/f32math.py step for step, which in
 // turn follows the polynomials XLA's CPU backend emits, with a fused
@@ -115,5 +116,34 @@ __device__ inline float cephes_expf(float x) {
   const float out = y * pow2;
   return out < FLT_MIN ? 0.0f : out;
 }
+
+// Cephes log1pf, step for step as f32math.log1p: a rational approximation
+// below sqrt(2) - 1, log(1 + x) above.
+__device__ inline float cephes_log1pf(float x) {
+  const float x2 = x * x;
+  float p = __fmaf_rn(x, f32(0x383DE04Bu), f32(0x3EFF40C5u));
+  p = __fmaf_rn(p, x, f32(0x40D284FAu));
+  p = __fmaf_rn(p, x, f32(0x41EF4B9Cu));
+  p = __fmaf_rn(p, x, f32(0x4273CC76u));
+  p = __fmaf_rn(p, x, f32(0x426473ADu));
+  p = __fmaf_rn(p, x, f32(0x41A05101u));
+  float q = x + f32(0x417101ADu);
+  q = __fmaf_rn(q, x, f32(0x42A6185Bu));
+  q = __fmaf_rn(q, x, f32(0x435DC32Du));
+  q = __fmaf_rn(q, x, f32(0x439A8CA3u));
+  q = __fmaf_rn(q, x, f32(0x43586D8Au));
+  q = __fmaf_rn(q, x, f32(0x42707982u));
+  const float small = x + __fmaf_rn(x2, -0.5f, (x * x2) * (p / q));
+  return fabsf(x) < f32(0x3ED413CDu) ? small : cephes_logf(x + 1.0f);
+}
+
+// softplus(x) = logaddexp(x, 0) and sigmoid(x) = 1 / (1 + exp(-x)), as
+// models/distributions.py writes them after XLA's CPU backend.
+__device__ inline float softplus(float x) {
+  const float m = x > 0.0f ? x : 0.0f;
+  return isnan(x) ? x : m + cephes_log1pf(cephes_expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (cephes_expf(-x) + 1.0f); }
 
 }  // namespace pigeons

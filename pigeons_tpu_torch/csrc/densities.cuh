@@ -1,14 +1,16 @@
 // The densities the slice-sampler kernels evaluate on the device.
 //
 // A path describes itself to the kernels as a Density kind plus a few
-// float32 parameters (pigeons_tpu_torch/paths.py: DeviceDensity). Each
-// function here repeats, operation for operation, the batched torch density
-// of pigeons_tpu_torch/paths.py and pigeons_tpu_torch/models/library.py,
-// which in turn follow XLA's CPU evaluation of the JAX densities
-// (pigeons_tpu/paths.py, pigeons_tpu/models/library.py:51-56, 81-87,
-// 377-378, pigeons_tpu/models/target.py:142-143): squares are summed in
-// coordinate order with one fused multiply-add per term, and __fmaf_rn stands
-// exactly where that backend contracts a multiply into an add.
+// float32 parameters and, for a BayesianModel, its data arrays and its prior
+// table (pigeons_tpu_torch/paths.py: DeviceDensity). Each function here
+// repeats, operation for operation, the batched torch density of
+// pigeons_tpu_torch/paths.py, pigeons_tpu_torch/models/library.py,
+// models/bayesian.py and models/distributions.py, which in turn follow XLA's
+// CPU evaluation of the JAX densities (pigeons_tpu/paths.py,
+// pigeons_tpu/models/library.py, models/bayesian.py, models/distributions.py,
+// pigeons_tpu/models/target.py:142-143): sums run in the order in which that
+// backend adds them, and __fmaf_rn stands exactly where it contracts a
+// multiply into an add.
 
 #pragma once
 
@@ -17,15 +19,70 @@
 namespace pigeons {
 
 // kToyMvn: a(beta) * sum(x^2), a = -precision(beta) / 2, params (precision0,
-// precision1). The others interpolate (1 - beta) ref + beta target between
-// the reference N(0, sigma^2 I), params[0] = 1 / sigma, and the target:
-// kFunnel params[1] = 1 / scale; kBanana params[1..4] = 1 / s_a, -log s_a,
-// 1 / (scale s_b), -log(scale s_b); kMvn params[1] = -precision / 2.
-enum Density { kToyMvn = 0, kFunnel = 1, kBanana = 2, kMvn = 3 };
+// precision1). The others interpolate (1 - beta) ref + beta target. For
+// kFunnel, kBanana and kMvn the reference is N(0, sigma^2 I), params[0] =
+// 1 / sigma, and the target has params: kFunnel params[1] = 1 / scale; kBanana
+// params[1..4] = 1 / s_a, -log s_a, 1 / (scale s_b), -log(scale s_b); kMvn
+// params[1] = -precision / 2.
+//
+// The last three are BayesianModel paths (models/bayesian.py): the reference
+// is the model's prior, read from a PriorTable, and the target is prior +
+// likelihood, the likelihood a function of the constrained values and of the
+// model's data in DensityArrays (models/library.py):
+// kHierarchicalNormal  state (theta_trans[G], mu, log tau, log sigma), data
+//                      [G, n] in arrays[0], params[1] = n;
+// kEightSchools        state (theta_trans[J], mu, log tau), arrays y[J],
+//                      sigma[J], log(sigma)[J];
+// kUnid                state logit(p1), logit(p2); params[1..3] = the binomial's
+//                      log coefficient, successes, trials - successes;
+// kLogisticRegression  state (w[d - 1], b), arrays X [n, d - 1] row-major and
+//                      y [n], params[1] = n.
+enum Density {
+  kToyMvn = 0, kFunnel = 1, kBanana = 2, kMvn = 3,
+  kHierarchicalNormal = 4, kEightSchools = 5, kUnid = 6, kLogisticRegression = 7
+};
+
+template <Density K>
+constexpr bool is_bayesian = K == kHierarchicalNormal || K == kEightSchools || K == kUnid ||
+                             K == kLogisticRegression;
 
 constexpr int kMaxDensityParams = 8;
 struct DensityParams {
   float v[kMaxDensityParams];
+};
+
+// The float32 arrays a density reads besides the state: device pointers with
+// their lengths; the kernel reads them where they lie.
+constexpr int kMaxDensityArrays = 4;
+struct DensityArrays {
+  const float* ptr[kMaxDensityArrays];
+  int n[kMaxDensityArrays];
+};
+
+// A BayesianModel's prior as data: one block per prior, coordinates offset ..
+// offset + size of the unconstrained state, a distribution and the bijector
+// to its support. p: kNormal (loc, 1 / scale, -log scale); kHalfCauchy
+// (1 / scale, log 2 - log(pi scale)); kUniform (lo, hi - lo, the block's
+// constant log density, log(hi - lo)). A row of the launcher's table is
+// (offset, size, dist, bijector, p[0..3]) as eight floats.
+enum PriorKind { kNormal = 0, kHalfCauchy = 1, kUniform = 2 };
+enum BijectorKind { kIdentity = 0, kPositive = 1, kInterval = 2 };
+constexpr int kMaxPriorBlocks = 8;
+struct PriorBlock {
+  int offset, size, dist, bijector;
+  float p[4];
+};
+struct PriorTable {
+  int n;
+  PriorBlock block[kMaxPriorBlocks];
+};
+
+// A mean-field Gaussian variational reference (variational/gaussian.py) for
+// the lanes that follow it: half_log_norm[i] = -0.5 log((2 pi std_i) std_i),
+// computed once per block. use is the lane's own: isvar > 0 and active > 0.
+struct VariationalLane {
+  bool use;
+  const float *mean, *std, *half_log_norm;
 };
 
 // A lane's state as a density reads it: coordinate i is x[i * stride], with
@@ -51,15 +108,55 @@ __device__ __forceinline__ float sum_squares(const Term& term, int d) {
   return acc;
 }
 
-// term(first) + term(first + 1) + ... in coordinate order; 0 without terms.
+// term(first) + term(first + 1) + ... in order; 0 without terms.
 template <class Term>
-__device__ __forceinline__ float sum_in_order(const Term& term, int first, int d) {
+__device__ __forceinline__ float sum_in_order(const Term& term, int first, int end) {
   float acc = 0.0f;
-  for (int i = first; i < d; ++i) {
+  for (int i = first; i < end; ++i) {
     const float t = term(i);
     acc = i == first ? t : acc + t;
   }
   return acc;
+}
+
+// The sum of n_rows * n_per_row terms in the order of library.py:
+// sum_by_row_quads (XLA's CPU code for a [n_rows, n_per_row] array with few
+// columns): four partial sums, row r in partial r mod 4, combined as
+// (s0 + s2) + (s1 + s3); then the rows past the last full four, in order.
+template <class Term>
+__device__ inline float sum_by_row_quads(const Term& term, int n_rows, int n_per_row) {
+  const int n_quads = n_rows / 4;
+  if (n_quads == 0) return sum_in_order(term, 0, n_rows * n_per_row);
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // four independent chains, side by side
+  for (int k = 0; k < n_quads; ++k) {
+    for (int j = 0; j < n_per_row; ++j) {
+      for (int l = 0; l < 4; ++l) {
+        const float t = term((4 * k + l) * n_per_row + j);
+        s[l] = (k == 0 && j == 0) ? t : s[l] + t;
+      }
+    }
+  }
+  float acc = (s[0] + s[2]) + (s[1] + s[3]);
+  for (int i = 4 * n_quads * n_per_row; i < n_rows * n_per_row; ++i) acc = acc + term(i);
+  return acc;
+}
+
+// The sum of n terms in the order of library.py: sum_by_windows (XLA's CPU
+// code for a long row): the row padded with zeros to a multiple of `window`,
+// half of the padding in front; each window added up in order from 0, then
+// the windows' sums in order from 0. Adding a padding zero changes nothing,
+// so the padding is skipped.
+template <class Term>
+__device__ inline float sum_by_windows(const Term& term, int n, int window) {
+  const int lead = ((window - n % window) % window) / 2;
+  float total = 0.0f;
+  for (int start = -lead; start < n; start += window) {
+    float acc = 0.0f;
+    const int end = start + window < n ? start + window : n;
+    for (int i = start < 0 ? 0 : start; i < end; ++i) acc = acc + term(i);
+    total = total + acc;
+  }
+  return total;
 }
 
 // w * v with 0 * (-inf) = 0 at both ends of the path (paths.py: _guarded_mul).
@@ -74,89 +171,250 @@ __device__ __forceinline__ float toy_coord_factor(float beta, float precision0, 
   return __fmaf_rn(beta, precision1, (1.0f - beta) * precision0) * -0.5f;
 }
 
+constexpr uint32_t kLog2Pi = 0x3FEB3F8Eu;  // log(2 pi)
+
 // -0.5 (log 2 pi + z^2) - log(scale) with z = (y - loc) / scale
 // (models/distributions.py: normal_logpdf, one term).
 __device__ __forceinline__ float normal_term(float y, float loc, float inv_scale, float neg_log_scale) {
   const float z = (y - loc) * inv_scale;
-  return __fmaf_rn(-__fmaf_rn(z, z, f32(0x3FEB3F8Eu)), 0.5f, neg_log_scale);  // log(2 pi)
+  return __fmaf_rn(-__fmaf_rn(z, z, f32(kLog2Pi)), 0.5f, neg_log_scale);
+}
+
+// The same for a scale that is no constant: a true division
+// (models/library.py: _observation_terms).
+__device__ __forceinline__ float observation_term(float y, float loc, float scale, float neg_log_scale) {
+  const float z = (y - loc) / scale;
+  return __fmaf_rn(__fmaf_rn(z, z, f32(kLog2Pi)), -0.5f, neg_log_scale);
+}
+
+// log |dx/du| summed over a block's coordinates (models/distributions.py:
+// Positive.forward, Interval.forward).
+template <class View>
+__device__ inline float block_log_jacobian(const View& s, const PriorBlock& b) {
+  return sum_in_order(
+      [&](int i) {
+        const float u = s(b.offset + i);
+        if (b.bijector == kPositive) return u;
+        return (b.p[3] + -softplus(-u)) + -softplus(u);
+      },
+      0, b.size);
+}
+
+// A block's log density of its constrained values (models/distributions.py:
+// Normal.log_prob, HalfCauchy.log_prob), the bijector applied here.
+template <class View>
+__device__ inline float block_log_prob(const View& s, const PriorBlock& b) {
+  if (b.dist == kNormal) {
+    const auto t = [&](int i) {
+      const float z = (s(b.offset + i) - b.p[0]) * b.p[1];
+      return __fmaf_rn(z, z, f32(kLog2Pi));
+    };
+    if (b.p[2] == 0.0f) {  // the halving is the multiply that feeds the sum
+      float acc = t(0) * -0.5f;
+      for (int i = 1; i < b.size; ++i) acc = __fmaf_rn(t(i), -0.5f, acc);
+      return acc;
+    }
+    return sum_in_order([&](int i) { return __fmaf_rn(t(i), -0.5f, b.p[2]); }, 0, b.size);
+  }
+  // kHalfCauchy on exp(u)
+  return sum_in_order(
+      [&](int i) {
+        const float z = cephes_expf(s(b.offset + i)) * b.p[0];
+        return b.p[1] - cephes_log1pf(z * z);
+      },
+      0, b.size);
+}
+
+// models/bayesian.py: log_prior. The log-Jacobian first, one summand per
+// block that has one, then one summand per block whose log density is not the
+// constant 0.
+template <class View>
+__device__ inline float log_prior(const View& s, const PriorTable& table) {
+  float lp = 0.0f;
+  bool first = true;
+  for (int k = 0; k < table.n; ++k) {
+    const PriorBlock& b = table.block[k];
+    if (b.bijector == kIdentity) continue;
+    const float lj = block_log_jacobian(s, b);
+    lp = first ? lj : lp + lj;
+    first = false;
+  }
+  for (int k = 0; k < table.n; ++k) {
+    const PriorBlock& b = table.block[k];
+    if (b.dist == kUniform) {
+      if (b.p[2] != 0.0f) lp = lp + b.p[2];
+    } else {
+      lp = lp + block_log_prob(s, b);
+    }
+  }
+  return lp;
+}
+
+// The variational reference's log density, coordinates added in order
+// (variational/gaussian.py: GaussianReference.log_density).
+template <class View>
+__device__ inline float variational_log_density(const View& s, int d, const VariationalLane& v) {
+  return sum_in_order(
+      [&](int i) {
+        const float q = (s(i) - v.mean[i]) / v.std[i];
+        return v.half_log_norm[i] - (q * q) * 0.5f;
+      },
+      0, d);
 }
 
 // A density is evaluated in three steps, so that the threads of a group can
 // share out the middle one (sweep_slice.cu) while every operation and its
 // order stay those of the batched torch density:
-//   prepare      what all terms need; it depends on coordinate 0 alone
-//                (funnel: u = y / scale, sd = exp(u) and y's own term; banana:
-//                x^2 and x's own term);
-//   target_term  the target's term of one coordinate i >= first_term
-//                (funnel, banana: x_i's normal term; kMvn, kToyMvn: the m_i of
-//                the sum of squares);
-//   finish       the reference's and the target's in-order sums over the
-//                terms, the interpolation and the NaN guard.
+//   prepare      what all terms need of the state. It depends on a few
+//                coordinates only (prepare_reads): coordinate 0 for the funnel
+//                (u = y / scale, sd = exp(u), y's own term) and the banana
+//                (x^2, x's own term); the scalars mu, tau, sigma of the
+//                hierarchical models; both coordinates of kUnid (p = p1 p2);
+//                nothing for kLogisticRegression, whose every term reads
+//                every coordinate;
+//   target_term  term t of the target, first_term <= t < end_term: the
+//                normal term of coordinate t (funnel, banana), the m_t of the
+//                sum of squares (kMvn, kToyMvn), the likelihood's term of
+//                observation t (Bayesian models);
+//   finish       the reference's density, the in-order sums over the terms,
+//                the interpolation and the NaN guard.
 struct Prepared {
-  float shift;  // funnel: u; banana: x^2
-  float sd;     // funnel: exp(u)
-  float lp0;    // coordinate 0's own term
+  float a;  // funnel: u; banana: x^2; hierarchical: mu; unid: p
+  float b;  // funnel: exp(u); hierarchical: tau
+  float c;  // funnel, banana: coordinate 0's own term; kHierarchicalNormal: sigma
+  float e;  // kHierarchicalNormal: -log sigma
 };
 
 template <Density K>
 constexpr int first_term = (K == kFunnel || K == kBanana) ? 1 : 0;
 
+// One past the last term's index, from the state's width.
 template <Density K>
-__device__ inline Prepared prepare(float x0, const DensityParams& p) {
-  Prepared r{0.0f, 0.0f, 0.0f};
+__device__ __host__ inline int end_term(int d, const DensityParams& p) {
+  if constexpr (K == kHierarchicalNormal) return (d - 3) * (int)p.v[1];
+  if constexpr (K == kEightSchools) return d - 2;
+  if constexpr (K == kUnid) return 1;
+  if constexpr (K == kLogisticRegression) return (int)p.v[1];
+  return d;
+}
+
+// Whether prepare reads coordinate c.
+template <Density K>
+__device__ __forceinline__ bool prepare_reads(int c, int d) {
+  if constexpr (K == kFunnel || K == kBanana) return c == 0;
+  if constexpr (K == kHierarchicalNormal) return c >= d - 3;
+  if constexpr (K == kEightSchools) return c >= d - 2;
+  return K == kUnid;
+}
+
+template <Density K>
+__device__ inline Prepared prepare(const LaneView& s, int d, const DensityParams& p) {
+  Prepared r{0.0f, 0.0f, 0.0f, 0.0f};
   if constexpr (K == kFunnel) {
+    const float x0 = s(0);
     const float m = x0 * f32(0x3EAAAAABu);                          // y / 3
-    r.lp0 = __fmaf_rn(-(m * m), 0.5f, f32(0xC0011F8Eu));            // -log 3 - log(2 pi) / 2
-    r.shift = x0 * p.v[1];                                          // log of the x's deviation
-    r.sd = cephes_expf(r.shift);
+    r.c = __fmaf_rn(-(m * m), 0.5f, f32(0xC0011F8Eu));              // -log 3 - log(2 pi) / 2
+    r.a = x0 * p.v[1];                                              // log of the x's deviation
+    r.b = cephes_expf(r.a);
   } else if constexpr (K == kBanana) {
-    r.lp0 = normal_term(x0, 0.0f, p.v[1], p.v[2]);
-    r.shift = x0 * x0;
+    const float x0 = s(0);
+    r.c = normal_term(x0, 0.0f, p.v[1], p.v[2]);
+    r.a = x0 * x0;
+  } else if constexpr (K == kHierarchicalNormal) {
+    r.a = s(d - 3);
+    r.b = cephes_expf(s(d - 2));
+    r.c = cephes_expf(s(d - 1));
+    r.e = -s(d - 1);  // log(exp(u)) is u
+  } else if constexpr (K == kEightSchools) {
+    r.a = s(d - 2);
+    r.b = cephes_expf(s(d - 1));
+  } else if constexpr (K == kUnid) {
+    r.a = sigmoid(s(0)) * sigmoid(s(1));
   }
   return r;
 }
 
 template <Density K>
-__device__ __forceinline__ float target_term(float v, const Prepared& pr, const DensityParams& p) {
+__device__ __forceinline__ float target_term(const LaneView& s, int t, const Prepared& pr,
+                                             const DensityParams& p, const DensityArrays& arr) {
   if constexpr (K == kFunnel) {
-    const float q = v / pr.sd;
-    return __fmaf_rn(q * q, -0.5f, -pr.shift) + f32(0xBF6B3F8Eu);  // -log(2 pi) / 2
+    const float q = s(t) / pr.b;
+    return __fmaf_rn(q * q, -0.5f, -pr.a) + f32(0xBF6B3F8Eu);  // -log(2 pi) / 2
   } else if constexpr (K == kBanana) {
-    return normal_term(v, pr.shift, p.v[3], p.v[4]);
+    return normal_term(s(t), pr.a, p.v[3], p.v[4]);
+  } else if constexpr (K == kHierarchicalNormal) {
+    const float theta = __fmaf_rn(s(t / (int)p.v[1]), pr.b, pr.a);
+    return observation_term(arr.ptr[0][t], theta, pr.c, pr.e);
+  } else if constexpr (K == kEightSchools) {
+    const float theta = __fmaf_rn(s(t), pr.b, pr.a);
+    return observation_term(arr.ptr[0][t], theta, arr.ptr[1][t], -arr.ptr[2][t]);
+  } else if constexpr (K == kUnid) {
+    const float acc = __fmaf_rn(cephes_logf(pr.a), p.v[2], p.v[1]);
+    return __fmaf_rn(cephes_log1pf(-pr.a), p.v[3], acc);
+  } else if constexpr (K == kLogisticRegression) {
+    // row t of the design matrix times w, column by column, then + b
+    const int n_w = arr.n[0] / arr.n[1];
+    const float* row = arr.ptr[0] + t * n_w;
+    float logit = row[0] * s(0);
+    for (int k = 1; k < n_w; ++k) logit = __fmaf_rn(row[k], s(k), logit);
+    logit = logit + s(n_w);
+    return arr.ptr[1][t] * logit - softplus(logit);
   } else {
-    return v * 1.0f;
+    return s(t) * 1.0f;
   }
 }
 
 // The path's log density at beta from the target's terms, NaN read as -inf
 // (the runtime's guard for out-of-support queries). `s` is the state, for the
-// reference's sum of squares; term(i) is target_term of coordinate i.
+// reference's density; term(t) is target_term t. A lane under the variational
+// reference (var.use) has that reference's density for the path's own and the
+// path's target at beta = 1 (paths.py: VariationalPath).
 template <Density K, class Term>
 __device__ inline float finish(const LaneView& s, const Term& term, int d, float beta,
-                               const Prepared& pr, const DensityParams& p) {
-  float lp;
+                               const Prepared& pr, const DensityParams& p,
+                               const PriorTable& prior, const VariationalLane& var) {
+  float lref, ltgt;
   if constexpr (K == kToyMvn) {
-    lp = toy_coord_factor(beta, p.v[0], p.v[1]) * sum_squares(term, d);
+    const float sq = sum_squares(term, d);
+    if (!var.use) return nan_to_neg_inf(toy_coord_factor(beta, p.v[0], p.v[1]) * sq);
+    ltgt = toy_coord_factor(1.0f, p.v[0], p.v[1]) * sq;
+    lref = 0.0f;
+  } else if constexpr (is_bayesian<K>) {
+    lref = log_prior(s, prior);
+    float lik;
+    if constexpr (K == kHierarchicalNormal) {
+      lik = sum_by_row_quads(term, d - 3, (int)p.v[1]);
+    } else if constexpr (K == kLogisticRegression) {
+      lik = sum_by_windows(term, end_term<K>(d, p), 32);
+    } else {
+      lik = sum_in_order(term, 0, end_term<K>(d, p));
+    }
+    ltgt = lref + lik;
   } else {
     const float inv_sigma = p.v[0];
-    const float lref = sum_squares([&](int i) { return s(i) * inv_sigma; }, d) * -0.5f;
-    float ltgt;
+    lref = var.use ? 0.0f : sum_squares([&](int i) { return s(i) * inv_sigma; }, d) * -0.5f;
     if constexpr (K == kFunnel || K == kBanana) {
-      ltgt = pr.lp0 + sum_in_order(term, 1, d);
+      ltgt = pr.c + sum_in_order(term, 1, d);
     } else {
       static_assert(K == kMvn, "unknown density");
       ltgt = sum_squares(term, d) * p.v[1];
     }
-    lp = interpolate(beta, lref, ltgt);
   }
-  return nan_to_neg_inf(lp);
+  if (var.use) {
+    lref = variational_log_density(s, d, var);
+    // the fixed path at beta = 1, 0 * ref + 1 * target
+    if constexpr (K != kToyMvn) ltgt = 0.0f + ltgt;
+  }
+  return nan_to_neg_inf(interpolate(beta, lref, ltgt));
 }
 
 // The three steps by one thread: the form the torch twin follows.
 template <Density K>
 __device__ inline float log_density(const LaneView& s, int d, float beta, const Prepared& pr,
-                                    const DensityParams& p) {
-  return finish<K>(s, [&](int i) { return target_term<K>(s(i), pr, p); }, d, beta, pr, p);
+                                    const DensityParams& p, const DensityArrays& arr,
+                                    const PriorTable& prior, const VariationalLane& var) {
+  return finish<K>(s, [&](int t) { return target_term<K>(s, t, pr, p, arr); }, d, beta, pr, p,
+                   prior, var);
 }
 
 // Coordinate terms f(v) of the separable densities, NaN read as -inf.

@@ -49,6 +49,19 @@
 // 128 / G lanes' states row-major and a term buffer each (d up to 227 G).
 // Above 48 KB the shared memory is dynamic with the opt-in attribute.
 //
+// Array inputs. What the TPU kernel receives as hoisted array constants
+// comes in DensityInputs, by value: a BayesianModel's prior as a table of
+// blocks, its data as device pointers with lengths (DensityArrays), and for
+// a variational run the lanes' isvar and the reference's mean, std and active
+// as device pointers, so that no launch waits on the host. A block copies
+// mean and std (with each coordinate's log norm, computed once) into shared
+// memory behind the tile; the data arrays, a few KB that every lane reads,
+// are read where they lie, through L1, whatever their size (a block's copy of
+// the hierarchical normal's 800 B in shared memory bought nothing: 3.96 ms
+// against 3.98 ms). A density's terms are its own range (densities.cuh:
+// first_term, end_term): the observations of a BayesianModel, 200 for the
+// hierarchical normal, shared out over the group like coordinates.
+//
 // Times (tools/torch_kernel_variants.py, NVIDIA H100 80GB HBM3, 700.00 W, one
 // run). Funnel, B = 3,072, d = 10, 1 pass: G = 8 / 16 / 32 0.231 / 0.205 /
 // 0.221 ms, G = 1 0.453 ms, the first version (one thread per lane, all four
@@ -56,8 +69,15 @@
 // 0.594 ms against 0.542 ms for G = 1. Toy MVN in full mode, B = 20,480,
 // d = 100: G = 1 1.63 ms, G = 32 7.11 ms (its terms are one multiply each).
 // Delta mode, same shape: 0.392 ms against 0.410 ms for the first version.
-// 47 to 70 registers; the flat-prior MVN with G = 1 spills 4 bytes, no other
-// instance spills.
+// With the array inputs (same tool, same card, one run): hierarchical normal,
+// B = 8,192, d = 23: G = 1 / 8 / 16 / 32 10.50 / 3.06 / 3.39 / 4.08 ms (every
+// thread of a group repeats the prior and the 200-term sum), at B = 640 8.25 /
+// 2.21 / 1.71 / 1.46 ms; logistic regression, 200 observations, d = 11:
+// 17.16 / 2.77 / 2.48 / 2.46 ms at B = 8,192, 11.89 / 1.73 / 1.05 / 0.74 ms at
+// B = 640; the funnel at B = 3,072 0.260 ms against 0.238 ms for the sources
+// without the variational branch. 53 to 96 registers
+// (tools/torch_build_report.py); the funnel's and the logistic regression's
+// instances spill 4 to 28 bytes, no other instance spills.
 //
 // Numerics follow the JAX kernel as XLA's CPU backend runs it, like kernel K1
 // (banded_slice.cu): uniforms from chained murmur3 finalizers, -log(u) with
@@ -85,16 +105,27 @@ __device__ __forceinline__ unsigned group_mask(int tid) {
   }
 }
 
+// What a launch hands the density besides the states: its parameters, its
+// arrays, the prior table, and for a variational run the lanes' isvar [B], the
+// reference's mean [d], std [d] and active [1] (all null otherwise).
+struct DensityInputs {
+  DensityParams params;
+  DensityArrays arrays;
+  PriorTable prior;
+  const float *isvar, *mean, *std, *active;
+};
+
 template <Density K, bool kDelta, int G>
 __global__ void __launch_bounds__(kThreads)
 slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                    const int64_t* __restrict__ seeds, float* __restrict__ x_out,
                    float* __restrict__ lp_out, float* __restrict__ stats, int B, int d,
-                   DensityParams params, float W, float narrow_w, int p, int n_passes,
+                   DensityInputs in, float W, float narrow_w, int p, int n_passes,
                    int max_iter) {
   static_assert(G == 1 || !kDelta, "a delta query is O(1): nothing to share out");
   // G == 1: the states [d][T], coordinate-major. G > 1: the states [T / G][d],
-  // then each group's target terms [T / G][d].
+  // then each group's target terms [T / G][n_terms]. Then the variational
+  // reference's mean, std and log norms [3][d].
   float* shared = dynamic_shared();
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -102,8 +133,20 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
   const int64_t lane0 = (int64_t)blockIdx.x * lanes_per_block;
   const int n_here = (int)min((int64_t)lanes_per_block, (int64_t)B - lane0);
   const int n_tile = n_here * d;
+  const DensityParams& params = in.params;
+  const int n_terms = end_term<K>(d, params);
   for (int i = tid; i < n_tile; i += T)
     shared[G == 1 ? (i % d) * T + i / d : i] = x[lane0 * d + i];
+  float* var_arrays = shared + (G == 1 ? T * d : lanes_per_block * (d + n_terms));
+  const bool variational = in.isvar != nullptr;
+  if (variational) {
+    for (int i = tid; i < d; i += T) {
+      const float sd = in.std[i];
+      var_arrays[i] = in.mean[i];
+      var_arrays[d + i] = sd;
+      var_arrays[2 * d + i] = gaussian_log_norm(sd);
+    }
+  }
   __syncthreads();
 
   const int group = tid / G;  // the block's lane this thread works for
@@ -112,30 +155,37 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
     const int64_t b = lane0 + group;
     float* xs = G == 1 ? shared + tid : shared + group * d;
     const int stride = G == 1 ? T : 1;  // coordinate c of this lane is xs[c * stride]
-    [[maybe_unused]] float* terms = shared + (lanes_per_block + group) * d;
+    [[maybe_unused]] float* terms = shared + lanes_per_block * d + group * n_terms;
     [[maybe_unused]] const unsigned mask = group_mask<G>(tid);
     const float beta = betas[b];
     const uint32_t hash_base = fmix32((uint32_t)seeds[b] ^ 0x9E3779B9u);
+    const VariationalLane var{variational && in.isvar[b] > 0.0f && in.active[0] > 0.0f,
+                              var_arrays, var_arrays + d, var_arrays + 2 * d};
 
     // The density of the lane's state with coordinate c (if any) holding q.
     // Every thread of the group calls it at the same point and gets the same
-    // bits: thread g computes the terms of coordinates g, g + G, ..., and all
-    // of them run the in-order sums over the group's buffer.
+    // bits: thread g computes the terms g, g + G, ..., and all of them run the
+    // in-order sums over the group's buffer.
     auto evaluate = [&](int c, float q, const Prepared& pr) {
       const LaneView s{xs, stride, c, q};
       if constexpr (G == 1) {
-        return log_density<K>(s, d, beta, pr, params);
+        return log_density<K>(s, d, beta, pr, params, in.arrays, in.prior, var);
       } else {
-        for (int i = first_term<K> + g; i < d; i += G) terms[i] = target_term<K>(s(i), pr, params);
+        for (int t = first_term<K> + g; t < n_terms; t += G)
+          terms[t] = target_term<K>(s, t, pr, params, in.arrays);
         __syncwarp(mask);
-        const float lp = finish<K>(s, [&](int i) { return terms[i]; }, d, beta, pr, params);
+        const float lp = finish<K>(s, [&](int t) { return terms[t]; }, d, beta, pr, params,
+                                   in.prior, var);
         __syncwarp(mask);  // all have read the terms before the next query overwrites them
         return lp;
       }
     };
+    // what the terms need of the state, with coordinate c (if any) holding q
+    auto prepared = [&](int c, float q) { return prepare<K>(LaneView{xs, stride, c, q}, d, params); };
 
-    // what the terms need of coordinate 0, kept for the lane's current state
-    Prepared pr_cur = prepare<K>(xs[0], params);
+    // kept for the lane's current state, recomputed for a query of a coordinate
+    // that prepare reads
+    Prepared pr_cur = prepared(-1, 0.0f);
     float lp_cur = evaluate(-1, 0.0f, pr_cur);
     float old = 0.f, z = 0.f, L = 0.f, R = 0.f, lpL = 0.f, lpR = 0.f, Lb = 0.f, Rb = 0.f;
     float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f, base = 0.f;
@@ -179,7 +229,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         if (is_enter) base = lp_cur - quadratic_term(a, xc);
         lp_q = base + quadratic_term(a, query);
       } else {
-        lp_q = evaluate(c, query, c == 0 ? prepare<K>(query, params) : pr_cur);
+        lp_q = evaluate(c, query, prepare_reads<K>(c, d) ? prepared(c, query) : pr_cur);
       }
       n_evals += 1.0f;
 
@@ -256,7 +306,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         // in its own program order
         xs[c * stride] = cand;
         lp_cur = lp_cand;
-        if (!kDelta && c == 0) pr_cur = prepare<K>(cand, params);
+        if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared(-1, 0.0f);
       }
       acc_sum += accepted ? 1.0f : 0.0f;
 
@@ -277,7 +327,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
 
     // the deltas drift by float32 rounding over the sweep: hand back the
     // exactly recomputed density of the final state, as the TPU kernel does
-    if constexpr (kDelta) lp_cur = evaluate(-1, 0.0f, prepare<K>(xs[0], params));
+    if constexpr (kDelta) lp_cur = evaluate(-1, 0.0f, prepared(-1, 0.0f));
     if (g == 0) {
       lp_out[b] = lp_cur;
       stats[b] = acc_sum;
@@ -291,18 +341,20 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
     x_out[lane0 * d + i] = shared[G == 1 ? (i % d) * T + i / d : i];
 }
 
-// Shared memory of one block: with one thread per lane a state per thread,
-// and the block shrinks to 64 or 32 lanes where 128 states would not fit (d
-// up to 1,816); with a group per lane a state and a term buffer for each
-// group of a 128-thread block (d up to 227 times the group's size). 0: d is
-// too large.
-size_t shared_bytes(int group, int d, int* threads) {
+// Shared memory of one block, with `extra` floats past the lanes' states (the
+// variational reference's 3 d). With one thread per
+// lane a state per thread, and the block shrinks to 64 or 32 lanes where 128
+// states would not fit (d up to 1,816); with a group per lane a state and a
+// buffer of n_terms terms for each group of a 128-thread block. 0: too large.
+size_t shared_bytes(int group, int d, int n_terms, size_t extra, int* threads) {
   *threads = kThreads;
-  size_t bytes = (size_t)2 * (kThreads / group) * d * sizeof(float);
+  size_t floats = (size_t)(kThreads / group) * ((size_t)d + n_terms);
   if (group == 1) {
-    while (*threads > 32 && (size_t)d * *threads * sizeof(float) > kMaxSharedBytes) *threads /= 2;
-    bytes = (size_t)d * *threads * sizeof(float);
+    while (*threads > 32 && ((size_t)d * *threads + extra) * sizeof(float) > kMaxSharedBytes)
+      *threads /= 2;
+    floats = (size_t)d * *threads;
   }
+  const size_t bytes = (floats + extra) * sizeof(float);
   return bytes > kMaxSharedBytes ? 0 : bytes;
 }
 
@@ -311,16 +363,18 @@ struct SweepArgs {
   const int64_t* seeds;
   float *x_out, *lp_out, *stats;
   int B, d;
-  DensityParams params;
+  DensityInputs in;
   float w;
   int p, n_passes, max_iter;
   cudaStream_t stream;
 };
 
 template <Density K, bool kDelta, int G>
-int launch(const SweepArgs& a) {
+int launch(SweepArgs a) {
+  const int n_terms = end_term<K>(a.d, a.in.params);
+  const size_t var_floats = a.in.isvar != nullptr ? (size_t)3 * a.d : 0;
   int threads;
-  const size_t shared = shared_bytes(G, a.d, &threads);
+  const size_t shared = shared_bytes(G, a.d, n_terms, var_floats, &threads);
   if (shared == 0) return -2;  // d too large for a lane's state in shared memory
   auto kernel = slice_sweep_kernel<K, kDelta, G>;
   const cudaError_t err = allow_shared_bytes(kernel, shared);
@@ -328,7 +382,7 @@ int launch(const SweepArgs& a) {
   const int lanes_per_block = threads / G;
   const unsigned blocks = (unsigned)(((int64_t)a.B + lanes_per_block - 1) / lanes_per_block);
   PIGEONS_LAUNCH(kernel, blocks, threads, shared, a.stream, a.x, a.betas, a.seeds, a.x_out,
-                 a.lp_out, a.stats, a.B, a.d, a.params, a.w, 1.1f * a.w, a.p, a.n_passes,
+                 a.lp_out, a.stats, a.B, a.d, a.in, a.w, 1.1f * a.w, a.p, a.n_passes,
                  a.max_iter);
   return (int)cudaGetLastError();
 }
@@ -336,32 +390,82 @@ int launch(const SweepArgs& a) {
 // Threads that an H100 keeps resident: 132 SMs of 2,048.
 constexpr int64_t kResidentThreads = 132 * 2048;
 
+// Whether a term costs about what one summand of the part that every thread
+// of a group repeats costs (a division and a few multiply-adds), and not many
+// times that (logistic regression: a dot product and a softplus).
+template <Density K>
+constexpr bool cheap_terms = K != kLogisticRegression;
+
 // Threads per lane in full mode, from the density and the shape. One thread
 // where there is nothing to share out: a density whose terms are one multiply
-// each (the sums of squares), or d = 1. Else the smallest group that gives
-// every thread at most one term, halved down to 8 while the batch's groups
-// would not all be resident at once: beyond that the card is full either way,
-// and a group repeats the machine and the in-order sums in every thread. One
-// thread again where even groups of 8 are too many or their buffers too large.
+// each (the sums of squares), or a single term. Else the smallest group that
+// gives every thread at most one term (32 at most), halved down to 8 while the
+// batch's groups would fill the card: a group repeats the machine, the prior
+// and the in-order sums in every thread, so once there are threads enough to
+// hide each other's latency a smaller group does less work in all. With cheap
+// terms that point is a quarter of the resident threads (hierarchical normal,
+// B = 8,192: 8 / 16 / 32 threads 3.06 / 3.39 / 4.08 ms, but B = 640: 2.21 /
+// 1.71 / 1.46 ms), with dear ones all of them (logistic regression, B = 8,192:
+// 2.77 / 2.48 / 2.46 ms). One thread again where even groups of 8 are too many
+// or their buffers too large.
 template <Density K>
-int pick_group(int B, int d) {
-  const int n_terms = d - first_term<K>;
-  if (first_term<K> == 0 || n_terms == 0) return 1;
+int pick_group(int B, int d, int n_all_terms) {
+  const int n_terms = n_all_terms - first_term<K>;
+  if (K == kToyMvn || K == kMvn || n_terms <= 1) return 1;
   int group = n_terms <= 8 ? 8 : n_terms <= 16 ? 16 : 32;
-  while (group > 8 && (int64_t)B * group > kResidentThreads) group /= 2;
+  const int64_t full = cheap_terms<K> ? kResidentThreads / 4 : kResidentThreads;
+  while (group > 8 && (int64_t)B * group > full) group /= 2;
   int threads;
-  if ((int64_t)B * group > kResidentThreads || shared_bytes(group, d, &threads) == 0) return 1;
+  if ((int64_t)B * group > kResidentThreads ||
+      shared_bytes(group, d, n_all_terms, (size_t)3 * d, &threads) == 0)
+    return 1;
   return group;
 }
 
+// kUnid has one term: it is built for one thread per lane only.
 template <Density K>
 int launch_full(const SweepArgs& a, int group) {
-  switch (group ? group : pick_group<K>(a.B, a.d)) {
-    case 1: return launch<K, false, 1>(a);
-    case 8: return launch<K, false, 8>(a);
-    case 16: return launch<K, false, 16>(a);
-    case 32: return launch<K, false, 32>(a);
-    default: return -1;
+  if (!group) group = pick_group<K>(a.B, a.d, end_term<K>(a.d, a.in.params));
+  if (group == 1) return launch<K, false, 1>(a);
+  if constexpr (K != kUnid) {
+    switch (group) {
+      case 8: return launch<K, false, 8>(a);
+      case 16: return launch<K, false, 16>(a);
+      case 32: return launch<K, false, 32>(a);
+    }
+  }
+  return -1;
+}
+
+// Whether the state's width, the arrays' lengths and the prior table are what
+// density kind `density` reads: the kernel checks no index.
+bool consistent(int density, int d, const DensityInputs& in) {
+  const int* n = in.arrays.n;
+  const bool bayesian = density >= kHierarchicalNormal;
+  if (!bayesian) return in.prior.n == 0 && n[0] + n[1] + n[2] + n[3] == 0;
+  if (in.prior.n < 1) return false;
+  int covered = 0;
+  for (int k = 0; k < in.prior.n; ++k) {
+    const PriorBlock& b = in.prior.block[k];
+    if (b.offset != covered || b.size < 1 || b.dist < kNormal || b.dist > kUniform ||
+        b.bijector < kIdentity || b.bijector > kInterval)
+      return false;
+    covered += b.size;
+  }
+  if (covered != d) return false;
+  switch (density) {
+    case kHierarchicalNormal: {
+      const int per = (int)in.params.v[1];
+      return d > 3 && per >= 1 && n[0] == (d - 3) * per && n[1] + n[2] + n[3] == 0;
+    }
+    case kEightSchools:
+      return d > 2 && n[0] == d - 2 && n[1] == d - 2 && n[2] == d - 2 && n[3] == 0;
+    case kUnid: return d == 2 && n[0] + n[1] + n[2] + n[3] == 0;
+    case kLogisticRegression: {
+      const int n_obs = (int)in.params.v[1];
+      return d > 1 && n_obs >= 1 && n[0] == n_obs * (d - 1) && n[1] == n_obs && n[2] + n[3] == 0;
+    }
+    default: return false;
   }
 }
 
@@ -372,22 +476,50 @@ int launch_full(const SweepArgs& a, int group) {
 // (uint32 values), the [B, d] float32 output states, the [B] float32 output
 // densities and the [3, B] float32 stats (accept_sum, accept_n, n_evals).
 // density is a Density of densities.cuh and params its kMaxDensityParams
-// float32 parameters in host memory; coord_deltas selects delta mode. group
-// is the number of threads per lane in full mode (1, 8, 16 or 32), or 0 for
-// the launcher's choice from the density, B and d; delta mode always runs one.
-// Launches on `stream`. Returns cudaGetLastError(), or -1 for a density, mode
-// or group the kernel does not have, -2 for a d whose state does not fit.
+// float32 parameters in host memory; coord_deltas selects delta mode.
+// arrays and array_lens, both in host memory, are the kMaxDensityArrays device
+// pointers of the density's float32 arrays and their lengths (null and 0 for
+// the ones it does not have); prior, in host memory, is the prior table's
+// n_prior rows of 8 floats (offset, size, distribution, bijector, p[0..3]).
+// isvar [B], mean [d], std [d] and active [1] are device pointers of a
+// variational run's lanes and reference, all null otherwise. group is the
+// number of threads per lane in full mode (1, 8, 16 or 32; 1 only for kUnid),
+// or 0 for the launcher's choice from the density, B and d; delta mode always
+// runs one.
+// Launches on `stream`. Returns cudaGetLastError(), or -1 for
+// a density, mode, group or set of arrays the kernel does not have, -2 for a d
+// whose state does not fit.
 extern "C" int slice_sweep(const float* x, const float* betas, const int64_t* seeds, float* x_out,
                            float* lp_out, float* stats, int B, int d, int density,
-                           int coord_deltas, const float* params, float w, int p, int n_passes,
-                           int max_iter, int group, void* stream) {
+                           int coord_deltas, const float* params, const float* const* arrays,
+                           const int* array_lens, const float* prior, int n_prior,
+                           const float* isvar, const float* mean, const float* std,
+                           const float* active, float w, int p, int n_passes, int max_iter,
+                           int group, void* stream) {
   if (B == 0) return (int)cudaSuccess;
-  if (d < 1) return -1;
+  if (d < 1 || n_prior < 0 || n_prior > kMaxPriorBlocks) return -1;
+  const bool variational = isvar != nullptr;
+  if (variational != (mean != nullptr) || variational != (std != nullptr) ||
+      variational != (active != nullptr))
+    return -1;
   SweepArgs a{x, betas, seeds, x_out, lp_out, stats, B, d, {}, w, p, n_passes, max_iter,
               (cudaStream_t)stream};
-  for (int i = 0; i < kMaxDensityParams; ++i) a.params.v[i] = params[i];
+  for (int i = 0; i < kMaxDensityParams; ++i) a.in.params.v[i] = params[i];
+  for (int i = 0; i < kMaxDensityArrays; ++i) {
+    a.in.arrays.ptr[i] = arrays ? arrays[i] : nullptr;
+    a.in.arrays.n[i] = arrays ? array_lens[i] : 0;
+    if (a.in.arrays.n[i] < 0 || (a.in.arrays.n[i] > 0) != (a.in.arrays.ptr[i] != nullptr)) return -1;
+  }
+  a.in.prior.n = n_prior;
+  for (int k = 0; k < n_prior; ++k) {
+    const float* row = prior + 8 * k;
+    a.in.prior.block[k] = {(int)row[0], (int)row[1], (int)row[2], (int)row[3],
+                           {row[4], row[5], row[6], row[7]}};
+  }
+  a.in.isvar = isvar, a.in.mean = mean, a.in.std = std, a.in.active = active;
+  if (!consistent(density, d, a.in)) return -1;
   if (coord_deltas) {
-    if (density != kToyMvn || group > 1) return -1;
+    if (density != kToyMvn || group > 1 || variational) return -1;
     return launch<kToyMvn, true, 1>(a);
   }
   switch (density) {
@@ -395,6 +527,10 @@ extern "C" int slice_sweep(const float* x, const float* betas, const int64_t* se
     case kFunnel: return launch_full<kFunnel>(a, group);
     case kBanana: return launch_full<kBanana>(a, group);
     case kMvn: return launch_full<kMvn>(a, group);
+    case kHierarchicalNormal: return launch_full<kHierarchicalNormal>(a, group);
+    case kEightSchools: return launch_full<kEightSchools>(a, group);
+    case kUnid: return launch_full<kUnid>(a, group);
+    case kLogisticRegression: return launch_full<kLogisticRegression>(a, group);
     default: return -1;
   }
 }

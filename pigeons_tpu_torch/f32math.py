@@ -1,4 +1,4 @@
-"""float32 ``exp``, ``log``, ``log1p`` and ``erfinv`` as plain torch ops.
+"""float32 ``exp``, ``log``, ``log1p``, ``erfinv`` and ``lgamma`` as plain torch ops.
 
 The JAX package computes its swap acceptances (``exp``), its streaming
 logsumexp recorders (``log1p`` of ``exp``) and its normal draws (``erf_inv``)
@@ -27,9 +27,15 @@ on torch's CPU and CUDA backends.
 
 from __future__ import annotations
 
+import math
 import struct
 
 import torch
+
+
+def _round(v: float) -> float:
+    """``v`` rounded to float32, as an exact Python float."""
+    return struct.unpack("<f", struct.pack("<f", v))[0]
 
 
 def _f(bits: int) -> float:
@@ -65,6 +71,15 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
                2.83297682)
+
+# XLA's lgamma: Lanczos approximation with g = 7 and nine terms
+_LANCZOS_BASE = 0.99999999999980993227684700473478
+_LANCZOS = (676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+            771.3234287776530788486528258894, -176.61502916214059906584551354,
+            12.507343278686904814458936853, -0.13857109526572011689554707,
+            9.984369578019570859563e-6, 1.50563273514931155834e-7)
+_LOG_SQRT_2PI = (math.log(2.0) + math.log(math.pi)) / 2.0
+_LOG_7_5 = math.log(7.5)
 
 
 def fma(a, b, c) -> torch.Tensor:
@@ -158,3 +173,20 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
         p = fma(p, w, coef[..., i])
     out = p * x
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), out)
+
+
+def lgamma(x: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.special.gammaln`` in float32 for ``x >= 0.5``: XLA's
+    Lanczos sum, step for step, the division by the constant 7.5 a multiplication
+    by its float32 reciprocal and the last product fused into its add (the branch that reflects smaller arguments is
+    not reproduced: NaN there). Not correctly rounded, up to 4 ulp off; the
+    JAX package folds such values into its binomial and beta constants."""
+    z = x - 1.0
+    s = torch.full_like(x, _LANCZOS_BASE)
+    for i, c in enumerate(_LANCZOS):
+        s = s + torch.full_like(x, c) / (z + float(i) + 1.0)
+    t = z + 7.5
+    log_t = log1p(z * _round(1.0 / 7.5)) + _round(_LOG_7_5)
+    a = (z + 0.5) - t / log_t
+    out = fma(a, log_t, _round(_LOG_SQRT_2PI)) + log(s)
+    return torch.where(x >= 0.5, out, torch.full_like(out, float("nan")))

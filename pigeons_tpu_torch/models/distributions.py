@@ -1,19 +1,33 @@
-"""Log densities of standard distributions on batched tensors.
+"""Distributions on batched tensors: log densities, iid samplers and
+bijectors to unconstrained space.
 
-Counterpart of ``pigeons_tpu/models/distributions.py``. Only
-``normal_logpdf`` is here, which the banana target uses; the ``Distribution``
-classes wait for the Bayesian-model frontend (ROADMAP queue 1, item 11b).
+Counterpart of ``pigeons_tpu/models/distributions.py``. A distribution has an
+event ``shape``; ``log_prob(x [..., *shape]) -> [...]`` sums over the event
+and ``sample(keys [..., 2]) -> [..., *shape]`` draws one event per key. A
+bijector's ``forward(u [..., *shape])`` returns the constrained value and the
+log-Jacobian ``[...]`` summed over the event.
+
+Every function is written as XLA's CPU backend evaluates the JAX one with
+constant parameters: a division by a constant is a multiplication by its
+float32 reciprocal, logs of constants are folded (computed here with the same
+Cephes polynomial), a multiply that feeds an add is one fused multiply-add,
+and an event is summed in order. ``Normal``, ``HalfCauchy`` and ``Uniform``
+with their bijectors are bit for bit the JAX ones, in the densities and inside
+the slice kernel (whose prior table names them, ``csrc/densities.cuh``); the
+others are held to a float32 tolerance (``tests/test_torch_bayesian.py``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass, field
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from .. import f32math
+from .. import f32math, rng
 
 LOG_2PI = math.log(2.0 * math.pi)
 _LOG_2PI_F32 = float(np.float32(LOG_2PI))
@@ -55,3 +69,329 @@ def normal_logpdf(y, loc, scale: float):
     """:func:`normal_terms` of ``y [..., k]`` summed over the last axis in
     coordinate order."""
     return sum_in_order(normal_terms(y, loc, scale))
+
+
+def _event(x, shape):
+    """``x [..., *shape]`` with the event flattened: ``[..., size]``."""
+    return x.reshape(x.shape[: x.dim() - len(shape)] + (-1,))
+
+
+def _const_log(v: float) -> float:
+    """``log(v)`` of a constant as the JAX package folds it: the float32
+    Cephes polynomial."""
+    return float(f32math.log(torch.tensor(v, dtype=torch.float32)))
+
+
+def _recip(v: float) -> float:
+    return float(np.float32(1.0) / np.float32(v))
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` as XLA evaluates it."""
+    out = torch.clamp_min(x, 0.0) + f32math.log1p(f32math.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+def sigmoid(x):
+    """``jax.nn.sigmoid`` as XLA's CPU backend expands it: ``1 / (1 + exp(-x))``."""
+    return 1.0 / (f32math.exp(-x) + 1.0)
+
+
+# ---------------------------------------------------------------------------
+# bijectors: unconstrained u -> constrained x, with log |dx/du|
+# ---------------------------------------------------------------------------
+
+# bijector kinds of csrc/densities.cuh
+IDENTITY, POSITIVE, INTERVAL = 0, 1, 2
+
+
+class Identity:
+    kind = IDENTITY
+
+    def forward(self, u, shape=()):
+        return u, torch.zeros(u.shape[: u.dim() - len(shape)], dtype=u.dtype, device=u.device)
+
+    def inverse(self, x):
+        return x
+
+
+class Positive:
+    """``x = exp(u)``, Stan's lower-bound transform."""
+
+    kind = POSITIVE
+
+    def forward(self, u, shape=()):
+        return f32math.exp(u), sum_in_order(_event(u, shape))
+
+    def inverse(self, x):
+        return f32math.log(x)
+
+
+@dataclass(frozen=True)
+class Interval:
+    """``x = lo + (hi - lo) sigmoid(u)``, Stan's two-sided transform."""
+
+    lo: float
+    hi: float
+    kind = INTERVAL
+
+    @property
+    def log_width(self) -> float:
+        return _const_log(self.hi - self.lo)
+
+    def forward(self, u, shape=()):
+        s = sigmoid(u)
+        x = s if (self.lo, self.hi) == (0.0, 1.0) else f32math.fma(s, _f32(self.hi - self.lo), _f32(self.lo))
+        terms = (self.log_width + log_sigmoid(u)) + log_sigmoid(-u)
+        return x, sum_in_order(_event(terms, shape))
+
+    def inverse(self, x):
+        t = (x - _f32(self.lo)) * _recip(self.hi - self.lo)
+        t = torch.clamp(t, _f32(1e-7), _f32(1.0 - 1e-7))
+        return f32math.log(t) - f32math.log1p(-t)
+
+
+# ---------------------------------------------------------------------------
+# distributions (with event shape, used as priors / references)
+# ---------------------------------------------------------------------------
+
+# distribution kinds of csrc/densities.cuh (the kernel's prior table)
+NORMAL, HALF_CAUCHY, UNIFORM = 0, 1, 2
+
+
+@dataclass(frozen=True)
+class Distribution:
+    # keyword-only so subclass parameters (loc, scale, ...) stay positional
+    shape: Tuple[int, ...] = field(default=(), kw_only=True)
+
+    bijector = Identity()
+    # (kind, three float32 parameters) of the kernel's prior table, or None
+    # where the kernel has no such block
+    device_block = None
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def log_prob(self, x):  # summed over the event
+        raise NotImplementedError
+
+    def sample(self, keys):
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class Normal(Distribution):
+    loc: float = 0.0
+    scale: float = 1.0
+
+    @property
+    def device_block(self):
+        return NORMAL, (_f32(self.loc), _recip(self.scale), -_const_log(self.scale))
+
+    def log_prob(self, x):
+        _, (loc, inv_scale, neg_log_scale) = self.device_block
+        z = (_event(x, self.shape) - loc) * inv_scale
+        t = f32math.fma(z, z, _LOG_2PI_F32)
+        if neg_log_scale == 0.0:
+            # the halving is the multiply that feeds the event's sum
+            acc = t[..., 0] * -0.5
+            for i in range(1, t.shape[-1]):
+                acc = f32math.fma(t[..., i], -0.5, acc)
+            return acc
+        return sum_in_order(f32math.fma(t, -0.5, neg_log_scale))
+
+    def sample(self, keys):
+        return f32math.fma(rng.normal(keys, self.shape), _f32(self.scale), _f32(self.loc))
+
+
+@dataclass(frozen=True)
+class Uniform(Distribution):
+    lo: float = 0.0
+    hi: float = 1.0
+
+    @property
+    def bijector(self):
+        return Interval(self.lo, self.hi)
+
+    @property
+    def total(self) -> float:
+        """The event's log density, a constant: ``size`` times
+        ``-log(hi - lo)`` added in float32."""
+        c, acc = np.float32(-_const_log(self.hi - self.lo)), np.float32(0.0)
+        for _ in range(self.size):
+            acc = np.float32(acc + c)
+        return float(acc)
+
+    @property
+    def device_block(self):
+        return UNIFORM, (_f32(self.lo), _f32(self.hi - self.lo), self.total)
+
+    def log_prob(self, x):
+        batch = x.shape[: x.dim() - len(self.shape)]
+        return torch.full(batch, self.total, dtype=x.dtype, device=x.device)
+
+    def sample(self, keys):
+        return rng.uniform(keys, self.shape, self.lo, self.hi)
+
+
+def _gammaln(v: float) -> np.float32:
+    """``gammaln`` of a constant as the JAX package folds it (float32 Lanczos)."""
+    return np.float32(float(f32math.lgamma(torch.tensor(v, dtype=torch.float32))))
+
+
+@dataclass(frozen=True)
+class Beta(Distribution):
+    a: float = 1.0
+    b: float = 1.0
+
+    @property
+    def bijector(self):
+        return Interval(0.0, 1.0)
+
+    def log_prob(self, x):
+        lbeta = float((_gammaln(self.a) + _gammaln(self.b)) - _gammaln(self.a + self.b))
+        x = _event(x, self.shape)
+        terms = _f32(self.a - 1) * f32math.log(x) + _f32(self.b - 1) * f32math.log1p(-x) - lbeta
+        return sum_in_order(terms)
+
+    def sample(self, keys):
+        """By the ratio of two gamma draws, ``Ga / (Ga + Gb)``: the law of
+        ``jax.random.beta``, not its stream."""
+        ka, kb = rng.fold_in(keys, 0), rng.fold_in(keys, 1)
+        ga, gb = _gamma(ka, self.a, self.shape), _gamma(kb, self.b, self.shape)
+        return ga / (ga + gb)
+
+
+def _gamma(keys, a: float, shape, n_tries: int = 24):
+    """Marsaglia-Tsang gamma draws of shape ``a`` for keys ``[..., 2]``, each
+    element keeping the first accepted of ``n_tries`` proposals (one is
+    rejected with probability below 0.05, so none is left with probability
+    below 1e-31)."""
+    boost = a < 1.0
+    a1 = a + 1.0 if boost else a
+    d = a1 - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    out = None
+    for t in range(n_tries):
+        kt = rng.fold_in(keys, 2 + t)
+        z = rng.normal(rng.fold_in(kt, 0), shape)
+        u = rng.uniform(rng.fold_in(kt, 1), shape)
+        v = (1.0 + c * z) ** 3
+        ok = (v > 0) & (f32math.log(u) < 0.5 * z * z + d - d * v + d * f32math.log(v.clamp_min(1e-30)))
+        draw = d * v
+        out = torch.where(ok, draw, torch.full_like(draw, float("nan"))) if out is None else \
+            torch.where(torch.isnan(out) & ok, draw, out)
+    if boost:
+        out = out * rng.uniform(rng.fold_in(keys, 1), shape) ** (1.0 / a)
+    return out
+
+
+def cauchy(keys, shape=()):
+    """``jax.random.cauchy``: ``tan(pi (u - 0.5))`` with ``u`` uniform on
+    ``[eps, 1)``. The argument is the JAX one, bit for bit; its tangent is
+    taken in float64 and rounded, so that the CPU and the card give the same
+    float32 (torch's float32 tangents differ between them), within 2 ulp of
+    XLA's."""
+    u = rng.uniform(keys, shape, float(np.finfo(np.float32).eps), 1.0)
+    return torch.tan((_f32(math.pi) * (u - 0.5)).to(torch.float64)).to(torch.float32)
+
+
+@dataclass(frozen=True)
+class Cauchy(Distribution):
+    loc: float = 0.0
+    scale: float = 1.0
+
+    def log_prob(self, x):
+        z = (_event(x, self.shape) - _f32(self.loc)) * _recip(self.scale)
+        return sum_in_order(-_const_log(math.pi * self.scale) - f32math.log1p(z * z))
+
+    def sample(self, keys):
+        return f32math.fma(cauchy(keys, self.shape), _f32(self.scale), _f32(self.loc))
+
+
+@dataclass(frozen=True)
+class HalfCauchy(Distribution):
+    scale: float = 1.0
+
+    bijector = Positive()
+
+    @property
+    def log_norm(self) -> float:
+        """``log 2 - log(pi scale)``, folded in float32."""
+        return float(np.float32(_const_log(2.0)) - np.float32(_const_log(math.pi * self.scale)))
+
+    @property
+    def device_block(self):
+        return HALF_CAUCHY, (_recip(self.scale), self.log_norm, 0.0)
+
+    def log_prob(self, x):
+        z = _event(x, self.shape) * _recip(self.scale)
+        return sum_in_order(self.log_norm - f32math.log1p(z * z))
+
+    def sample(self, keys):
+        return torch.abs(_f32(self.scale) * cauchy(keys, self.shape))
+
+
+@dataclass(frozen=True)
+class Exponential(Distribution):
+    rate: float = 1.0
+
+    bijector = Positive()
+
+    def log_prob(self, x):
+        return sum_in_order(f32math.fma(_event(x, self.shape), -_f32(self.rate), _const_log(self.rate)))
+
+    def sample(self, keys):
+        u = rng.uniform(keys, self.shape)
+        return -f32math.log1p(-u) * _recip(self.rate)
+
+
+@dataclass(frozen=True)
+class LogNormal(Distribution):
+    loc: float = 0.0
+    scale: float = 1.0
+
+    bijector = Positive()
+
+    def log_prob(self, x):
+        lx = f32math.log(_event(x, self.shape))
+        z = (lx - _f32(self.loc)) * _recip(self.scale)
+        t = f32math.fma(z, z, _LOG_2PI_F32)
+        return sum_in_order(f32math.fma(t, -0.5, -_const_log(self.scale)) - lx)
+
+    def sample(self, keys):
+        return f32math.exp(f32math.fma(rng.normal(keys, self.shape), _f32(self.scale), _f32(self.loc)))
+
+
+# ---------------------------------------------------------------------------
+# likelihood helpers
+# ---------------------------------------------------------------------------
+
+
+def bernoulli_logpmf(y, p):
+    """``sum(where(y > 0, log p, log1p(-p)))`` over the last axis, in order."""
+    return sum_in_order(torch.where(y > 0, f32math.log(p), f32math.log1p(-p)))
+
+
+def binomial_log_coefficient(successes: float, trials: float) -> float:
+    """``log C(trials, successes)`` from three float32 ``gammaln``s, as the JAX
+    package folds it."""
+    return float((_gammaln(trials + 1.0) - _gammaln(successes + 1.0))
+                 - _gammaln(trials - successes + 1.0))
+
+
+def binomial_logpmf(successes: float, trials: float, p):
+    """With constant counts: two fused multiply-adds onto the coefficient."""
+    logc = binomial_log_coefficient(successes, trials)
+    acc = f32math.fma(f32math.log(p), _f32(successes), logc)
+    return f32math.fma(f32math.log1p(-p), _f32(trials - successes), acc)

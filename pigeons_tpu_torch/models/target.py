@@ -27,6 +27,9 @@ class Reference:
     # set when the reference is N(0, sigma^2 I), the one reference the
     # general-density slice kernel evaluates on the device
     normal_sigma: Optional[float] = None
+    # set when the reference is the prior of this BayesianModel, the other
+    # reference the kernel evaluates (from the model's prior table)
+    prior_of: Optional[object] = None
 
 
 class Target:
@@ -37,6 +40,11 @@ class Target:
 
     def default_reference(self) -> Reference:
         raise NotImplementedError
+
+    def to(self, device) -> "Target":
+        """The target with any tensors it holds on ``device``."""
+        del device
+        return self
 
     def default_explorer(self):
         """The slice sampler, with a target's ``integer_mask`` /

@@ -25,8 +25,13 @@ boundary. ``csrc/sweep_slice.cu`` keeps the lane's state, its machine and the
 density evaluation (``csrc/densities.cuh``, selected by the path's
 :class:`~..paths.DeviceDensity`) inside one launch for the whole sweep. In
 full mode a group of 8, 16 or 32 threads works for one lane: each computes
-the density's terms of its own coordinates, and all of them run the short
-in-order sums and the machine, so nothing is broadcast. In delta mode a
+its share of the density's terms (coordinates, or a ``BayesianModel``'s
+observations), and all of them run the in-order sums and the machine, so
+nothing is broadcast. What the Pallas kernel receives as hoisted array
+constants the CUDA kernel reads from device arrays: a model's data and prior
+table (``DeviceDensity.arrays`` / ``.prior``) and, under a
+:class:`~..paths.VariationalPath`, the lanes' ``isvar`` and the reference's
+``mean`` / ``std`` / ``active``. In delta mode a
 separable path's query is answered as ``base + f_c(query)`` by one thread per
 lane, and the final density is recomputed. :func:`sweep_reference` is the
 same machine as torch ops over ``[B]`` rows.
@@ -59,7 +64,7 @@ import numpy as np
 import torch
 
 from .. import f32math, rng
-from ..paths import VariationalPath, _guarded_mul
+from ..paths import VariationalPath, _guarded_mul, lane_log_density
 from ..variational import GaussianReference
 from .base import Explorer, StepOut
 
@@ -296,34 +301,37 @@ def nan_to_neg_inf(lp):
     return torch.where(torch.isnan(lp), torch.full_like(lp, -float("inf")), lp)
 
 
-def sweep_density(path):
+def sweep_density(path, isvar=None, ref_params=None):
     """The batched density ``(x [B, d], betas [B]) -> [B]`` that K2 evaluates
-    for ``path``: its ``sweep_log_density`` where it has one (coordinates
-    summed in the kernel's order), else its ``log_density``; NaN reads as
-    -inf."""
-    density = getattr(path, "sweep_log_density", path.log_density)
-    return lambda x, betas: nan_to_neg_inf(density(x, betas))
+    for ``path``: :func:`~..paths.lane_log_density` with the sums in the
+    kernel's order (a path's ``sweep_log_density`` where it has one); NaN
+    reads as -inf. ``isvar [B]`` and ``ref_params`` are those of a
+    :class:`~..paths.VariationalPath`."""
+    return lambda x, betas: lane_log_density(path, x, betas, isvar, ref_params, sweep=True)
 
 
 def sweep_reference(x, betas, lane_seeds, path, coord_deltas: bool = False,
                     w: float = 10.0, p: int = 20, n_passes: int = 3, max_iter: int = 1024,
-                    phase_counts=None):
+                    phase_counts=None, isvar=None, ref_params=None, coord_counts=None):
     """Plain torch twin of kernel K2.
 
     ``x [B, d]`` float32 states, ``betas [B]`` float32, ``lane_seeds [B]``
-    uint32 seeds as int64. The density is :func:`sweep_density` of the path;
-    with ``coord_deltas`` a query of coordinate ``c`` is
+    uint32 seeds as int64. The density is :func:`sweep_density` of the path
+    (under a :class:`~..paths.VariationalPath`, of the lanes' ``isvar [B]``
+    and the reference's ``ref_params``); with ``coord_deltas`` a query of
+    coordinate ``c`` is
     answered as ``base + path.coord_log_density(query, c, beta)``. Returns
     ``(x_new [B, d], lp [B], stats [3, B])`` with ``lp`` the density of
     ``x_new`` and the stats rows accept_sum, accept_n and n_evals. To
     ``phase_counts``, an int64 ``[6]`` tensor on the states' device, every
-    loop iteration adds the number of lanes in each phase.
+    loop iteration adds the number of lanes in each phase; to ``coord_counts``,
+    an int64 ``[d]`` tensor, the number of lanes that query each coordinate.
     """
     B, d = x.shape
     dev = x.device
     W = float(np.float32(w))
     narrow_w = float(np.float32(1.1) * np.float32(w))  # the kernel's 1.1f * w
-    density = sweep_density(path)
+    density = sweep_density(path, isvar, ref_params)
 
     def lp_eval(xv):
         return density(xv, betas)
@@ -351,6 +359,8 @@ def sweep_reference(x, betas, lane_seeds, path, coord_deltas: bool = False,
         e_z = -f32math.log(u_z)
 
         c = (j % d)[:, None]
+        if coord_counts is not None:
+            coord_counts += torch.bincount(c[phase != DONE, 0], minlength=d)
         is_enter = phase == ENTER
         xc = x.gather(1, c)[:, 0]
         old = torch.where(is_enter, xc, old)
@@ -491,31 +501,37 @@ class SliceSamplerCUDA(Explorer):
     def check_path(self, path) -> None:
         if self._banded(path):
             return
-        if isinstance(path, VariationalPath):
+        describe = getattr(path, "device_density", None)
+        if describe is not None and describe() is not None:
+            return
+        if isinstance(path, VariationalPath) and not hasattr(path.variational, "coord_param_arrays"):
             raise NotImplementedError(
-                "SliceSamplerCUDA: under a variational reference only the banded kernel K1 "
-                "runs (a separable path with coord_deltas and parallel_coords, and a "
-                "mean-field reference). The general kernel K2 needs the reference's [d] "
-                "arrays on the device (ROADMAP queue 1, item 11b); pass "
+                f"SliceSamplerCUDA: the general slice kernel K2 takes a mean-field Gaussian "
+                f"reference's mean and std as arrays; {type(path.variational).__name__} is "
+                "not one (ROADMAP queue 1, item 11b: references of other families). Pass "
                 "explorer=SliceSampler() for this run."
             )
-        describe = getattr(path, "device_density", None)
-        if describe is None or describe() is None:
-            raise NotImplementedError(
-                f"SliceSamplerCUDA: {type(path).__name__} has no device density "
-                "for the general slice kernel K2, which evaluates the density "
-                "inside the kernel (csrc/densities.cuh). Densities of "
-                "BayesianModel targets and user-supplied densities are ROADMAP "
-                "queue 1, item 11b."
-            )
+        fixed = path.fixed if isinstance(path, VariationalPath) else path
+        raise NotImplementedError(
+            f"SliceSamplerCUDA: {type(fixed).__name__} has no device density for the general "
+            "slice kernel K2, which evaluates the density inside the kernel "
+            "(csrc/densities.cuh). It has the toy MVN, the funnel, the banana, the "
+            "flat-prior MVN and the BayesianModel targets hierarchical_normal, "
+            "eight_schools(centered=False), unid_target and logistic_regression under their "
+            "own prior; the "
+            "other library models, a BayesianModel under another reference, "
+            "user-supplied densities and CustomPath are ROADMAP queue 1, item 11b. Pass "
+            "explorer=SliceSampler() for this run."
+        )
 
     def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None) -> StepOut:
         """One sweep over ``xs [B, d]``; ``keys [B, 2]`` are the lanes' keys,
         ``betas [B]`` their annealing parameters. K1 does not compute the
         joint density (``lp`` is ``None``); K2 returns it. Either way the
         runtime evaluates it again, fused with the swap's. Under a
-        :class:`~..paths.VariationalPath` K1 runs with its variational term,
-        from ``isvar [B]`` and the reference's ``ref_params``."""
+        :class:`~..paths.VariationalPath` K1 runs with its variational term
+        and K2, always in full mode, with the variational blend, from
+        ``isvar [B]`` and the reference's ``ref_params``."""
         self.check_path(path)
         seeds = lane_seeds(keys)
         if self._banded(path):
@@ -529,9 +545,10 @@ class SliceSamplerCUDA(Explorer):
                                         self.n_passes, self.max_iter, term)
             lp = None
         else:
+            # a delta query cannot read the reference's per-coordinate arrays
             deltas = self.coord_deltas and hasattr(path, "coord_log_density")
             x_new, lp, stats = sweep(xs, betas, seeds, path, deltas, self.w, self.p,
-                                     self.n_passes, self.max_iter)
+                                     self.n_passes, self.max_iter, isvar, ref_params)
         return StepOut(x=x_new, lp=lp, accept_sum=stats[0], accept_n=stats[1],
                        n_steps=stats[2])
 
@@ -546,11 +563,13 @@ def banded_sweep(x, a, seeds, w: float = 10.0, p: int = 20, n_passes: int = 3,
 
 
 def sweep(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0, p: int = 20,
-          n_passes: int = 3, max_iter: int = 1024):
+          n_passes: int = 3, max_iter: int = 1024, isvar=None, ref_params=None):
     """Run one sweep: the twin for CPU tensors, kernel K2 for CUDA tensors."""
     if x.device.type == "cpu":
-        return sweep_reference(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter)
-    return sweep_cuda(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter)
+        return sweep_reference(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter,
+                               isvar=isvar, ref_params=ref_params)
+    return sweep_cuda(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter,
+                      isvar=isvar, ref_params=ref_params)
 
 
 def _check(t, name, dtype, shape, device):
@@ -607,16 +626,66 @@ def banded_sweep_cuda(x, a, seeds, w: float = 10.0, p: int = 20,
 
 
 MAX_DENSITY_PARAMS = 8  # csrc/densities.cuh: DensityParams
+MAX_DENSITY_ARRAYS = 4  # csrc/densities.cuh: DensityArrays
+PRIOR_ROW = 8  # floats in a row of the prior table
+
+
+class KernelInputs(NamedTuple):
+    """What :func:`sweep_cuda` hands kernel K2 besides the states, as ctypes
+    values; ``keep`` holds the tensors whose pointers they are."""
+
+    params: object
+    arrays: object
+    array_lens: object
+    prior: object
+    n_prior: int
+    variational: tuple  # isvar, mean, std, active: device pointers or None
+    keep: tuple
+
+
+def kernel_inputs(density, B: int, d: int, device, isvar=None, ref_params=None) -> KernelInputs:
+    """Check ``density`` (a :class:`~..paths.DeviceDensity`) and a variational
+    run's ``isvar [B]`` and ``ref_params`` (``mean [d]``, ``std [d]``,
+    ``active``: float32 tensors on ``device``, which the kernel reads in
+    place) and lay them out for ``slice_sweep``."""
+    if len(density.params) > MAX_DENSITY_PARAMS or len(density.arrays) > MAX_DENSITY_ARRAYS:
+        raise ValueError(f"density kind {density.kind}: too many parameters or arrays for kernel K2")
+    for i, t in enumerate(density.arrays):
+        _check(t, f"density array {i}", torch.float32, (t.numel(),), device)
+    rows = [float(v) for row in density.prior for v in row]
+    if len(rows) != PRIOR_ROW * len(density.prior):
+        raise ValueError(f"a row of the prior table has {PRIOR_ROW} entries")
+    keep = tuple(density.arrays)
+    pointers = [t.data_ptr() for t in keep] + [None] * (MAX_DENSITY_ARRAYS - len(keep))
+    lens = [t.numel() for t in keep] + [0] * (MAX_DENSITY_ARRAYS - len(keep))
+    variational = (None, None, None, None)
+    if ref_params is not None:
+        active = ref_params["active"].reshape(1)
+        _check(isvar, "isvar", torch.float32, (B,), device)
+        _check(ref_params["mean"], "mean", torch.float32, (d,), device)
+        _check(ref_params["std"], "std", torch.float32, (d,), device)
+        _check(active, "active", torch.float32, (1,), device)
+        tensors = (isvar, ref_params["mean"], ref_params["std"], active)
+        variational = tuple(t.data_ptr() for t in tensors)
+        keep += tensors
+    return KernelInputs(
+        (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params),
+        (ctypes.c_void_p * MAX_DENSITY_ARRAYS)(*pointers),
+        (ctypes.c_int * MAX_DENSITY_ARRAYS)(*lens),
+        (ctypes.c_float * max(len(rows), 1))(*rows), len(density.prior), variational, keep)
 
 
 def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0,
-               p: int = 20, n_passes: int = 3, max_iter: int = 1024, group: int = 0):
+               p: int = 20, n_passes: int = 3, max_iter: int = 1024, group: int = 0,
+               isvar=None, ref_params=None):
     """Launch kernel K2 on the current stream. Same contract as
-    :func:`sweep_reference`; the density is the path's ``device_density()``.
-    ``group`` is the number of threads that share a lane's density evaluation
-    in full mode (1, 8, 16 or 32; the result does not depend on it); 0 leaves
-    the choice to the launcher, which makes it from the density, ``B`` and
-    ``d``."""
+    :func:`sweep_reference`; the density is the path's ``device_density()``,
+    whose arrays (model data) and, under a :class:`~..paths.VariationalPath`,
+    ``isvar`` and ``ref_params`` the kernel reads from device memory: nothing
+    comes back to the host. ``group`` is the number of threads that share a
+    lane's density evaluation in full mode (1, 8, 16 or 32, a density with a
+    single term 1 only; the result does not depend on it); 0 leaves the choice to the launcher, which makes it
+    from the density, ``B`` and ``d``."""
     if x.device.type != "cuda":
         raise ValueError(f"sweep_cuda needs CUDA tensors, got {x.device}")
     B, d = x.shape
@@ -624,18 +693,21 @@ def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.
     _check(betas, "betas", torch.float32, (B,), x.device)
     _check(seeds, "lane_seeds", torch.int64, (B,), x.device)
     density = path.device_density()
-    if density is None or len(density.params) > MAX_DENSITY_PARAMS:
+    if density is None:
         raise ValueError(f"{type(path).__name__} has no device density for kernel K2")
+    if not isinstance(path, VariationalPath):
+        isvar = ref_params = None
+    inputs = kernel_inputs(density, B, d, x.device, isvar, ref_params)
     from .._build import load_library
 
     lib = load_library()
-    params = (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params)
     x_out = torch.empty_like(x)
     lp = torch.empty(B, dtype=torch.float32, device=x.device)
     stats = torch.empty((3, B), dtype=torch.float32, device=x.device)
     err = lib.slice_sweep(
         x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), lp.data_ptr(),
-        stats.data_ptr(), B, d, density.kind, int(coord_deltas), params, w, p, n_passes,
+        stats.data_ptr(), B, d, density.kind, int(coord_deltas), inputs.params, inputs.arrays,
+        inputs.array_lens, inputs.prior, inputs.n_prior, *inputs.variational, w, p, n_passes,
         max_iter, group, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

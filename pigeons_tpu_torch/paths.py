@@ -18,17 +18,24 @@ from . import f32math, rng
 
 
 # density kinds of csrc/densities.cuh (enum Density)
-TOY_MVN, FUNNEL, BANANA, MVN = 0, 1, 2, 3
+(TOY_MVN, FUNNEL, BANANA, MVN, HIERARCHICAL_NORMAL, EIGHT_SCHOOLS, UNID,
+ LOGISTIC_REGRESSION) = range(8)
 
 
 class DeviceDensity(NamedTuple):
     """How a path describes itself to the general-density slice kernel: a
     density kind of ``csrc/densities.cuh`` and its float32 parameters. For the
     interpolating kinds ``params[0]`` is the normal reference's ``1 / sigma``
-    and the rest are the target's constants."""
+    and the rest are the target's constants. A ``BayesianModel`` path also
+    has ``arrays``, the likelihood's data as float32 tensors on the run's
+    device (the kernel reads them in place), and ``prior``, the rows
+    ``(offset, size, distribution kind, bijector kind, p0, p1, p2)`` of its
+    prior table: the reference is then the prior, not a normal."""
 
     kind: int
     params: tuple
+    arrays: tuple = ()
+    prior: tuple = ()
 
 
 def sum_squares(m):
@@ -58,10 +65,15 @@ class InterpolatingPath:
     sample_reference: Optional[Callable] = None
     # set when the slice kernel can evaluate both endpoints on the device
     device: Optional[DeviceDensity] = None
+    # x -> (ref_log_density(x), target_log_density(x)) where the two share work
+    endpoints: Optional[Callable] = None
 
     def log_density(self, x, beta):
-        lref = self.ref_log_density(x)
-        ltgt = self.target_log_density(x)
+        if self.endpoints is not None:
+            lref, ltgt = self.endpoints(x)
+        else:
+            lref = self.ref_log_density(x)
+            ltgt = self.target_log_density(x)
         return _guarded_mul(1.0 - beta, lref) + _guarded_mul(beta, ltgt)
 
     def device_density(self) -> Optional[DeviceDensity]:
@@ -165,21 +177,41 @@ class VariationalPath:
     def use_variational(self, isvar, ref_params):
         return (isvar > 0) & (ref_params["active"] > 0)
 
-    def log_density(self, x, beta, isvar, ref_params):
-        l_fixed = self.fixed.log_density(x, beta)
-        l_var_ref = self.variational.log_density(x, ref_params)
-        l_target = self.fixed.log_density(x, torch.ones_like(beta))
+    def log_density(self, x, beta, isvar, ref_params, sweep: bool = False):
+        """``sweep``: the sums in the general slice kernel's order (the
+        ``sweep_log_density`` of the fixed path and of the reference, where
+        they have one)."""
+        fixed, variational = self.fixed.log_density, self.variational.log_density
+        if sweep:
+            fixed = getattr(self.fixed, "sweep_log_density", fixed)
+            variational = getattr(self.variational, "sweep_log_density", variational)
+        l_fixed = fixed(x, beta)
+        l_var_ref = variational(x, ref_params)
+        l_target = fixed(x, torch.ones_like(beta))
         l_var = _guarded_mul(1.0 - beta, l_var_ref) + _guarded_mul(beta, l_target)
         return torch.where(self.use_variational(isvar, ref_params), l_var, l_fixed)
 
+    def device_density(self) -> Optional[DeviceDensity]:
+        """The fixed path's: the kernel takes the reference's parameters as
+        arrays with every launch. ``None`` unless the reference is mean-field
+        (``coord_param_arrays``)."""
+        describe = getattr(self.fixed, "device_density", None)
+        if describe is None or not hasattr(self.variational, "coord_param_arrays"):
+            return None
+        return describe()
 
-def lane_log_density(path, x, beta, isvar=None, ref_params=None):
+
+def lane_log_density(path, x, beta, isvar=None, ref_params=None, sweep: bool = False):
     """The run's density of ``x [..., d]`` at ``beta``, NaN read as -inf (the
     guard for out-of-support evaluations): the one function through which the
     runtime and the explorers evaluate a path. ``isvar`` and ``ref_params``
-    are read by a :class:`VariationalPath` only."""
+    are read by a :class:`VariationalPath` only. With ``sweep`` a path that
+    has a ``sweep_log_density`` answers with it: the same value with its sums
+    in the order in which the general slice kernel adds them."""
     if isinstance(path, VariationalPath):
-        lp = path.log_density(x, beta, isvar, ref_params)
+        lp = path.log_density(x, beta, isvar, ref_params, sweep)
+    elif sweep:
+        lp = getattr(path, "sweep_log_density", path.log_density)(x, beta)
     else:
         lp = path.log_density(x, beta)
     return torch.where(torch.isnan(lp), torch.full_like(lp, -float("inf")), lp)

@@ -96,6 +96,10 @@ class PT:
             )
         unsupported_options(inputs)
         self.device = check_device(inputs.device)
+        # a model's data lives on the run's device, where the densities and
+        # the slice kernel read it
+        target = target.to(self.device) if hasattr(target, "to") else target
+        self.target = target
         self.n_chains_fixed = inputs.n_chains
         self.n_chains_var = inputs.n_chains_variational
         self.variational = inputs.variational

@@ -81,6 +81,16 @@ class GaussianReference:
         return torch.sum(terms, dim=-1)
 
     @staticmethod
+    def sweep_log_density(x, params: dict):
+        """:meth:`log_density` with the coordinates added in order, as the
+        general slice kernel and XLA's CPU code add them."""
+        terms = GaussianReference.coord_log_density(x, params["mean"], params["std"])
+        acc = terms[..., 0]
+        for i in range(1, terms.shape[-1]):
+            acc = acc + terms[..., i]
+        return acc
+
+    @staticmethod
     def sample(keys, params: dict):
         """One draw for every key of ``keys [..., 2]``: ``[..., d]``."""
         mean, std = params["mean"], params["std"]

@@ -33,15 +33,29 @@ def banded_slice_sweep(lib_path, x, a, seeds, w, p, n_passes, max_iter, variatio
     out.put((err, x_out, stats))
 
 
+MAX_DENSITY_ARRAYS = 4  # csrc/densities.cuh: DensityArrays
+
+
 def slice_sweep(lib_path, x, betas, seeds, kind, params, coord_deltas, w, p, n_passes, max_iter,
-                group, out):
-    """Kernel K2's entry point; puts ``(err, x_out, lp, stats)`` on ``out``."""
+                group, out, arrays=(), prior=(), variational=None):
+    """Kernel K2's entry point; ``arrays`` are the density's float32 arrays,
+    ``prior`` the rows of its prior table, ``variational`` ``None`` or
+    ``(isvar [B], mean [d], std [d], active [1])``. Puts ``(err, x_out, lp,
+    stats)`` on ``out``."""
     lib = ctypes.CDLL(str(lib_path))
-    lib.slice_sweep.argtypes = [VP] * 6 + [CI] * 4 + [ctypes.POINTER(CF), CF, CI, CI, CI, CI, VP]
+    lib.slice_sweep.argtypes = ([VP] * 6 + [CI] * 4 + [ctypes.POINTER(CF), ctypes.POINTER(VP),
+                                ctypes.POINTER(CI), ctypes.POINTER(CF), CI] + [VP] * 4
+                                + [CF, CI, CI, CI, CI, VP])
     B, d = x.shape
     x_out, lp, stats = np.empty_like(x), np.empty(B, np.float32), np.empty((3, B), np.float32)
     c_params = (CF * MAX_DENSITY_PARAMS)(*params)
+    pad = MAX_DENSITY_ARRAYS - len(arrays)
+    c_arrays = (VP * MAX_DENSITY_ARRAYS)(*[a.ctypes.data for a in arrays], *[None] * pad)
+    c_lens = (CI * MAX_DENSITY_ARRAYS)(*[a.size for a in arrays], *[0] * pad)
+    rows = [float(v) for row in prior for v in row]
+    c_prior = (CF * max(len(rows), 1))(*rows)
+    var = (None,) * 4 if variational is None else tuple(_ptr(a) for a in variational)
     err = lib.slice_sweep(_ptr(x), _ptr(betas), _ptr(seeds), _ptr(x_out), _ptr(lp), _ptr(stats),
-                          B, d, kind, int(coord_deltas), c_params, w, p, n_passes, max_iter, group,
-                          None)
+                          B, d, kind, int(coord_deltas), c_params, c_arrays, c_lens, c_prior,
+                          len(prior), *var, w, p, n_passes, max_iter, group, None)
     out.put((err, x_out, lp, stats))

@@ -200,15 +200,25 @@ def test_variational_coordinate_term_matches_jax():
 
 
 def test_variational_path_on_the_general_kernel_raises():
-    """Only K1 runs under a variational reference: the general kernel needs
-    the reference's arrays on the device."""
+    """The general kernel takes a variational path whose fixed part has a
+    device density and whose reference is mean-field (its mean and std reach
+    the kernel as arrays); it raises for any other, naming what is missing."""
     from pigeons_tpu_torch import GaussianReference, VariationalPath
+    from pigeons_tpu_torch.paths import InterpolatingPath
 
     vp = VariationalPath(toy_mvn_path(D), GaussianReference())
-    for explorer in (SliceSamplerCUDA(parallel_coords=False), SliceSamplerCUDA(coord_deltas=False)):
-        with pytest.raises(NotImplementedError, match="11b"):
-            explorer.check_path(vp)
-    SliceSamplerCUDA().check_path(vp)
+    for explorer in (SliceSamplerCUDA(parallel_coords=False), SliceSamplerCUDA(coord_deltas=False),
+                     SliceSamplerCUDA()):
+        explorer.check_path(vp)
+    no_density = InterpolatingPath(lambda x: -(x**4).sum(-1), lambda x: -(x**2).sum(-1))
+    with pytest.raises(NotImplementedError, match="11b"):
+        SliceSamplerCUDA().check_path(VariationalPath(no_density, GaussianReference()))
+
+    class FullRank:  # a reference without per-coordinate parameters
+        pass
+
+    with pytest.raises(NotImplementedError, match="mean-field"):
+        SliceSamplerCUDA(parallel_coords=False).check_path(VariationalPath(toy_mvn_path(D), FullRank()))
 
 
 def test_coordinate_term_matches_jax_density():

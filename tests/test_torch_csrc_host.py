@@ -175,10 +175,23 @@ def _unknown_term(lib_path, x, a, seeds, out):
                                    20, 1, 1024, 1, None, None, None, None, None, 0.0, None))
 
 
-def _k2(lib_path, x, betas, seeds, path, coord_deltas, n_passes, group):
+def _k2(lib_path, x, betas, seeds, path, coord_deltas, n_passes, group, isvar=None,
+        ref_params=None, max_iter=MAX_ITER):
     density = path.device_density()
-    return _in_child(host_call.slice_sweep, lib_path, x, betas, seeds, density.kind,
-                     density.params, coord_deltas, *SAMPLER, n_passes, MAX_ITER, group)
+    variational = None
+    if ref_params is not None:
+        variational = tuple(t.numpy() for t in (isvar, ref_params["mean"], ref_params["std"],
+                                                ref_params["active"].reshape(1)))
+    return _in_child(_slice_sweep, lib_path, x, betas, seeds, density.kind, density.params,
+                     coord_deltas, *SAMPLER, n_passes, max_iter, group,
+                     tuple(a.numpy() for a in density.arrays), density.prior, variational)
+
+
+def _slice_sweep(*args):
+    """``host_call.slice_sweep`` with the queue, the child's last argument, in
+    its place."""
+    *head, arrays, prior, variational, out = args
+    host_call.slice_sweep(*head, out, arrays, prior, variational)
 
 
 def _full_path(name, d):
@@ -221,3 +234,119 @@ def test_k2_delta_host_build_matches_twin(host_libraries, B, d, n_passes):
     got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, True, n_passes, 0)
     want = cuda_slice.sweep_reference(x, betas, seeds, path, True, n_passes=n_passes)
     _assert_bitwise(got, want, ("x", "lp", "stats"))
+
+
+BAYESIAN = {
+    "hierarchical_normal": lambda: T.hierarchical_normal(),
+    # rows past the last full four, and fewer than four rows
+    "hierarchical_normal_6x3": lambda: T.hierarchical_normal(6, 3, seed=2),
+    "hierarchical_normal_3x2": lambda: T.hierarchical_normal(3, 2, seed=3),
+    "eight_schools": lambda: T.eight_schools(),
+    "unid": lambda: T.unid_target(),
+    # two windows of the likelihood's sum, the first short of 32 terms
+    "logistic_regression_40x3": lambda: T.logistic_regression(40, 3, seed=1),
+}
+
+
+SHORT = 24  # shrink steps before a lane gives a coordinate up: the far-out lanes' limit
+
+
+def _bayesian_inputs(model, B, seed):
+    """States drawn from the prior, some far out and one NaN among them (those
+    lanes shrink until ``max_iter`` ends it, so the tests set it to SHORT)."""
+    x = model.initialization(rng.keys_for(rng.key(seed), torch.arange(B)))
+    _, betas, seeds = _inputs(B, model.dim, seed)
+    if B > 3:
+        x[1, model.dim - 1], x[2, model.dim - 1], x[3, 0] = 95.0, -95.0, float("nan")
+    return x, betas, seeds
+
+
+def _reference_params(d, seed, active):
+    rs = np.random.RandomState(seed)
+    return {"mean": torch.from_numpy((rs.normal(size=d) * 0.3).astype(np.float32)),
+            "std": torch.from_numpy(np.exp(rs.normal(size=d) * 0.5).astype(np.float32)),
+            "active": torch.tensor(active)}
+
+
+def _variational_path(name, d):
+    from pigeons_tpu_torch import GaussianReference, VariationalPath
+
+    if name in BAYESIAN:
+        model = BAYESIAN[name]()
+        return VariationalPath(model.create_path(model.default_reference()), GaussianReference())
+    return VariationalPath(_full_path(name, d), GaussianReference())
+
+
+@pytest.mark.parametrize("group", [1, 8, 16, 32])
+@pytest.mark.parametrize("name,d", [("funnel", 10), ("toy", 5), ("banana", 4), ("mvn", 3),
+                                    ("eight_schools", 10)])
+def test_k2_variational_host_build_matches_twin(host_libraries, name, d, group):
+    """Lanes of both legs under an active mean-field reference: the kernel
+    reads ``isvar``, ``mean``, ``std`` and ``active`` from arrays."""
+    path = _variational_path(name, d)
+    B = 7
+    x, betas, seeds = _inputs(B, d, d + group, scale=1.0)
+    isvar = torch.from_numpy((np.arange(B) % 3 != 1).astype(np.float32))
+    params = _reference_params(d, 3, 1.0)
+    got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, False, 1, group, isvar, params)
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, False, n_passes=1, isvar=isvar,
+                                      ref_params=params)
+    _assert_bitwise(got, want, ("x", "lp", "stats"))
+    fixed = cuda_slice.sweep_reference(x, betas, seeds, path.fixed, False, n_passes=1)
+    assert not torch.equal(want[0], fixed[0])
+
+
+def test_k2_variational_before_activation_is_the_fixed_path(host_libraries):
+    path = _variational_path("funnel", 6)
+    x, betas, seeds = _inputs(9, 6, 4)
+    isvar = torch.ones(9)
+    params = _reference_params(6, 1, 0.0)
+    got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, False, 2, 8, isvar, params)
+    fixed = _k2(host_libraries["sweep_slice"], x, betas, seeds, path.fixed, False, 2, 8)
+    _assert_bitwise(got, fixed, ("x", "lp", "stats"))
+    _assert_bitwise(got, cuda_slice.sweep_reference(x, betas, seeds, path.fixed, False, n_passes=2),
+                    ("x", "lp", "stats"))
+
+
+def _bad_call(lib_path, case, out):
+    """Calls that the entry point must refuse: -1, nothing launched."""
+    import ctypes
+
+    x = np.zeros((2, 23), np.float32)
+    betas, seeds = np.zeros(2, np.float32), np.zeros(2, np.int64)
+    model = T.hierarchical_normal()
+    density = model.create_path(model.default_reference()).device_density()
+    arrays = tuple(a.numpy() for a in density.arrays)
+    prior, variational = density.prior, None
+    if case == "short data":
+        arrays = (arrays[0][:-1].copy(),)
+    elif case == "no prior":
+        prior = ()
+    elif case == "prior past the state":
+        prior = density.prior[:-1] + ((22, 2) + density.prior[-1][2:],)
+    elif case == "half a reference":
+        variational = (betas, None, None, None)
+    if variational is not None:
+        # host_call takes all four or none: call the library with one of them
+        lib = ctypes.CDLL(str(lib_path))
+        f, i, p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+        lib.slice_sweep.argtypes = ([p] * 6 + [i] * 4 + [p] * 4 + [i] + [p] * 4 + [f] + [i] * 4 + [p])
+        ptr = host_call._ptr
+        params = (f * 8)(*density.params)
+        out.put((lib.slice_sweep(ptr(x), ptr(betas), ptr(seeds), ptr(x), ptr(betas), ptr(x), 2, 23,
+                                 density.kind, 0, params, None, None, None, 0, ptr(betas), None,
+                                 None, None, 10.0, 20, 1, 1024, 0, None),))
+        return
+    host_call.slice_sweep(lib_path, x, betas, seeds, density.kind, density.params, False, 10.0, 20,
+                          1, 1024, 0, out, arrays, prior, None)
+
+
+@pytest.mark.parametrize("case", ["short data", "no prior", "prior past the state",
+                                  "half a reference"])
+def test_k2_rejects_inconsistent_arrays(host_libraries, case):
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    child = ctx.Process(target=_bad_call, args=(host_libraries["sweep_slice"], case, out))
+    child.start()
+    assert out.get(timeout=CALL_TIMEOUT_S)[0] == -1
+    child.join()

@@ -279,3 +279,149 @@ def test_funnel_card_run_matches_cpu_run(cuda_device):
     assert torch.equal(g.chain_of.cpu(), c.chain_of)
     assert torch.equal(g.states.cpu(), c.states)
     assert g.reports[-1].log_z_estimate == c.reports[-1].log_z_estimate
+
+
+BAYESIAN = {"hierarchical_normal": T.hierarchical_normal, "eight_schools": T.eight_schools,
+            "unid": T.unid_target, "logistic_regression": T.logistic_regression}
+
+
+@functools.lru_cache(maxsize=None)
+def _bayesian_case(name, n, variational):
+    """A ``BayesianModel`` path on the card, states drawn from its prior (some
+    far out, one NaN), and the twin's sweep of them; with ``variational`` under
+    an active mean-field reference, lanes of both legs."""
+    device = torch.device("cuda")
+    model = BAYESIAN[name]().to(device)
+    path = model.create_path(model.default_reference())
+    lanes = torch.arange(n, device=device)
+    x = model.initialization(rng.keys_for(rng.key(5, device), lanes)).contiguous()
+    if n > 3:
+        x[1, -1], x[2, -1], x[3, 0] = 95.0, -95.0, float("nan")
+    _, betas, seeds = _lane_inputs(n, model.dim, 3, device)
+    extra = {}
+    if variational:
+        path = T.VariationalPath(path, T.GaussianReference())
+        extra = _reference(model.dim, n, 1.0, device)
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1, max_iter=64, **extra)
+    return path, x, betas, seeds, extra, want
+
+
+def _reference(d, n, active, device):
+    rs = np.random.RandomState(d)
+    return {"isvar": torch.tensor((np.arange(n) % 3 != 1).astype(np.float32), device=device),
+            "ref_params": {
+                "mean": torch.tensor((rs.normal(size=d) * 0.3).astype(np.float32), device=device),
+                "std": torch.tensor(np.exp(rs.normal(size=d) * 0.5).astype(np.float32), device=device),
+                "active": torch.tensor(active, device=device)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
+@pytest.mark.parametrize("variational", [False, True])
+@pytest.mark.parametrize("n", [5, 1000])
+@pytest.mark.parametrize("name", sorted(BAYESIAN))
+def test_bayesian_kernel_matches_twin_for_each_group(cuda_device, name, n, variational, group):
+    """The prior from its table and the likelihood from the model's data
+    arrays, for every number of threads per lane and the launcher's own
+    choice: bitwise the twin."""
+    path, x, betas, seeds, extra, want = _bayesian_case(name, n, variational)
+    before = SliceSamplerCUDA.launches["slice_sweep"]
+    if name == "unid" and group > 1:  # one term: built for one thread per lane only
+        with pytest.raises(RuntimeError, match="does not take"):
+            cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group,
+                                  **extra)
+        assert SliceSamplerCUDA.launches["slice_sweep"] == before
+        return
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group,
+                                **extra)
+    assert SliceSamplerCUDA.launches["slice_sweep"] == before + 1
+    for tensor_name, g, w in zip(("x", "lp", "stats"), got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 32])
+def test_bayesian_kernel_reads_arrays_larger_than_shared_memory(cuda_device, group):
+    """A design matrix of 60,000 floats (240 KB; a block may use 227 KB of
+    shared memory): the kernel reads the data where it lies, whatever its
+    size, and gives the twin's bits. What must fit is a block's term buffers,
+    6,000 floats for each of its 128 / group lanes: with groups of 8 or 16
+    they do not, and the launcher says so."""
+    model = T.logistic_regression(n=6000, d=10, seed=2).to(cuda_device)
+    path = model.create_path(model.default_reference())
+    assert path.device_density().arrays[0].numel() * 4 > 227 * 1024
+    lanes = torch.arange(4, device=cuda_device)
+    x = model.initialization(rng.keys_for(rng.key(7, cuda_device), lanes)).contiguous()
+    _, betas, seeds = _lane_inputs(4, model.dim, 3, cuda_device)
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1, max_iter=64)
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group)
+    for tensor_name, g, w in zip(("x", "lp", "stats"), got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
+    with pytest.raises(RuntimeError, match="does not take"):
+        cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
+@pytest.mark.parametrize("active", [0.0, 1.0])
+@pytest.mark.parametrize("name", ["funnel", "banana", "mvn", "toy"])
+def test_general_kernel_under_a_variational_reference(cuda_device, name, active, group):
+    """K2 with ``isvar``, ``mean``, ``std`` and ``active`` as device arrays:
+    bitwise the twin; before activation bitwise the fixed path's launch."""
+    d, n = 10, 3072
+    fixed = toy_mvn_path(d) if name == "toy" else _k2_full_case(name, d, n)[0]
+    path = T.VariationalPath(fixed, T.GaussianReference())
+    x, betas, seeds = _lane_inputs(n, d, d, cuda_device)
+    extra = _reference(d, n, active, cuda_device)
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, group=group, **extra)
+    if active:
+        want = cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1, **extra)
+    else:
+        want = cuda_slice.sweep_cuda(x, betas, seeds, fixed, n_passes=1, group=group)
+    for tensor_name, g, w in zip(("x", "lp", "stats"), got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
+
+
+@pytest.mark.cuda
+def test_general_kernel_rejects_bad_arrays(cuda_device):
+    model = T.hierarchical_normal().to(cuda_device)
+    path = model.create_path(model.default_reference())
+    x, betas, seeds = _lane_inputs(4, 23, 0, cuda_device)
+    density = path.device_density()
+    short = path.__class__(path.ref_log_density, path.target_log_density, path.sample_reference,
+                           density._replace(arrays=(density.arrays[0][:-1].contiguous(),)))
+    with pytest.raises(RuntimeError, match="does not take"):
+        cuda_slice.sweep_cuda(x, betas, seeds, short)
+    on_cpu = path.__class__(path.ref_log_density, path.target_log_density, path.sample_reference,
+                            density._replace(arrays=(density.arrays[0].cpu(),)))
+    with pytest.raises(ValueError, match="density array"):
+        cuda_slice.sweep_cuda(x, betas, seeds, on_cpu)
+    vpath = T.VariationalPath(path, T.GaussianReference())
+    extra = _reference(23, 4, 1.0, cuda_device)
+    extra["ref_params"]["std"] = extra["ref_params"]["std"].double()
+    with pytest.raises(ValueError, match="std"):
+        cuda_slice.sweep_cuda(x, betas, seeds, vpath, **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BAYESIAN))
+def test_bayesian_card_run_matches_cpu_run(cuda_device, name):
+    g, c = (T.pigeons(target=BAYESIAN[name](), n_chains=5, n_replicates=4, seed=4, n_rounds=3,
+                      explorer=T.SliceSamplerCUDA(n_passes=1), device=dev, show_report=False)
+            for dev in ("cuda", "cpu"))
+    assert torch.equal(g.chain_of.cpu(), c.chain_of)
+    assert torch.equal(g.states.cpu(), c.states)
+    assert g.reports[-1].log_z_estimate == c.reports[-1].log_z_estimate
+
+
+@pytest.mark.cuda
+def test_variational_funnel_card_run_matches_cpu_run(cuda_device):
+    """Two legs on a path that is not separable: K2 under the reference fitted
+    after round 2."""
+    g, c = (T.pigeons(target=T.funnel(3), n_chains=4, n_chains_variational=4, n_replicates=4,
+                      seed=4, n_rounds=4, variational=T.GaussianReference(first_tuning_round=2),
+                      explorer=T.SliceSamplerCUDA(n_passes=1), device=dev, show_report=False)
+            for dev in ("cuda", "cpu"))
+    assert float(g._ref_params["active"]) == 1.0
+    assert torch.equal(g.chain_of.cpu(), c.chain_of)
+    assert torch.equal(g.states.cpu(), c.states)

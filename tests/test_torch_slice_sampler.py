@@ -182,11 +182,11 @@ def test_funnel_run_with_the_torch_sampler_matches_jax():
 
 
 def test_two_leg_run_with_the_torch_sampler_matches_jax():
-    """The explorer for a variational run that the CUDA kernels do not take:
-    the funnel path under a variational reference."""
-    with pytest.raises(NotImplementedError, match="11b"):
-        T.PT(T.Inputs(target=T.funnel(2), n_chains=3, n_chains_variational=3,
-                      explorer=T.SliceSamplerCUDA(n_passes=1), device="cpu"))
+    """The torch sampler on a two-leg run of the funnel path. The general
+    CUDA kernel takes this path too now (no raise when the run is set up; the
+    sweep itself is held in ``tests/test_torch_sweep_bayesian.py``)."""
+    T.PT(T.Inputs(target=T.funnel(2), n_chains=3, n_chains_variational=3,
+                  explorer=T.SliceSamplerCUDA(n_passes=1), device="cpu"))
     kw = dict(n_chains=3, n_chains_variational=3, n_rounds=3, seed=2)
     ja, ta = _run_pair(J.funnel(2), T.funnel(2), variational=None, **kw)
     assert abs(ja.global_barrier_variational - ta.global_barrier_variational) < 1e-3

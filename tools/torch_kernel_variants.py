@@ -1,6 +1,6 @@
 """Times variants of the port's CUDA kernels side by side on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py [--parent-csrc DIR [--parent-abi N]]
+    python3 tools/torch_kernel_variants.py [--k2-only] [--parent-csrc DIR [--parent-abi N]]
 
 Run from the repository root. Builds ``pigeons_tpu_torch/csrc`` once for each
 setting of kernel K1's tile size and refill threshold (``-DPIGEONS_K1_CHUNK=
@@ -9,7 +9,8 @@ an earlier version of the sources from ``DIR`` (for example
 ``git archive <commit> pigeons_tpu_torch/csrc | tar -x -C <dir>``, then
 ``<dir>/pigeons_tpu_torch/csrc``). ``--parent-abi`` says which entry points
 that version has: 1, the first (no ``group`` argument in K2, no coordinate
-term in K1); 3, the default (``group``, no coordinate term); 4, this tree's.
+term in K1); 3, the default (``group``, no coordinate term); 4, K1 with its
+coordinate term and K2 without array inputs; 5, this tree's.
 It then times, at the shapes of ``chip_smoke.py``:
 
 * K1 (config 1: B=20,480, d=100, 3 passes) for each such setting and the
@@ -20,6 +21,9 @@ It then times, at the shapes of ``chip_smoke.py``:
 * K2 in full mode on the funnel path (d=10, 1 pass; B=3,072, 8,192 and
   20,480) and on the toy MVN path (B=20,480, d=100, 1 pass) for 1, 8, 16 and
   32 threads per lane, the launcher's own choice and the parent;
+* K2 in full mode on each ``BayesianModel`` path (hierarchical normal, eight
+  schools, unid, logistic regression; 1 pass) at 640 and 8,192 lanes for 1,
+  8, 16 and 32 threads per lane and the launcher's own choice;
 * K2 in delta mode (toy MVN, B=20,480, d=100, 1 pass) and the parent's.
 
 Every variant's output must equal the first variant's bit for bit (what a
@@ -27,7 +31,8 @@ kernel computes does not depend on how its work is mapped to threads). The
 variants of one kernel are timed in turns, forwards then backwards, twice
 over, each turn the median of 20 CUDA-event timings: compare within a run
 only. Prints ``ptxas -v`` for the default build, a table, the card's name and
-power limit, and writes ``chiprun_out/kernel_variants.json``.
+power limit, and writes ``chiprun_out/kernel_variants.json``. ``--k2-only``
+skips the builds and races of K1's variants.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from pigeons_tpu_torch import _build, funnel  # noqa: E402
+from pigeons_tpu_torch import (_build, eight_schools, funnel, hierarchical_normal,  # noqa: E402
+                               logistic_regression, unid_target)
 from pigeons_tpu_torch.ops import cuda_slice  # noqa: E402
 from pigeons_tpu_torch.paths import toy_mvn_path  # noqa: E402
 
@@ -120,15 +126,26 @@ def race_terms(lib, B, d):
     return times
 
 
-def k2_call(lib, x, betas, seeds, path, coord_deltas, group):
-    """``group=None``: an entry point of before the ``group`` argument."""
+def k2_call(lib, x, betas, seeds, path, coord_deltas, group, arrays=False):
+    """``group=None``: an entry point of before the ``group`` argument.
+    ``arrays``: this tree's entry point, which takes the density's arrays,
+    the prior table and the variational reference (none here)."""
     B, d = x.shape
     density = path.device_density()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [] if group is None else [group]
-    lib.slice_sweep.argtypes = ([p] * 6 + [i] * 4 + [ctypes.POINTER(f), f, i, i, i]
-                                + [i] * len(tail) + [p])
-    params = (f * cuda_slice.MAX_DENSITY_PARAMS)(*density.params)
+    if arrays:
+        inputs = cuda_slice.kernel_inputs(density, B, d, x.device)
+        middle = (inputs.params, inputs.arrays, inputs.array_lens, inputs.prior, inputs.n_prior,
+                  *inputs.variational)
+        tail = [group]
+        lib.slice_sweep.argtypes = ([p] * 6 + [i] * 4 + [ctypes.POINTER(f), ctypes.POINTER(p),
+                                    ctypes.POINTER(i), ctypes.POINTER(f), i, p, p, p, p, f]
+                                    + [i] * 4 + [p])
+    else:
+        tail = [] if group is None else [group]
+        middle = ((f * cuda_slice.MAX_DENSITY_PARAMS)(*density.params),)
+        lib.slice_sweep.argtypes = ([p] * 6 + [i] * 4 + [ctypes.POINTER(f), f, i, i, i]
+                                    + [i] * len(tail) + [p])
 
     def call():
         x_out = torch.empty_like(x)
@@ -136,7 +153,7 @@ def k2_call(lib, x, betas, seeds, path, coord_deltas, group):
         stats = torch.empty((3, B), dtype=torch.float32, device=x.device)
         err = lib.slice_sweep(x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(),
                               lp.data_ptr(), stats.data_ptr(), B, d, density.kind,
-                              int(coord_deltas), params, W, P, chip_smoke.F_PASSES, MAX_ITER,
+                              int(coord_deltas), *middle, W, P, chip_smoke.F_PASSES, MAX_ITER,
                               *tail, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"slice_sweep: error {err}")
@@ -187,14 +204,16 @@ def k1_iterations(x, a, seeds):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--k2-only", action="store_true")
     ap.add_argument("--parent-csrc", type=Path, default=None)
-    ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4))
+    ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4, 5))
     args = ap.parse_args()
     chip_smoke.device_phase()
 
     default = load(verbose=True)
-    k1_libs = {v: load(defines=(f"PIGEONS_K1_CHUNK={v[0]}", f"PIGEONS_K1_REFILL={v[1]}"))
-               for v in K1_VARIANTS}
+    k1_libs = {} if args.k2_only else {
+        v: load(defines=(f"PIGEONS_K1_CHUNK={v[0]}", f"PIGEONS_K1_REFILL={v[1]}"))
+        for v in K1_VARIANTS}
     parent = load(csrc=args.parent_csrc.resolve()) if args.parent_csrc else None
     parent_group = None if args.parent_abi < 3 else 0  # the launcher's choice, where it has one
     results = {}
@@ -203,21 +222,25 @@ def main():
     x, betas, seeds = chip_smoke.lane_inputs(B, D, 1.0, 11)
     toy = toy_mvn_path(D)
     a = toy.coord_factor(betas)
-    k1 = {f"tile {c}, refill at {r}": k1_call(lib, x, a, seeds, 3)
-          for (c, r), lib in k1_libs.items()}
-    k1["default build"] = k1_call(default, x, a, seeds, 3)
-    if parent:
-        k1["parent"] = k1_call(parent, x, a, seeds, 3, first_version=args.parent_abi < 4)
-    results["K1 banded, B=20480 d=100 3 passes"] = race("K1", k1)
-    iterations = k1_iterations(x, a, seeds)
-    for many in (2 * chip_smoke.V_CHAINS * chip_smoke.V_REPLICATES, B):
-        results[f"K1 terms, B={many} d=100 3 passes"] = race_terms(default, many, D)
-
-    def k2_variants(xs, bs, sds, path):
-        out = {f"group {g}": k2_call(default, xs, bs, sds, path, False, g) for g in GROUPS}
-        out["launcher's choice"] = k2_call(default, xs, bs, sds, path, False, 0)
+    iterations = None
+    if not args.k2_only:
+        k1 = {f"tile {c}, refill at {r}": k1_call(lib, x, a, seeds, 3)
+              for (c, r), lib in k1_libs.items()}
+        k1["default build"] = k1_call(default, x, a, seeds, 3)
         if parent:
-            out["parent"] = k2_call(parent, xs, bs, sds, path, False, parent_group)
+            k1["parent"] = k1_call(parent, x, a, seeds, 3, first_version=args.parent_abi < 4)
+        results["K1 banded, B=20480 d=100 3 passes"] = race("K1", k1)
+        iterations = k1_iterations(x, a, seeds)
+        for many in (2 * chip_smoke.V_CHAINS * chip_smoke.V_REPLICATES, B):
+            results[f"K1 terms, B={many} d=100 3 passes"] = race_terms(default, many, D)
+
+    def k2_variants(xs, bs, sds, path, groups=GROUPS):
+        out = {f"group {g}": k2_call(default, xs, bs, sds, path, False, g, arrays=True)
+               for g in groups}
+        out["launcher's choice"] = k2_call(default, xs, bs, sds, path, False, 0, arrays=True)
+        if parent and not path.device_density().prior:  # an earlier K2 has no BayesianModel density
+            out["parent"] = k2_call(parent, xs, bs, sds, path, False, parent_group,
+                                    arrays=args.parent_abi >= 5)
         return out
 
     target = funnel(chip_smoke.F_NX)
@@ -232,9 +255,22 @@ def main():
                                                                k2_variants(mx, mb, ms, fpath))
     results["K2 full, toy MVN B=20480 d=100 1 pass"] = race("K2 full, toy MVN",
                                                             k2_variants(x, betas, seeds, toy))
-    delta = {"this tree": k2_call(default, x, betas, seeds, toy, True, 0)}
+    for name, make in (("hierarchical normal", hierarchical_normal),
+                       ("eight schools", eight_schools), ("unid", unid_target),
+                       ("logistic regression", logistic_regression)):
+        model = make().to(x.device)
+        mpath = model.create_path(model.default_reference())
+        for many in (chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES,
+                     chip_smoke.H_CHAINS * chip_smoke.H_REPLICATES):
+            mx, mb, ms = chip_smoke.lane_inputs(many, model.dim, 1.0, 11)
+            title = f"K2 full, {name} B={many} d={model.dim} 1 pass"
+            # unid has one term: it is built for one thread per lane only
+            results[title] = race(title, k2_variants(mx, mb, ms, mpath,
+                                                     (1,) if name == "unid" else GROUPS))
+    delta = {"this tree": k2_call(default, x, betas, seeds, toy, True, 0, arrays=True)}
     if parent:
-        delta["parent"] = k2_call(parent, x, betas, seeds, toy, True, parent_group)
+        delta["parent"] = k2_call(parent, x, betas, seeds, toy, True, parent_group,
+                                  arrays=args.parent_abi >= 5)
     results["K2 delta, toy MVN B=20480 d=100 1 pass"] = race("K2 delta, toy MVN", delta)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
