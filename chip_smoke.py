@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--parent-csrc DIR]
 
 Run from the repository root. It builds the port's CUDA kernels from
 ``pigeons_tpu_torch/csrc`` (one ``nvcc`` call, the sources in parallel),
@@ -47,16 +47,22 @@ SHRINK iteration one draw, INIT_R and CHECK none, each its density queries.
 
 ``--profile`` also writes ``torch.profiler`` tables of one round of each
 path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt``,
-``profile_config4.txt`` and ``profile_hierarchical.txt``.
+``profile_config4.txt`` and ``profile_hierarchical.txt``. ``--parent-csrc
+DIR`` builds an earlier version of the CUDA sources (with this tree's entry
+points) from ``DIR`` and times its K2 beside this tree's on the same inputs,
+as ``parent_ms`` in the kernels line; its outputs must be this tree's, bit
+for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -108,10 +114,13 @@ H_CHAINS, H_REPLICATES, H_PASSES, H_ROUNDS = 32, 256, 1, (2, 4, 8, 16, 32, 64)
 H_JAX_LADDERS = 16
 H_JAX = {"mu": 0.667063, "tau": 1.017755, "sigma": 0.477138, "barrier": 7.937929,
          "logZ": -176.510125}
-# the smaller BayesianModel paths (unid, eight schools, logistic regression):
-# 10 chains x 64 ladders; the funnel on two legs: 6 + 6 chains x 64 ladders
+# the smaller BayesianModel paths (unid, eight schools): 10 chains x 64
+# ladders; the funnel on two legs: 6 + 6 chains x 64 ladders
 S_CHAINS, S_REPLICATES, S_ROUNDS = 10, 64, (2, 4, 8, 16, 32)
 VF_CHAINS, VF_REPLICATES = 6, 64
+# logistic regression at bench config 2's width (bench.py:335-344: 10 chains x
+# 1,024 ladders, seed 1), rounds of 2..16 scans, then a timed 32-scan round
+LR_CHAINS, LR_REPLICATES, LR_ROUNDS = 10, 1024, (2, 4, 8, 16, 32)
 
 # Published peaks of one H100 SXM at 700 W: 3.35 TB/s of device memory, and
 # 67 TFLOP/s in float32 = 132 SMs x 128 lanes x 2 (a fused multiply-add) x
@@ -223,6 +232,35 @@ def cuda_ms(fn, n):
     return float(np.median(times))
 
 
+PARENT = []  # the library built from --parent-csrc, if any
+
+
+@contextlib.contextmanager
+def parent_library():
+    """The port's wrappers call the parent's library inside this block."""
+    from pigeons_tpu_torch import _build
+
+    saved = _build.load_library
+    _build.load_library = lambda: PARENT[0]
+    try:
+        yield
+    finally:
+        _build.load_library = saved
+
+
+def parent_phase():
+    """Builds the sources of ``--parent-csrc DIR``, if given."""
+    if "--parent-csrc" not in sys.argv[1:]:
+        return
+    phase("1b build the parent's sources")
+    from pigeons_tpu_torch import _build
+
+    csrc = Path(sys.argv[sys.argv.index("--parent-csrc") + 1]).resolve()
+    path, seconds = _build.build(csrc=csrc)
+    print(f"built {path.name} from {csrc} in {seconds:.3f} s")
+    PARENT.append(_build.open_library(path))
+
+
 def device_phase():
     phase("0 device")
     if not torch.cuda.is_available():
@@ -302,6 +340,29 @@ def lane_inputs(B, d, scale, key_seed):
     return x, betas, seeds
 
 
+def parent_ms(name, fn, got, ms):
+    """With --parent-csrc: ``fn`` on the parent's library must give ``got``;
+    its time, the mean of its two turns in parent, this tree, this tree,
+    parent (each the median of 20), beside this tree's ``ms`` (None without a
+    parent)."""
+    if not PARENT:
+        return None
+
+    def parent():
+        with parent_library():
+            return fn()
+
+    compare(f"{name}, the parent's sources", parent(), got)
+    turns = {"parent": [], "this tree": []}
+    for who in ("parent", "this tree", "this tree", "parent"):
+        turns[who].append(cuda_ms(parent if who == "parent" else fn, 20))
+    t_parent = float(np.mean(turns["parent"]))
+    print(f"{name}: this tree {ms:.4f} ms, in turns "
+          + ", ".join(f"{who} {' / '.join(f'{t:.4f}' for t in ts)}" for who, ts in turns.items())
+          + f" ms; the parent's mean {t_parent:.4f} ms")
+    return t_parent
+
+
 def k1_phase():
     """Kernel K1 against its twin at config 1's shape."""
     phase("2 kernel K1 vs twin")
@@ -317,6 +378,7 @@ def k1_phase():
     torch.cuda.synchronize()
     max_abs = compare("K1", got, want)
     ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), 20)
+    parent = parent_ms("K1", lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), got, ms)
     plain_ms = cuda_ms(lambda: cuda_slice.banded_sweep_reference(x, a, seeds), 3)
     n = [float(v) for v in counts[:5]]
     iterations, considered = sum(n), float(got[1][1].double().sum())
@@ -335,7 +397,7 @@ def k1_phase():
             "source": "pigeons_tpu_torch/csrc/banded_slice.cu",
             "replaces": "pigeons_tpu/ops/pallas_slice.py:305",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "parent_ms": parent}
 
 
 def k1_need(elements, n, considered, term):
@@ -397,6 +459,9 @@ def k1_variational_phase():
     if torch.equal(got[0], toy[0]):
         raise AssertionError("K1 variational: the active reference changed nothing")
     ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds, variational=term_on), 20)
+    parent = parent_ms("K1 variational",
+                       lambda: cuda_slice.banded_sweep_cuda(x, a, seeds, variational=term_on), got,
+                       ms)
     toy_ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), 20)
     _, plain_ms = timed_once(lambda: cuda_slice.banded_sweep_reference(x, a, seeds,
                                                                        variational=term_on))
@@ -425,7 +490,7 @@ def k1_variational_phase():
             "source": "pigeons_tpu_torch/csrc/banded_slice.cu",
             "replaces": "pigeons_tpu/ops/pallas_slice.py:305",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "toy_term_ms": toy_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "parent_ms": parent}
 
 
 def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_ops,
@@ -458,6 +523,8 @@ def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_op
                                       group=group, **kw), want)
     ms = cuda_ms(lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas,
                                                n_passes=F_PASSES, **kw), 20)
+    parent = parent_ms(name, lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas,
+                                                           n_passes=F_PASSES, **kw), got, ms)
     n = [float(v) for v in counts[:5]]
     iterations, considered = sum(n), float(got[2][1].double().sum())
     n_evals = float(got[2][2].double().sum())
@@ -483,9 +550,10 @@ def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_op
           f"{n[DOUBLE]:.0f}, SHRINK {n[SHRINK]:.0f} ({considered:.0f} considered), CHECK "
           f"{n[CHECK]:.0f}; {q_prepare:.0f} queries of coordinates that prepare reads, {q_var:.0f} "
           f"of lanes under the variational reference; needs {need[0]:.4g} float32 and "
-          f"{need[1]:.4g} int32 operations, bound {bound_ms:.6f} ms by {bound_by}")
+          f"{need[1]:.4g} int32 operations, bound {bound_ms:.6f} ms by {bound_by}, "
+          f"{bound_ms / ms:.2%} of the kernel's time")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "parent_ms": parent}
 
 
 def prior_ops(prior):
@@ -512,8 +580,9 @@ def prior_ops(prior):
 def k2_bayesian_phase():
     """Kernel K2 with each ``BayesianModel`` density against its twin at the
     batch of the model's own path below (the hierarchical cell's 8,192 lanes,
-    640 for the others), for the launcher's choice of threads per lane and
-    for 1, 8, 16 and 32. Returns the kernels' entries by name."""
+    the logistic regression's 10,240, 640 for the others), for the launcher's
+    choice of threads per lane and for 1, 8, 16 and 32. Returns the kernels'
+    entries by name."""
     phase("2d kernel K2, BayesianModel densities, vs twin")
     from pigeons_tpu_torch import (eight_schools, hierarchical_normal, logistic_regression,
                                    unid_target)
@@ -564,8 +633,8 @@ def k2_bayesian_phase():
     query = (n_obs * (ops(2 * (d - 2) + 1 + 3) + SOFTPLUS) + ops(n_obs + 7)
              + prior_ops(density.prior) + ops(1) + INTERPOLATE)
     out["logistic_regression"] = k2_mode(
-        "K2 full (logistic regression)", path, False, B_small, d, 1.0, query, ops(0), query,
-        extra_bytes=4 * n_obs * d, groups=(1, 8, 16, 32))
+        "K2 full (logistic regression)", path, False, LR_CHAINS * LR_REPLICATES, d, 1.0, query,
+        ops(0), query, extra_bytes=4 * n_obs * d, groups=(1, 8, 16, 32))
     return {name: {"name": f"slice_sweep ({name})", "route": "cuda",
                    "source": "pigeons_tpu_torch/csrc/sweep_slice.cu",
                    "replaces": "pigeons_tpu/ops/pallas_slice.py:94", **entry}
@@ -925,8 +994,9 @@ def eight_schools_phase():
 
 
 def logistic_regression_phase():
-    """Bayesian logistic regression on 200 synthetic observations, d=11
-    (bench config 2's target): 10 chains x 64 ladders. The posterior mean of
+    """Bayesian logistic regression on 200 synthetic observations, d=11, at
+    bench config 2's width: 10 chains x 1,024 ladders, one slice pass (config
+    2 itself times AutoMALA, not ported yet). The posterior mean of
     the weights is held to the sign of every true weight it can resolve: the
     data come from ``w_true`` drawn with the model's seed, and the pooled
     mean of a coordinate must lie within 1 of it (the posterior's deviation
@@ -935,8 +1005,8 @@ def logistic_regression_phase():
     from pigeons_tpu_torch import logistic_regression, rng
 
     target = logistic_regression()
-    pt, launches = bayesian_run(target, S_CHAINS, S_REPLICATES, H_ROUNDS)
-    print_round(pt, S_CHAINS * S_REPLICATES)
+    pt, launches = bayesian_run(target, LR_CHAINS, LR_REPLICATES, LR_ROUNDS)
+    print_round(pt, LR_CHAINS * LR_REPLICATES)
     w_true = rng.normal(rng.fold_in(rng.key(0), 1), (10,)).numpy()
     w = target.constrained_samples(pt)["w"].mean(0)
     print(f"pooled posterior mean of w {[round(float(v), 3) for v in w]}, the weights that made "
@@ -1138,6 +1208,7 @@ def profile_phase():
 def main():
     device_phase()
     build_phase()
+    parent_phase()
     k1, k2, k1v = k1_phase(), k2_phase(), k1_variational_phase()
     bayesian, k2v = k2_bayesian_phase(), k2_variational_phase()
     k1["launches"] = config1_phase()

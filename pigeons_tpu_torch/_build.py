@@ -80,7 +80,11 @@ def build(verbose: bool = False, defines: tuple = (), csrc: Path = CSRC) -> tupl
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
-    path, _ = build()
+    return open_library(build()[0])
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare the C signatures of its entry points."""
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # x, a, seeds, x_out, stats, B, d, w, p, n_passes, max_iter, term, then the

@@ -119,25 +119,40 @@ __device__ __forceinline__ float sum_in_order(const Term& term, int first, int e
   return acc;
 }
 
+// How many partial sums XLA's CPU code keeps for the sum of a [n_rows,
+// n_per_row] array (library.py: row_partials): 4 or 8 for exactly that many
+// rows, none below 16 rows, from 16 on 8 or 4, whichever leaves fewer than 4
+// rows over.
+__device__ __host__ inline int row_partials(int n_rows) {
+  if (n_rows == 4 || n_rows == 8) return n_rows;
+  if (n_rows < 16) return 1;
+  return n_rows % 8 < 4 ? 8 : 4;
+}
+
 // The sum of n_rows * n_per_row terms in the order of library.py:
-// sum_by_row_quads (XLA's CPU code for a [n_rows, n_per_row] array with few
-// columns): four partial sums, row r in partial r mod 4, combined as
-// (s0 + s2) + (s1 + s3); then the rows past the last full four, in order.
+// sum_by_rows: P = row_partials(n_rows) partial sums, row r in partial
+// r mod P, each adding its rows' terms in order, combined by halving
+// ((s0 + s2) + (s1 + s3) for P = 4); then the rows past the last full P, in
+// order. P = 1: every term in order.
 template <class Term>
-__device__ inline float sum_by_row_quads(const Term& term, int n_rows, int n_per_row) {
-  const int n_quads = n_rows / 4;
-  if (n_quads == 0) return sum_in_order(term, 0, n_rows * n_per_row);
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // four independent chains, side by side
-  for (int k = 0; k < n_quads; ++k) {
-    for (int j = 0; j < n_per_row; ++j) {
-      for (int l = 0; l < 4; ++l) {
-        const float t = term((4 * k + l) * n_per_row + j);
-        s[l] = (k == 0 && j == 0) ? t : s[l] + t;
+__device__ inline float sum_by_rows(const Term& term, int n_rows, int n_per_row) {
+  const int P = row_partials(n_rows);
+  if (P == 1) return sum_in_order(term, 0, n_rows * n_per_row);
+  const int n_main = n_rows / P * P;
+  float s[8];
+  for (int l = 0; l < P; ++l) {
+    float acc = 0.0f;
+    for (int r = l; r < n_main; r += P)
+      for (int j = 0; j < n_per_row; ++j) {
+        const float t = term(r * n_per_row + j);
+        acc = (r == l && j == 0) ? t : acc + t;
       }
-    }
+    s[l] = acc;
   }
-  float acc = (s[0] + s[2]) + (s[1] + s[3]);
-  for (int i = 4 * n_quads * n_per_row; i < n_rows * n_per_row; ++i) acc = acc + term(i);
+  for (int h = P / 2; h >= 1; h /= 2)
+    for (int l = 0; l < h; ++l) s[l] = s[l] + s[l + h];
+  float acc = s[0];
+  for (int i = n_main * n_per_row; i < n_rows * n_per_row; ++i) acc = acc + term(i);
   return acc;
 }
 
@@ -248,6 +263,48 @@ __device__ inline float log_prior(const View& s, const PriorTable& table) {
     }
   }
   return lp;
+}
+
+// What log_prior adds for block b of the state: its log-Jacobian (lj) and its
+// log density (lp), each 0 where log_prior adds none of it.
+struct BlockTerms {
+  float lj, lp;
+};
+
+template <class View>
+__device__ inline BlockTerms block_terms(const View& s, const PriorBlock& b) {
+  return {b.bijector == kIdentity ? 0.0f : block_log_jacobian(s, b),
+          b.dist == kUniform ? 0.0f : block_log_prob(s, b)};
+}
+
+// The block that holds coordinate c.
+__device__ inline int block_of(const PriorTable& table, int c) {
+  int k = 0;
+  while (k + 1 < table.n && table.block[k + 1].offset <= c) ++k;
+  return k;
+}
+
+// log_prior from each block's terms, lj[k] and lp[k], but block kq's (if any)
+// from q: the same additions in the same order.
+__device__ inline float combine_prior(const PriorTable& table, const float* lj, const float* lp,
+                                      int kq, BlockTerms q) {
+  float acc = 0.0f;
+  bool first = true;
+  for (int k = 0; k < table.n; ++k) {
+    if (table.block[k].bijector == kIdentity) continue;
+    const float v = k == kq ? q.lj : lj[k];
+    acc = first ? v : acc + v;
+    first = false;
+  }
+  for (int k = 0; k < table.n; ++k) {
+    const PriorBlock& b = table.block[k];
+    if (b.dist == kUniform) {
+      if (b.p[2] != 0.0f) acc = acc + b.p[2];
+    } else {
+      acc = acc + (k == kq ? q.lp : lp[k]);
+    }
+  }
+  return acc;
 }
 
 // The variational reference's log density, coordinates added in order
@@ -383,7 +440,7 @@ __device__ inline float finish(const LaneView& s, const Term& term, int d, float
     lref = log_prior(s, prior);
     float lik;
     if constexpr (K == kHierarchicalNormal) {
-      lik = sum_by_row_quads(term, d - 3, (int)p.v[1]);
+      lik = sum_by_rows(term, d - 3, (int)p.v[1]);
     } else if constexpr (K == kLogisticRegression) {
       lik = sum_by_windows(term, end_term<K>(d, p), 32);
     } else {

@@ -39,6 +39,26 @@
 // batch's groups would no longer all be resident. Delta mode keeps one thread
 // per lane (a delta query is O(1)).
 //
+// The two likelihoods of many terms (kHierarchicalNormal, kLogisticRegression:
+// 200 observations each) share more than the terms (ManyTerms). Every
+// partial sum that XLA forms is added by a thread of its own, in its own
+// order (the hierarchical normal's row partials, library.py: sum_by_rows;
+// the logistic regression's windows of 32), the partials meet by
+// __shfl_xor_sync / __shfl_sync in XLA's order, and every thread gets the
+// total: a lane's critical path is the longest partial (50 or 32 adds), not
+// one thread's 200. A lane keeps its current state's terms, each row
+// partial's running value after every row, and each prior block's terms, in
+// shared memory: a query of theta_trans[g] recomputes row g's terms only
+// and resumes partial g mod P at row g; a query of any coordinate recomputes
+// the prior block that holds it. The shrink candidate's row, partials and
+// block are kept apart and become the lane's when the machine accepts it; a
+// coordinate that prepare reads (mu, log tau, log sigma) recomputes all. The
+// logistic regression keeps each observation's logit over the coordinates
+// before the sweep's coordinate c, one fused multiply-add on at every
+// ENTER, and a query runs the chain from c on. The additions are the same,
+// in the same order, so the bits are the twin's, which recomputes
+// everything for every query.
+//
 // Layout. Input and output are the row-major [B, d] states. With one thread
 // per lane a block of 128 lanes loads its contiguous [128, d] tile with
 // coalesced reads into shared memory, transposed to [d][128], so that thread
@@ -46,7 +66,8 @@
 // no bank conflicts although every thread walks its own coordinate; the
 // block shrinks to 64 or 32 lanes where d * 128 * 4 B would pass the 227 KB a
 // block may use (d up to 1,816). With groups a block of 128 threads holds
-// 128 / G lanes' states row-major and a term buffer each (d up to 227 G).
+// 128 / G lanes' states row-major and a term buffer each (d up to 227 G), or
+// ManyTerms' buffers (twice the terms, the row partials and the prior blocks).
 // Above 48 KB the shared memory is dynamic with the opt-in attribute.
 //
 // Array inputs. What the TPU kernel receives as hoisted array constants
@@ -115,8 +136,258 @@ struct DensityInputs {
   const float *isvar, *mean, *std, *active;
 };
 
+// Whether density K with G threads per lane runs the shared reduction of
+// ManyTerms: the two likelihoods of many terms.
+template <Density K, int G>
+constexpr bool kManyTerms = G > 1 && (K == kHierarchicalNormal || K == kLogisticRegression);
+
+// A lane of a many-term density, worked by the G threads of its group: what
+// each thread does in a query, and what the lane keeps of its current state
+// in shared memory (lane_floats floats from buf):
+//   blk [2][kMaxPriorBlocks]  each prior block's BlockTerms (lj, then lp)
+//   kHierarchicalNormal       part_cur [n_main] the running value of a row's
+//                             partial sum after that row; part_q [2][n_main] a
+//                             query's (slot 0 for probes, 1 for the shrink
+//                             candidate); row_q [2][n] a row query's terms;
+//                             cur [n_terms] the terms; scratch [n_terms] a
+//                             query's that changes every term
+//   kLogisticRegression       scratch [n_terms] a query's terms; pre [n_terms]
+//                             each observation's logit over the coordinates
+//                             before the sweep's coordinate
+template <Density K, int G>
+struct ManyTerms {
+  static_assert(kManyTerms<K, G>, "a density without many terms");
+  float* xs;
+  float* buf;  // blk [2][kMaxPriorBlocks], then the density's buffers
+  int d, n_terms, g;
+  unsigned mask;
+  int n = 0, P = 1;             // kHierarchicalNormal: a row's terms, the partial sums
+  BlockTerms cand{0.0f, 0.0f};  // the prior block's terms at the last shrink candidate
+
+  static __device__ __host__ int lane_floats(int d, int n_terms, const DensityParams& p) {
+    if constexpr (K == kHierarchicalNormal) {
+      const int R = d - 3, P = row_partials(R);
+      return 2 * kMaxPriorBlocks + 3 * (R / P * P) + 2 * (int)p.v[1] + 2 * n_terms;
+    }
+    return 2 * kMaxPriorBlocks + 2 * n_terms;
+  }
+
+  __device__ ManyTerms(float* xs_, float* buf_, int d_, int n_terms_, int g_, unsigned mask_,
+                       const DensityParams& p)
+      : xs(xs_), buf(buf_), d(d_), n_terms(n_terms_), g(g_), mask(mask_) {
+    if constexpr (K == kHierarchicalNormal) {
+      n = (int)p.v[1];
+      P = row_partials(d - 3);
+    }
+  }
+
+  // The buffers, from buf (lane_floats).
+  __device__ __forceinline__ float* blk() const { return buf; }
+  __device__ __forceinline__ int n_main() const { return (d - 3) / P * P; }
+  __device__ __forceinline__ float* part_cur() const { return buf + 2 * kMaxPriorBlocks; }
+  __device__ __forceinline__ float* part_q() const { return part_cur() + n_main(); }
+  __device__ __forceinline__ float* row_q() const { return part_q() + 2 * n_main(); }
+  __device__ __forceinline__ float* cur() const { return row_q() + 2 * n; }
+  __device__ __forceinline__ float* scratch() const {
+    if constexpr (K == kHierarchicalNormal) return cur() + n_terms;
+    return buf + 2 * kMaxPriorBlocks;
+  }
+  __device__ __forceinline__ float* pre() const { return scratch() + n_terms; }
+
+  // The path's log density with coordinate c holding q (c < 0: the current
+  // state, whose terms, partial sums and prior blocks it keeps). slot: 1 for
+  // the shrink candidate, which commit() takes over, 0 else.
+  __device__ __forceinline__ float evaluate(int c, float q, const Prepared& pr, int slot,
+                                            float beta, const DensityInputs& in,
+                                            const VariationalLane& var) {
+    const LaneView s{xs, 1, c, q};
+    const PriorTable& prior = in.prior;
+    float* blk = this->blk();
+    int kq = -1;
+    BlockTerms bq{0.0f, 0.0f};
+    if (c < 0) {  // block k by thread k mod G; read after the likelihood's __syncwarp
+      for (int k = g; k < prior.n; k += G) {
+        const BlockTerms t = block_terms(s, prior.block[k]);
+        blk[k] = t.lj;
+        blk[kMaxPriorBlocks + k] = t.lp;
+      }
+    } else {  // the query's block, by every thread
+      kq = block_of(prior, c);
+      bq = block_terms(s, prior.block[kq]);
+      if (slot == 1) cand = bq;
+    }
+    float lik;
+    if constexpr (K == kHierarchicalNormal) {
+      lik = row_likelihood(s, c, pr, slot, in);
+    } else {
+      lik = window_likelihood(s, c, in);
+    }
+    // finish's blend, with log_prior's sum from the blocks
+    float lref = combine_prior(prior, blk, blk + kMaxPriorBlocks, kq, bq);
+    float ltgt = lref + lik;
+    if (var.use) {
+      lref = variational_log_density(s, d, var);
+      ltgt = 0.0f + ltgt;
+    }
+    __syncwarp(mask);  // all have read the buffers before the next query writes them
+    return nan_to_neg_inf(interpolate(beta, lref, ltgt));
+  }
+
+  // sum_by_rows. A query of theta_trans[c] recomputes row c's terms and
+  // resumes partial c mod P from its value before row c; a query of a
+  // coordinate that prepare reads recomputes every term (c < 0: into cur).
+  __device__ __forceinline__ float row_likelihood(const LaneView& s, int c, const Prepared& pr,
+                                                  int slot, const DensityInputs& in) {
+    const int R = d - 3, n_main = this->n_main();
+    const bool full = c < 0 || prepare_reads<K>(c, d);
+    float* cur = this->cur();
+    float* part_cur = this->part_cur();
+    float* terms = c < 0 ? cur : scratch();
+    float* row = row_q() + slot * n;
+    float* parts = c < 0 ? part_cur : part_q() + slot * n_main;
+    if (full) {
+      for (int t = g; t < n_terms; t += G)
+        terms[t] = target_term<K>(s, t, pr, in.params, in.arrays);
+    } else {
+      for (int j = g; j < n; j += G)
+        row[j] = target_term<K>(s, c * n + j, pr, in.params, in.arrays);
+    }
+    __syncwarp(mask);
+    // row r's terms at the query
+    const auto row_terms = [&](int r) -> const float* {
+      return full ? terms + r * n : r == c ? row : cur + r * n;
+    };
+    // partial g: rows g, g + P, ... below n_main; the current value where none changed
+    float mine = 0.0f;
+    if (g < P) {
+      const int from = full ? g : (c < n_main && c % P == g) ? c : n_main;
+      if (from >= n_main) {
+        mine = part_cur[g + (n_main - 1 - g) / P * P];
+      } else {
+        float acc = 0.0f;
+        int j0 = 0;
+        if (from >= P) {
+          acc = part_cur[from - P];
+        } else {  // the partial's first term
+          acc = row_terms(from)[0];
+          j0 = 1;
+        }
+        for (int r = from; r < n_main; r += P, j0 = 0) {
+          const float* t = row_terms(r);
+          for (int j = j0; j < n; ++j) acc = acc + t[j];
+          parts[r] = acc;
+        }
+        mine = acc;
+      }
+    }
+    // halving: lane l adds lane l + h's partial (the threads past P pair among themselves)
+    for (int h = P / 2; h >= 1; h /= 2) mine = mine + __shfl_xor_sync(mask, mine, h, G);
+    float acc = __shfl_sync(mask, mine, 0, G);
+    for (int r = n_main; r < R; ++r) {
+      const float* t = row_terms(r);
+      for (int j = 0; j < n; ++j) acc = acc + t[j];
+    }
+    return acc;
+  }
+
+  // sum_by_windows(32): thread w adds window w (w + G, ... where there are
+  // more), the windows' sums are added in order. A query of coordinate c runs
+  // each logit's chain of fused multiply-adds from c on, from pre.
+  __device__ __forceinline__ float window_likelihood(const LaneView& s, int c,
+                                                     const DensityInputs& in) {
+    const int n_w = d - 1;
+    const float* X = in.arrays.ptr[0];
+    const float* y = in.arrays.ptr[1];
+    float* scratch = this->scratch();
+    if (c < 0) {
+      for (int t = g; t < n_terms; t += G)
+        scratch[t] = target_term<K>(s, t, Prepared{}, in.params, in.arrays);
+    } else {
+      const float* pre = this->pre();
+      for (int t = g; t < n_terms; t += G) {
+        const float* row = X + t * n_w;
+        float logit = c == 0 ? row[0] * s.q : c < n_w ? __fmaf_rn(row[c], s.q, pre[t]) : pre[t];
+        for (int k = c + 1; k < n_w; ++k) logit = __fmaf_rn(row[k], xs[k], logit);
+        logit = logit + (c == n_w ? s.q : xs[n_w]);
+        scratch[t] = y[t] * logit - softplus(logit);
+      }
+    }
+    __syncwarp(mask);
+    constexpr int W = 32;
+    const int lead = ((W - n_terms % W) % W) / 2;
+    const int n_windows = (n_terms + lead + W - 1) / W;
+    float total = 0.0f;
+    for (int w0 = 0; w0 < n_windows; w0 += G) {
+      float mine = 0.0f;
+      const int w = w0 + g;
+      if (w < n_windows) {
+        const int start = w * W - lead;
+        const int end = start + W < n_terms ? start + W : n_terms;
+        for (int i = start < 0 ? 0 : start; i < end; ++i) mine = mine + scratch[i];
+      }
+      for (int k = 0; k < G && w0 + k < n_windows; ++k)
+        total = total + __shfl_sync(mask, mine, k, G);
+    }
+    return total;
+  }
+
+  // At ENTER of coordinate c: pre becomes each logit's chain over the
+  // coordinates before c, one step on from c - 1's.
+  __device__ __forceinline__ void enter(int c, const DensityInputs& in) {
+    if constexpr (K == kLogisticRegression) {
+      if (c == 0) return;
+      const int n_w = d - 1;
+      float* pre = this->pre();
+      for (int t = g; t < n_terms; t += G) {
+        const float* row = in.arrays.ptr[0] + t * n_w;
+        pre[t] = c == 1 ? row[0] * xs[0] : __fmaf_rn(row[c - 1], xs[c - 1], pre[t]);
+      }
+    }
+  }
+
+  // The machine accepted the shrink candidate of coordinate c (xs and pr_cur
+  // hold it): its row, partial sums and prior block become the current ones.
+  // A coordinate that prepare reads changes every term: recomputed.
+  __device__ __forceinline__ void commit(int c, const Prepared& pr_cur, float beta,
+                                         const DensityInputs& in, const VariationalLane& var) {
+    if constexpr (K == kHierarchicalNormal) {
+      if (prepare_reads<K>(c, d)) {
+        evaluate(-1, 0.0f, pr_cur, 0, beta, in, var);
+        return;
+      }
+      const int n_main = this->n_main();
+      float* cur = this->cur();
+      float* part_cur = this->part_cur();
+      const float* row = row_q() + n;
+      const float* parts = part_q() + n_main;
+      for (int j = g; j < n; j += G) cur[c * n + j] = row[j];
+      for (int r = c + g * P; r < n_main; r += G * P) part_cur[r] = parts[r];
+    }
+    const int k = block_of(in.prior, c);
+    blk()[k] = cand.lj;
+    blk()[kMaxPriorBlocks + k] = cand.lp;
+    __syncwarp(mask);
+  }
+};
+
+// Floats of a lane's buffers past its state with G > 1 threads per lane.
+template <Density K, int G>
+__device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityParams& p) {
+  if constexpr (kManyTerms<K, G>) return ManyTerms<K, G>::lane_floats(d, n_terms, p);
+  return G == 1 ? 0 : n_terms;
+}
+
+// Blocks of kThreads that an SM must be able to hold at once: the compiler
+// keeps each thread's registers within 65,536 / (kThreads * kMinBlocks). The
+// logistic regression's groups otherwise take 133 registers, four blocks an
+// SM, and at 8,192 lanes take 3.03 ms against 2.07 ms with 80 registers
+// (tools/torch_kernel_variants.py; 64 registers spill, 0.72 against 0.64 ms
+// at 640 lanes); the hierarchical normal's 117 are as fast as 80.
+template <Density K, int G>
+constexpr int kMinBlocks = kManyTerms<K, G> && K == kLogisticRegression ? 6 : 1;
+
 template <Density K, bool kDelta, int G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<K, G>))
 slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                    const int64_t* __restrict__ seeds, float* __restrict__ x_out,
                    float* __restrict__ lp_out, float* __restrict__ stats, int B, int d,
@@ -124,8 +395,9 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                    int max_iter) {
   static_assert(G == 1 || !kDelta, "a delta query is O(1): nothing to share out");
   // G == 1: the states [d][T], coordinate-major. G > 1: the states [T / G][d],
-  // then each group's target terms [T / G][n_terms]. Then the variational
-  // reference's mean, std and log norms [3][d].
+  // then each group's buffers [T / G][lane_floats]: its target terms, or
+  // ManyTerms' buffers. Then the variational reference's mean, std and log
+  // norms [3][d].
   float* shared = dynamic_shared();
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -135,9 +407,10 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
   const int n_tile = n_here * d;
   const DensityParams& params = in.params;
   const int n_terms = end_term<K>(d, params);
+  const int lane_floats = buffer_floats<K, G>(d, n_terms, params);
   for (int i = tid; i < n_tile; i += T)
     shared[G == 1 ? (i % d) * T + i / d : i] = x[lane0 * d + i];
-  float* var_arrays = shared + (G == 1 ? T * d : lanes_per_block * (d + n_terms));
+  float* var_arrays = shared + (G == 1 ? T * d : lanes_per_block * (d + lane_floats));
   const bool variational = in.isvar != nullptr;
   if (variational) {
     for (int i = tid; i < d; i += T) {
@@ -155,20 +428,37 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
     const int64_t b = lane0 + group;
     float* xs = G == 1 ? shared + tid : shared + group * d;
     const int stride = G == 1 ? T : 1;  // coordinate c of this lane is xs[c * stride]
-    [[maybe_unused]] float* terms = shared + lanes_per_block * d + group * n_terms;
+    [[maybe_unused]] float* terms = shared + lanes_per_block * d + group * lane_floats;
     [[maybe_unused]] const unsigned mask = group_mask<G>(tid);
     const float beta = betas[b];
     const uint32_t hash_base = fmix32((uint32_t)seeds[b] ^ 0x9E3779B9u);
     const VariationalLane var{variational && in.isvar[b] > 0.0f && in.active[0] > 0.0f,
                               var_arrays, var_arrays + d, var_arrays + 2 * d};
 
-    // The density of the lane's state with coordinate c (if any) holding q.
-    // Every thread of the group calls it at the same point and gets the same
-    // bits: thread g computes the terms g, g + G, ..., and all of them run the
-    // in-order sums over the group's buffer.
-    auto evaluate = [&](int c, float q, const Prepared& pr) {
+    // kept for the lane's current state, recomputed for a query of a coordinate
+    // that prepare reads
+    const auto prepared = [&](int c, float q) {
+      return prepare<K>(LaneView{xs, stride, c, q}, d, params);
+    };
+    Prepared pr_cur = prepared(-1, 0.0f);
+    [[maybe_unused]] auto many = [&] {
+      if constexpr (kManyTerms<K, G>) {
+        return ManyTerms<K, G>(xs, terms, d, n_terms, g, mask, params);
+      } else {
+        return 0;
+      }
+    }();
+
+    // The density of the lane's state with coordinate c (if any) holding q;
+    // slot 1 for the shrink candidate (ManyTerms keeps its terms). Every
+    // thread of the group calls it at the same point and gets the same bits:
+    // thread g computes the terms g, g + G, ..., and all of them run the
+    // in-order sums over the group's buffer, or ManyTerms shares them out.
+    auto evaluate = [&](int c, float q, const Prepared& pr, [[maybe_unused]] int slot) {
       const LaneView s{xs, stride, c, q};
-      if constexpr (G == 1) {
+      if constexpr (kManyTerms<K, G>) {
+        return many.evaluate(c, q, pr, slot, beta, in, var);
+      } else if constexpr (G == 1) {
         return log_density<K>(s, d, beta, pr, params, in.arrays, in.prior, var);
       } else {
         for (int t = first_term<K> + g; t < n_terms; t += G)
@@ -180,13 +470,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         return lp;
       }
     };
-    // what the terms need of the state, with coordinate c (if any) holding q
-    auto prepared = [&](int c, float q) { return prepare<K>(LaneView{xs, stride, c, q}, d, params); };
-
-    // kept for the lane's current state, recomputed for a query of a coordinate
-    // that prepare reads
-    Prepared pr_cur = prepared(-1, 0.0f);
-    float lp_cur = evaluate(-1, 0.0f, pr_cur);
+    float lp_cur = evaluate(-1, 0.0f, pr_cur, 0);
     float old = 0.f, z = 0.f, L = 0.f, R = 0.f, lpL = 0.f, lpR = 0.f, Lb = 0.f, Rb = 0.f;
     float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f, base = 0.f;
     float acc_sum = 0.f, acc_n = 0.f, n_evals = 0.f;
@@ -204,6 +488,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
       const bool ph_shr = phase == SHRINK;
       const float xc = xs[c * stride];
       if (is_enter) {
+        if constexpr (kManyTerms<K, G>) many.enter(c, in);
         old = xc;
         z = lp_cur - (-cephes_logf(draw(hash_base, ctr + 1u)));
         L = __fmaf_rn(draw(hash_base, ctr), -W, old);
@@ -229,7 +514,8 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         if (is_enter) base = lp_cur - quadratic_term(a, xc);
         lp_q = base + quadratic_term(a, query);
       } else {
-        lp_q = evaluate(c, query, prepare_reads<K>(c, d) ? prepared(c, query) : pr_cur);
+        lp_q = evaluate(c, query, prepare_reads<K>(c, d) ? prepared(c, query) : pr_cur,
+                        ph_shr ? 1 : 0);
       }
       n_evals += 1.0f;
 
@@ -307,6 +593,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         xs[c * stride] = cand;
         lp_cur = lp_cand;
         if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared(-1, 0.0f);
+        if constexpr (kManyTerms<K, G>) many.commit(c, pr_cur, beta, in, var);
       }
       acc_sum += accepted ? 1.0f : 0.0f;
 
@@ -327,7 +614,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
 
     // the deltas drift by float32 rounding over the sweep: hand back the
     // exactly recomputed density of the final state, as the TPU kernel does
-    if constexpr (kDelta) lp_cur = evaluate(-1, 0.0f, prepared(-1, 0.0f));
+    if constexpr (kDelta) lp_cur = evaluate(-1, 0.0f, prepared(-1, 0.0f), 0);
     if (g == 0) {
       lp_out[b] = lp_cur;
       stats[b] = acc_sum;
@@ -344,11 +631,12 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
 // Shared memory of one block, with `extra` floats past the lanes' states (the
 // variational reference's 3 d). With one thread per
 // lane a state per thread, and the block shrinks to 64 or 32 lanes where 128
-// states would not fit (d up to 1,816); with a group per lane a state and a
-// buffer of n_terms terms for each group of a 128-thread block. 0: too large.
-size_t shared_bytes(int group, int d, int n_terms, size_t extra, int* threads) {
+// states would not fit (d up to 1,816); with a group per lane a state and its
+// lane_floats of buffers (buffer_floats) for each group of a 128-thread
+// block. 0: too large.
+size_t shared_bytes(int group, int d, int lane_floats, size_t extra, int* threads) {
   *threads = kThreads;
-  size_t floats = (size_t)(kThreads / group) * ((size_t)d + n_terms);
+  size_t floats = (size_t)(kThreads / group) * ((size_t)d + lane_floats);
   if (group == 1) {
     while (*threads > 32 && ((size_t)d * *threads + extra) * sizeof(float) > kMaxSharedBytes)
       *threads /= 2;
@@ -371,10 +659,10 @@ struct SweepArgs {
 
 template <Density K, bool kDelta, int G>
 int launch(SweepArgs a) {
-  const int n_terms = end_term<K>(a.d, a.in.params);
+  const int lane_floats = buffer_floats<K, G>(a.d, end_term<K>(a.d, a.in.params), a.in.params);
   const size_t var_floats = a.in.isvar != nullptr ? (size_t)3 * a.d : 0;
   int threads;
-  const size_t shared = shared_bytes(G, a.d, n_terms, var_floats, &threads);
+  const size_t shared = shared_bytes(G, a.d, lane_floats, var_floats, &threads);
   if (shared == 0) return -2;  // d too large for a lane's state in shared memory
   auto kernel = slice_sweep_kernel<K, kDelta, G>;
   const cudaError_t err = allow_shared_bytes(kernel, shared);
@@ -390,34 +678,39 @@ int launch(SweepArgs a) {
 // Threads that an H100 keeps resident: 132 SMs of 2,048.
 constexpr int64_t kResidentThreads = 132 * 2048;
 
-// Whether a term costs about what one summand of the part that every thread
-// of a group repeats costs (a division and a few multiply-adds), and not many
-// times that (logistic regression: a dot product and a softplus).
+// Whether a term costs about as much as the rest of a query (a division and a
+// few multiply-adds), and not many times that (logistic regression: a dot
+// product and a softplus).
 template <Density K>
 constexpr bool cheap_terms = K != kLogisticRegression;
 
 // Threads per lane in full mode, from the density and the shape. One thread
 // where there is nothing to share out: a density whose terms are one multiply
 // each (the sums of squares), or a single term. Else the smallest group that
-// gives every thread at most one term (32 at most), halved down to 8 while the
-// batch's groups would fill the card: a group repeats the machine, the prior
-// and the in-order sums in every thread, so once there are threads enough to
-// hide each other's latency a smaller group does less work in all. With cheap
-// terms that point is a quarter of the resident threads (hierarchical normal,
-// B = 8,192: 8 / 16 / 32 threads 3.06 / 3.39 / 4.08 ms, but B = 640: 2.21 /
-// 1.71 / 1.46 ms), with dear ones all of them (logistic regression, B = 8,192:
-// 2.77 / 2.48 / 2.46 ms). One thread again where even groups of 8 are too many
-// or their buffers too large.
+// gives every thread at most one term (32 at most). With cheap terms it is
+// halved down to 8 while the batch's groups would fill more than a quarter
+// of the card: every thread of a group takes the machine's steps, and
+// groups of four lanes to a warp issue them once for four (hierarchical
+// normal, tools/torch_kernel_variants.py: B = 8,192: 8 / 16 / 32 threads
+// 1.99 / 2.38 / 3.12 ms, B = 640: 1.46 / 1.03 / 0.84 ms), and one thread
+// again where even groups of 8 would overfill it. Dear terms keep 32 at any
+// batch: a lane's terms are nearly all its work (logistic regression, 8 / 16
+// / 32 threads: 1.83 / 1.03 / 0.66 ms at B = 640, 2.96 / 2.33 / 2.04 at
+// 8,192, 2.99 / 2.59 / 2.38 at 10,240). One thread also where the group's
+// buffers do not fit.
 template <Density K>
-int pick_group(int B, int d, int n_all_terms) {
+int pick_group(int B, int d, const DensityParams& params) {
+  const int n_all_terms = end_term<K>(d, params);
   const int n_terms = n_all_terms - first_term<K>;
   if (K == kToyMvn || K == kMvn || n_terms <= 1) return 1;
   int group = n_terms <= 8 ? 8 : n_terms <= 16 ? 16 : 32;
-  const int64_t full = cheap_terms<K> ? kResidentThreads / 4 : kResidentThreads;
-  while (group > 8 && (int64_t)B * group > full) group /= 2;
+  if (cheap_terms<K>) {
+    while (group > 8 && (int64_t)B * group > kResidentThreads / 4) group /= 2;
+    if ((int64_t)B * group > kResidentThreads) return 1;
+  }
   int threads;
-  if ((int64_t)B * group > kResidentThreads ||
-      shared_bytes(group, d, n_all_terms, (size_t)3 * d, &threads) == 0)
+  if (shared_bytes(group, d, buffer_floats<K, 8>(d, n_all_terms, params), (size_t)3 * d,
+                   &threads) == 0)
     return 1;
   return group;
 }
@@ -425,7 +718,7 @@ int pick_group(int B, int d, int n_all_terms) {
 // kUnid has one term: it is built for one thread per lane only.
 template <Density K>
 int launch_full(const SweepArgs& a, int group) {
-  if (!group) group = pick_group<K>(a.B, a.d, end_term<K>(a.d, a.in.params));
+  if (!group) group = pick_group<K>(a.B, a.d, a.in.params);
   if (group == 1) return launch<K, false, 1>(a);
   if constexpr (K != kUnid) {
     switch (group) {

@@ -229,7 +229,7 @@ def _observation_terms(y, loc, scale, neg_log_scale):
 
 class HierarchicalNormalLikelihood:
     """``data[g, i] ~ N(mu + theta_trans[g] tau, sigma)``: ``n_groups *
-    n_per_group`` terms, summed row by row."""
+    n_per_group`` terms, summed by rows (:func:`sum_by_rows`)."""
 
     def __init__(self, data: torch.Tensor):
         self.data = data.to(torch.float32).contiguous()  # [n_groups, n_per_group]
@@ -250,29 +250,50 @@ class HierarchicalNormalLikelihood:
         return t.reshape(t.shape[:-2] + (-1,))
 
     def finish(self, terms):
-        return sum_by_row_quads(terms, self.data.shape[1])
+        return sum_by_rows(terms, self.data.shape[1])
 
     def __call__(self, q):
         return self.finish(self.terms(q))
 
 
-def sum_by_row_quads(terms, n_per_row: int):
+def row_partials(n_rows: int) -> int:
+    """How many partial sums XLA's CPU code keeps when it adds up a ``[n_rows,
+    n_per_row]`` array: its loop over the rows is vectorised, by 8 or by 4
+    rows, only from 16 rows on (and for exactly 4 or 8 rows); the width is
+    the one that leaves fewer than 4 rows over. Read off the JAX kernel's
+    returned densities at 1 to 27 rows (3 to 16 columns); from 28 rows on
+    XLA adds in yet another order, which this rule does not give (within
+    float32 rounding of it: ``tests/test_torch_sweep_bayesian.py``)."""
+    if n_rows in (4, 8):
+        return n_rows
+    if n_rows < 16:
+        return 1
+    return 8 if n_rows % 8 < 4 else 4
+
+
+def sum_by_rows(terms, n_per_row: int):
     """Sum of ``terms [..., n_rows * n_per_row]`` in the order in which XLA's
-    CPU code adds a ``[n_rows, n_per_row]`` array with few columns: four
-    partial sums, row ``r`` going to partial ``r mod 4`` and each partial
-    adding its rows' elements in order, combined as ``(s0 + s2) + (s1 + s3)``;
-    the rows past the last full four are then added in order. (Its loop over
-    the columns is unrolled and the loop over the rows vectorised by four.)"""
+    CPU code adds a ``[n_rows, n_per_row]`` array: with ``P =
+    row_partials(n_rows)`` partial sums, row ``r`` going to partial ``r mod
+    P`` (rows past the last full ``P`` excepted) and each partial adding its
+    rows' elements in order, the partials combined by halving (``P = 4``:
+    ``(s0 + s2) + (s1 + s3)``; ``P = 8``: ``((s0 + s4) + (s2 + s6)) + ((s1 +
+    s5) + (s3 + s7))``), then the rows past the last full ``P`` added in
+    order; with ``P = 1`` all elements in order."""
     n_rows = terms.shape[-1] // n_per_row
-    rows = terms.reshape(terms.shape[:-1] + (n_rows, n_per_row))
-    n_quads = n_rows // 4
-    if n_quads == 0:
+    P = row_partials(n_rows)
+    if P == 1:
         return sum_in_order(terms)
-    quads = rows[..., : 4 * n_quads, :].reshape(terms.shape[:-1] + (n_quads, 4, n_per_row))
-    # [..., 4, n_quads * n_per_row]: a partial's elements in the order it adds them
-    s = sum_in_order(quads.transpose(-3, -2).reshape(terms.shape[:-1] + (4, -1)))
-    acc = (s[..., 0] + s[..., 2]) + (s[..., 1] + s[..., 3])
-    rest = rows[..., 4 * n_quads:, :].reshape(terms.shape[:-1] + (-1,))
+    rows = terms.reshape(terms.shape[:-1] + (n_rows, n_per_row))
+    n_main = n_rows // P
+    groups = rows[..., : P * n_main, :].reshape(terms.shape[:-1] + (n_main, P, n_per_row))
+    # [..., P, n_main * n_per_row]: a partial's elements in the order it adds them
+    s = sum_in_order(groups.transpose(-3, -2).reshape(terms.shape[:-1] + (P, -1)))
+    while s.shape[-1] > 1:
+        half = s.shape[-1] // 2
+        s = s[..., :half] + s[..., half:]
+    acc = s[..., 0]
+    rest = rows[..., P * n_main:, :].reshape(terms.shape[:-1] + (-1,))
     for i in range(rest.shape[-1]):
         acc = acc + rest[..., i]
     return acc
@@ -337,7 +358,11 @@ def sum_by_windows(terms, window: int = 32):
     of the padding in front, each window is added up in order from 0, and the
     windows' sums are added in order from 0 (its reduce-window rewrite of a
     reduction; read off the compiled module at n = 200, where the windows are
-    the elements 0..19, 20..51, ..., 180..199)."""
+    the elements 0..19, 20..51, ..., 180..199). With ``window = 32`` it is
+    the order of the JAX slice kernel's densities at n = 16, 33, 64, 100,
+    200, 256 and 500 observations of 10 covariates and at 200 of 3
+    (``tests/summation_order_study.py``); not at n = 31, nor with a single
+    covariate, where the densities agree within float32 rounding."""
     n = terms.shape[-1]
     pad = (-n) % window
     zeros = terms.new_zeros(terms.shape[:-1] + (pad // 2,)), terms.new_zeros(

@@ -27,7 +27,11 @@ density evaluation (``csrc/densities.cuh``, selected by the path's
 full mode a group of 8, 16 or 32 threads works for one lane: each computes
 its share of the density's terms (coordinates, or a ``BayesianModel``'s
 observations), and all of them run the in-order sums and the machine, so
-nothing is broadcast. What the Pallas kernel receives as hoisted array
+nothing is broadcast; for the two likelihoods of many terms (hierarchical
+normal, logistic regression) each partial sum of XLA's order has a thread of
+its own, the partials meet by warp shuffles, and a lane keeps its current
+terms, row partials and prior blocks, so that a query recomputes what its
+coordinate changes. What the Pallas kernel receives as hoisted array
 constants the CUDA kernel reads from device arrays: a model's data and prior
 table (``DeviceDensity.arrays`` / ``.prior``) and, under a
 :class:`~..paths.VariationalPath`, the lanes' ``isvar`` and the reference's

@@ -190,7 +190,9 @@ class PT:
         self._is_var = torch.tensor(is_var, device=self.device)
 
         self._extract = inputs.extractor or _default_extractor
-        probe = self._extract(torch.zeros(1, self.dim), torch.zeros(1))
+        # on the run's device, so that an extractor may close over tensors there
+        probe = self._extract(torch.zeros(1, self.dim, device=self.device),
+                              torch.zeros(1, device=self.device))
         self._extract_dim = int(probe.shape[-1])
         self._swap_graph = inputs.swap_graph
 

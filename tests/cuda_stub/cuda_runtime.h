@@ -6,8 +6,8 @@
 //
 // A launch runs the grid's blocks one after the other and the threads of a
 // block as host threads. __syncthreads is a barrier over the block, and the
-// warp primitives (__syncwarp, __ballot_sync) are rendezvous of the threads
-// that the mask names, so that a kernel whose
+// warp primitives (__syncwarp, __ballot_sync, __shfl_sync, __shfl_xor_sync)
+// are rendezvous of the threads that the mask names, so that a kernel whose
 // threads disagree about a mask hangs here as it would on the card (callers
 // set a time limit). __fmaf_rn is fmaf and -ffp-contract=off keeps the
 // compiler from fusing anything else, so the arithmetic is the card's under
@@ -149,6 +149,18 @@ inline unsigned __ballot_sync(unsigned mask, bool predicate) {
   for (int i = 0; i < 32; ++i)
     if ((mask >> i & 1u) && words[i]) out |= 1u << i;
   return out;
+}
+
+// lane src (lane ^ lane_mask) of this thread's segment of `width` lanes
+inline float __shfl_sync(unsigned mask, float value, int src, int width = 32) {
+  uint32_t words[32];
+  cuda_stub::meet(mask, stub_bit_cast<uint32_t>(value), words);
+  const unsigned lane = threadIdx.x % 32, segment = lane & ~(unsigned)(width - 1);
+  return stub_bit_cast<float>(words[segment | ((unsigned)src & (width - 1))]);
+}
+
+inline float __shfl_xor_sync(unsigned mask, float value, int lane_mask, int width = 32) {
+  return __shfl_sync(mask, value, (int)(threadIdx.x % 32) ^ lane_mask, width);
 }
 
 template <class T> inline T atomicAdd(T* address, T value) {

@@ -339,6 +339,47 @@ def test_bayesian_kernel_matches_twin_for_each_group(cuda_device, name, n, varia
         assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
 
 
+# the two many-term likelihoods at their paths' batches (chip_smoke.py: the
+# hierarchical cell's 8,192 lanes, the logistic regression's 10,240), at the
+# smaller paths' 640, and under a variational reference with active 0 and 1
+MANY_TERM_CASES = [("hierarchical_normal", 640, None), ("hierarchical_normal", 8192, None),
+                   ("hierarchical_normal", 8192, 0.0), ("hierarchical_normal", 8192, 1.0),
+                   ("logistic_regression", 640, None), ("logistic_regression", 8192, None),
+                   ("logistic_regression", 10240, None), ("logistic_regression", 10240, 0.0),
+                   ("logistic_regression", 10240, 1.0)]
+
+
+@functools.lru_cache(maxsize=None)
+def _many_term_case(name, n, active):
+    device = torch.device("cuda")
+    model = BAYESIAN[name]().to(device)
+    path = model.create_path(model.default_reference())
+    x = model.initialization(rng.keys_for(rng.key(6, device), torch.arange(n, device=device)))
+    x = x.contiguous()
+    x[1, -1], x[2, -1], x[3, 0] = 95.0, -95.0, float("nan")
+    _, betas, seeds = _lane_inputs(n, model.dim, 4, device)
+    extra = {}
+    if active is not None:
+        path = T.VariationalPath(path, T.GaussianReference())
+        extra = _reference(model.dim, n, active, device)
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1, max_iter=64, **extra)
+    return path, x, betas, seeds, extra, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 8, 16, 32])
+@pytest.mark.parametrize("name,n,active", MANY_TERM_CASES)
+def test_many_term_kernel_matches_twin_at_the_paths_batches(cuda_device, name, n, active, group):
+    """The shared reduction and the cached terms of the hierarchical normal
+    and the logistic regression, for the launcher's choice and every group it
+    can pick: bitwise the twin."""
+    path, x, betas, seeds, extra, want = _many_term_case(name, n, active)
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group,
+                                **extra)
+    for tensor_name, g, w in zip(("x", "lp", "stats"), got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [0, 1, 32])
 def test_bayesian_kernel_reads_arrays_larger_than_shared_memory(cuda_device, group):
@@ -425,3 +466,22 @@ def test_variational_funnel_card_run_matches_cpu_run(cuda_device):
     assert float(g._ref_params["active"]) == 1.0
     assert torch.equal(g.chain_of.cpu(), c.chain_of)
     assert torch.equal(g.states.cpu(), c.states)
+
+
+@pytest.mark.cuda
+def test_extractor_closing_over_a_card_tensor(cuda_device):
+    """``PT`` probes the extractor's width on the run's device (the JAX
+    package: ``jax.eval_shape``), so an extractor may close over a tensor on
+    the card; the same run on the CPU with the weights there gives the same
+    samples (the log density within 1e-6: ``torch.sum`` adds in another order
+    on the card)."""
+    def run(device):
+        w = torch.tensor([2.0, -1.0], device=device)
+        return T.pigeons(target=T.toy_mvn_target(3), n_chains=4, n_rounds=3, seed=1,
+                         extractor=lambda x, lp: torch.cat([x[..., :2] * w, lp[..., None]], -1),
+                         explorer=T.SliceSamplerCUDA(), device=device, show_report=False)
+
+    g, c = run("cuda"), run("cpu")
+    assert g.sample_array().shape == c.sample_array().shape == (8, 3)
+    np.testing.assert_array_equal(g.sample_array()[:, :2], c.sample_array()[:, :2])
+    np.testing.assert_allclose(g.sample_array()[:, 2], c.sample_array()[:, 2], rtol=1e-6)

@@ -169,17 +169,19 @@ def test_an_observation_term_needs_no_other(name):
     _assert_same_bits(like.finish(terms[:, :n_terms]).numpy(), like(q).numpy())
 
 
-@pytest.mark.parametrize("n_rows,n_per_row", [(20, 10), (6, 3), (3, 2), (4, 1), (9, 4)])
+@pytest.mark.parametrize("n_rows,n_per_row", [(20, 10), (6, 3), (3, 2), (4, 1), (9, 4),
+                                               (8, 4), (19, 10), (21, 3)])
 def test_row_quads_sum_adds_every_term_once(n_rows, n_per_row):
-    """Four partial sums over the rows, then the rows past the last full
-    four: against float64, and exact on integers whatever the order."""
+    """One, four or eight partial sums over the rows, then the rows past the
+    last full group: against float64, and exact on integers whatever the
+    order."""
     rs = np.random.RandomState(n_rows)
     t = torch.from_numpy(rs.normal(size=(5, n_rows * n_per_row)).astype(np.float32))
-    have = library.sum_by_row_quads(t, n_per_row)
+    have = library.sum_by_rows(t, n_per_row)
     np.testing.assert_allclose(have.numpy(), t.double().sum(-1).numpy(), rtol=1e-5, atol=1e-5)
     ints = torch.arange(n_rows * n_per_row, dtype=torch.float32).repeat(2, 1)
-    assert torch.equal(library.sum_by_row_quads(ints, n_per_row), ints.sum(-1))
-    if n_rows < 4:  # no full four: in order
+    assert torch.equal(library.sum_by_rows(ints, n_per_row), ints.sum(-1))
+    if library.row_partials(n_rows) == 1:  # no vectorised loop: in order
         acc = t[:, 0]
         for i in range(1, t.shape[1]):
             acc = acc + t[:, i]

@@ -1,11 +1,11 @@
 """Times variants of the port's CUDA kernels side by side on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py [--k2-only] [--parent-csrc DIR [--parent-abi N]]
+    python3 tools/torch_kernel_variants.py [--k2-only] [--parent-csrc DIR ... [--parent-abi N]]
 
 Run from the repository root. Builds ``pigeons_tpu_torch/csrc`` once for each
 setting of kernel K1's tile size and refill threshold (``-DPIGEONS_K1_CHUNK=
--DPIGEONS_K1_REFILL=``) and, with ``--parent-csrc``,
-an earlier version of the sources from ``DIR`` (for example
+-DPIGEONS_K1_REFILL=``) and, with ``--parent-csrc`` (repeated for more than
+one: "parent", "parent 2", ...), an earlier version of the sources from ``DIR`` (for example
 ``git archive <commit> pigeons_tpu_torch/csrc | tar -x -C <dir>``, then
 ``<dir>/pigeons_tpu_torch/csrc``). ``--parent-abi`` says which entry points
 that version has: 1, the first (no ``group`` argument in K2, no coordinate
@@ -22,8 +22,10 @@ It then times, at the shapes of ``chip_smoke.py``:
   20,480) and on the toy MVN path (B=20,480, d=100, 1 pass) for 1, 8, 16 and
   32 threads per lane, the launcher's own choice and the parent;
 * K2 in full mode on each ``BayesianModel`` path (hierarchical normal, eight
-  schools, unid, logistic regression; 1 pass) at 640 and 8,192 lanes for 1,
-  8, 16 and 32 threads per lane and the launcher's own choice;
+  schools, unid, logistic regression; 1 pass) at 640 and 8,192 lanes (the
+  logistic regression also at its path's 10,240) for 1, 8, 16 and 32 threads
+  per lane, the launcher's own choice and, with ``--parent-abi 5``, the
+  parent;
 * K2 in delta mode (toy MVN, B=20,480, d=100, 1 pass) and the parent's.
 
 Every variant's output must equal the first variant's bit for bit (what a
@@ -205,7 +207,7 @@ def k1_iterations(x, a, seeds):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--k2-only", action="store_true")
-    ap.add_argument("--parent-csrc", type=Path, default=None)
+    ap.add_argument("--parent-csrc", type=Path, action="append", default=[])
     ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4, 5))
     args = ap.parse_args()
     chip_smoke.device_phase()
@@ -214,7 +216,8 @@ def main():
     k1_libs = {} if args.k2_only else {
         v: load(defines=(f"PIGEONS_K1_CHUNK={v[0]}", f"PIGEONS_K1_REFILL={v[1]}"))
         for v in K1_VARIANTS}
-    parent = load(csrc=args.parent_csrc.resolve()) if args.parent_csrc else None
+    parents = {("parent" if i == 0 else f"parent {i + 1}"): load(csrc=csrc.resolve())
+               for i, csrc in enumerate(args.parent_csrc)}
     parent_group = None if args.parent_abi < 3 else 0  # the launcher's choice, where it has one
     results = {}
 
@@ -227,8 +230,8 @@ def main():
         k1 = {f"tile {c}, refill at {r}": k1_call(lib, x, a, seeds, 3)
               for (c, r), lib in k1_libs.items()}
         k1["default build"] = k1_call(default, x, a, seeds, 3)
-        if parent:
-            k1["parent"] = k1_call(parent, x, a, seeds, 3, first_version=args.parent_abi < 4)
+        for name, parent in parents.items():
+            k1[name] = k1_call(parent, x, a, seeds, 3, first_version=args.parent_abi < 4)
         results["K1 banded, B=20480 d=100 3 passes"] = race("K1", k1)
         iterations = k1_iterations(x, a, seeds)
         for many in (2 * chip_smoke.V_CHAINS * chip_smoke.V_REPLICATES, B):
@@ -238,8 +241,10 @@ def main():
         out = {f"group {g}": k2_call(default, xs, bs, sds, path, False, g, arrays=True)
                for g in groups}
         out["launcher's choice"] = k2_call(default, xs, bs, sds, path, False, 0, arrays=True)
-        if parent and not path.device_density().prior:  # an earlier K2 has no BayesianModel density
-            out["parent"] = k2_call(parent, xs, bs, sds, path, False, parent_group,
+        # K2 takes BayesianModel densities from the fifth version of the sources on
+        if args.parent_abi >= 5 or not path.device_density().prior:
+            for name, parent in parents.items():
+                out[name] = k2_call(parent, xs, bs, sds, path, False, parent_group,
                                     arrays=args.parent_abi >= 5)
         return out
 
@@ -260,17 +265,20 @@ def main():
                        ("logistic regression", logistic_regression)):
         model = make().to(x.device)
         mpath = model.create_path(model.default_reference())
-        for many in (chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES,
-                     chip_smoke.H_CHAINS * chip_smoke.H_REPLICATES):
+        sizes = [chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES,
+                 chip_smoke.H_CHAINS * chip_smoke.H_REPLICATES]
+        if name == "logistic regression":  # its path's batch
+            sizes.append(chip_smoke.LR_CHAINS * chip_smoke.LR_REPLICATES)
+        for many in sizes:
             mx, mb, ms = chip_smoke.lane_inputs(many, model.dim, 1.0, 11)
             title = f"K2 full, {name} B={many} d={model.dim} 1 pass"
             # unid has one term: it is built for one thread per lane only
             results[title] = race(title, k2_variants(mx, mb, ms, mpath,
                                                      (1,) if name == "unid" else GROUPS))
     delta = {"this tree": k2_call(default, x, betas, seeds, toy, True, 0, arrays=True)}
-    if parent:
-        delta["parent"] = k2_call(parent, x, betas, seeds, toy, True, parent_group,
-                                  arrays=args.parent_abi >= 5)
+    for name, parent in parents.items():
+        delta[name] = k2_call(parent, x, betas, seeds, toy, True, parent_group,
+                              arrays=args.parent_abi >= 5)
     results["K2 delta, toy MVN B=20480 d=100 1 pass"] = race("K2 delta, toy MVN", delta)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
