@@ -391,6 +391,13 @@ __device__ inline Prepared prepare(const LaneView& s, int d, const DensityParams
   return r;
 }
 
+// kHierarchicalNormal's term of observation t, in group (row) r.
+__device__ __forceinline__ float group_term(const LaneView& s, int r, int t, const Prepared& pr,
+                                            const DensityArrays& arr) {
+  const float theta = __fmaf_rn(s(r), pr.b, pr.a);
+  return observation_term(arr.ptr[0][t], theta, pr.c, pr.e);
+}
+
 template <Density K>
 __device__ __forceinline__ float target_term(const LaneView& s, int t, const Prepared& pr,
                                              const DensityParams& p, const DensityArrays& arr) {
@@ -400,8 +407,7 @@ __device__ __forceinline__ float target_term(const LaneView& s, int t, const Pre
   } else if constexpr (K == kBanana) {
     return normal_term(s(t), pr.a, p.v[3], p.v[4]);
   } else if constexpr (K == kHierarchicalNormal) {
-    const float theta = __fmaf_rn(s(t / (int)p.v[1]), pr.b, pr.a);
-    return observation_term(arr.ptr[0][t], theta, pr.c, pr.e);
+    return group_term(s, t / (int)p.v[1], t, pr, arr);
   } else if constexpr (K == kEightSchools) {
     const float theta = __fmaf_rn(s(t), pr.b, pr.a);
     return observation_term(arr.ptr[0][t], theta, arr.ptr[1][t], -arr.ptr[2][t]);

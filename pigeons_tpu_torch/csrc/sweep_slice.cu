@@ -49,8 +49,10 @@
 // one thread's 200. A lane keeps its current state's terms, each row
 // partial's running value after every row, and each prior block's terms, in
 // shared memory: a query of theta_trans[g] recomputes row g's terms only
-// and resumes partial g mod P at row g; a query of any coordinate recomputes
-// the prior block that holds it. The shrink candidate's row, partials and
+// (without a division for the row's index) and resumes partial g mod P at
+// row g; a query of any coordinate recomputes the prior block that holds it
+// (resuming that block's sums at the coordinate, with their running values
+// kept, was slower: 1.79 against 1.53 ms at 8,192 lanes, 128 registers). The shrink candidate's row, partials and
 // block are kept apart and become the lane's when the machine accepts it; a
 // coordinate that prepare reads (mu, log tau, log sigma) recomputes all. The
 // logistic regression keeps each observation's logit over the coordinates
@@ -90,15 +92,16 @@
 // 0.594 ms against 0.542 ms for G = 1. Toy MVN in full mode, B = 20,480,
 // d = 100: G = 1 1.63 ms, G = 32 7.11 ms (its terms are one multiply each).
 // Delta mode, same shape: 0.392 ms against 0.410 ms for the first version.
-// With the array inputs (same tool, same card, one run): hierarchical normal,
-// B = 8,192, d = 23: G = 1 / 8 / 16 / 32 10.50 / 3.06 / 3.39 / 4.08 ms (every
-// thread of a group repeats the prior and the 200-term sum), at B = 640 8.25 /
-// 2.21 / 1.71 / 1.46 ms; logistic regression, 200 observations, d = 11:
-// 17.16 / 2.77 / 2.48 / 2.46 ms at B = 8,192, 11.89 / 1.73 / 1.05 / 0.74 ms at
-// B = 640; the funnel at B = 3,072 0.260 ms against 0.238 ms for the sources
-// without the variational branch. 53 to 96 registers
-// (tools/torch_build_report.py); the funnel's and the logistic regression's
-// instances spill 4 to 28 bytes, no other instance spills.
+// With the array inputs and ManyTerms (same tool, same card, medians of four
+// turns): hierarchical normal, B = 8,192, d = 23: G = 1 / 8 / 16 / 32 10.43 /
+// 1.55 / 2.04 / 2.82 ms (3.03 ms at G = 8 while every thread of a group
+// repeated the prior and the 200-term sum), at B = 640 8.18 / 1.17 / 0.88 /
+// 0.74 ms; logistic regression, 200 observations, d = 11: 15.66 / 2.82 /
+// 2.27 / 1.98 ms at B = 8,192, 14.48 / 2.94 / 2.53 / 2.33 ms at B = 10,240,
+// 10.91 / 1.82 / 1.02 / 0.63 ms at B = 640 (2.44, 2.78 and 0.74 ms before);
+// the funnel at B = 3,072 0.260 ms against 0.238 ms for the sources without
+// the variational branch. 53 to 126 registers (tools/torch_build_report.py),
+// no instance spills.
 //
 // Numerics follow the JAX kernel as XLA's CPU backend runs it, like kernel K1
 // (banded_slice.cu): uniforms from chained murmur3 finalizers, -log(u) with
@@ -161,7 +164,8 @@ struct ManyTerms {
   float* buf;  // blk [2][kMaxPriorBlocks], then the density's buffers
   int d, n_terms, g;
   unsigned mask;
-  int n = 0, P = 1;             // kHierarchicalNormal: a row's terms, the partial sums
+  int n = 0, P = 1, n_main = 0;  // kHierarchicalNormal: a row's terms, the partial sums
+                                 // (a power of 2), the rows they add
   BlockTerms cand{0.0f, 0.0f};  // the prior block's terms at the last shrink candidate
 
   static __device__ __host__ int lane_floats(int d, int n_terms, const DensityParams& p) {
@@ -178,15 +182,15 @@ struct ManyTerms {
     if constexpr (K == kHierarchicalNormal) {
       n = (int)p.v[1];
       P = row_partials(d - 3);
+      n_main = (d - 3) & -P;
     }
   }
 
   // The buffers, from buf (lane_floats).
   __device__ __forceinline__ float* blk() const { return buf; }
-  __device__ __forceinline__ int n_main() const { return (d - 3) / P * P; }
   __device__ __forceinline__ float* part_cur() const { return buf + 2 * kMaxPriorBlocks; }
-  __device__ __forceinline__ float* part_q() const { return part_cur() + n_main(); }
-  __device__ __forceinline__ float* row_q() const { return part_q() + 2 * n_main(); }
+  __device__ __forceinline__ float* part_q() const { return part_cur() + n_main; }
+  __device__ __forceinline__ float* row_q() const { return part_q() + 2 * n_main; }
   __device__ __forceinline__ float* cur() const { return row_q() + 2 * n; }
   __device__ __forceinline__ float* scratch() const {
     if constexpr (K == kHierarchicalNormal) return cur() + n_terms;
@@ -238,19 +242,21 @@ struct ManyTerms {
   // coordinate that prepare reads recomputes every term (c < 0: into cur).
   __device__ __forceinline__ float row_likelihood(const LaneView& s, int c, const Prepared& pr,
                                                   int slot, const DensityInputs& in) {
-    const int R = d - 3, n_main = this->n_main();
+    const int R = d - 3;
     const bool full = c < 0 || prepare_reads<K>(c, d);
     float* cur = this->cur();
     float* part_cur = this->part_cur();
     float* terms = c < 0 ? cur : scratch();
     float* row = row_q() + slot * n;
     float* parts = c < 0 ? part_cur : part_q() + slot * n_main;
-    if (full) {
-      for (int t = g; t < n_terms; t += G)
-        terms[t] = target_term<K>(s, t, pr, in.params, in.arrays);
+    if (full) {  // term t = r n + j; r and j step on with t, without a division
+      const int dr = G / n, dj = G % n;
+      for (int t = g, r = g / n, j = g % n; t < n_terms; t += G, r += dr, j += dj) {
+        if (j >= n) j -= n, ++r;
+        terms[t] = group_term(s, r, t, pr, in.arrays);
+      }
     } else {
-      for (int j = g; j < n; j += G)
-        row[j] = target_term<K>(s, c * n + j, pr, in.params, in.arrays);
+      for (int j = g; j < n; j += G) row[j] = group_term(s, c, c * n + j, pr, in.arrays);
     }
     __syncwarp(mask);
     // row r's terms at the query
@@ -260,9 +266,9 @@ struct ManyTerms {
     // partial g: rows g, g + P, ... below n_main; the current value where none changed
     float mine = 0.0f;
     if (g < P) {
-      const int from = full ? g : (c < n_main && c % P == g) ? c : n_main;
+      const int from = full ? g : (c < n_main && (c & (P - 1)) == g) ? c : n_main;
       if (from >= n_main) {
-        mine = part_cur[g + (n_main - 1 - g) / P * P];
+        mine = part_cur[g + ((n_main - 1 - g) & -P)];
       } else {
         float acc = 0.0f;
         int j0 = 0;
@@ -355,7 +361,6 @@ struct ManyTerms {
         evaluate(-1, 0.0f, pr_cur, 0, beta, in, var);
         return;
       }
-      const int n_main = this->n_main();
       float* cur = this->cur();
       float* part_cur = this->part_cur();
       const float* row = row_q() + n;
@@ -382,7 +387,7 @@ __device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityPa
 // logistic regression's groups otherwise take 133 registers, four blocks an
 // SM, and at 8,192 lanes take 3.03 ms against 2.07 ms with 80 registers
 // (tools/torch_kernel_variants.py; 64 registers spill, 0.72 against 0.64 ms
-// at 640 lanes); the hierarchical normal's 117 are as fast as 80.
+// at 640 lanes); the hierarchical normal's 117 were as fast as 80.
 template <Density K, int G>
 constexpr int kMinBlocks = kManyTerms<K, G> && K == kLogisticRegression ? 6 : 1;
 
