@@ -26,10 +26,14 @@ drives these paths end to end through
 * the unidentifiable binomial (logZ against its exact value), the
   non-centred eight schools, logistic regression on 200 observations (bench
   config 2's target), and the funnel under a fitted Gaussian reference on two
-  legs (K2 with ``isvar``, ``mean``, ``std`` and ``active`` as arrays).
+  legs (K2 with ``isvar``, ``mean``, ``std`` and ``active`` as arrays);
+* bench config 2a: the same logistic regression with ``AutoMALA()``, 10
+  chains x 1,024 ladders: the gradient path, torch ops and no kernel, with
+  its rate beside a dense-leapfrog rate (no search) at the same lanes.
 
 It checks each run's laws and determinism, runs the README quick start, and
-compares small runs on the card with the same runs on the CPU. Every phase
+compares small runs on the card with the same runs on the CPU (and one
+AutoMALA explore of 640 lanes, decision by decision). Every phase
 raises on failure. Without a CUDA device, or without the repository beside
 it, it exits non-zero and prints no result. The line before the last is a
 JSON object describing every kernel (time, twin's time, launches on its main
@@ -47,7 +51,9 @@ SHRINK iteration one draw, INIT_R and CHECK none, each its density queries.
 
 ``--profile`` also writes ``torch.profiler`` tables of one round of each
 path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt``,
-``profile_config4.txt`` and ``profile_hierarchical.txt``. ``--parent-csrc
+``profile_config4.txt``, ``profile_hierarchical.txt`` and
+``profile_config2a.txt``, and prints each round's device ops, busy share and
+host syncs per scan. ``--parent-csrc
 DIR`` builds an earlier version of the CUDA sources (with this tree's entry
 points) from ``DIR`` and times its K2 beside this tree's on the same inputs,
 as ``parent_ms`` in the kernels line; its outputs must be this tree's, bit
@@ -121,6 +127,13 @@ VF_CHAINS, VF_REPLICATES = 6, 64
 # logistic regression at bench config 2's width (bench.py:335-344: 10 chains x
 # 1,024 ladders, seed 1), rounds of 2..16 scans, then a timed 32-scan round
 LR_CHAINS, LR_REPLICATES, LR_ROUNDS = 10, 1024, (2, 4, 8, 16, 32)
+
+# bench config 2a (bench.py:330-355): logistic regression 200 x 10 (d=11) with
+# AutoMALA(), 10 chains x 1,024 ladders, seed 1, 4 warm-up rounds of 4 scans.
+# bench.py times the best of 3 rounds of 32 scans; the port times one round of
+# 32 (a scan is a second or two of eager launches on the card)
+A_CHAINS, A_REPLICATES, A_WARMUP_ROUNDS, A_WARMUP_SCANS, A_MEASURE_SCANS = 10, 1024, 4, 4, 32
+A_DENSE_ITERS, A_COMPARE_LADDERS, A_PROFILE_SCANS = 16, 64, 2
 
 # Published peaks of one H100 SXM at 700 W: 3.35 TB/s of device memory, and
 # 67 TFLOP/s in float32 = 132 SMs x 128 lanes x 2 (a fused multiply-add) x
@@ -1050,6 +1063,137 @@ def variational_funnel_phase():
     return launches
 
 
+def config2a_phase():
+    """Bench config 2a end to end on the card: the gradient path (the torch
+    ``AutoMALA`` on ``paths.value_and_grad``; no kernel of the port is on it).
+    Gated on the law as the slice path of this target is (every pooled
+    posterior weight within 1 of the weight that made the data), finite logZ,
+    restarts, the explorer's acceptance above 0.4 (reference
+    ``test_auto_mala.jl:44-48``) and its reversibility rate recorded at every
+    chain; K1 and K2 must not launch. Returns the run."""
+    phase("3i config 2a (AutoMALA)")
+    from pigeons_tpu_torch import PT, AutoMALA, Inputs, SliceSamplerCUDA, logistic_regression, rng
+
+    print(f"timed round cut from bench.py's best of 3 rounds of {A_MEASURE_SCANS} scans to one")
+    SliceSamplerCUDA.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    target = logistic_regression(200, 10, seed=0)
+    pt = PT(Inputs(target=target, n_chains=A_CHAINS, n_replicates=A_REPLICATES, seed=SEED,
+                   explorer=AutoMALA(), show_report=False, device="cuda"))
+    for _ in range(A_WARMUP_ROUNDS):
+        pt.run_round(n_scans=A_WARMUP_SCANS)
+    pt.run_round(n_scans=A_MEASURE_SCANS)
+    launches = dict(SliceSamplerCUDA.launches)
+    lanes = A_CHAINS * A_REPLICATES
+    rep = pt.reports[-1]
+    red = pt.reduced
+    factor, rev = red.extra_mean[:, 0], red.extra_mean[:, 1]
+    accept = float(np.nanmean(red.exp_accept))
+    print(f"timed round: {A_MEASURE_SCANS} scans of {lanes} lanes in {rep.wall_time_s:.4f} s "
+          f"({rep.wall_time_s / A_MEASURE_SCANS * 1e3:.3f} ms per scan), {eval_rate(pt):.6g} "
+          f"evals/s (an eval is one leapfrog: a density and its gradient), "
+          f"{float(np.sum(red.exp_steps)) / (A_MEASURE_SCANS * lanes):.2f} leapfrogs per lane and "
+          f"scan, peak device memory {rep.peak_memory_bytes} B")
+    print(f"mean step-size factor 2^exponent {float(np.nanmean(factor)):.4f} (by chain "
+          f"{np.round(factor, 3).tolist()}), adapted base step {float(pt.exp_state['step_size'][0]):.6f}; "
+          f"explorer acceptance {accept:.4f}; reversibility rate {float(np.nanmean(rev)):.4f}")
+    print(f"barrier {pt.global_barrier:.6f}, logZ {rep.log_z_estimate:.6f}, round trips "
+          f"{pt.n_round_trips}, restarts {pt.n_tempered_restarts}, swap accept mean "
+          f"{rep.mean_swap_accept:.4f}; kernel launches {launches}")
+    w_true = rng.normal(rng.fold_in(rng.key(0), 1), (10,)).numpy()
+    w = target.constrained_samples(pt)["w"].mean(0)
+    print(f"pooled posterior mean of w {[round(float(v), 3) for v in w]}, largest gap to the "
+          f"weights that made the data {np.abs(w - w_true).max():.4f}")
+    if any(launches.values()):
+        raise AssertionError(f"config 2a launched slice kernels: {launches}")
+    if not np.abs(w - w_true).max() < 1.0:
+        raise AssertionError("config 2a: posterior mean of the weights off")
+    if not (math.isfinite(rep.log_z_estimate) and pt.n_tempered_restarts > 0):
+        raise AssertionError("config 2a: no finite logZ or no tempered restart")
+    if not accept > 0.4:
+        raise AssertionError(f"config 2a: explorer acceptance {accept} <= 0.4")
+    if not (red.extra_n[:, 1] > 0).all():
+        raise AssertionError("config 2a: reversibility rate not recorded at every chain")
+    dense_leapfrog_rate(pt)
+    return pt, target
+
+
+def dense_leapfrog_rate(pt):
+    """Leapfrogs per second with no search: every lane of the run, at its own
+    beta, takes ``A_DENSE_ITERS`` chained steps of a density and its gradient
+    (the counterpart of ``bench.py:385-418``). Beside the achieved rate it
+    says what the search costs."""
+    from pigeons_tpu_torch.ops.hamiltonian import LaneGradient
+
+    chain_flat = pt._chain_of.reshape(-1)
+    vg = LaneGradient(pt._density_path, pt.betas[chain_flat])
+    x0 = pt._states.clone()
+    v0 = torch.randn(x0.shape, generator=torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+
+    def run():
+        x, v = x0, v0
+        for _ in range(A_DENSE_ITERS):
+            lp, g = vg(x)
+            v = v + (0.5 * 0.01) * g
+            x = x + 0.01 * v
+        return lp
+
+    run()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    lanes = x0.shape[0]
+    print(f"dense leapfrog: {lanes} lanes x {A_DENSE_ITERS} steps in {best:.4f} s (best of 3), "
+          f"{lanes * A_DENSE_ITERS / best:.6g} leapfrogs/s, {best / A_DENSE_ITERS * 1e3:.3f} ms "
+          f"per leapfrog; AutoMALA's timed round above {eval_rate(pt):.6g} evals/s")
+
+
+def automala_card_vs_cpu_phase(pt, target):
+    """One AutoMALA explore of 640 lanes of config 2a's run, from the same
+    states, keys and chain params, on the card and on the CPU: one
+    refreshment, whose step-size factors and accept decisions are compared
+    lane by lane, then a whole explore (9 refreshments); lanes whose
+    decisions all agree must agree in state within 1e-4, and at most 1 % of
+    the decisions (lanes) may differ."""
+    phase("6b AutoMALA, card vs CPU")
+    from pigeons_tpu_torch import AutoMALA, rng
+
+    R, n = A_COMPARE_LADDERS, A_CHAINS
+    lanes = R * n
+    chain_flat = pt._chain_of[:R].reshape(-1)
+    k = rng.scan_key(pt._key[:R], pt.round_idx + 1, 2, rng.EXPLORE)
+    keys = rng.keys_for(k, torch.arange(n, device="cuda")).reshape(lanes, 2)
+    inputs = dict(keys=keys, xs=pt._states[:lanes], betas=pt.betas[chain_flat])
+    params = {name: v[chain_flat] for name, v in pt.exp_state.items()}
+    for label, explorer in (("one refreshment", AutoMALA(base_n_refresh=1, exponent_n_refresh=0.0)),
+                            ("whole explore", AutoMALA())):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            model = target.to(dev)
+            out[dev] = explorer.step_batched(
+                **{key: v.to(dev) for key, v in inputs.items()},
+                path=model.create_path(model.default_reference()),
+                chain_params={name: v.to(dev) for name, v in params.items()}, scan_idx=2)
+            print(f"{label} on {dev}: {time.perf_counter() - t0:.3f} s")
+        g, c = (out[dev] for dev in ("cuda", "cpu"))
+        factors = (g.extras_sum.cpu() == c.extras_sum).all(1)
+        moved_g = (g.x.cpu() != inputs["xs"].cpu()).any(1)
+        moved_c = (c.x != inputs["xs"].cpu()).any(1)
+        agree = factors & (moved_g == moved_c) & (g.n_steps.cpu() == c.n_steps)
+        diff = float((g.x.cpu() - c.x)[agree].abs().max())
+        print(f"{label}: step-size factors differ in {int((~factors).sum())} of {lanes} lanes, "
+              f"accept decisions in {int((moved_g != moved_c).sum())}; lanes whose decisions all "
+              f"agree: {int(agree.sum())}, max |state diff| there {diff}")
+        if (~agree).sum() > 0.01 * lanes or diff > 1e-4:
+            raise AssertionError(f"AutoMALA {label}: card and CPU disagree")
+
+
 def small_reference_phase():
     """Small runs on the card (kernels) against the same runs on the CPU
     (twins), for the toy path (K1), the funnel path (K2), two-leg variational
@@ -1162,6 +1306,7 @@ def quickstart_phase():
 
 def profile_phase():
     """torch.profiler over one round of each path."""
+    phase("8 profile")
     import os
 
     from torch.autograd import DeviceType
@@ -1182,26 +1327,38 @@ def profile_phase():
                           n_replicates=H_REPLICATES, seed=SEED,
                           explorer=SliceSamplerCUDA(n_passes=H_PASSES), show_report=False,
                           device="cuda")
+    from pigeons_tpu_torch import AutoMALA, logistic_regression
+
+    config2a = Inputs(target=logistic_regression(), n_chains=A_CHAINS, n_replicates=A_REPLICATES,
+                      seed=SEED, explorer=AutoMALA(), show_report=False, device="cuda")
     for name, inputs, n_scans, kernel in (("config1", config1, WARMUP_SCANS, "banded_slice"),
                                           ("funnel", funnel_inputs(), F_WARMUP_SCANS, "slice_sweep"),
                                           ("config4", config4, V_WARMUP_SCANS, "banded_slice"),
-                                          ("hierarchical", hierarchical, 8, "slice_sweep")):
+                                          ("hierarchical", hierarchical, 8, "slice_sweep"),
+                                          ("config2a", config2a, A_PROFILE_SCANS, None)):
         pt = PT(inputs)
         pt.run_round(n_scans=n_scans)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             pt.run_round(n_scans=n_scans)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        averages = prof.key_averages()  # slow over a config 2a round: once
+        table = averages.table(sort_by="cuda_time_total", row_limit=40)
         with open(f"chiprun_out/profile_{name}.txt", "w") as f:
             f.write(table)
-        dev_events = [e for e in prof.key_averages()
+        dev_events = [e for e in averages
                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
         device_us = sum(e.self_device_time_total for e in dev_events)
-        kernel_us = sum(e.self_device_time_total for e in dev_events if kernel in e.key)
+        kernel_us = sum(e.self_device_time_total for e in dev_events
+                        if kernel is not None and kernel in e.key)
+        # a host sync reads a device value: bool(), int() or float() of a
+        # tensor, or the length of nonzero()'s answer
+        syncs = sum(e.count for e in averages
+                    if e.key in ("aten::_local_scalar_dense", "aten::nonzero"))
         wall = pt.reports[-1].wall_time_s
+        n_ops = sum(e.count for e in dev_events)
         print(f"profile {name}: {n_scans} scans, wall {wall:.4f} s, device busy "
               f"{device_us / 1e3:.3f} ms ({device_us / 1e6 / wall:.2%} of wall) over "
-              f"{sum(e.count for e in dev_events)} device ops; {kernel} kernel "
-              f"{kernel_us / 1e3:.3f} ms")
+              f"{n_ops} device ops ({n_ops / n_scans:.0f} per scan); {syncs / n_scans:.1f} host "
+              f"syncs per scan; {kernel or 'no'} kernel {kernel_us / 1e3:.3f} ms")
         print(table[:5000])
 
 
@@ -1219,9 +1376,11 @@ def main():
     bayesian["eight_schools"]["launches"] = eight_schools_phase()
     bayesian["logistic_regression"]["launches"] = logistic_regression_phase()
     k2v["launches"] = variational_funnel_phase()
+    run2a, target2a = config2a_phase()
     determinism_phase()
     quickstart_phase()
     small_reference_phase()
+    automala_card_vs_cpu_phase(run2a, target2a)
     torch_sampler_phase()
     if "--profile" in sys.argv[1:]:
         profile_phase()

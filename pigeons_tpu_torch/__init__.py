@@ -14,6 +14,8 @@ from .evidence import stepping_stone, stepping_stone_pair
 from .inputs import Inputs
 from .models import (
     BayesianModel,
+    CustomPath,
+    CustomPathTarget,
     StandardNormalReference,
     TestSwapper,
     banana,
@@ -25,17 +27,36 @@ from .models import (
     toy_mvn_target,
     unid_target,
 )
-from .ops import NoOpExplorer, SliceSampler, SliceSamplerCUDA, ToyExplorer
+from .ops import (
+    MALA,
+    AutoMALA,
+    DiagonalPreconditioner,
+    IdentityPreconditioner,
+    MixDiagonalPreconditioner,
+    NoOpExplorer,
+    SliceSampler,
+    SliceSamplerCUDA,
+    ToyExplorer,
+    leapfrog,
+    log_joint,
+)
 from .paths import InterpolatingPath, ScaledPrecisionNormalPath, VariationalPath, toy_mvn_path
 from .pt import PT, RoundReport, pigeons
 from .schedule import Schedule, equally_spaced_schedule
 from .variational import GaussianReference
 
 __all__ = [
+    "AutoMALA",
     "BayesianModel",
+    "CustomPath",
+    "CustomPathTarget",
+    "DiagonalPreconditioner",
     "GaussianReference",
+    "IdentityPreconditioner",
     "Inputs",
     "InterpolatingPath",
+    "MALA",
+    "MixDiagonalPreconditioner",
     "NoOpExplorer",
     "PT",
     "RoundReport",
@@ -55,6 +76,8 @@ __all__ = [
     "ess",
     "funnel",
     "hierarchical_normal",
+    "leapfrog",
+    "log_joint",
     "logistic_regression",
     "mvn_target",
     "optimal_schedule",

@@ -10,6 +10,8 @@ reference's parameters ``ref_params_mean``, ``ref_params_std`` and
 :func:`state_from_numpy` loads such arrays into a port :class:`~.pt.PT`
 built from the same ``Inputs``, so that both packages continue one run from
 one state: round ``round_idx + 1`` then draws from the same keys in both.
+:func:`explorer_state_from_numpy` does the same for an adapted explorer's
+state (a gradient explorer's ``step_size`` and ``std_devs``).
 """
 
 from __future__ import annotations
@@ -74,4 +76,22 @@ def state_from_numpy(pt, arrays, round_idx: int):
             "active": torch.tensor(float(arrays["ref_params_active"]), dtype=torch.float32, device=dev),
         }
     pt.round_idx = int(round_idx)
+    return pt
+
+
+def explorer_state_from_numpy(pt, exp_state):
+    """Load the JAX run's explorer state ``exp_state`` (a mapping of arrays
+    ``[n_chains, ...]``, e.g. ``step_size [N]`` and ``std_devs [N, d]`` of
+    ``MALA`` / ``AutoMALA``) into ``pt``, as float32 tensors on its device.
+    Returns ``pt``."""
+    want = pt.explorer.init_state(pt.n_chains, pt.dim, pt.device)
+    if not want:
+        raise ValueError(f"{type(pt.explorer).__name__} keeps no adapted state")
+    state = {}
+    for name, like in want.items():
+        arr = np.asarray(exp_state[name], dtype=np.float32)
+        if arr.shape != tuple(like.shape):
+            raise ValueError(f"exp_state[{name!r}]: expected {tuple(like.shape)}, got {arr.shape}")
+        state[name] = torch.tensor(arr, device=pt.device)
+    pt.exp_state = state
     return pt

@@ -23,6 +23,15 @@ is too, except in its tail branch (``|x| > 0.9966``), where XLA takes
 Newton step, which can be 1 ulp off the correctly rounded ``sqrt`` used here;
 normal draws then differ by at most 2 ulp. All of them give identical bits
 on torch's CPU and CUDA backends.
+
+Gradients. The bit-level forwards view floats as integers, which autograd
+cannot pass through, so ``fma``, ``exp``, ``log``, ``log1p`` and ``lgamma``
+are ``torch.autograd.Function``s whose forward is the plain function above
+and whose backward is the analytic derivative in float32, the rule that
+``jax.grad`` applies to the same primitive (``exp``'s is ``g * exp(x)``,
+not a derivative of the Cephes polynomial). A call goes through the
+``Function`` only when grad mode is on and an argument requires a gradient;
+every other call, the whole runtime's included, is the plain function.
 """
 
 from __future__ import annotations
@@ -82,7 +91,7 @@ _LOG_SQRT_2PI = (math.log(2.0) + math.log(math.pi)) / 2.0
 _LOG_7_5 = math.log(7.5)
 
 
-def fma(a, b, c) -> torch.Tensor:
+def _fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with a single rounding.
 
     The float64 product of two float32 values is exact. The float64 sum is
@@ -95,29 +104,31 @@ def fma(a, b, c) -> torch.Tensor:
     s = prod + c
     bb = s - prod
     err = (prod - (s - bb)) + (c - bb)
+    # round to odd: an inexact sum becomes its truncation toward zero (one
+    # step back where it was rounded away, ``err`` of the other sign) with
+    # the last bit set; an exact or non-finite one (``err`` 0 or NaN) stays
     bits = s.view(torch.int64)
-    inexact = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
-    step = torch.where((err > 0) == (s > 0), 1, -1)
-    s = torch.where(inexact, (bits + step).view(torch.float64), s)
-    return s.float()
+    odd = (bits - (err * s < 0).to(torch.int64)) | 1
+    return torch.where(torch.abs(err) > 0, odd.view(torch.float64), s).float()
 
 
-def exp(x: torch.Tensor) -> torch.Tensor:
+def _exp(x: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(x, _EXP_LO, _EXP_HI)
-    fx = torch.clamp(torch.floor(fma(x, _LOG2EF, 0.5)), -127.0, 127.0)
-    x = fma(-fx, _C1, x)
-    x = fma(-fx, _C2, x)
-    y = fma(x, _EXP_P[0], _EXP_P[1])
+    fx = torch.clamp(torch.floor(_fma(x, _LOG2EF, 0.5)), -127.0, 127.0)
+    x = _fma(-fx, _C1, x)
+    x = _fma(-fx, _C2, x)
+    xd = x.double()  # exact; converted once for the polynomial's steps
+    y = _fma(xd, _EXP_P[0], _EXP_P[1])
     for c in _EXP_P[2:]:
-        y = fma(y, x, c)
-    y = fma(y, x, 0.5)
-    y = fma(y, x * x, x) + 1.0
+        y = _fma(y, xd, c)
+    y = _fma(y, xd, 0.5)
+    y = _fma(y, x * x, xd) + 1.0
     pow2 = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
     out = y * pow2
     return torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
 
 
-def log(y: torch.Tensor) -> torch.Tensor:
+def _log(y: torch.Tensor) -> torch.Tensor:
     y = torch.where(torch.abs(y) < _FLT_MIN, torch.zeros_like(y), y)
     yc = torch.where(y > _FLT_MIN, y, torch.full_like(y, _FLT_MIN))
     bits = yc.view(torch.int32)
@@ -127,55 +138,57 @@ def log(y: torch.Tensor) -> torch.Tensor:
     e = e - lt.to(torch.float32)
     x = (m + -1.0) + torch.where(lt, m, torch.zeros_like(m))
     z = x * x
-    x3 = z * x
-    ya = fma(fma(x, _LOG_A[0], _LOG_A[1]), x, _LOG_A[2])
-    yb = fma(fma(x, _LOG_B[0], _LOG_B[1]), x, _LOG_B[2])
-    yc = fma(fma(x, _LOG_C[0], _LOG_C[1]), x, _LOG_C[2])
-    yb = fma(ya, x3, yb)
-    yc = fma(yb, x3, yc)
-    r = fma(yc, x3, e * _C2)
-    r = fma(e, _C1, (x - z * 0.5) + r)
+    xd, x3 = x.double(), (z * x).double()  # exact; converted once
+    ya = _fma(_fma(xd, _LOG_A[0], _LOG_A[1]), xd, _LOG_A[2])
+    yb = _fma(_fma(xd, _LOG_B[0], _LOG_B[1]), xd, _LOG_B[2])
+    yc = _fma(_fma(xd, _LOG_C[0], _LOG_C[1]), xd, _LOG_C[2])
+    yb = _fma(ya, x3, yb)
+    yc = _fma(yb, x3, yc)
+    r = _fma(yc, x3, e * _C2)
+    r = _fma(e, _C1, (x - z * 0.5) + r)
     nan = torch.full_like(r, float("nan"))
     r = torch.where((y <= 0) | torch.isnan(y), nan, r)
     r = torch.where(y == 0, torch.full_like(r, -float("inf")), r)
     return torch.where(y == float("inf"), y, r)
 
 
-def log1p(x: torch.Tensor) -> torch.Tensor:
+def _log1p(x: torch.Tensor) -> torch.Tensor:
     x2 = x * x
-    p = fma(x, _LOG1P_P[0], _LOG1P_P[1])
+    xd = x.double()  # exact; converted once for the polynomials' steps
+    p = _fma(xd, _LOG1P_P[0], _LOG1P_P[1])
     for c in _LOG1P_P[2:]:
-        p = fma(p, x, c)
+        p = _fma(p, xd, c)
     q = x + _LOG1P_Q[0]
     for c in _LOG1P_Q[1:]:
-        q = fma(q, x, c)
-    small = x + fma(x2, -0.5, (x * x2) * (p / q))
-    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, log(x + 1.0))
+        q = _fma(q, xd, c)
+    small = x + _fma(x2, -0.5, (x * x2) * (p / q))
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, _log(x + 1.0))
 
 
 def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.logaddexp``: ``max + log1p(exp(-|a - b|))``, ``a + b`` where
     ``a - b`` is NaN (both infinite of one sign, or a NaN operand)."""
     delta = a - b
-    out = torch.maximum(a, b) + log1p(exp(-torch.abs(delta)))
+    out = torch.maximum(a, b) + _log1p(_exp(-torch.abs(delta)))
     return torch.where(torch.isnan(delta), a + b, out)
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
-    w = -log1p(x * -x)
+    w = -_log1p(x * -x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
     lo = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=x.device)
     hi = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=x.device)
     coef = torch.where(lt[..., None], lo, hi)
     p = coef[..., 0]
+    wd = w.double()  # exact; converted once
     for i in range(1, len(_ERFINV_LT5)):
-        p = fma(p, w, coef[..., i])
+        p = _fma(p, wd, coef[..., i])
     out = p * x
     return torch.where(torch.abs(x) == 1.0, x * float("inf"), out)
 
 
-def lgamma(x: torch.Tensor) -> torch.Tensor:
+def _lgamma(x: torch.Tensor) -> torch.Tensor:
     """``jax.scipy.special.gammaln`` in float32 for ``x >= 0.5``: XLA's
     Lanczos sum, step for step, the division by the constant 7.5 a multiplication
     by its float32 reciprocal and the last product fused into its add (the branch that reflects smaller arguments is
@@ -186,7 +199,117 @@ def lgamma(x: torch.Tensor) -> torch.Tensor:
     for i, c in enumerate(_LANCZOS):
         s = s + torch.full_like(x, c) / (z + float(i) + 1.0)
     t = z + 7.5
-    log_t = log1p(z * _round(1.0 / 7.5)) + _round(_LOG_7_5)
+    log_t = _log1p(z * _round(1.0 / 7.5)) + _round(_LOG_7_5)
     a = (z + 0.5) - t / log_t
-    out = fma(a, log_t, _round(_LOG_SQRT_2PI)) + log(s)
+    out = _fma(a, log_t, _round(_LOG_SQRT_2PI)) + _log(s)
     return torch.where(x >= 0.5, out, torch.full_like(out, float("nan")))
+
+
+# ---------------------------------------------------------------------------
+# differentiable entry points
+# ---------------------------------------------------------------------------
+
+
+def needs_grad(*args) -> bool:
+    """Whether a call on ``args`` must record a gradient."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(a) and a.requires_grad for a in args)
+
+
+def _unbroadcast(g, like):
+    """``g`` summed down to the shape of ``like``: broadcasting's adjoint."""
+    return g if g.shape == like.shape else g.sum_to_size(like.shape)
+
+
+class _Fma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(*(v if torch.is_tensor(v) else None for v in (a, b, c)))
+        ctx.consts = tuple(None if torch.is_tensor(v) else v for v in (a, b))
+        return _fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        ta, tb, tc = ctx.saved_tensors
+        a = ta if ta is not None else ctx.consts[0]
+        b = tb if tb is not None else ctx.consts[1]
+        need = ctx.needs_input_grad
+        return (_unbroadcast(g * b, ta) if need[0] else None,
+                _unbroadcast(g * a, tb) if need[1] else None,
+                _unbroadcast(g, tc) if need[2] else None)
+
+
+class _Exp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _exp(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
+class _Log(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _log(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g / x
+
+
+class _Log1p(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _log1p(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g / (x + 1.0)
+
+
+class _Lgamma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _lgamma(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.digamma(x)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with a single rounding (:func:`_fma`); its
+    gradient is ``(g b, g a, g)``."""
+    return _Fma.apply(a, b, c) if needs_grad(a, b, c) else _fma(a, b, c)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``exp`` (:func:`_exp`); gradient ``g exp(x)``."""
+    return _Exp.apply(x) if needs_grad(x) else _exp(x)
+
+
+def log(y: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log`` (:func:`_log`); gradient ``g / y``."""
+    return _Log.apply(y) if needs_grad(y) else _log(y)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log1p`` (:func:`_log1p`); gradient ``g / (1 + x)``."""
+    return _Log1p.apply(x) if needs_grad(x) else _log1p(x)
+
+
+def lgamma(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``gammaln`` for ``x >= 0.5`` (:func:`_lgamma`); gradient
+    ``g digamma(x)``."""
+    return _Lgamma.apply(x) if needs_grad(x) else _lgamma(x)

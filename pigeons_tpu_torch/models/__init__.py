@@ -24,6 +24,6 @@ from .library import (
     unid_analytic_log_z,
     unid_target,
 )
-from .target import Reference, StandardNormalReference, Target
+from .target import CustomPath, CustomPathTarget, Reference, StandardNormalReference, Target
 from .toy_mvn import ToyMVNTarget, toy_mvn_target
 from .test_swapper import TestSwapper

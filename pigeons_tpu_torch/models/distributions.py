@@ -59,9 +59,10 @@ def sum_in_order(terms):
     the slice kernel add them; 0 where there is no term."""
     if terms.shape[-1] == 0:
         return torch.zeros(terms.shape[:-1], dtype=terms.dtype, device=terms.device)
-    acc = terms[..., 0]
-    for i in range(1, terms.shape[-1]):
-        acc = acc + terms[..., i]
+    cols = terms.unbind(-1)  # one autograd node for all the columns
+    acc = cols[0]
+    for c in cols[1:]:
+        acc = acc + c
     return acc
 
 
@@ -76,6 +77,7 @@ def _event(x, shape):
     return x.reshape(x.shape[: x.dim() - len(shape)] + (-1,))
 
 
+@functools.lru_cache(maxsize=None)
 def _const_log(v: float) -> float:
     """``log(v)`` of a constant as the JAX package folds it: the float32
     Cephes polynomial."""
@@ -90,10 +92,58 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def softplus(x):
-    """``jax.nn.softplus``: ``logaddexp(x, 0)`` as XLA evaluates it."""
+def _softplus(x):
     out = torch.clamp_min(x, 0.0) + f32math.log1p(f32math.exp(-torch.abs(x)))
     return torch.where(torch.isnan(x), x, out)
+
+
+def _sigmoid(x):
+    return 1.0 / (f32math.exp(-x) + 1.0)
+
+
+def _finite_or_zero(v):
+    """JAX's ``_replace_inf``: ``+inf`` read as 0."""
+    return torch.where(v == float("inf"), torch.zeros_like(v), v)
+
+
+class _Softplus(torch.autograd.Function):
+    """The gradient of ``jnp.logaddexp(x, 0)`` is its custom JVP rule,
+    ``exp(x - softplus(x))`` with ``+inf`` read as 0, not the derivative of
+    the expression: at ``x = 0`` that of ``max(x, 0)`` is a convention. The
+    rule's ``exp`` is torch's (within an ulp of XLA's): the backward holds
+    no bits, and the emulated one is some 200 launches a call."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = _softplus(x)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(_finite_or_zero(x) - _finite_or_zero(out))
+
+
+class _Sigmoid(torch.autograd.Function):
+    """The gradient of ``lax.logistic`` is ``s (1 - s)``; the quotient's own
+    derivative is NaN where ``exp(-x)`` overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` as XLA evaluates it."""
+    return _Softplus.apply(x) if f32math.needs_grad(x) else _softplus(x)
 
 
 def log_sigmoid(x):
@@ -103,7 +153,7 @@ def log_sigmoid(x):
 
 def sigmoid(x):
     """``jax.nn.sigmoid`` as XLA's CPU backend expands it: ``1 / (1 + exp(-x))``."""
-    return 1.0 / (f32math.exp(-x) + 1.0)
+    return _Sigmoid.apply(x) if f32math.needs_grad(x) else _sigmoid(x)
 
 
 # ---------------------------------------------------------------------------
@@ -204,9 +254,10 @@ class Normal(Distribution):
         t = f32math.fma(z, z, _LOG_2PI_F32)
         if neg_log_scale == 0.0:
             # the halving is the multiply that feeds the event's sum
-            acc = t[..., 0] * -0.5
-            for i in range(1, t.shape[-1]):
-                acc = f32math.fma(t[..., i], -0.5, acc)
+            cols = t.unbind(-1)
+            acc = cols[0] * -0.5
+            for c in cols[1:]:
+                acc = f32math.fma(c, -0.5, acc)
             return acc
         return sum_in_order(f32math.fma(t, -0.5, neg_log_scale))
 

@@ -62,12 +62,6 @@ _S_A = math.sqrt(10.0)  # banana: sqrt(1 / (2 * (1/20)))
 _S_B = math.sqrt(0.1)  # banana: sqrt(1 / (2 * 5))
 
 
-def _split2(keys):
-    """``jax.random.split(key)`` for every key: with partitionable threefry,
-    child ``i`` is ``fold_in(key, i)``."""
-    return rng.fold_in(keys, 0), rng.fold_in(keys, 1)
-
-
 @dataclass(frozen=True)
 class Funnel(Target):
     """Neal's funnel: ``y ~ N(0, 3)``, ``x_i | y ~ N(0, exp(y / scale))``;
@@ -113,7 +107,7 @@ class Funnel(Target):
 
     def sample_iid_target(self, keys):
         """Forward simulation for keys ``[..., 2]``."""
-        ky, kx = _split2(keys)
+        ky, kx = rng.split(keys).unbind(-2)
         y = 3.0 * rng.normal(ky)
         x = f32math.exp(y * self._inv_scale)[..., None] * rng.normal(kx, (self.n_x,))
         return torch.cat([y[..., None], x], dim=-1)
@@ -154,7 +148,7 @@ class Banana(Target):
 
     def sample_iid_target(self, keys):
         """Forward simulation for keys ``[..., 2]``."""
-        kx, ky = _split2(keys)
+        kx, ky = rng.split(keys).unbind(-2)
         x = float(np.float32(_S_A)) * rng.normal(kx)
         noise = float(np.float32(self.scale * _S_B)) * rng.normal(ky, (self.n_y,))
         return torch.cat([x[..., None], (x * x)[..., None] + noise], dim=-1)
@@ -294,8 +288,8 @@ def sum_by_rows(terms, n_per_row: int):
         s = s[..., :half] + s[..., half:]
     acc = s[..., 0]
     rest = rows[..., P * n_main:, :].reshape(terms.shape[:-1] + (-1,))
-    for i in range(rest.shape[-1]):
-        acc = acc + rest[..., i]
+    for r in rest.unbind(-1):
+        acc = acc + r
     return acc
 
 
@@ -369,11 +363,11 @@ def sum_by_windows(terms, window: int = 32):
         terms.shape[:-1] + (pad - pad // 2,))
     rows = torch.cat([zeros[0], terms, zeros[1]], dim=-1).reshape(terms.shape[:-1] + (-1, window))
     partial = torch.zeros_like(rows[..., 0])
-    for i in range(window):
-        partial = partial + rows[..., i]
+    for col in rows.unbind(-1):
+        partial = partial + col
     total = torch.zeros_like(partial[..., 0])
-    for j in range(partial.shape[-1]):
-        total = total + partial[..., j]
+    for p in partial.unbind(-1):
+        total = total + p
     return total
 
 
@@ -394,10 +388,10 @@ class LogisticRegressionLikelihood:
         return LOGISTIC_REGRESSION, (float(self.X.shape[0]),), (self.X.reshape(-1), self.y)
 
     def terms(self, q):
-        w = q["w"][..., None, :]  # [..., 1, d]
-        logits = self.X[:, 0] * w[..., 0]
+        w = q["w"][..., None, :].unbind(-1)  # d columns [..., 1]: one node for autograd
+        logits = self.X[:, 0] * w[0]
         for k in range(1, self.X.shape[1]):
-            logits = f32math.fma(self.X[:, k], w[..., k], logits)
+            logits = f32math.fma(self.X[:, k], w[k], logits)
         logits = logits + q["b"][..., None]
         return self.y * logits - softplus(logits)
 
@@ -481,7 +475,7 @@ def hierarchical_normal_data(n_groups: int = 20, n_per_group: int = 10, seed: in
     :func:`hierarchical_normal`, drawn as the JAX package draws them: group
     means ``1 + 0.7 z`` from the first child of ``key(seed)``, observations
     ``mean + 0.5 z`` from the second."""
-    k1, k2 = _split2(rng.key(seed))
+    k1, k2 = rng.split(rng.key(seed)).unbind(-2)
     group_means = rng.normal(k1, (n_groups,)) * float(np.float32(0.7)) + 1.0
     return rng.normal(k2, (n_groups, n_per_group)) * 0.5 + group_means[:, None]
 

@@ -83,6 +83,56 @@ class Target:
 
 
 @dataclass(frozen=True)
+class CustomPath:
+    """Any annealing path ``(x [..., d], beta) -> [...]``, not only the
+    linear interpolation of two endpoints: the reference's ``path`` /
+    ``interpolate`` interface implemented directly, e.g. the JuliaBUGS
+    extension's ``logprior + beta * loglikelihood`` tempering.
+
+    ``sample_reference``: optional ``keys [..., 2] -> x [..., d]``, iid draws
+    at beta = 0 (reference-chain regeneration); ``sample_at``: optional
+    ``(keys, betas) -> x``, iid draws at every beta (the ``ToyExplorer``).
+    The torch explorers take it as it is; the CUDA slice kernels do not
+    (``SliceSamplerCUDA.check_path`` raises)."""
+
+    log_density_fn: Callable  # (x [..., d], beta) -> [...]
+    sample_reference: Optional[Callable] = None
+    sample_at: Optional[Callable] = None
+
+    def log_density(self, x, beta):
+        return self.log_density_fn(x, beta)
+
+    @property
+    def has_iid_reference(self) -> bool:
+        return self.sample_reference is not None
+
+
+class CustomPathTarget(Target):
+    """A target defined by its annealing path (reference targets whose
+    ``create_path`` does not return an interpolating path)."""
+
+    def __init__(self, path: CustomPath, dim: int):
+        self.path = path
+        self.dim = dim
+
+    def log_density(self, x):
+        return self.path.log_density(x, 1.0)
+
+    def default_reference(self) -> Reference:
+        return Reference(log_density=lambda x: self.path.log_density(x, 0.0),
+                         sample_iid=self.path.sample_reference)
+
+    def create_path(self, reference):
+        del reference
+        return self.path
+
+    def initialization(self, keys):
+        if self.path.sample_reference is not None:
+            return self.path.sample_reference(keys)
+        return torch.zeros(keys.shape[:-1] + (self.dim,), dtype=torch.float32, device=keys.device)
+
+
+@dataclass(frozen=True)
 class StandardNormalReference:
     """N(0, sigma^2 I) reference, the generic default."""
 

@@ -523,12 +523,13 @@ class SliceSamplerCUDA(Explorer):
             "flat-prior MVN and the BayesianModel targets hierarchical_normal, "
             "eight_schools(centered=False), unid_target and logistic_regression under their "
             "own prior; the "
-            "other library models, a BayesianModel under another reference, "
-            "user-supplied densities and CustomPath are ROADMAP queue 1, item 11b. Pass "
+            "other library models and a BayesianModel under another reference are ROADMAP "
+            "queue 1, item 11b-models; user-supplied densities and CustomPath item 11b-user. Pass "
             "explorer=SliceSampler() for this run."
         )
 
-    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None) -> StepOut:
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None,
+                     chain_params=None, scan_idx=None) -> StepOut:
         """One sweep over ``xs [B, d]``; ``keys [B, 2]`` are the lanes' keys,
         ``betas [B]`` their annealing parameters. K1 does not compute the
         joint density (``lp`` is ``None``); K2 returns it. Either way the

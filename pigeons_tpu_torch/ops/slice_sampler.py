@@ -72,7 +72,8 @@ class SliceSampler(Explorer):
         self.n_passes = int(n_passes)
         self.max_iter = int(max_iter)
 
-    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None) -> StepOut:
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None,
+                     chain_params=None, scan_idx=None) -> StepOut:
         """One sweep over ``xs [B, d]``. ``lp [B]`` is the density of ``xs``
         when the caller has it (the runtime carries it from scan to scan)."""
         B, d = xs.shape

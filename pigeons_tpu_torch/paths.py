@@ -42,9 +42,10 @@ def sum_squares(m):
     """``sum(m * m)`` over the last axis, summed in coordinate order with one
     fused multiply-add per term. This is how the slice kernel and XLA's CPU
     code accumulate it, so that densities agree bit for bit."""
-    acc = m[..., 0] * m[..., 0]
-    for i in range(1, m.shape[-1]):
-        acc = f32math.fma(m[..., i], m[..., i], acc)
+    cols = m.unbind(-1)  # one autograd node for all the columns
+    acc = cols[0] * cols[0]
+    for c in cols[1:]:
+        acc = f32math.fma(c, c, acc)
     return acc
 
 
@@ -215,6 +216,20 @@ def lane_log_density(path, x, beta, isvar=None, ref_params=None, sweep: bool = F
     else:
         lp = path.log_density(x, beta)
     return torch.where(torch.isnan(lp), torch.full_like(lp, -float("inf")), lp)
+
+
+def value_and_grad(path, x, beta, isvar=None, ref_params=None):
+    """``(lp [B], grad [B, d])``: :func:`lane_log_density` of ``x [B, d]``
+    and its gradient in ``x``, what the JAX package's explorers take from
+    ``jax.value_and_grad`` of the lane's density. Lanes are independent, so
+    the gradient of the sum of the lanes' densities is each lane's own."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        lp = lane_log_density(path, xg, beta, isvar, ref_params)
+        (grad,) = torch.autograd.grad(lp.sum(), xg, allow_unused=True)
+    if grad is None:  # a density that does not read x
+        grad = torch.zeros_like(x)
+    return lp.detach(), grad
 
 
 def toy_mvn_path(dim: int) -> ScaledPrecisionNormalPath:

@@ -130,7 +130,8 @@ class PT:
             self._ref_params = self.variational.init_params(self.dim, self.device)
         self.explorer = inputs.explorer or target.default_explorer()
         self.explorer.check_path(self._density_path)
-        self.exp_state = ()
+        # the explorer's adapted state, a dict of tensors [n_chains, ...] (or ())
+        self.exp_state = self.explorer.init_state(n, self.dim, self.device)
         self.accept_fn = metropolis_accept_pr
         record_swap_stats = True
         if hasattr(target, "swap_accept_fn"):
@@ -166,8 +167,10 @@ class PT:
                 f"unknown recorder name(s) {sorted(unknown)}; known recorders: "
                 f"{sorted(KNOWN_RECORDERS)}"
             )
-        # the variational fit reads the online moments, whatever Inputs.record says
-        self._record_online = "online" in rec_set or self.variational is not None
+        # the variational fit and an adapting explorer read the online moments,
+        # whatever Inputs.record says
+        self._record_online = ("online" in rec_set or self.variational is not None
+                               or self.explorer.needs_online_moments())
         self._record_traces = "traces" in rec_set
         self._record_energy = "energy_ac1" in rec_set
         self._record_round_trip = "round_trip" in rec_set
@@ -281,9 +284,13 @@ class PT:
         chain_flat = chain_of.reshape(-1)
         k_explore = rng.scan_key(self._key, self.round_idx, scan_idx, rng.EXPLORE)
         lane_keys = rng.keys_for(k_explore, torch.arange(n, device=self.device)).reshape(R * n, 2)
+        chain_params = (
+            {k: v[chain_flat] for k, v in self.exp_state.items()} if self.exp_state else None
+        )
         out = self.explorer.step_batched(lane_keys, states, betas[chain_flat], self._density_path,
                                          isvar=self._is_var[chain_flat],
-                                         ref_params=self._ref_params, lp=lp_cur)
+                                         ref_params=self._ref_params, lp=lp_cur,
+                                         chain_params=chain_params, scan_idx=scan_idx)
         x_after = out.x.to(states.dtype)
         if self._use_iid_reference:
             k_iid = rng.scan_key(self._key, self.round_idx, scan_idx, rng.IID)
@@ -304,7 +311,9 @@ class PT:
         # per-chain recorder rows: reorder each ladder's replica rows into
         # chain order (a permutation gather by chain -> replica)
         def by_chain(v):
-            return torch.gather(v.reshape(R, n), 1, replica_of)
+            v = v.reshape((R, n) + v.shape[1:])
+            idx = replica_of.reshape((R, n) + (1,) * (v.dim() - 2)).expand(v.shape)
+            return torch.gather(v, 1, idx)
 
         if self._record_energy:
             lp_b, lp_a = lp_cur.reshape(R, n), lp_after.reshape(R, n)
@@ -316,6 +325,9 @@ class PT:
             exp_accept_n=kadd(rec.exp_accept_n, by_chain(out.accept_n)),
             exp_steps=kadd(rec.exp_steps, by_chain(out.n_steps)),
         )
+        if out.extras_sum is not None:
+            rec = rec._replace(extra_sum=kadd(rec.extra_sum, by_chain(out.extras_sum)),
+                               extra_n=kadd(rec.extra_n, by_chain(out.extras_n)))
 
         trace = None
         if self._record_online or self._record_traces:

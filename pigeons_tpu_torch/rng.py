@@ -99,6 +99,14 @@ def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
     return f32math.erfinv(u) * _SQRT2
 
 
+def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` for every key in ``keys [..., 2]``:
+    ``[..., n, 2]``. With partitionable threefry, child ``i`` is
+    ``fold_in(key, i)``."""
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return fold_in(keys.unsqueeze(-2), idx)
+
+
 def master_key(seed: int, device=None) -> torch.Tensor:
     return key(seed, device)
 

@@ -485,3 +485,124 @@ def test_extractor_closing_over_a_card_tensor(cuda_device):
     assert g.sample_array().shape == c.sample_array().shape == (8, 3)
     np.testing.assert_array_equal(g.sample_array()[:, :2], c.sample_array()[:, :2])
     np.testing.assert_allclose(g.sample_array()[:, 2], c.sample_array()[:, 2], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the gradient path (torch ops, no kernel): card against CPU
+
+
+def _gradient_paths(name, device):
+    """The port's path ``name`` with its data on ``device`` and the
+    ``ref_params`` it reads (``None`` but under a variational reference)."""
+    if name == "toy_mvn":
+        return T.toy_mvn_target(4).create_path(None), None
+    if name == "funnel_variational":
+        fixed = T.funnel(4).create_path(T.funnel(4).default_reference())
+        ref = {"mean": torch.full((5,), 0.3, device=device),
+               "std": torch.linspace(0.5, 2.0, 5, device=device),
+               "active": torch.tensor(1.0, device=device)}
+        return T.VariationalPath(fixed, T.GaussianReference()), ref
+    target = {"funnel": T.funnel(4), "banana": T.banana(4), "mvn": T.mvn_target(5),
+              "logistic_regression": T.logistic_regression(),
+              "hierarchical_normal": T.hierarchical_normal(), "eight_schools": T.eight_schools(),
+              "unid_target": T.unid_target()}[name].to(device)
+    return target.create_path(target.default_reference()), None
+
+
+GRADIENT_PATHS = ["toy_mvn", "funnel", "banana", "mvn", "logistic_regression",
+                  "hierarchical_normal", "eight_schools", "unid_target", "funnel_variational"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRADIENT_PATHS)
+def test_value_and_grad_card_matches_cpu(cuda_device, name):
+    """Values within 1e-6 relative, gradients within 1e-5 of the lane's
+    largest |g| (the tolerances of the CPU tests against JAX), the same
+    non-finite lanes."""
+    from pigeons_tpu_torch import paths
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        path, ref = _gradient_paths(name, dev)
+        d = 4 if name == "toy_mvn" else (5 if name == "funnel_variational" else None)
+        d = d or path.target_log_density.__self__.dim
+        rs = np.random.RandomState(3)
+        x = torch.tensor((rs.normal(size=(1024, d)) * 1.5).astype(np.float32), device=dev)
+        x[:4] *= 30.0
+        beta = torch.tensor(rs.uniform(size=1024).astype(np.float32), device=dev)
+        isvar = (torch.arange(1024, device=dev) % 2).to(torch.float32)
+        out[str(dev)] = [t.cpu().numpy() for t in paths.value_and_grad(path, x, beta, isvar, ref)]
+    (cl, cg), (gl, gg) = out["cpu"], out[str(cuda_device)]
+    fin = np.isfinite(cl) & np.isfinite(cg).all(1)
+    assert np.array_equal(fin, np.isfinite(gl) & np.isfinite(gg).all(1))
+    np.testing.assert_allclose(gl[fin], cl[fin], rtol=1e-6)
+    scale = np.maximum(np.abs(cg).max(1), np.finfo(np.float32).tiny)[fin]
+    assert (np.abs(gg - cg).max(1)[fin] / scale).max() <= 1e-5
+
+
+def _config2a_lanes(device, n=640, seed=0):
+    """640 lanes of config 2a's target: states, betas, keys and chain params."""
+    target = T.logistic_regression().to(device)
+    rs = np.random.RandomState(seed)
+    d = target.dim
+    x = torch.tensor((rs.normal(size=(n, d)) * 0.5).astype(np.float32), device=device)
+    beta = torch.tensor(rs.uniform(size=n).astype(np.float32), device=device)
+    params = {"step_size": torch.tensor((0.3 * np.exp(rs.normal(size=n))).astype(np.float32),
+                                        device=device),
+              "std_devs": torch.tensor(np.abs(rs.normal(size=(n, d)) * 0.3 + 0.5).astype(np.float32),
+                                       device=device)}
+    keys = rng.keys_for(rng.key(seed + 1, device), torch.arange(n, device=device))
+    return target.create_path(target.default_reference()), keys, x, beta, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["MALA", "AutoMALA"])
+def test_gradient_explore_card_matches_cpu(cuda_device, name):
+    """One explore of 640 lanes from the same inputs: lanes whose step-size
+    factors, evaluation counts and accept pattern agree are within 1e-4 in
+    state; at most 1 % of the lanes differ."""
+    explorer = T.MALA(step_size=0.3) if name == "MALA" else T.AutoMALA()
+    outs = []
+    for dev in ("cpu", cuda_device):
+        path, keys, x, beta, params = _config2a_lanes(dev)
+        outs.append((explorer.step_batched(keys, x, beta, path, chain_params=params,
+                                           scan_idx=2), x.cpu()))
+    (c, x0), (g, _) = outs
+    agree = (g.n_steps.cpu() == c.n_steps) & ((g.x.cpu() != x0).any(1) == (c.x != x0).any(1))
+    if g.extras_sum is not None:
+        agree &= (g.extras_sum.cpu() == c.extras_sum).all(1)
+    print(f"{name}: {int((~agree).sum())} of {len(agree)} lanes differ card against CPU")
+    assert (~agree).sum() <= 0.01 * len(agree)
+    assert float((g.x.cpu() - c.x)[agree].abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(window=3), dict(queued=True, queue_width=64),
+                                dict(queued=True, queue_width=128, window=2, queue_tail_width=-1)])
+def test_automala_search_variants_bitwise_on_card(cuda_device, kw):
+    path, keys, x, beta, params = _config2a_lanes(cuda_device, seed=4)
+    params["step_size"][::5] *= 64.0
+    a = T.AutoMALA(base_n_refresh=1).step_batched(keys, x, beta, path, chain_params=params,
+                                                  scan_idx=2)
+    b = T.AutoMALA(base_n_refresh=1, **kw).step_batched(keys, x, beta, path,
+                                                        chain_params=params, scan_idx=2)
+    for f in ("x", "lp", "accept_sum", "accept_n", "extras_sum", "extras_n"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+def test_config2a_card_run_passes_the_gates(cuda_device):
+    """Config 2a at 640 lanes (10 chains x 64 ladders), the rounds of
+    ``chip_smoke.py``'s phase (a 32-scan round: a tempered restart takes
+    more scans than a chain count) and its gates."""
+    target = T.logistic_regression()
+    pt = T.PT(T.Inputs(target=target, n_chains=10, n_replicates=64, seed=1,
+                       explorer=T.AutoMALA(), show_report=False, device="cuda"))
+    for n_scans in (4, 4, 4, 4, 32):
+        pt.run_round(n_scans=n_scans)
+    w_true = rng.normal(rng.fold_in(rng.key(0), 1), (10,)).numpy()
+    w = target.constrained_samples(pt)["w"].mean(0)
+    assert np.abs(w - w_true).max() < 1.0
+    assert np.isfinite(pt.reports[-1].log_z_estimate) and pt.n_tempered_restarts > 0
+    assert np.nanmean(pt.reduced.exp_accept) > 0.4
+    assert (pt.reduced.extra_n[:, 1] > 0).all()

@@ -192,7 +192,7 @@ def test_sample_iid_target_matches_jax(name):
 def test_split_is_fold_in_bitwise():
     keys = jrng.keys_for(jax.random.key(6), jnp.arange(32))
     want = np.asarray(jax.vmap(lambda k: jax.random.key_data(jax.random.split(k)))(keys)).astype(np.int64)
-    a, b = T.models.library._split2(trng.keys_for(trng.key(6), torch.arange(32)))
+    a, b = trng.split(trng.keys_for(trng.key(6), torch.arange(32))).unbind(-2)
     assert np.array_equal(want[:, 0], a.numpy()) and np.array_equal(want[:, 1], b.numpy())
 
 
