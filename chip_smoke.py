@@ -29,11 +29,17 @@ drives these paths end to end through
   legs (K2 with ``isvar``, ``mean``, ``std`` and ``active`` as arrays);
 * bench config 2a: the same logistic regression with ``AutoMALA()``, 10
   chains x 1,024 ladders: the gradient path, torch ops and no kernel, with
-  its rate beside a dense-leapfrog rate (no search) at the same lanes.
+  its rate beside a dense-leapfrog rate (no search) at the same lanes;
+* bench config 2b: logistic regression on 4,096 observations of 256
+  covariates with the queued AutoMALA, 10 chains x 819 ladders, the
+  likelihood's ``X @ w`` one float32 product (cuBLAS, no TF32), with
+  bench.py's rates, control and floor beside it and the dense form held to
+  float64.
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU (and one
-AutoMALA explore of 640 lanes, decision by decision). Every phase
+AutoMALA explore of 640 lanes of config 2a and one queued explore of 64
+lanes of config 2b, decision by decision). Every phase
 raises on failure. Without a CUDA device, or without the repository beside
 it, it exits non-zero and prints no result. The line before the last is a
 JSON object describing every kernel (time, twin's time, launches on its main
@@ -51,9 +57,10 @@ SHRINK iteration one draw, INIT_R and CHECK none, each its density queries.
 
 ``--profile`` also writes ``torch.profiler`` tables of one round of each
 path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt``,
-``profile_config4.txt``, ``profile_hierarchical.txt`` and
-``profile_config2a.txt``, and prints each round's device ops, busy share and
-host syncs per scan. ``--parent-csrc
+``profile_config4.txt``, ``profile_hierarchical.txt``,
+``profile_config2a.txt`` and ``profile_config2b.txt``, and prints each
+round's device ops, busy share, host syncs and explorer evaluations per
+scan. ``--parent-csrc
 DIR`` builds an earlier version of the CUDA sources (with this tree's entry
 points) from ``DIR`` and times its K2 beside this tree's on the same inputs,
 as ``parent_ms`` in the kernels line; its outputs must be this tree's, bit
@@ -131,9 +138,24 @@ LR_CHAINS, LR_REPLICATES, LR_ROUNDS = 10, 1024, (2, 4, 8, 16, 32)
 # bench config 2a (bench.py:330-355): logistic regression 200 x 10 (d=11) with
 # AutoMALA(), 10 chains x 1,024 ladders, seed 1, 4 warm-up rounds of 4 scans.
 # bench.py times the best of 3 rounds of 32 scans; the port times one round of
-# 32 (a scan is a second or two of eager launches on the card)
+# 32 (a scan is a second or two of eager launches on the card; with 8 the run
+# has made no tempered restart yet)
 A_CHAINS, A_REPLICATES, A_WARMUP_ROUNDS, A_WARMUP_SCANS, A_MEASURE_SCANS = 10, 1024, 4, 4, 32
 A_DENSE_ITERS, A_COMPARE_LADDERS, A_PROFILE_SCANS = 16, 64, 2
+
+# bench config 2b (bench.py:421-483): logistic regression 4,096 x 256 (d=257)
+# with the queued AutoMALA (queue 512, window 2), 10 chains x 819 ladders =
+# 8,190 lanes, seed 1, 4 warm-up rounds of 4 scans. bench.py times the best of
+# 3 rounds of 8 scans; the port times one round of 8. Its control (sequential
+# AutoMALA(), 2 + 2 scans), dense leapfrog (64 chained steps) and host serial
+# rate (bench.py:363-418) are bench.py's; the column form's leapfrog (the
+# likelihood before the dense form) runs at 1,024 of the lanes.
+B_N, B_D, B_CHAINS, B_REPLICATES = 4096, 256, 10, 819
+B_WARMUP_ROUNDS, B_WARMUP_SCANS, B_MEASURE_SCANS, B_CONTROL_SCANS = 4, 4, 8, 2
+B_QUEUE_WIDTH, B_WINDOW, B_DENSE_ITERS, B_COLUMN_LANES, B_COLUMN_ITERS = 512, 2, 64, 1024, 4
+B_CHECK_LANES, B_COMPARE_LANES, B_PROFILE_SCANS, B_HOST_SECONDS = 256, 64, 2, 3.0
+# bench.py's count of a density-and-gradient evaluation: 4 n (d + 1) operations
+B_FLOP_PER_EVAL = 4.0 * B_N * (B_D + 1)
 
 # Published peaks of one H100 SXM at 700 W: 3.35 TB/s of device memory, and
 # 67 TFLOP/s in float32 = 132 SMs x 128 lanes x 2 (a fused multiply-add) x
@@ -1118,22 +1140,24 @@ def config2a_phase():
     return pt, target
 
 
-def dense_leapfrog_rate(pt):
-    """Leapfrogs per second with no search: every lane of the run, at its own
-    beta, takes ``A_DENSE_ITERS`` chained steps of a density and its gradient
-    (the counterpart of ``bench.py:385-418``). Beside the achieved rate it
-    says what the search costs."""
+def dense_leapfrog_rate(pt, n_iters=A_DENSE_ITERS, path=None, lanes=None, label="dense leapfrog"):
+    """Leapfrogs per second with no search: every lane of the run (the first
+    ``lanes``), at its own beta, takes ``n_iters`` chained steps of a density
+    and its gradient (the counterpart of ``bench.py:385-418``) on the run's
+    path or on ``path``. Beside the achieved rate it says what the search
+    costs. Returns the rate."""
     from pigeons_tpu_torch.ops.hamiltonian import LaneGradient
 
-    chain_flat = pt._chain_of.reshape(-1)
-    vg = LaneGradient(pt._density_path, pt.betas[chain_flat])
-    x0 = pt._states.clone()
+    lanes = lanes or pt._states.shape[0]
+    chain_flat = pt._chain_of.reshape(-1)[:lanes]
+    vg = LaneGradient(path or pt._density_path, pt.betas[chain_flat])
+    x0 = pt._states[:lanes].clone()
     v0 = torch.randn(x0.shape, generator=torch.Generator(device="cuda").manual_seed(0),
                      device="cuda")
 
     def run():
         x, v = x0, v0
-        for _ in range(A_DENSE_ITERS):
+        for _ in range(n_iters):
             lp, g = vg(x)
             v = v + (0.5 * 0.01) * g
             x = x + 0.01 * v
@@ -1147,31 +1171,205 @@ def dense_leapfrog_rate(pt):
         run()
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
-    lanes = x0.shape[0]
-    print(f"dense leapfrog: {lanes} lanes x {A_DENSE_ITERS} steps in {best:.4f} s (best of 3), "
-          f"{lanes * A_DENSE_ITERS / best:.6g} leapfrogs/s, {best / A_DENSE_ITERS * 1e3:.3f} ms "
-          f"per leapfrog; AutoMALA's timed round above {eval_rate(pt):.6g} evals/s")
+    rate = lanes * n_iters / best
+    print(f"{label}: {lanes} lanes x {n_iters} steps in {best:.4f} s (best of 3), "
+          f"{rate:.6g} leapfrogs/s, {best / n_iters * 1e3:.3f} ms per leapfrog; AutoMALA's "
+          f"timed round above {eval_rate(pt):.6g} evals/s")
+    return rate
 
 
-def automala_card_vs_cpu_phase(pt, target):
-    """One AutoMALA explore of 640 lanes of config 2a's run, from the same
-    states, keys and chain params, on the card and on the CPU: one
-    refreshment, whose step-size factors and accept decisions are compared
-    lane by lane, then a whole explore (9 refreshments); lanes whose
-    decisions all agree must agree in state within 1e-4, and at most 1 % of
-    the decisions (lanes) may differ."""
-    phase("6b AutoMALA, card vs CPU")
+def host_serial_rate(seconds=B_HOST_SECONDS):
+    """Density-and-gradient evaluations per second of a logistic regression
+    of config 2b's shape in float64 numpy on the host, one state at a time
+    (``bench.py:363-382``, on its own random data): the serial denominator
+    beside the card's rates."""
+    rs = np.random.default_rng(0)
+    X = rs.normal(size=(B_N, B_D))
+    y = (rs.random(B_N) < 0.5).astype(np.float64)
+    w = rs.normal(size=B_D) * 0.05
+    evals = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        z = X @ w
+        p = 1.0 / (1.0 + np.exp(-z))
+        lp = float(np.sum(y * z - np.logaddexp(0.0, z))) - 0.125 * float(w @ w)
+        g = X.T @ (y - p) - 0.25 * w
+        w = w + 1e-7 * g  # the state moves, so nothing is cached
+        evals += 1
+        del lp
+    return evals / (time.perf_counter() - t0)
+
+
+def logistic_float64(X, y, theta):
+    """The logistic regression's log posterior (``N(0, 2^2)`` priors on every
+    weight and the intercept) and its gradient in float64 numpy, for states
+    ``theta [L, d + 1]``."""
+    z = theta[:, :-1] @ X.T + theta[:, -1:]
+    resid = y - 0.5 * (1.0 + np.tanh(0.5 * z))  # y - sigmoid(z)
+    lp = np.sum(y * z - np.logaddexp(0.0, z), 1) + np.sum(
+        -0.5 * (math.log(2.0 * math.pi) + (theta / 2.0) ** 2) - math.log(2.0), 1)
+    grad = np.concatenate([resid @ X, resid.sum(1, keepdims=True)], 1) - theta / 4.0
+    return lp, grad
+
+
+def logistic_map(X, y):
+    """The float64 MAP of the logistic regression by Newton's method, and its
+    Laplace standard deviations (the inverse Hessian's diagonal)."""
+    Xa = np.hstack([X, np.ones((X.shape[0], 1))])
+    theta = np.zeros(Xa.shape[1])
+    for _ in range(100):
+        p = 0.5 * (1.0 + np.tanh(0.5 * (Xa @ theta)))
+        hess = -(Xa.T * (p * (1.0 - p))) @ Xa - np.eye(Xa.shape[1]) / 4.0
+        step = np.linalg.solve(hess, Xa.T @ (y - p) - theta / 4.0)
+        theta = theta - step
+        if np.abs(step).max() < 1e-12:
+            break
+    return theta, np.sqrt(np.diag(np.linalg.inv(-hess)))
+
+
+def config2b_phase():
+    """Bench config 2b end to end on the card: the queued AutoMALA on the
+    logistic regression's dense form (one float32 product per evaluation,
+    cuBLAS; no kernel of the port is on the path). Gated on finite logZ,
+    the explorer's acceptance above 0.4 (reference ``test_auto_mala.jl:44-48``,
+    as config 2a), its reversibility rate recorded at every chain, no K1 or
+    K2 launch, float32 products without TF32, and the dense form's value and
+    gradient at 256 of the run's states within 1e-5 relative and 1e-4 of the
+    lane's largest gradient component of a float64 evaluation. Prints the
+    rates of bench.py's config 2b beside the dense leapfrog's, the column
+    form's and the host's, and the target chain's mean against the float64
+    MAP. Returns the run and its target."""
+    phase("3j config 2b (queued AutoMALA)")
+    from pigeons_tpu_torch import PT, AutoMALA, Inputs, SliceSamplerCUDA, logistic_regression, paths
+    from pigeons_tpu_torch.models.bayesian import BayesianModel
+
+    precision = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    print(f"float32 products: allow_tf32 {precision[0]}, precision {precision[1]!r}")
+    if precision != (False, "highest"):
+        raise AssertionError("config 2b: float32 products would run in TF32")
+    print(f"timed round cut from bench.py's best of 3 rounds of {B_MEASURE_SCANS} scans to one")
+    target = logistic_regression(B_N, B_D, seed=0)
+    if not target.log_likelihood_fn.uses_dense:
+        raise AssertionError("config 2b: the likelihood is not in its dense form")
+    lanes = B_CHAINS * B_REPLICATES
+
+    def inputs(explorer):
+        return Inputs(target=target, n_chains=B_CHAINS, n_replicates=B_REPLICATES, seed=SEED,
+                      explorer=explorer, show_report=False, device="cuda")
+
+    like = target.log_likelihood_fn
+    X, y = like.X.double().numpy(), like.y.double().numpy()
+    theta, sd = logistic_map(X, y)
+
+    def gap():
+        """The target chain's pooled mean of w over the last round, in Laplace
+        standard deviations from the float64 MAP."""
+        return np.abs(target.constrained_samples(pt)["w"].mean(0) - theta[:B_D]) / sd[:B_D]
+
+    SliceSamplerCUDA.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pt = PT(inputs(AutoMALA(queued=True, queue_width=B_QUEUE_WIDTH, window=B_WINDOW)))
+    for _ in range(B_WARMUP_ROUNDS):
+        pt.run_round(n_scans=B_WARMUP_SCANS)
+        rep = pt.reports[-1]
+        print(f"warm-up round {pt.round_idx}: {rep.wall_time_s:.4f} s, "
+              f"{float(np.sum(pt.reduced.exp_steps)) / (rep.n_scans * lanes):.2f} leapfrogs per "
+              f"lane and scan, step size {float(pt.exp_state['step_size'][0]):.6f}, barrier "
+              f"{pt.global_barrier:.4f}, largest gap of the mean of w to the MAP "
+              f"{gap().max():.4f} Laplace standard deviations")
+    pt.run_round(n_scans=B_MEASURE_SCANS)
+    launches = dict(SliceSamplerCUDA.launches)
+    rep, red = pt.reports[-1], pt.reduced
+    rate = eval_rate(pt)
+    factor, rev = red.extra_mean[:, 0], red.extra_mean[:, 1]
+    accept = float(np.nanmean(red.exp_accept))
+    print(f"timed round: {B_MEASURE_SCANS} scans of {lanes} lanes in {rep.wall_time_s:.4f} s "
+          f"({rep.wall_time_s / B_MEASURE_SCANS * 1e3:.3f} ms per scan), {rate:.6g} evals/s, "
+          f"{rate * B_FLOP_PER_EVAL / 1e12:.6g} TFLOP/s at 4 n (d + 1) per eval "
+          f"({rate * B_FLOP_PER_EVAL / FP32_OPS_PER_S:.4%} of 67 TFLOP/s float32), "
+          f"{float(np.sum(red.exp_steps)) / (B_MEASURE_SCANS * lanes):.2f} leapfrogs per lane and "
+          f"scan, peak device memory {rep.peak_memory_bytes} B")
+    print(f"mean step-size factor 2^exponent {float(np.nanmean(factor)):.4f}, adapted base step "
+          f"{float(pt.exp_state['step_size'][0]):.6f}; explorer acceptance {accept:.4f}; "
+          f"reversibility rate {float(np.nanmean(rev)):.4f} (by chain {np.round(rev, 3).tolist()})")
+    print(f"barrier {pt.global_barrier:.6f}, logZ {rep.log_z_estimate:.6f}, round trips "
+          f"{pt.n_round_trips}, restarts {pt.n_tempered_restarts}, swap accept mean "
+          f"{rep.mean_swap_accept:.4f}; kernel launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"config 2b launched slice kernels: {launches}")
+    if not math.isfinite(rep.log_z_estimate):
+        raise AssertionError("config 2b: no finite logZ")
+    if not accept > 0.4:
+        raise AssertionError(f"config 2b: explorer acceptance {accept} <= 0.4")
+    if not (red.extra_n[:, 1] > 0).all():
+        raise AssertionError("config 2b: reversibility rate not recorded at every chain")
+
+    x = pt._states[:B_CHECK_LANES]
+    lp, grad = paths.value_and_grad(pt.path, x, torch.ones(B_CHECK_LANES, device="cuda"))
+    want_lp, want_grad = logistic_float64(X, y, x.double().cpu().numpy())
+    lp_err = float(np.max(np.abs(lp.double().cpu().numpy() - want_lp) / np.abs(want_lp)))
+    grad_err = float(np.max(np.abs(grad.double().cpu().numpy() - want_grad).max(1)
+                            / np.abs(want_grad).max(1)))
+    print(f"dense form on the card at {B_CHECK_LANES} of the run's states, against float64: "
+          f"density within {lp_err:.3g} relative, gradient within {grad_err:.3g} of the lane's "
+          f"largest component")
+    if not (lp_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError("config 2b: the dense form is off its float64 value")
+    gaps = gap()
+    print(f"target chain's pooled mean of w against the float64 MAP: largest gap "
+          f"{gaps.max():.4f} Laplace standard deviations (w[{int(gaps.argmax())}]), mean gap "
+          f"{gaps.mean():.4f}; Laplace standard deviations {sd[:B_D].min():.4f} to "
+          f"{sd[:B_D].max():.4f}. Not gated: after "
+          f"{B_WARMUP_ROUNDS * B_WARMUP_SCANS + B_MEASURE_SCANS} scans the run is inside its "
+          f"transient")
+
+    ctrl = PT(inputs(AutoMALA()))
+    ctrl.run_round(n_scans=B_CONTROL_SCANS)
+    ctrl_red = ctrl.run_round(n_scans=B_CONTROL_SCANS)
+    alg_per_scan = float(np.sum(ctrl_red.exp_steps)) / B_CONTROL_SCANS
+    alg_per_round = alg_per_scan * B_MEASURE_SCANS + 2.0 * lanes * B_MEASURE_SCANS
+    dense_rate = dense_leapfrog_rate(pt, B_DENSE_ITERS)
+    model = target.to("cuda")
+    column = BayesianModel(model.priors, model.log_likelihood_fn.sweep)
+    column_rate = dense_leapfrog_rate(pt, B_COLUMN_ITERS,
+                                      path=column.create_path(column.default_reference()),
+                                      lanes=B_COLUMN_LANES, label="column form's leapfrog (before)")
+    floor_wall = alg_per_round / dense_rate
+    host = host_serial_rate()
+    print(f"sequential AutoMALA() control ({B_CONTROL_SCANS} + {B_CONTROL_SCANS} scans): "
+          f"{alg_per_scan:.6g} algorithmic evaluations per scan ({alg_per_scan / lanes:.2f} per "
+          f"lane), {ctrl.reports[-1].wall_time_s / B_CONTROL_SCANS * 1e3:.3f} ms per scan; "
+          f"floor of the timed round {floor_wall:.4f} s at the dense rate, pct_of_floor "
+          f"{100.0 * floor_wall / rep.wall_time_s:.4f} %, algorithmic rate "
+          f"{alg_per_round / rep.wall_time_s:.6g} evals/s")
+    print(f"rates (evals/s): queued round {rate:.6g}, dense leapfrog {dense_rate:.6g} "
+          f"({dense_rate * B_FLOP_PER_EVAL / 1e12:.6g} TFLOP/s), column form {column_rate:.6g}, "
+          f"host numpy serial {host:.6g}")
+    return pt, target
+
+
+def automala_card_vs_cpu_phase(pt, target, title="6b AutoMALA, card vs CPU",
+                               lanes=A_COMPARE_LADDERS * A_CHAINS, max_differ=None, **explorer_kw):
+    """One AutoMALA (``explorer_kw``) explore of the first ``lanes`` lanes of
+    a run, from the same states, keys and chain params, on the card and on
+    the CPU: one refreshment, whose step-size factors and accept decisions
+    are compared lane by lane, then a whole explore; lanes whose decisions
+    all agree must agree in state within 1e-4, and at most ``max_differ``
+    lanes (1 % by default) may differ in a decision."""
+    phase(title)
     from pigeons_tpu_torch import AutoMALA, rng
 
-    R, n = A_COMPARE_LADDERS, A_CHAINS
-    lanes = R * n
-    chain_flat = pt._chain_of[:R].reshape(-1)
+    n = pt.n_chains
+    R = -(-lanes // n)
+    chain_flat = pt._chain_of[:R].reshape(-1)[:lanes]
     k = rng.scan_key(pt._key[:R], pt.round_idx + 1, 2, rng.EXPLORE)
-    keys = rng.keys_for(k, torch.arange(n, device="cuda")).reshape(lanes, 2)
+    keys = rng.keys_for(k, torch.arange(n, device="cuda")).reshape(R * n, 2)[:lanes]
     inputs = dict(keys=keys, xs=pt._states[:lanes], betas=pt.betas[chain_flat])
     params = {name: v[chain_flat] for name, v in pt.exp_state.items()}
-    for label, explorer in (("one refreshment", AutoMALA(base_n_refresh=1, exponent_n_refresh=0.0)),
-                            ("whole explore", AutoMALA())):
+    max_differ = 0.01 * lanes if max_differ is None else max_differ
+    for label, explorer in (("one refreshment", AutoMALA(base_n_refresh=1, exponent_n_refresh=0.0,
+                                                         **explorer_kw)),
+                            ("whole explore", AutoMALA(**explorer_kw))):
         out = {}
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
@@ -1189,8 +1387,9 @@ def automala_card_vs_cpu_phase(pt, target):
         diff = float((g.x.cpu() - c.x)[agree].abs().max())
         print(f"{label}: step-size factors differ in {int((~factors).sum())} of {lanes} lanes, "
               f"accept decisions in {int((moved_g != moved_c).sum())}; lanes whose decisions all "
-              f"agree: {int(agree.sum())}, max |state diff| there {diff}")
-        if (~agree).sum() > 0.01 * lanes or diff > 1e-4:
+              f"agree: {int(agree.sum())}, max |state diff| there {diff} (at most "
+              f"{max_differ:g} lanes may differ)")
+        if (~agree).sum() > max_differ or diff > 1e-4:
             raise AssertionError(f"AutoMALA {label}: card and CPU disagree")
 
 
@@ -1331,11 +1530,15 @@ def profile_phase():
 
     config2a = Inputs(target=logistic_regression(), n_chains=A_CHAINS, n_replicates=A_REPLICATES,
                       seed=SEED, explorer=AutoMALA(), show_report=False, device="cuda")
+    config2b = Inputs(target=logistic_regression(B_N, B_D), n_chains=B_CHAINS,
+                      n_replicates=B_REPLICATES, seed=SEED, show_report=False, device="cuda",
+                      explorer=AutoMALA(queued=True, queue_width=B_QUEUE_WIDTH, window=B_WINDOW))
     for name, inputs, n_scans, kernel in (("config1", config1, WARMUP_SCANS, "banded_slice"),
                                           ("funnel", funnel_inputs(), F_WARMUP_SCANS, "slice_sweep"),
                                           ("config4", config4, V_WARMUP_SCANS, "banded_slice"),
                                           ("hierarchical", hierarchical, 8, "slice_sweep"),
-                                          ("config2a", config2a, A_PROFILE_SCANS, None)):
+                                          ("config2a", config2a, A_PROFILE_SCANS, None),
+                                          ("config2b", config2b, B_PROFILE_SCANS, None)):
         pt = PT(inputs)
         pt.run_round(n_scans=n_scans)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1355,10 +1558,12 @@ def profile_phase():
                     if e.key in ("aten::_local_scalar_dense", "aten::nonzero"))
         wall = pt.reports[-1].wall_time_s
         n_ops = sum(e.count for e in dev_events)
+        evals = float(np.sum(pt.reduced.exp_steps)) / n_scans
         print(f"profile {name}: {n_scans} scans, wall {wall:.4f} s, device busy "
               f"{device_us / 1e3:.3f} ms ({device_us / 1e6 / wall:.2%} of wall) over "
               f"{n_ops} device ops ({n_ops / n_scans:.0f} per scan); {syncs / n_scans:.1f} host "
-              f"syncs per scan; {kernel or 'no'} kernel {kernel_us / 1e3:.3f} ms")
+              f"syncs per scan; {evals:.6g} explorer evaluations per scan; {kernel or 'no'} "
+              f"kernel {kernel_us / 1e3:.3f} ms")
         print(table[:5000])
 
 
@@ -1377,10 +1582,14 @@ def main():
     bayesian["logistic_regression"]["launches"] = logistic_regression_phase()
     k2v["launches"] = variational_funnel_phase()
     run2a, target2a = config2a_phase()
+    run2b, target2b = config2b_phase()
     determinism_phase()
     quickstart_phase()
     small_reference_phase()
     automala_card_vs_cpu_phase(run2a, target2a)
+    automala_card_vs_cpu_phase(run2b, target2b, "6c queued AutoMALA at config 2b, card vs CPU",
+                               lanes=B_COMPARE_LANES, max_differ=2, queued=True,
+                               queue_width=B_QUEUE_WIDTH, window=B_WINDOW)
     torch_sampler_phase()
     if "--profile" in sys.argv[1:]:
         profile_phase()

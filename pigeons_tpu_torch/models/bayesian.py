@@ -123,6 +123,14 @@ class BayesianModel(Target):
         lp = self._prior_of(q, logjac)
         return lp, lp + self.log_likelihood_fn(q)
 
+    def sweep_prior_and_posterior(self, x):
+        """:meth:`prior_and_posterior` with the likelihood as the general
+        slice kernel evaluates it: its ``sweep`` where it has one (the
+        logistic regression's column form, which its call may not take)."""
+        q, logjac = self.constrain(x)
+        lp = self._prior_of(q, logjac)
+        return lp, lp + getattr(self.log_likelihood_fn, "sweep", self.log_likelihood_fn)(q)
+
     # -- target interface ---------------------------------------------------
 
     def default_reference(self) -> Reference:
@@ -190,6 +198,7 @@ class BayesianModel(Target):
             sample_reference=reference.sample_iid,
             device=device,
             endpoints=self.prior_and_posterior if own_prior else None,
+            sweep_endpoints=self.sweep_prior_and_posterior if device is not None else None,
         )
 
     def constrained_samples(self, pt) -> Dict[str, np.ndarray]:

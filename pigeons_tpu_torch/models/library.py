@@ -371,15 +371,46 @@ def sum_by_windows(terms, window: int = 32):
     return total
 
 
+# the most observations at which the logistic regression takes its column form
+# (LogisticRegressionLikelihood): XLA's CPU code adds up to 32 windows' sums in order
+COLUMN_FORM_MAX_OBSERVATIONS = 32 * 32
+
+
 class LogisticRegressionLikelihood:
     """``y[i] ~ Bernoulli(sigmoid(X[i] . w + b))`` written as ``y z -
-    softplus(z)``: one term per observation, each a dot product of a row of
-    the design matrix accumulated in column order with one fused multiply-add
-    per column (XLA's ``dot``), summed by windows."""
+    softplus(z)``, in one of two forms, chosen by the number of observations.
+
+    The column form (:meth:`sweep`): one term per observation, each a dot
+    product of a row of the design matrix accumulated in column order with
+    one fused multiply-add per column, summed by windows. It is what the
+    general slice kernel computes at every shape (``device``, ``terms``,
+    ``finish``). The dense form (:meth:`dense`): ``z = w @ X.T + b`` as one
+    float32 product, ``y z - softplus(z)`` and ``torch.sum``, with no
+    emulated float32 arithmetic: on the card the product is one cuBLAS call,
+    where the column form is some 14 float64 operations over ``[lanes, n]``
+    per column.
+
+    The call takes the column form up to ``COLUMN_FORM_MAX_OBSERVATIONS`` =
+    1,024 observations and the dense form above (``uses_dense``).
+    ``tests/logistic_form_study.py`` counts the lanes of 64 whose density each
+    form gives bit for bit against ``jit(vmap(log_density))`` of the JAX
+    model, column / dense: 56 / 35 at 200 x 10, 64 / 20 at 1,024 x 10, 64 /
+    22 at 1,024 x 32, 49 / 30 at 1,024 x 128; above 1,024 observations 27 /
+    23 at 1,025 x 10, 13 / 31 at 2,048 x 10, 23 / 41 at 4,096 x 256, 10 / 29
+    at 8,192 x 256. There XLA still multiplies in column order (the logits are
+    the column form's, bit for bit), but it adds more than 32 windows' sums
+    by windows again, which ``sum_by_windows`` and the kernel do not: in that
+    order the column form would give 55 to 64 lanes of 64 with 10
+    covariates, 58 to 60 at 4,096 and 8,192 observations of 128 or 256 (the
+    study's ``windows_of_windows``). Each form is within float32 rounding of the
+    JAX density at every shape of the study: 5e-7 relative, and 1e-6 of the
+    lane's largest gradient component.
+    """
 
     def __init__(self, X: torch.Tensor, y: torch.Tensor):
         self.X = X.to(torch.float32).contiguous()  # [n, d]
         self.y = y.to(torch.float32).contiguous()  # [n]
+        self.uses_dense = self.X.shape[0] > COLUMN_FORM_MAX_OBSERVATIONS
 
     def to(self, device):
         return LogisticRegressionLikelihood(self.X.to(device), self.y.to(device))
@@ -387,19 +418,40 @@ class LogisticRegressionLikelihood:
     def device(self):
         return LOGISTIC_REGRESSION, (float(self.X.shape[0]),), (self.X.reshape(-1), self.y)
 
-    def terms(self, q):
+    def column_logits(self, q):
+        """``X @ w + b`` in column order, a fused multiply-add per column."""
         w = q["w"][..., None, :].unbind(-1)  # d columns [..., 1]: one node for autograd
         logits = self.X[:, 0] * w[0]
         for k in range(1, self.X.shape[1]):
             logits = f32math.fma(self.X[:, k], w[k], logits)
-        logits = logits + q["b"][..., None]
+        return logits + q["b"][..., None]
+
+    def terms(self, q):
+        logits = self.column_logits(q)
         return self.y * logits - softplus(logits)
 
     def finish(self, terms):
         return sum_by_windows(terms)
 
-    def __call__(self, q):
+    def sweep(self, q):
+        """The column form: the likelihood as the general slice kernel
+        evaluates it."""
         return self.finish(self.terms(q))
+
+    def dense_logits(self, q):
+        """``X @ w + b`` as one float32 product."""
+        return torch.matmul(q["w"], self.X.T) + q["b"][..., None]
+
+    def dense(self, q):
+        """The dense form. ``F.softplus`` is ``log1p(exp(z))`` up to ``z =
+        20`` and ``z`` above, where the two agree in float32; it keeps
+        ``logaddexp(z, 0)``'s values at +-inf and NaN, and its gradient is
+        JAX's rule for it, ``sigmoid(z)`` (1 above 20)."""
+        z = self.dense_logits(q)
+        return torch.sum(self.y * z - torch.nn.functional.softplus(z), dim=-1)
+
+    def __call__(self, q):
+        return self.dense(q) if self.uses_dense else self.sweep(q)
 
 
 def logistic_regression_data(n: int = 200, d: int = 10, seed: int = 0):

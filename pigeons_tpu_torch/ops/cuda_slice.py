@@ -719,7 +719,8 @@ def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.
         raise RuntimeError(
             f"slice_sweep failed for density kind {density.kind}, d={d}, "
             f"coord_deltas={coord_deltas}, group={group}: error {err} (negative: the kernel "
-            "does not take this case; positive: CUDA error code)"
+            "does not take this case, -2 where a block's lane states and buffers would need "
+            "more than the 227 KB of shared memory a block may use; positive: CUDA error code)"
         )
     SliceSamplerCUDA.launches["slice_sweep"] += 1
     return x_out, lp, stats

@@ -68,6 +68,8 @@ class InterpolatingPath:
     device: Optional[DeviceDensity] = None
     # x -> (ref_log_density(x), target_log_density(x)) where the two share work
     endpoints: Optional[Callable] = None
+    # the same as the general slice kernel evaluates them, where that differs
+    sweep_endpoints: Optional[Callable] = None
 
     def log_density(self, x, beta):
         if self.endpoints is not None:
@@ -75,6 +77,15 @@ class InterpolatingPath:
         else:
             lref = self.ref_log_density(x)
             ltgt = self.target_log_density(x)
+        return _guarded_mul(1.0 - beta, lref) + _guarded_mul(beta, ltgt)
+
+    def sweep_log_density(self, x, beta):
+        """The density as the general slice kernel evaluates it: from
+        ``sweep_endpoints`` where the path has them, else
+        :meth:`log_density`."""
+        if self.sweep_endpoints is None:
+            return self.log_density(x, beta)
+        lref, ltgt = self.sweep_endpoints(x)
         return _guarded_mul(1.0 - beta, lref) + _guarded_mul(beta, ltgt)
 
     def device_density(self) -> Optional[DeviceDensity]:

@@ -402,6 +402,40 @@ def test_bayesian_kernel_reads_arrays_larger_than_shared_memory(cuda_device, gro
         cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=8)
 
 
+@functools.lru_cache(maxsize=None)
+def _config2b_kernel_case():
+    """Four lanes of bench config 2b's target (4,096 observations, d = 257)
+    and the twin's sweep of them: a lane's term buffers are 2 n + 16 floats,
+    32 KB."""
+    device = torch.device("cuda")
+    model = T.logistic_regression(4096, 256).to(device)
+    path = model.create_path(model.default_reference())
+    x = model.initialization(rng.keys_for(rng.key(8, device), torch.arange(4, device=device)))
+    _, betas, seeds = _lane_inputs(4, model.dim, 5, device)
+    want = cuda_slice.sweep_reference(x.contiguous(), betas, seeds, path, n_passes=1, max_iter=64)
+    return path, x.contiguous(), betas, seeds, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
+def test_bayesian_kernel_at_config_2b_fits_or_refuses(cuda_device, group):
+    """K2 on config 2b's target: with one thread per lane, or groups of 32
+    (four lanes to a block, 135 KB) and the launcher's choice, bitwise the
+    twin (the column form, whatever the runtime's); groups of 8 or 16 would
+    need 541 KB or 271 KB of shared memory, and the launcher refuses them
+    without a launch."""
+    path, x, betas, seeds, want = _config2b_kernel_case()
+    before = SliceSamplerCUDA.launches["slice_sweep"]
+    if group in (8, 16):
+        with pytest.raises(RuntimeError, match="does not take.*227 KB of shared memory"):
+            cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group)
+        assert SliceSamplerCUDA.launches["slice_sweep"] == before
+        return
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group)
+    for tensor_name, g, w in zip(("x", "lp", "stats"), got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
 @pytest.mark.parametrize("active", [0.0, 1.0])
@@ -538,6 +572,68 @@ def test_value_and_grad_card_matches_cpu(cuda_device, name):
     np.testing.assert_allclose(gl[fin], cl[fin], rtol=1e-6)
     scale = np.maximum(np.abs(cg).max(1), np.finfo(np.float32).tiny)[fin]
     assert (np.abs(gg - cg).max(1)[fin] / scale).max() <= 1e-5
+
+
+def _logistic_float64(model, x):
+    """The logistic regression's log posterior (``N(0, 2^2)`` priors) and its
+    gradient in float64 numpy at states ``x [L, d + 1]``."""
+    like = model.log_likelihood_fn
+    X, y = like.X.double().cpu().numpy(), like.y.double().cpu().numpy()
+    theta = x.double().cpu().numpy()
+    z = theta[:, :-1] @ X.T + theta[:, -1:]
+    resid = y - 0.5 * (1.0 + np.tanh(0.5 * z))
+    lp = np.sum(y * z - np.logaddexp(0.0, z), 1) + np.sum(
+        -0.5 * (np.log(2.0 * np.pi) + (theta / 2.0) ** 2) - np.log(2.0), 1)
+    grad = np.concatenate([resid @ X, resid.sum(1, keepdims=True)], 1) - theta / 4.0
+    return lp, grad
+
+
+@pytest.mark.cuda
+def test_logistic_dense_form_on_card_matches_float64(cuda_device):
+    """Config 2b's shape: the dense form's density and gradient on the card
+    (one float32 cuBLAS product each way, no TF32) at 256 states within 1e-5
+    relative and 1e-4 of the lane's largest gradient component of float64
+    numpy, as ``chip_smoke.py`` holds it."""
+    from pigeons_tpu_torch import paths
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model = T.logistic_regression(4096, 256).to(cuda_device)
+    assert model.log_likelihood_fn.uses_dense
+    rs = np.random.RandomState(0)
+    x = torch.tensor((rs.normal(size=(256, model.dim)) * 0.3).astype(np.float32),
+                     device=cuda_device)
+    lp, grad = paths.value_and_grad(model.create_path(model.default_reference()), x,
+                                    torch.ones(256, device=cuda_device))
+    want_lp, want_grad = _logistic_float64(model, x)
+    np.testing.assert_allclose(lp.double().cpu().numpy(), want_lp, rtol=1e-5)
+    scale = np.abs(want_grad).max(1)
+    assert (np.abs(grad.double().cpu().numpy() - want_grad).max(1) / scale).max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 1025])
+def test_logistic_forms_boundary_on_card(cuda_device, n):
+    """The last shape of the column form and the first of the dense one, card
+    against CPU: the column form (emulated float32 steps) with the CPU's
+    bits, the dense form within 1e-6 relative; gradients within 1e-5 of the
+    lane's largest component."""
+    from pigeons_tpu_torch import paths
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = T.logistic_regression(n, 10).to(dev)
+        assert model.log_likelihood_fn.uses_dense is (n > 1024)
+        rs = np.random.RandomState(n)
+        x = torch.tensor((rs.normal(size=(512, model.dim)) * 0.5).astype(np.float32), device=dev)
+        beta = torch.tensor(rs.uniform(size=512).astype(np.float32), device=dev)
+        out[str(dev)] = [t.cpu().numpy() for t in
+                         paths.value_and_grad(model.create_path(model.default_reference()), x,
+                                              beta)]
+    (cl, cg), (gl, gg) = out["cpu"], out[str(cuda_device)]
+    if n <= 1024:
+        assert np.array_equal(gl.view(np.int32), cl.view(np.int32))
+    np.testing.assert_allclose(gl, cl, rtol=1e-6)
+    assert (np.abs(gg - cg).max(1) / np.abs(cg).max(1)).max() <= 1e-5
 
 
 def _config2a_lanes(device, n=640, seed=0):

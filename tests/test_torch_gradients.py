@@ -10,7 +10,8 @@
     custom JVP, ``logistic``'s ``s (1 - s)``) at 0, in the tails and at
     infinities. ``fma`` is correctly rounded: bitwise its earlier, longer
     form on random, cancelling and midpoint triples and on every special
-    value.
+    value. ``sum_in_order``, one autograd node, gives the chain of adds'
+    value and gradients bit for bit.
 (b) ``paths.value_and_grad`` against ``jit(vmap(value_and_grad(ld)))`` of the
     JAX path, ``ld`` the runtime's density with NaN read as -inf, on the same
     numpy-seeded states and betas (some at 0 and 1, some far out), for the
@@ -159,6 +160,31 @@ def test_softplus_and_sigmoid_follow_jax_rules(name):
     (g,) = torch.autograd.grad(y.sum(), xt)
     jg = np.asarray(jax.jit(jax.grad(lambda v: jnp.sum(jfn(v))))(x))
     np.testing.assert_allclose(g.numpy(), jg, rtol=1e-6, atol=1e-30)
+
+
+@pytest.mark.parametrize("n", [1, 2, 11, 256])
+def test_sum_in_order_is_the_chain_of_adds(n):
+    """``sum_in_order`` with a gradient is one autograd node: its forward and
+    the gradient it hands each term are the chain of adds', bit for bit,
+    downstream of a float32 step and at infinities and NaN."""
+    x = np.random.RandomState(n).normal(size=(64, n)).astype(np.float32) * 3.0
+    x[0, 0], x[1, -1], x[2, n // 2] = np.inf, np.nan, -np.inf
+    out = []
+    for chain in (True, False):
+        xt = torch.tensor(x, requires_grad=True)
+        terms = f32math.fma(xt, xt, 0.5)
+        if chain:
+            cols = terms.unbind(-1)
+            acc = cols[0]
+            for c in cols[1:]:
+                acc = acc + c
+        else:
+            acc = TD.sum_in_order(terms)
+        (g,) = torch.autograd.grad((acc * torch.linspace(-1.0, 2.0, 64)).sum(), xt)
+        out.append((acc.detach(), g))
+    (a, ga), (b, gb) = out
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(ga.view(torch.int32), gb.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
