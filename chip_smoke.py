@@ -15,7 +15,7 @@ drives these paths end to end through
   slice sampler (kernel K1);
 * Neal's funnel, the target of bench config 3: 12 chains x 256 ladders, d=10,
   general slice sampler (kernel K2, full mode). K2's delta mode is held
-  against its twin at config 1's shape;
+  against its twin at the shape of its one path, phase 10's invariance test;
 * bench config 4: stabilized variational PT on the d=100 toy MVN, 10 + 10
   chains x 256 ladders, K1 with its variational coordinate term; the timed
   round is the first that runs under the fitted reference;
@@ -39,8 +39,20 @@ drives these paths end to end through
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU (and one
 AutoMALA explore of 640 lanes of config 2a and one queued explore of 64
-lanes of config 2b, decision by decision). Every phase
-raises on failure. Without a CUDA device, or without the repository beside
+lanes of config 2b, decision by decision). Then checkpoints and checks:
+config 1 at full width, checkpointed every round, stopped after round 3 and
+resumed (``increment_n_rounds``, ``pigeons(folder)``) must be the
+uninterrupted run bit for bit, and so must config 4 stopped after its first
+fitted round and config 2a at 64 ladders (phase 9, with each checkpoint
+write's seconds and bytes); a card checkpoint resumes on the CPU (9b); a
+one-ladder K1 run passes ``checked_round``'s serial check in a child process
+on the card, a corrupted copy of its round fails it, and ``profile_round``
+writes a trace of K1's launches (9c); the exact invariance test at N =
+10,000 of K1 with each term, K2 in each mode (its delta mode's only path,
+that launch held against the twin) and under the variational blend, MALA
+and AutoMALA passes, each kernel launched once, the variational term at
+beta = 0.3, where the reference weighs in; a kernel that drifts and a step
+that reads a wrong reference fail (10). Every phase raises on failure. Without a CUDA device, or without the repository beside
 it, it exits non-zero and prints no result. The line before the last is a
 JSON object describing every kernel (time, twin's time, launches on its main
 path, bound); the last line is a JSON object naming the device.
@@ -160,6 +172,15 @@ B_FLOP_PER_EVAL = 4.0 * B_N * (B_D + 1)
 # Published peaks of one H100 SXM at 700 W: 3.35 TB/s of device memory, and
 # 67 TFLOP/s in float32 = 132 SMs x 128 lanes x 2 (a fused multiply-add) x
 # 1.98 GHz. An SM has 64 int32 lanes of one operation each: a quarter of that.
+# phase 9: rounds of 2^r scans, each run stopped after CK_*STOP rounds and
+# resumed; config 1 at its full width, config 4 at its own, config 2a at
+# A_COMPARE_LADDERS ladders; 9c's one-ladder run checked at its last round
+CK_ROUNDS, CK_STOP, CK_V_ROUNDS, CK_V_STOP, CK_A_ROUNDS, CK_A_STOP = 5, 3, 4, 2, 3, 2
+CK_S_ROUNDS = 3
+# phase 10: the reference's sample count and seed; MALA's step for the toy MVN
+# (sd 0.32); the beta of the variational blend's tests, where the reference's
+# half weighs 0.7 (at beta = 1 it weighs nothing); SliceSamplerCUDA's passes
+I_SAMPLES, I_SEED, I_MALA_STEP, I_BLEND_BETA, I_DELTA_PASSES = 10_000, 1, 0.1, 0.3, 3
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 INT32_OPS_PER_S = FP32_OPS_PER_S / 4
 
@@ -530,8 +551,11 @@ def k1_variational_phase():
 
 def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_ops,
             prepare_ops=ops(0), prepare_coords=(), variational=None, variational_ops=ops(0),
-            extra_bytes=0, groups=()):
-    """Kernel K2 against its twin for one path and mode, one pass. A density
+            extra_bytes=0, groups=(), inputs=None, n_passes=F_PASSES, keep=None):
+    """Kernel K2 against its twin for one path and mode, ``n_passes`` passes
+    over ``inputs`` (states, betas, lane seeds; by default
+    :func:`lane_inputs`), and ``keep`` (a dict) given the inputs and the
+    twin's result. A density
     query needs ``query_ops`` (a query of a coordinate in ``prepare_coords``
     ``prepare_ops`` besides; a query of a lane that follows the variational
     reference ``variational_ops`` instead), an ENTER iteration ``enter_ops``
@@ -543,27 +567,29 @@ def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_op
     from pigeons_tpu_torch.ops import cuda_slice
 
     kw = variational or {}
-    x, betas, seeds = lane_inputs(B, d, scale, 11)
-    got = cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas, n_passes=F_PASSES, **kw)
+    x, betas, seeds = inputs or lane_inputs(B, d, scale, 11)
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas, n_passes=n_passes, **kw)
     counts = torch.zeros(6, dtype=torch.int64, device=x.device)
     by_coord = torch.zeros(d, dtype=torch.int64, device=x.device)
     want, plain_ms = timed_once(
-        lambda: cuda_slice.sweep_reference(x, betas, seeds, path, coord_deltas, n_passes=F_PASSES,
+        lambda: cuda_slice.sweep_reference(x, betas, seeds, path, coord_deltas, n_passes=n_passes,
                                            phase_counts=counts, coord_counts=by_coord, **kw))
+    if keep is not None:
+        keep.update(inputs=(x, betas, seeds), want=want)
     max_abs = compare(name, got, want,
                       lp_fresh=cuda_slice.sweep_density(path, **kw)(got[0], betas))
     for group in groups:
         compare(f"{name}, {group} threads per lane",
-                cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas, n_passes=F_PASSES,
+                cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas, n_passes=n_passes,
                                       group=group, **kw), want)
     ms = cuda_ms(lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas,
-                                               n_passes=F_PASSES, **kw), 20)
+                                               n_passes=n_passes, **kw), 20)
     parent = parent_ms(name, lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas,
-                                                           n_passes=F_PASSES, **kw), got, ms)
+                                                           n_passes=n_passes, **kw), got, ms)
     n = [float(v) for v in counts[:5]]
     iterations, considered = sum(n), float(got[2][1].double().sum())
     n_evals = float(got[2][2].double().sum())
-    if n_evals != iterations or n[ENTER] != F_PASSES * B * d or n[INIT_R] != n[ENTER]:
+    if n_evals != iterations or n[ENTER] != n_passes * B * d or n[INIT_R] != n[ENTER]:
         raise AssertionError(f"{name}: phase counts {n} do not add up to the kernel's n_evals")
     # a lane's queries are its n_evals; its starting density is one more
     follows = torch.zeros(B, dtype=torch.bool, device=x.device)
@@ -580,7 +606,8 @@ def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_op
             + n[CHECK] * M_CHECK)
     bound_ms, bound_by = bound(2 * 4 * B * d + (4 + 8 + 4 + 12) * B + extra_bytes, need)
     print(f"{name}: kernel {ms:.4f} ms (median of 20), twin {plain_ms:.4f} ms (one run, counting "
-          f"phases), B={B}, d={d}, {F_PASSES} pass; {iterations:.0f} iterations, slowest lane "
+          f"phases), B={B}, d={d}, {n_passes} pass{'es' * (n_passes > 1)}; {iterations:.0f} "
+          f"iterations, slowest lane "
           f"{float(got[2][2].max()):.0f}: ENTER {n[ENTER]:.0f}, INIT_R {n[INIT_R]:.0f}, DOUBLE "
           f"{n[DOUBLE]:.0f}, SHRINK {n[SHRINK]:.0f} ({considered:.0f} considered), CHECK "
           f"{n[CHECK]:.0f}; {q_prepare:.0f} queries of coordinates that prepare reads, {q_var:.0f} "
@@ -725,9 +752,23 @@ def k2_variational_phase():
             "replaces": "pigeons_tpu/ops/pallas_slice.py:94", **entry}
 
 
+def delta_inputs():
+    """The states, betas and lane seeds of phase 10's K2 delta-mode launch:
+    the invariance test's second batch of iid toy MVN draws, at beta = 1."""
+    from pigeons_tpu_torch import toy_mvn_target
+    from pigeons_tpu_torch.invariance_test import iid_draws
+    from pigeons_tpu_torch.ops import cuda_slice
+
+    dev = torch.device("cuda")
+    _, xs, keys = iid_draws(toy_mvn_target(D), I_SEED, I_SAMPLES, dev)
+    return xs, torch.ones(I_SAMPLES, dtype=torch.float32, device=dev), cuda_slice.lane_seeds(keys)
+
+
 def k2_phase():
     """Kernel K2 against its twin: full mode at the funnel path's shape (its
-    main path), delta mode at config 1's shape."""
+    main path), delta mode at its path's, phase 10's invariance test (its
+    default of 3 passes). Returns the kernels line's entry and, for phase
+    10, the delta twin's inputs and result."""
     phase("2b kernel K2 vs twin")
     from pigeons_tpu_torch import funnel
     from pigeons_tpu_torch.paths import toy_mvn_path
@@ -741,12 +782,15 @@ def k2_phase():
                    funnel_density_ops(d))
     # delta mode: a query is base + term (5), ENTER also forms base = lp - term
     # (5); a lane needs the factor once and the full density twice
-    delta = k2_mode("K2 delta (toy MVN)", toy_mvn_path(D), True, N_CHAINS * N_REPLICATES, D, 1.0,
+    delta_twin = {}
+    delta = k2_mode("K2 delta (toy MVN)", toy_mvn_path(D), True, I_SAMPLES, D, 1.0,
                     COORD_TERM + ops(1), COORD_TERM + ops(1),
-                    TOY_FACTOR + 2 * toy_density_ops(D))
+                    TOY_FACTOR + 2 * toy_density_ops(D), inputs=delta_inputs(),
+                    n_passes=I_DELTA_PASSES, keep=delta_twin)
     return {"name": "slice_sweep", "route": "cuda",
             "source": "pigeons_tpu_torch/csrc/sweep_slice.cu",
-            "replaces": "pigeons_tpu/ops/pallas_slice.py:94", **full, "delta_mode": delta}
+            "replaces": "pigeons_tpu/ops/pallas_slice.py:94", **full,
+            "delta_mode": delta}, delta_twin
 
 
 def eval_rate(pt):
@@ -1567,11 +1611,300 @@ def profile_phase():
         print(table[:5000])
 
 
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Times every ``write_checkpoint`` inside the block and measures what
+    it leaves on disk: yields the list of ``(round, seconds, bytes)``."""
+    from pigeons_tpu_torch import checkpoint
+
+    writes, write = [], checkpoint.write_checkpoint
+
+    def timed(pt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folder = write(pt)
+        seconds = time.perf_counter() - t0
+        writes.append((pt.round_idx, seconds, sum(f.stat().st_size for f in
+                                                  Path(folder).iterdir())))
+        return folder
+
+    checkpoint.write_checkpoint = timed
+    try:
+        yield writes
+    finally:
+        checkpoint.write_checkpoint = write
+
+
+def stop_and_resume(name, make_inputs, n_rounds, stop, folder, kernel=None):
+    """Runs ``make_inputs()`` for ``n_rounds`` with checkpoints, and again
+    stopped after round ``stop`` and resumed with ``increment_n_rounds`` and
+    ``pigeons(folder)``; the two must agree bit for bit. With ``kernel``, its
+    launches must equal the scans in each. Returns both runs."""
+    from pigeons_tpu_torch import PT, SliceSamplerCUDA, increment_n_rounds, pigeons
+
+    scans = sum(2**r for r in range(1, n_rounds + 1))
+    runs = []
+    for label, rounds in (("uninterrupted", n_rounds), ("stopped", stop)):
+        SliceSamplerCUDA.reset_launches()
+        with timed_checkpoints() as writes:
+            t0 = time.perf_counter()
+            pt = PT(make_inputs(n_rounds=rounds, checkpoint=True,
+                                checkpoint_folder=str(folder / label))).run()
+            if label == "stopped":
+                increment_n_rounds(pt.exec_folder, n_rounds - stop)
+                pt = pigeons(pt.exec_folder)
+            seconds = time.perf_counter() - t0
+        runs.append(pt)
+        launches = dict(SliceSamplerCUDA.launches)
+        print(f"{name}, {label}: {pt.round_idx} rounds in {seconds:.3f} s, kernel launches "
+              f"{launches}; checkpoint writes (round, s, bytes): "
+              + ", ".join(f"({r}, {t:.4f}, {b})" for r, t, b in writes))
+        if kernel is not None and launches[kernel] != scans:
+            raise AssertionError(f"{name}, {label}: {launches[kernel]} launches of {kernel} "
+                                 f"for {scans} scans")
+    full, resumed = runs
+    checks = {"states": torch.equal(full.states, resumed.states),
+              "chain_of": torch.equal(full.chain_of, resumed.chain_of),
+              "replica_of": torch.equal(full.replica_of, resumed.replica_of),
+              "sample_array": np.array_equal(full.sample_array(), resumed.sample_array()),
+              "logZ": full.reports[-1].log_z_estimate == resumed.reports[-1].log_z_estimate}
+    if full._ref_params is not None:
+        checks.update({f"ref_params[{k}]": torch.equal(v, resumed._ref_params[k])
+                       for k, v in full._ref_params.items()})
+        checks["schedule_var"] = np.array_equal(full.schedule_var.grids,
+                                                resumed.schedule_var.grids)
+    checks.update({f"exp_state[{k}]": torch.equal(v, resumed.exp_state[k])
+                   for k, v in (full.exp_state or {}).items()})
+    print(f"{name}: resumed after round {stop} == uninterrupted, bit for bit: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: the resumed run differs from the uninterrupted one")
+    return full, resumed
+
+
+def checkpoint_phase(folder):
+    """Config 1 at full width checkpointed every round, 5 rounds uninterrupted
+    and stopped after round 3 then resumed; the same at a small depth for
+    config 4 (stopped after the first round that fits the reference) and
+    config 2a (64 ladders: AutoMALA's adapted state). Returns config 4's
+    fitted reference."""
+    phase("9 checkpoint")
+    from pigeons_tpu_torch import (AutoMALA, GaussianReference, Inputs, SliceSamplerCUDA,
+                                   logistic_regression, toy_mvn_target)
+
+    def config1(**kw):
+        return Inputs(target=toy_mvn_target(D), n_chains=N_CHAINS, n_replicates=N_REPLICATES,
+                      seed=SEED, explorer=SliceSamplerCUDA(), show_report=False, device="cuda",
+                      **kw)
+
+    stop_and_resume("config 1", config1, CK_ROUNDS, CK_STOP, folder / "config1",
+                    "banded_slice_sweep")
+
+    def config4(**kw):
+        return config4_inputs(variational=GaussianReference(first_tuning_round=CK_V_STOP), **kw)
+
+    _, resumed = stop_and_resume("config 4", config4, CK_V_ROUNDS, CK_V_STOP,
+                                 folder / "config4", "banded_slice_sweep_variational")
+    if float(resumed._ref_params["active"]) != 1.0:
+        raise AssertionError("config 4: the reference was never fitted")
+
+    def config2a(**kw):
+        return Inputs(target=logistic_regression(200, 10, seed=0), n_chains=A_CHAINS,
+                      n_replicates=A_COMPARE_LADDERS, seed=SEED, explorer=AutoMALA(),
+                      show_report=False, device="cuda", **kw)
+
+    stop_and_resume("config 2a, 64 ladders", config2a, CK_A_ROUNDS, CK_A_STOP,
+                    folder / "config2a")
+    return resumed._ref_params
+
+
+def card_to_cpu_phase(folder):
+    """A toy MVN run of phase 6's size checkpointed on the card and resumed on
+    the CPU (``load_pt(folder, device="cpu")``), against the card's
+    uninterrupted run: phase 6's gate."""
+    phase("9b card to CPU")
+    from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA, load_pt, toy_mvn_target
+
+    def inputs(**kw):
+        return Inputs(target=toy_mvn_target(6), n_chains=5, n_replicates=8, seed=4, n_rounds=4,
+                      explorer=SliceSamplerCUDA(), show_report=False, device="cuda", **kw)
+
+    g = PT(inputs()).run()
+    part = PT(inputs(checkpoint=True, checkpoint_folder=str(folder / "card_to_cpu")))
+    part.run_round()
+    part.run_round()
+    c = load_pt(part.exec_folder, device="cpu")
+    if c.device.type != "cpu" or c._states.device.type != "cpu":
+        raise AssertionError("load_pt(device='cpu') left the run on the card")
+    c.run()
+    same_perm = (torch.equal(g.chain_of.cpu(), c.chain_of)
+                 and torch.equal(g.replica_of.cpu(), c.replica_of)
+                 and g.n_tempered_restarts == c.n_tempered_restarts)
+    diff = float((g.states.cpu() - c.states).abs().max())
+    print(f"resumed on the CPU after round 2 of 4: permutations and restarts equal {same_perm}, "
+          f"max |state diff| {diff}")
+    if not same_perm or diff > 1e-6:
+        raise AssertionError("the run resumed on the CPU disagrees with the card's")
+
+
+def serial_check_phase(folder):
+    """``checked_round``: a one-ladder K1 run re-executed in a child process
+    on the card, which must load the kernel library built here; a corrupted
+    copy of its round must be caught; ``profile_round`` writes a trace that
+    names K1's launch."""
+    phase("9c serial check")
+    import shutil
+
+    from pigeons_tpu_torch import PT, Inputs, ParallelismInvarianceError, SliceSamplerCUDA
+    from pigeons_tpu_torch import _build, toy_mvn_target
+    from pigeons_tpu_torch.checkpoint import immutables_dir, round_folder
+    from pigeons_tpu_torch.checks import check_checkpoint_folders
+
+    built = sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir())
+    t0 = time.perf_counter()
+    pt = PT(Inputs(target=toy_mvn_target(D), n_chains=N_CHAINS, seed=SEED, n_rounds=CK_S_ROUNDS,
+                   checked_round=CK_S_ROUNDS, checkpoint=True, explorer=SliceSamplerCUDA(),
+                   checkpoint_folder=str(folder / "serial"), show_report=False,
+                   device="cuda")).run()
+    child = pt.serial_check
+    with open(Path(child.exec_folder) / "info" / "stdout.txt") as f:
+        said = f.read().strip()
+    print(f"{CK_S_ROUNDS} rounds of {N_CHAINS} chains, d={D}, checked against a child process in "
+          f"{time.perf_counter() - t0:.3f} s; the child's wall time {child.wall_time_s:.3f} s "
+          f"(it says: {said})")
+    if sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir()) != built:
+        raise AssertionError("the child process built the kernels again")
+    copy = folder / "corrupted"
+    shutil.copytree(pt.exec_folder, copy, ignore=shutil.ignore_patterns("serial_check"))
+    npz = Path(round_folder(str(copy), CK_S_ROUNDS)) / "checkpoint.npz"
+    arrays = dict(np.load(npz))
+    arrays["states"] = arrays["states"] + 1.0
+    np.savez(npz, **arrays)
+    try:
+        check_checkpoint_folders(round_folder(str(copy), CK_S_ROUNDS),
+                                 round_folder(child.exec_folder, CK_S_ROUNDS),
+                                 immutables_dir(str(copy)), immutables_dir(child.exec_folder))
+    except ParallelismInvarianceError as e:
+        print(f"the corrupted copy is caught: {e}")
+        if "states" not in str(e):
+            raise AssertionError("the check did not name states") from e
+    else:
+        raise AssertionError("the check passed a copy with states + 1")
+
+    pt = PT(Inputs(target=toy_mvn_target(D), n_chains=N_CHAINS, n_replicates=64, seed=SEED,
+                   n_rounds=1, profile_round=1, checkpoint=True, explorer=SliceSamplerCUDA(),
+                   checkpoint_folder=str(folder / "profile"), show_report=False,
+                   device="cuda")).run()
+    trace = Path(pt.exec_folder) / "profile" / "round=1" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    ranges = sum(n == "banded_slice_sweep" for n in names)
+    kernels = sum("banded_slice_kernel" in n for n in names)
+    print(f"profile_round: {trace.stat().st_size} B trace, {len(events)} events, "
+          f"{ranges} ranges named banded_slice_sweep, {kernels} events of banded_slice_kernel")
+    if ranges < 2 or kernels < 2:
+        raise AssertionError("the profile trace does not show K1's launches")
+
+
+def invariance_phase(ref_params, delta_twin):
+    """The exact invariance test at the reference's N = 10,000, one
+    ``step_batched`` of every draw: K1 with each term, K2 in each mode (each
+    kernel launched exactly once), MALA and AutoMALA, at beta = 1; K1's
+    toy term, and the variational blend under config 4's fitted reference
+    and under one far from the target, through K1 and K2, at beta = 0.3.
+    Two controls must fail: a kernel that drifts, and a step that reads a
+    wrong reference. K2's delta-mode launch is held bit for bit against its
+    twin's result on the same inputs (``delta_twin``, from phase 2b).
+    Returns its launches."""
+    phase("10 invariance")
+    from pigeons_tpu_torch import (MALA, AutoMALA, GaussianReference, IdentityPreconditioner,
+                                   SliceSamplerCUDA, funnel, invariance_test, toy_mvn_target)
+    from pigeons_tpu_torch.ops import cuda_slice
+    from pigeons_tpu_torch.ops.base import Explorer, StepOut
+
+    class BrokenKernel(Explorer):
+        def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None,
+                         chain_params=None, scan_idx=None):
+            z = torch.zeros(xs.shape[0], device=xs.device)
+            return StepOut(xs + 0.2, None, z, z, z)
+
+    class WrongReference(Explorer):
+        """The blend with the reference's std 1.5 times too large."""
+
+        def __init__(self, inner):
+            self.inner = inner
+
+        def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, **kw):
+            wrong = dict(ref_params, std=ref_params["std"] * 1.5)
+            return self.inner.step_batched(keys, xs, betas, path, isvar=isvar,
+                                           ref_params=wrong, **kw)
+
+    class Recorded(SliceSamplerCUDA):
+        def step_batched(self, keys, xs, betas, path, **kw):
+            out = super().step_batched(keys, xs, betas, path, **kw)
+            self.seen = (keys, xs, betas, out)
+            return out
+
+    dev = torch.device("cuda")
+    far = {"mean": torch.linspace(-1.0, 1.0, D, device=dev),
+           "std": torch.linspace(0.5, 1.5, D, device=dev),
+           "active": torch.ones((), device=dev)}
+    fitted = dict(beta=I_BLEND_BETA, variational=GaussianReference(), ref_params=ref_params)
+    blend = dict(beta=I_BLEND_BETA, variational=GaussianReference(), ref_params=far)
+    k1v, k2 = "banded_slice_sweep_variational", "slice_sweep"
+    delta = Recorded(n_passes=I_DELTA_PASSES, parallel_coords=False)
+    cases = (  # name, target, explorer, keywords, kernel, must fail
+        ("K1, toy term", toy_mvn_target(D), SliceSamplerCUDA(), {}, "banded_slice_sweep", False),
+        (f"K1, toy term, beta {I_BLEND_BETA}", toy_mvn_target(D), SliceSamplerCUDA(),
+         dict(beta=I_BLEND_BETA), "banded_slice_sweep", False),
+        ("K1, variational term, fitted reference", toy_mvn_target(D), SliceSamplerCUDA(),
+         fitted, k1v, False),
+        ("K1, variational term, far reference", toy_mvn_target(D), SliceSamplerCUDA(), blend,
+         k1v, False),
+        ("K2 full (funnel)", funnel(F_NX), SliceSamplerCUDA(n_passes=F_PASSES), {}, k2, False),
+        ("K2 full, variational blend (toy MVN), far reference", toy_mvn_target(D),
+         SliceSamplerCUDA(parallel_coords=False), blend, k2, False),
+        ("K2 delta (toy MVN)", toy_mvn_target(D), delta, {}, k2, False),
+        ("MALA", toy_mvn_target(D),
+         MALA(step_size=I_MALA_STEP, preconditioner=IdentityPreconditioner()), {}, None, False),
+        ("AutoMALA", toy_mvn_target(D), AutoMALA(), {}, None, False),
+        ("BrokenKernel (must fail)", toy_mvn_target(D), BrokenKernel(), {}, None, True),
+        ("K1, wrong reference (must fail)", toy_mvn_target(D),
+         WrongReference(SliceSamplerCUDA()), blend, k1v, True),
+        ("K2, wrong reference (must fail)", toy_mvn_target(D),
+         WrongReference(SliceSamplerCUDA(parallel_coords=False)), blend, k2, True),
+    )
+    delta_launches = None
+    for name, target, explorer, kw, kernel, must_fail in cases:
+        SliceSamplerCUDA.reset_launches()
+        t0 = time.perf_counter()
+        res = invariance_test(target, explorer, seed=I_SEED, n_iid_samples=I_SAMPLES,
+                              device="cuda", **kw)
+        seconds = time.perf_counter() - t0
+        launches = dict(SliceSamplerCUDA.launches)
+        print(f"{name}: passed {res.passed}, smallest p-value {res.pvalues.min():.6g} over "
+              f"{len(res.pvalues)} coordinates (threshold {0.005 / len(res.pvalues):.3g}), "
+              f"failed {res.failed_dims.tolist()[:10]}, {seconds:.3f} s, launches {launches}")
+        want = {k: int(k == kernel) for k in launches}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        if res.passed == must_fail:
+            raise AssertionError(f"{name}: invariance test verdict {res.passed}")
+        if explorer is delta:
+            delta_launches = launches[k2]
+    keys, xs, betas, out = delta.seen
+    if not all(torch.equal(a, b) for a, b in
+               zip((xs, betas, cuda_slice.lane_seeds(keys)), delta_twin["inputs"], strict=True)):
+        raise AssertionError("K2 delta: phase 10's launch had other inputs than phase 2b's row")
+    stats = torch.stack([out.accept_sum, out.accept_n, out.n_steps])
+    compare("K2 delta (toy MVN), phase 10's launch", (out.x, out.lp, stats), delta_twin["want"])
+    return delta_launches
+
+
 def main():
     device_phase()
     build_phase()
     parent_phase()
-    k1, k2, k1v = k1_phase(), k2_phase(), k1_variational_phase()
+    k1, (k2, delta_twin), k1v = k1_phase(), k2_phase(), k1_variational_phase()
     bayesian, k2v = k2_bayesian_phase(), k2_variational_phase()
     k1["launches"] = config1_phase()
     k2["launches"] = funnel_phase()
@@ -1591,6 +1924,14 @@ def main():
                                lanes=B_COMPARE_LANES, max_differ=2, queued=True,
                                queue_width=B_QUEUE_WIDTH, window=B_WINDOW)
     torch_sampler_phase()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        folder = Path(tmp)
+        ref_params = checkpoint_phase(folder)
+        card_to_cpu_phase(folder)
+        serial_check_phase(folder)
+    k2["delta_mode"]["launches"] = invariance_phase(ref_params, delta_twin)
     if "--profile" in sys.argv[1:]:
         profile_phase()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")

@@ -9,9 +9,12 @@ and numpy only; kernels build with ``nvcc`` at first use
 
 from . import diagnostics, plots
 from .adaptation import communication_barriers, optimal_schedule
+from .checkpoint import increment_n_rounds, load_pt, process_sample
+from .checks import ParallelismInvarianceError, check_against_serial
 from .diagnostics import ess, reports_dataframe, split_rhat, summary, swap_prs_dataframe
 from .evidence import stepping_stone, stepping_stone_pair
 from .inputs import Inputs
+from .invariance_test import InvarianceTestResult, invariance_test
 from .models import (
     BayesianModel,
     CustomPath,
@@ -43,11 +46,13 @@ from .ops import (
 from .paths import InterpolatingPath, ScaledPrecisionNormalPath, VariationalPath, toy_mvn_path
 from .pt import PT, RoundReport, pigeons
 from .schedule import Schedule, equally_spaced_schedule
+from .submission import ChildProcess, Result
 from .variational import GaussianReference
 
 __all__ = [
     "AutoMALA",
     "BayesianModel",
+    "ChildProcess",
     "CustomPath",
     "CustomPathTarget",
     "DiagonalPreconditioner",
@@ -55,10 +60,13 @@ __all__ = [
     "IdentityPreconditioner",
     "Inputs",
     "InterpolatingPath",
+    "InvarianceTestResult",
     "MALA",
     "MixDiagonalPreconditioner",
     "NoOpExplorer",
     "PT",
+    "ParallelismInvarianceError",
+    "Result",
     "RoundReport",
     "Schedule",
     "ScaledPrecisionNormalPath",
@@ -69,6 +77,7 @@ __all__ = [
     "ToyExplorer",
     "VariationalPath",
     "banana",
+    "check_against_serial",
     "communication_barriers",
     "diagnostics",
     "eight_schools",
@@ -76,13 +85,17 @@ __all__ = [
     "ess",
     "funnel",
     "hierarchical_normal",
+    "increment_n_rounds",
+    "invariance_test",
     "leapfrog",
+    "load_pt",
     "log_joint",
     "logistic_regression",
     "mvn_target",
     "optimal_schedule",
     "pigeons",
     "plots",
+    "process_sample",
     "reports_dataframe",
     "split_rhat",
     "stepping_stone",

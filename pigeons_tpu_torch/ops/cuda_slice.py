@@ -560,21 +560,26 @@ class SliceSamplerCUDA(Explorer):
 
 def banded_sweep(x, a, seeds, w: float = 10.0, p: int = 20, n_passes: int = 3,
                  max_iter: int = 1024, variational: VariationalTerm = None):
-    """Run one sweep: the twin for CPU tensors, kernel K1 for CUDA tensors."""
-    if x.device.type == "cpu":
-        return banded_sweep_reference(x, a, seeds, w, p, n_passes, max_iter,
-                                      variational=variational)
-    return banded_sweep_cuda(x, a, seeds, w, p, n_passes, max_iter, variational)
+    """Run one sweep: the twin for CPU tensors, kernel K1 for CUDA tensors,
+    inside a profiler range named as its launch counter."""
+    name = "banded_slice_sweep" if variational is None else "banded_slice_sweep_variational"
+    with torch.profiler.record_function(name):
+        if x.device.type == "cpu":
+            return banded_sweep_reference(x, a, seeds, w, p, n_passes, max_iter,
+                                          variational=variational)
+        return banded_sweep_cuda(x, a, seeds, w, p, n_passes, max_iter, variational)
 
 
 def sweep(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0, p: int = 20,
           n_passes: int = 3, max_iter: int = 1024, isvar=None, ref_params=None):
-    """Run one sweep: the twin for CPU tensors, kernel K2 for CUDA tensors."""
-    if x.device.type == "cpu":
-        return sweep_reference(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter,
-                               isvar=isvar, ref_params=ref_params)
-    return sweep_cuda(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter,
-                      isvar=isvar, ref_params=ref_params)
+    """Run one sweep: the twin for CPU tensors, kernel K2 for CUDA tensors,
+    inside a profiler range named as its launch counter."""
+    with torch.profiler.record_function("slice_sweep"):
+        if x.device.type == "cpu":
+            return sweep_reference(x, betas, seeds, path, coord_deltas, w, p, n_passes,
+                                   max_iter, isvar=isvar, ref_params=ref_params)
+        return sweep_cuda(x, betas, seeds, path, coord_deltas, w, p, n_passes, max_iter,
+                          isvar=isvar, ref_params=ref_params)
 
 
 def _check(t, name, dtype, shape, device):

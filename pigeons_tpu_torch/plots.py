@@ -3,8 +3,7 @@ index process and local communication barrier).
 
 The same code as ``pigeons_tpu/plots.py`` (the port keeps its own copy because
 importing any ``pigeons_tpu`` module imports JAX); matplotlib is imported
-inside the functions. The index-process recorder is not ported yet, so
-:func:`plot_index_process` raises until a run has one."""
+inside the functions."""
 
 from __future__ import annotations
 
@@ -20,7 +19,9 @@ def plot_index_process(pt, ax=None, max_replicas: int = 10):
         raise RuntimeError("run with record including 'index_process'")
     if ax is None:
         _, ax = plt.subplots(figsize=(8, 4))
-    ip = pt.index_process  # [n_scans, N]: chain of each replica
+    ip = pt.index_process  # [n_scans, (R,)? N]: chain of each replica
+    if ip.ndim == 3:
+        ip = ip[:, 0]  # the first ladder
     n_scans, n = ip.shape
     # plot the trajectory of each replica through chain space
     for r in range(min(n, max_replicas)):

@@ -30,6 +30,8 @@ reference, so one scan body serves both (the reference's ``scan_body`` and
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -44,7 +46,7 @@ from .adaptation import (
     optimal_schedule,
     rejections_from_acceptance,
 )
-from .checks import check_device, preflight_checks, unsupported_options
+from .checks import check_against_serial, check_device, preflight_checks, unsupported_options
 from .inputs import KNOWN_RECORDERS, Inputs
 from .paths import VariationalPath, lane_log_density
 from .recorders import (
@@ -171,7 +173,9 @@ class PT:
         # whatever Inputs.record says
         self._record_online = ("online" in rec_set or self.variational is not None
                                or self.explorer.needs_online_moments())
-        self._record_traces = "traces" in rec_set
+        self._record_traces = "traces" in rec_set or "disk" in rec_set
+        self._record_extended = bool(inputs.extended_traces)
+        self._record_index_process = "index_process" in rec_set
         self._record_energy = "energy_ac1" in rec_set
         self._record_round_trip = "round_trip" in rec_set
         self._record_swap_stats = record_swap_stats and "log_sum_ratio" in rec_set
@@ -203,6 +207,15 @@ class PT:
         self.reduced: Optional[ReducedRecorders] = None
         self.reports: list[RoundReport] = []
         self.traces = None  # last round's target-chain samples [iterations, extract_dim]
+        self.extended_traces = None  # last round's [n_scans, (R,)? N, extract_dim]
+        self.index_process = None  # last round's chain of each replica, [n_scans, (R,)? N]
+        self.exec_folder: Optional[str] = None
+        self.serial_check = None  # the checked round's child run (a submission.Result)
+        if inputs.checkpoint:
+            from .checkpoint import dumps, next_exec_folder
+
+            dumps(inputs, "the run's Inputs")  # an Inputs that cannot be written fails now
+            self.exec_folder = inputs.checkpoint_folder or next_exec_folder()
 
     # ------------------------------------------------------------------
     # run state in the JAX package's shapes: [(R,) N, d] and [(R,) N]
@@ -304,7 +317,10 @@ class PT:
                   replica_of, rec, partner_map, masks):
         """Recorder updates and the DEO swap of all ladders. Returns the next
         run state, the density carried into the next scan, the recorders and
-        the scan's target-chain extract ``[R, T, extract_dim]``."""
+        the scan's outputs: the target-chain extract ``trace [R, T,
+        extract_dim]``, and where recorded all chains' extracts in chain order
+        ``extended_trace [R, N, extract_dim]`` and the pre-swap
+        ``index_process [R, N]`` (the chain of each replica)."""
         R, n, d = self.n_replicates, self.n_chains, self.dim
         ref_mask, target_mask = masks
 
@@ -341,6 +357,14 @@ class PT:
                 online_sum=kadd(rec.online_sum, trace.sum(1)),
                 online_sumsq=kadd(rec.online_sumsq, (trace**2).sum(1)),
             )
+        outputs = {"trace": trace} if self._record_traces else {}
+        if self._record_extended:
+            # reference extended_traces (Inputs.jl:95-101): every chain's
+            # extract, the replica at each chain before the swap
+            extract = self._extract(x_after.reshape(R, n, d), lp_after.reshape(R, n))
+            outputs["extended_trace"] = by_chain(extract.reshape(R * n, -1))
+        if self._record_index_process:
+            outputs["index_process"] = chain_of
 
         # round trips use the PRE-swap chain (reference swap.jl:106-126)
         if self._record_round_trip:
@@ -365,11 +389,11 @@ class PT:
         # it just computed: the next scan's lp_before costs nothing
         swapped = (res.chain_of != chain_of).reshape(-1)
         lp_next = torch.where(swapped, lp_partner, lp_after)
-        return x_after, res.chain_of, res.replica_of, lp_next, rec, trace
+        return x_after, res.chain_of, res.replica_of, lp_next, rec, outputs
 
     def _run_scans(self, n_scans: int):
         """One round of ``n_scans`` scans on the device. Returns the new run
-        state, the recorders and the list of per-scan target extracts."""
+        state, the recorders and each recorded output's per-scan values."""
         R, n = self.n_replicates, self.n_chains
         betas = self.betas
         ref_mask = torch.zeros(n, dtype=torch.bool, device=self.device)
@@ -382,34 +406,70 @@ class PT:
         lp = self._log_density(states, betas[chain_flat], self._is_var[chain_flat])
         # the reference's flag, read once a round (fit() sets it on the host)
         ref_active = self._ref_params is not None and float(self._ref_params["active"]) > 0
-        traces = []
+        recorded = {}
         for scan_idx in range(1, n_scans + 1):
-            states, chain_of, replica_of, lp, rec, trace = self._scan_body(
+            states, chain_of, replica_of, lp, rec, outputs = self._scan_body(
                 scan_idx, states, chain_of, replica_of, lp, rec, betas, (ref_mask, target_mask),
                 ref_active
             )
-            if self._record_traces:
-                traces.append(trace)
-        return states, chain_of, replica_of, rec, traces
+            for k, v in outputs.items():
+                recorded.setdefault(k, []).append(v)
+        return states, chain_of, replica_of, rec, recorded
+
+    def _profile(self):
+        """``torch.profiler`` over the round from ``Inputs.profile_round`` on
+        (the JAX package's per-round device trace), its Chrome trace written
+        to ``<exec_folder>/profile/round=r/trace.json``; else no context."""
+        if not (self.inputs.profile_round and self.round_idx >= self.inputs.profile_round
+                and self.exec_folder is not None):
+            return contextlib.nullcontext()
+        from torch.profiler import ProfilerActivity, profile
+
+        folder = os.path.join(self.exec_folder, "profile", f"round={self.round_idx}")
+        os.makedirs(folder, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        trace = os.path.join(folder, "trace.json")
+        return profile(activities=activities,
+                       on_trace_ready=lambda prof: prof.export_chrome_trace(trace))
 
     def run_round(self, n_scans: Optional[int] = None) -> ReducedRecorders:
         self.round_idx += 1
         if n_scans is None:
             n_scans = 2**self.round_idx
-        t0 = time.perf_counter()
-        states, chain_of, replica_of, rec, traces = self._run_scans(n_scans)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - t0
+        with self._profile():
+            t0 = time.perf_counter()
+            states, chain_of, replica_of, rec, recorded = self._run_scans(n_scans)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - t0
         self._states, self._chain_of, self._replica_of = states, chain_of, replica_of
+
+        def per_scan(name):
+            """On the host, in the JAX runtime's shape ``[n_scans, (R,)? ...]``."""
+            if name not in recorded:
+                return None
+            v = torch.stack(recorded[name]).cpu().numpy()
+            return v[:, 0] if self.n_replicates == 1 else v
+
         # [n_scans, R, T, extract_dim] -> pooled [iterations, extract_dim]
-        self.traces = (
-            torch.stack(traces).reshape(-1, self._extract_dim).cpu().numpy() if traces else None
-        )
+        self.traces = (torch.stack(recorded["trace"]).reshape(-1, self._extract_dim).cpu().numpy()
+                       if "trace" in recorded else None)
+        self.extended_traces = per_scan("extended_trace")
+        self.index_process = per_scan("index_process")
+        if "disk" in self.inputs.record:
+            from .checkpoint import write_samples
+
+            write_samples(self)
         reduced = reduce_recorders(rec, self.n_replicates)
         self.reduced = reduced
         self._adapt(reduced)
         self._report(reduced, n_scans, wall)
+        if self.inputs.checkpoint:
+            from .checkpoint import write_checkpoint
+
+            write_checkpoint(self)
         return reduced
 
     def _adapt(self, reduced: ReducedRecorders) -> None:
@@ -506,6 +566,8 @@ class PT:
         preflight_checks(self.inputs)
         while self.round_idx < self.inputs.n_rounds:
             self.run_round()
+            if self.round_idx == self.inputs.checked_round:
+                self.serial_check = check_against_serial(self)
         return self
 
     # ------------------------------------------------------------------
@@ -522,6 +584,15 @@ class PT:
                 )
             raise RuntimeError("run() first")
         return self.traces
+
+    def extended_sample_array(self) -> np.ndarray:
+        """Every chain's extracts of the last round, ``[iterations, n_chains,
+        extract_dim]``, chains in ladder order (requires
+        ``extended_traces=True``; reference ``Inputs.jl:95``)."""
+        if self.extended_traces is None:
+            raise RuntimeError("run with extended_traces=True first")
+        arr = self.extended_traces
+        return arr.reshape(-1, arr.shape[-2], arr.shape[-1])
 
     def _require_online(self):
         if not self._record_online:
@@ -572,14 +643,22 @@ class PT:
 
 def pigeons(target=None, on=None, **kwargs):
     """Main entry point (reference ``src/submission/api.jl``): a target plus
-    ``Inputs`` keywords, or an ``Inputs``."""
-    if on is not None:
-        raise NotImplementedError(
-            "submission backends (on=...) are not ported yet (ROADMAP queue 1, item 16)"
-        )
+    ``Inputs`` keywords, an ``Inputs``, or a checkpoint folder to resume
+    (``pigeons("results/latest")``, optionally with ``device=``). With
+    ``on=ChildProcess(...)`` the run goes to a fresh process and a
+    :class:`~.submission.Result` comes back."""
     if isinstance(target, str):
-        raise NotImplementedError(
-            "resuming from a checkpoint folder is not ported yet (ROADMAP queue 1, item 13)"
-        )
+        from .checkpoint import load_pt
+
+        return load_pt(target, device=kwargs.pop("device", None)).run()
     inputs = target if isinstance(target, Inputs) else Inputs(target=target, **kwargs)
-    return PT(inputs).run()
+    if on is None:
+        return PT(inputs).run()
+    from .submission import ChildProcess
+
+    if not isinstance(on, ChildProcess):
+        raise NotImplementedError(
+            f"submission backend {type(on).__name__} is not ported yet; ChildProcess is "
+            "(ROADMAP queue 1, item 16)"
+        )
+    return on.submit(inputs)

@@ -702,3 +702,112 @@ def test_config2a_card_run_passes_the_gates(cuda_device):
     assert np.isfinite(pt.reports[-1].log_z_estimate) and pt.n_tempered_restarts > 0
     assert np.nanmean(pt.reduced.exp_accept) > 0.4
     assert (pt.reduced.extra_n[:, 1] > 0).all()
+
+
+CARD_RESUMES = {
+    "toy_mvn": dict(target=T.toy_mvn_target(6), n_chains=5, n_replicates=8,
+                    explorer=T.SliceSamplerCUDA()),
+    "two_legs": dict(target=T.toy_mvn_target(6), n_chains=4, n_chains_variational=4,
+                     n_replicates=8, variational=T.GaussianReference(first_tuning_round=2),
+                     explorer=T.SliceSamplerCUDA()),
+    "funnel": dict(target=T.funnel(3), n_chains=5, n_replicates=8,
+                   explorer=T.SliceSamplerCUDA(n_passes=1)),
+    "automala": dict(target=T.logistic_regression(), n_chains=4, n_replicates=8,
+                     explorer=T.AutoMALA()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_RESUMES))
+def test_resume_on_card_is_bitwise(cuda_device, tmp_path, name):
+    """Stopped after round 2 and resumed with ``pigeons(folder)``: the
+    uninterrupted run bit for bit, the reference's fit and AutoMALA's
+    adapted state included."""
+    kw = dict(CARD_RESUMES[name], seed=4, show_report=False, device="cuda")
+    full = T.PT(T.Inputs(n_rounds=4, **kw)).run()
+    folder = str(tmp_path / "run")
+    T.PT(T.Inputs(n_rounds=2, checkpoint=True, checkpoint_folder=folder, **kw)).run()
+    T.increment_n_rounds(folder, 2)
+    resumed = T.pigeons(folder)
+    assert resumed.device.type == "cuda" and resumed.round_idx == 4
+    assert torch.equal(full.states, resumed.states)
+    assert torch.equal(full.chain_of, resumed.chain_of)
+    assert np.array_equal(full.sample_array(), resumed.sample_array())
+    assert full.reports[-1].log_z_estimate == resumed.reports[-1].log_z_estimate
+    for k, v in (full._ref_params or {}).items():
+        assert torch.equal(v, resumed._ref_params[k]), k
+    for k, v in (full.exp_state or {}).items():
+        assert torch.equal(v, resumed.exp_state[k]), k
+
+
+@pytest.mark.cuda
+def test_card_checkpoint_resumes_on_cpu(cuda_device, tmp_path):
+    kw = dict(target=T.toy_mvn_target(6), n_chains=5, n_replicates=8, seed=4, n_rounds=4,
+              explorer=T.SliceSamplerCUDA(), show_report=False, device="cuda")
+    g = T.PT(T.Inputs(**kw)).run()
+    part = T.PT(T.Inputs(checkpoint=True, checkpoint_folder=str(tmp_path / "run"), **kw))
+    part.run_round()
+    part.run_round()
+    c = T.load_pt(part.exec_folder, device="cpu").run()
+    assert c.device.type == "cpu"
+    assert torch.equal(g.chain_of.cpu(), c.chain_of)
+    assert g.n_tempered_restarts == c.n_tempered_restarts
+    assert float((g.states.cpu() - c.states).abs().max()) <= 1e-6
+
+
+class _Drift(T.ops.base.Explorer):
+    """Deterministic drift: not invariant."""
+
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None,
+                     chain_params=None, scan_idx=None):
+        z = torch.zeros(xs.shape[0], device=xs.device)
+        return T.ops.base.StepOut(xs + 0.2, None, z, z, z)
+
+
+class _WrongReference(T.ops.base.Explorer):
+    """The blend with the reference's std 1.5 times too large: a variational
+    term computed wrong."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, **kw):
+        wrong = dict(ref_params, std=ref_params["std"] * 1.5)
+        return self.inner.step_batched(keys, xs, betas, path, isvar=isvar, ref_params=wrong,
+                                       **kw)
+
+
+# a reference far from the target, at beta = 0.3 where it weighs 0.7 in the
+# blend (at beta = 1 it weighs nothing)
+_BLEND = dict(beta=0.3, variational=T.GaussianReference(),
+              ref_params={"mean": torch.linspace(-1.0, 1.0, 100),
+                          "std": torch.linspace(0.5, 1.5, 100), "active": torch.tensor(1.0)})
+CARD_INVARIANCE = {
+    "k1_toy_term": (T.toy_mvn_target(100), T.SliceSamplerCUDA(), {}, "banded_slice_sweep"),
+    "k1_variational_term": (T.toy_mvn_target(100), T.SliceSamplerCUDA(), _BLEND,
+                            "banded_slice_sweep_variational"),
+    "k2_full_funnel": (T.funnel(9), T.SliceSamplerCUDA(n_passes=1), {}, "slice_sweep"),
+    "k2_full_variational_toy_mvn": (T.toy_mvn_target(100),
+                                    T.SliceSamplerCUDA(parallel_coords=False), _BLEND,
+                                    "slice_sweep"),
+    "k2_delta_toy_mvn": (T.toy_mvn_target(100), T.SliceSamplerCUDA(parallel_coords=False), {},
+                         "slice_sweep"),
+    "mala": (T.toy_mvn_target(100),
+             T.MALA(step_size=0.1, preconditioner=T.IdentityPreconditioner()), {}, None),
+    "automala": (T.toy_mvn_target(100), T.AutoMALA(), {}, None),
+    "broken_control": (T.toy_mvn_target(100), _Drift(), {}, None),
+    "wrong_reference_control": (T.toy_mvn_target(100), _WrongReference(T.SliceSamplerCUDA()),
+                                _BLEND, "banded_slice_sweep_variational"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_INVARIANCE))
+def test_invariance_on_card(cuda_device, name):
+    """The exact invariance test at N = 10,000: each kernel mode launched
+    once; the two controls must fail."""
+    target, explorer, kw, kernel = CARD_INVARIANCE[name]
+    SliceSamplerCUDA.reset_launches()
+    res = T.invariance_test(target, explorer, n_iid_samples=10_000, device="cuda", **kw)
+    assert SliceSamplerCUDA.launches == {k: int(k == kernel) for k in SliceSamplerCUDA.launches}
+    assert res.passed == (not name.endswith("_control")), (res.failed_dims, res.pvalues.min())

@@ -165,22 +165,41 @@ def test_cuda_slice_sampler_on_non_separable_path_raises():
         T.PT(T.Inputs(target=Quartic(), explorer=T.SliceSamplerCUDA(), device="cpu"))
 
 
-@pytest.mark.parametrize(
-    "option",
-    [
-        {"mesh": object()},
-        {"checkpoint": True},
-        {"checked_round": 1},
-        {"checkpoint_folder": "results"},
-        {"extended_traces": True},
-        {"record": ("traces", "index_process")},
-        {"dtype": "float64"},
-        {"profile_round": 1},
-    ],
-)
+@pytest.mark.parametrize("option", [{"mesh": object()}, {"dtype": "float64"}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", **option))
+
+
+def _checkpointed(pt):
+    from pigeons_tpu_torch.checkpoint import latest_checkpoint_round
+
+    return latest_checkpoint_round(pt.exec_folder) == pt.round_idx
+
+
+PORTED_OPTIONS = {
+    "checkpoint": ({"checkpoint": True}, _checkpointed),
+    "checked_round": ({"checked_round": 1, "checkpoint": True},
+                      lambda pt: pt.serial_check is not None),
+    "checkpoint_folder": ({"checkpoint": True, "checkpoint_folder": "run"},
+                          lambda pt: pt.exec_folder == "run" and _checkpointed(pt)),
+    "extended_traces": ({"extended_traces": True},
+                        lambda pt: pt.extended_sample_array().shape == (2, 3, 4)),
+    "index_process": ({"record": ("traces", "index_process")},
+                      lambda pt: pt.index_process.shape == (2, 3)),
+    "profile_round": ({"checkpoint": True, "profile_round": 1},
+                      lambda pt: (Path(pt.exec_folder) / "profile/round=1/trace.json").is_file()),
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED_OPTIONS))
+def test_ported_options_work(name, tmp_path, monkeypatch):
+    """The six options that raised until checkpointing was ported."""
+    monkeypatch.chdir(tmp_path)
+    option, works = PORTED_OPTIONS[name]
+    pt = T.pigeons(target=T.toy_mvn_target(3), n_chains=3, n_rounds=1, device="cpu",
+                   show_report=False, **option)
+    assert works(pt)
 
 
 def test_import_pulls_no_jax():
