@@ -34,7 +34,16 @@ drives these paths end to end through
   covariates with the queued AutoMALA, 10 chains x 819 ladders, the
   likelihood's ``X @ w`` one float32 product (cuBLAS, no TF32), with
   bench.py's rates, control and floor beside it and the dense form held to
-  float64.
+  float64;
+* the mRNA transfection model (150 observations, d=5) at the hierarchical
+  cell's width, K2 with ``expm1`` and glibc's ``powf`` inside, held to the
+  JAX package's run at 16 ladders; the Bernoulli model (logZ against log
+  B(3, 9), its Beta prior as a block of the kernel's table) and centred eight
+  schools (mu against the non-centred run's) at 10 chains x 64 ladders;
+* the ordinal and Bool targets (Ising with ``BinaryGibbs``, the Poisson
+  count and the binary mixture with the masked torch ``SliceSampler``), card
+  against CPU, no kernel launched, and the Ising model against its
+  enumeration.
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU (and one
@@ -51,8 +60,9 @@ writes a trace of K1's launches (9c); the exact invariance test at N =
 10,000 of K1 with each term, K2 in each mode (its delta mode's only path,
 that launch held against the twin) and under the variational blend, MALA
 and AutoMALA passes, each kernel launched once, the variational term at
-beta = 0.3, where the reference weighs in; a kernel that drifts and a step
-that reads a wrong reference fail (10). Every phase raises on failure. Without a CUDA device, or without the repository beside
+beta = 0.3, where the reference weighs in, K2 with the Bernoulli density on
+its posterior Beta(3, 9); a kernel that drifts and a step that reads a
+wrong reference fail (10). Every phase raises on failure. Without a CUDA device, or without the repository beside
 it, it exits non-zero and prints no result. The line before the last is a
 JSON object describing every kernel (time, twin's time, launches on its main
 path, bound); the last line is a JSON object naming the device.
@@ -139,6 +149,25 @@ H_CHAINS, H_REPLICATES, H_PASSES, H_ROUNDS = 32, 256, 1, (2, 4, 8, 16, 32, 64)
 H_JAX_LADDERS = 16
 H_JAX = {"mu": 0.667063, "tau": 1.017755, "sigma": 0.477138, "barrier": 7.937929,
          "logZ": -176.510125}
+# the mRNA path (PR 10): mrna_target() (150 observations, d = 5) at the
+# hierarchical cell's width and rounds. The same rounds at 16 ladders as the
+# JAX package runs them on the CPU (``JAX_PLATFORMS=cpu python
+# tests/bayesian_reference_run.py --model mrna_target --ladders 16``): the line
+# of the 4-scan round (the second), where the two runs are still one run, and
+# of the 64-scan round: pooled posterior means of the five log10-scale
+# parameters, barrier and logZ, and the pooled deviations that set the
+# tolerances of the last round (three standard errors of 16 ladders).
+M_JAX_ROUND2 = {"lt0": -0.198050, "lkm0": 0.977340, "lbeta": -0.624946, "ldelta": -0.427771,
+                "lsigma": 1.567400, "barrier": 3.679385, "logZ": -13039.858088}
+M_JAX = {"lt0": 0.096173, "lkm0": 1.036174, "lbeta": -1.295894, "ldelta": -1.746246,
+         "lsigma": 0.410640, "barrier": 8.545976, "logZ": -488.366605}
+M_JAX_SD = {"lt0": 0.106800, "lkm0": 0.053797, "lbeta": 0.924310, "ldelta": 0.730853,
+            "lsigma": 0.029144}
+# the Bernoulli model's evidence: log B(3, 9)
+BERNOULLI_LOG_Z = math.lgamma(3.0) + math.lgamma(9.0) - math.lgamma(12.0)
+# the discrete targets' runs, card against CPU (phase 7b), and the Ising
+# model against its enumeration on the card
+DISCRETE_CHAINS, DISCRETE_REPLICATES, ISING_REPLICATES, ISING_ROUNDS = 4, 4, 16, 6
 # the smaller BayesianModel paths (unid, eight schools): 10 chains x 64
 # ladders; the funnel on two legs: 6 + 6 chains x 64 ladders
 S_CHAINS, S_REPLICATES, S_ROUNDS = 10, 64, (2, 4, 8, 16, 32)
@@ -157,13 +186,14 @@ A_DENSE_ITERS, A_COMPARE_LADDERS, A_PROFILE_SCANS = 16, 64, 2
 
 # bench config 2b (bench.py:421-483): logistic regression 4,096 x 256 (d=257)
 # with the queued AutoMALA (queue 512, window 2), 10 chains x 819 ladders =
-# 8,190 lanes, seed 1, 4 warm-up rounds of 4 scans. bench.py times the best of
-# 3 rounds of 8 scans; the port times one round of 8. Its control (sequential
+# 8,190 lanes, seed 1; bench.py warms up for 4 rounds of 4 scans, the port for
+# 2 since PR 10 (the script's time: PERF.md §6, PR 10). bench.py times the best
+# of 3 rounds of 8 scans; the port times one round of 8. Its control (sequential
 # AutoMALA(), 2 + 2 scans), dense leapfrog (64 chained steps) and host serial
 # rate (bench.py:363-418) are bench.py's; the column form's leapfrog (the
 # likelihood before the dense form) runs at 1,024 of the lanes.
 B_N, B_D, B_CHAINS, B_REPLICATES = 4096, 256, 10, 819
-B_WARMUP_ROUNDS, B_WARMUP_SCANS, B_MEASURE_SCANS, B_CONTROL_SCANS = 4, 4, 8, 2
+B_WARMUP_ROUNDS, B_WARMUP_SCANS, B_MEASURE_SCANS, B_CONTROL_SCANS = 2, 4, 8, 2
 B_QUEUE_WIDTH, B_WINDOW, B_DENSE_ITERS, B_COLUMN_LANES, B_COLUMN_ITERS = 512, 2, 64, 1024, 4
 B_CHECK_LANES, B_COMPARE_LANES, B_PROFILE_SCANS, B_HOST_SECONDS = 256, 64, 2, 3.0
 # bench.py's count of a density-and-gradient evaluation: 4 n (d + 1) operations
@@ -227,6 +257,14 @@ M_REJECT = ops(10, 1)
 M_CHECK = ops(8, 3)
 # a coordinate term (a v) v with its NaN guard; the toy path's factor a(beta)
 COORD_TERM, TOY_FACTOR = ops(4), ops(5)
+# XLA's expm1 (common.cuh): the exp, the tanh's clamp (4), square, eleven
+# fused multiply-adds, two multiplies, a division, three selects, the halving
+# and two adds; glibc's 10^q: about twenty double operations (each charged as
+# two float32 ones: the H100's float64 rate is half its float32 rate), the
+# table index, shifts and the power of two (6 int), the conversion, flush and
+# three special-case selects
+EXPM1_EXTRA = ops(34)
+POW10 = ops(2 * 20 + 6, 6)
 # the variational term of a lane that follows the fitted reference: the
 # branch (1), q (a subtract and a division), its square and half of it (2),
 # l_ref (1), the target's term (2), two guarded products (a comparison, a
@@ -636,6 +674,8 @@ def prior_ops(prior):
             total = total + ops(6 * size + 1)
         elif dist == D_.HALF_CAUCHY:
             total = total + size * (EXP + LOG1P + ops(4)) + ops(1)
+        elif dist == D_.BETA:  # sigmoid, log, log1p of the negation, fma, multiply, add
+            total = total + size * (SIGMOID + LOG + LOG1P + ops(5)) + ops(1)
     return total
 
 
@@ -697,10 +737,57 @@ def k2_bayesian_phase():
     out["logistic_regression"] = k2_mode(
         "K2 full (logistic regression)", path, False, LR_CHAINS * LR_REPLICATES, d, 1.0, query,
         ops(0), query, extra_bytes=4 * n_obs * d, groups=(1, 8, 16, 32))
+    out.update(k2_new_models_rows(B, B_small, dev))
     return {name: {"name": f"slice_sweep ({name})", "route": "cuda",
                    "source": "pigeons_tpu_torch/csrc/sweep_slice.cu",
                    "replaces": "pigeons_tpu/ops/pallas_slice.py:94", **entry}
             for name, entry in out.items()}
+
+
+def k2_new_models_rows(B, B_small, dev):
+    """Phase 2d's rows of PR 10: mRNA at its path's 8,192 lanes, Bernoulli and
+    centred eight schools at 640."""
+    from pigeons_tpu_torch import bernoulli_target, eight_schools, mrna_target
+
+    out = {}
+    # mRNA: every query recomputes prepare (five sigmoids, fused maps and 10^q,
+    # log sigma, the near test: a query of any coordinate changes every term);
+    # a term: t - t0, two products, one exp and one expm1 (the branch taken),
+    # their product, a division, km0's product, two selects, the normal term;
+    # the sum by windows (n + 5 adds)
+    model = mrna_target().to(dev)
+    path = model.create_path(model.default_reference())
+    density = path.device_density()
+    n_obs = density.arrays[0].numel()
+    prepare = 5 * (SIGMOID + ops(2) + POW10) + ops(8)
+    query = (prepare + n_obs * (ops(8) + EXP + EXP + EXPM1_EXTRA + OBSERVATION) + ops(n_obs + 5)
+             + prior_ops(density.prior) + ops(2) + INTERPOLATE)
+    out["mrna"] = k2_mode("K2 full (mRNA)", path, False, B, model.dim, 1.0, query, ops(0), query,
+                          extra_bytes=4 * 2 * n_obs, groups=(1, 8, 16, 32))
+    # Bernoulli: prepare (sigmoid, log, log1p) for every query; a term is a
+    # compare and a select, 9 adds; the Beta block
+    model = bernoulli_target().to(dev)
+    path = model.create_path(model.default_reference())
+    density = path.device_density()
+    n_obs = density.arrays[0].numel()
+    query = (SIGMOID + LOG + LOG1P + ops(1) + ops(3 * n_obs - 1) + prior_ops(density.prior)
+             + ops(1) + INTERPOLATE)
+    out["bernoulli"] = k2_mode("K2 full (Bernoulli)", path, False, B_small, model.dim, 1.0, query,
+                               ops(0), query, extra_bytes=4 * n_obs, groups=(1, 8, 16, 32))
+    # centred eight schools: 3 x 8 terms (theta's normal term under mu and
+    # tau, the observation's, the pseudo-prior's: seven operations) and their
+    # 23 adds and one subtract; prepare is one exp
+    model = eight_schools(centered=True).to(dev)
+    path = model.create_path(model.default_reference())
+    density = path.device_density()
+    d = model.dim
+    query = (8 * (2 * OBSERVATION + ops(1) + ops(7)) + ops(24) + prior_ops(density.prior) + ops(1)
+             + INTERPOLATE)
+    out["eight_schools_centered"] = k2_mode(
+        "K2 full (eight schools, centred)", path, False, B_small, d, 1.0, query, ops(0),
+        query + EXP, prepare_ops=EXP, prepare_coords=(d - 2, d - 1), extra_bytes=4 * 3 * 8,
+        groups=(1, 8, 16, 32))
+    return out
 
 
 def k2_variational_phase():
@@ -957,10 +1044,11 @@ def config4_phase():
     return launches["banded_slice_sweep_variational"]
 
 
-def bayesian_run(target, n_chains, n_replicates, rounds, **kw):
+def bayesian_run(target, n_chains, n_replicates, rounds, on_round=None, **kw):
     """NRPT from a ``BayesianModel``'s prior to its posterior on the card with
-    kernel K2, one slice pass per scan, rounds of the given lengths; returns
-    the run and the launches it made (K2's must equal the scans, K1's be 0)."""
+    kernel K2, one slice pass per scan, rounds of the given lengths, calling
+    ``on_round(pt)`` after each if given; returns the run and the launches it
+    made (K2's must equal the scans, K1's be 0)."""
     from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA
 
     SliceSamplerCUDA.reset_launches()
@@ -970,6 +1058,8 @@ def bayesian_run(target, n_chains, n_replicates, rounds, **kw):
                    **kw))
     for n_scans in rounds:
         pt.run_round(n_scans=n_scans)
+        if on_round is not None:
+            on_round(pt)
     launches = dict(SliceSamplerCUDA.launches)
     scans = sum(rounds)
     print(f"kernel launches {launches} for {scans} scans")
@@ -1069,6 +1159,110 @@ def eight_schools_phase():
         raise AssertionError("eight schools: posterior means off")
     if not (math.isfinite(pt.reports[-1].log_z_estimate) and pt.n_tempered_restarts > 0):
         raise AssertionError("eight schools: no finite logZ or no tempered restart")
+    return launches, mu, pt.reports[-1].log_z_estimate
+
+
+def mrna_phase():
+    """The mRNA transfection model end to end at the hierarchical cell's
+    width (32 chains x 256 ladders, rounds of 2..64 scans), and the same
+    rounds at the JAX package's ladder count; returns the launches of K2 the
+    full-width run made. At 16 ladders the port's run is the JAX run for its
+    first two rounds (the same permutations, states bit for bit on the CPU),
+    so the 4-scan round is held within 1e-3 relative of ``M_JAX_ROUND2``.
+    From then on the runs part: the JAX runtime's fused density pass gives
+    some lanes' likelihood in other last bits than the kernel's form, which
+    moves the adapted schedule by 1e-7 after round 2, and lanes far out in
+    the flat tails of the uniform priors take other slice decisions
+    (ROADMAP §3). So the last round, at 16 ladders and at 256, is held within
+    three standard errors of the JAX run's pooled means, taking its 16
+    ladders as 16 independent draws; barrier and logZ (inside the run's
+    transient, as in the JAX run, whose logZ moved by 10 nats from round 5
+    to 6) printed beside the JAX run's. The share of target-chain samples
+    with lbeta > ldelta, the model's two modes, is printed, not gated."""
+    phase("3k mRNA")
+    from pigeons_tpu_torch import mrna_target
+
+    names = ("lt0", "lkm0", "lbeta", "ldelta", "lsigma")
+
+    def stats(pt, target):
+        q = target.constrained_samples(pt)
+        got = {name: float(np.mean(q[name])) for name in names}
+        got.update(barrier=pt.global_barrier, logZ=pt.reports[-1].log_z_estimate)
+        return got, float(np.mean(q["lbeta"] > q["ldelta"]))
+
+    def gate(label, got, want, tolerance):
+        print(f"{label}: " + ", ".join(
+            f"{k} {v:.6f} (JAX package {want[k]}"
+            + (f", tolerance {tolerance[k]:.4g})" if k in tolerance else ", printed)")
+            for k, v in got.items()))
+        for k, tol in tolerance.items():
+            if not abs(got[k] - want[k]) <= tol:
+                raise AssertionError(f"mRNA, {label}: {k} {got[k]} is off the JAX package's "
+                                     f"{want[k]}")
+
+    wide = {k: 3.0 * M_JAX_SD[k] / math.sqrt(H_JAX_LADDERS) for k in names}
+    launches = None
+    for ladders in (H_REPLICATES, H_JAX_LADDERS):
+        print(f"{H_CHAINS} chains x {ladders} ladders, rounds of {H_ROUNDS} scans")
+        target = mrna_target()
+
+        def check_round2(pt):
+            if ladders == H_JAX_LADDERS and pt.round_idx == 2:
+                gate("16 ladders, round 2 (4 scans)", stats(pt, target)[0], M_JAX_ROUND2,
+                     {k: 1e-3 * abs(v) for k, v in M_JAX_ROUND2.items()})
+
+        pt, n_launches = bayesian_run(target, H_CHAINS, ladders, H_ROUNDS, on_round=check_round2)
+        launches = launches or n_launches
+        print_round(pt, H_CHAINS * ladders)
+        got, modes = stats(pt, target)
+        gate(f"{ladders} ladders, the timed round", got, M_JAX, wide)
+        print(f"share of the timed round's samples with lbeta > ldelta {modes:.4f}")
+        if not np.isfinite(pt.sample_array()).all() or not math.isfinite(got["logZ"]):
+            raise AssertionError("mRNA: non-finite samples or logZ")
+        if not pt.n_tempered_restarts > 0 and ladders == H_REPLICATES:
+            raise AssertionError("mRNA: no tempered restart")
+    return launches
+
+
+def bernoulli_phase():
+    """The Bernoulli model (Beta(1, 1) prior, ten observations, two of them
+    1), whose evidence is log B(3, 9): 10 chains x 64 ladders, rounds
+    doubling to 32 scans; logZ within 0.1 of it."""
+    phase("3l Bernoulli")
+    from pigeons_tpu_torch import bernoulli_target
+
+    pt, launches = bayesian_run(bernoulli_target(), S_CHAINS, S_REPLICATES, S_ROUNDS)
+    print_round(pt, S_CHAINS * S_REPLICATES)
+    print(f"logZ by round {[round(r.log_z_estimate, 4) for r in pt.reports]}, exact "
+          f"{BERNOULLI_LOG_Z:.6f}")
+    if not abs(pt.reports[-1].log_z_estimate - BERNOULLI_LOG_Z) < 0.1:
+        raise AssertionError("Bernoulli: logZ off log B(3, 9)")
+    if not pt.n_tempered_restarts > 0:
+        raise AssertionError("Bernoulli: no tempered restart")
+    return launches
+
+
+def centered_eight_schools_phase(mu_noncentred, log_z_noncentred):
+    """Centred eight schools at the non-centred run's width: the same
+    posterior in another parameterisation (theta given tau is Neal's
+    funnel, so it mixes slowly). The reference's own check: pooled mu
+    within 2 of the non-centred run's (phase 3f); logZ printed beside that
+    run's (both estimate log p(y); the pseudo-prior cancels)."""
+    phase("3m eight schools, centred")
+    from pigeons_tpu_torch import eight_schools
+
+    target = eight_schools(centered=True)
+    pt, launches = bayesian_run(target, S_CHAINS, S_REPLICATES, S_ROUNDS)
+    print_round(pt, S_CHAINS * S_REPLICATES)
+    q = target.constrained_samples(pt)
+    mu, tau = float(np.mean(q["mu"])), float(np.mean(q["tau"]))
+    log_z = pt.reports[-1].log_z_estimate
+    print(f"pooled over the timed round: mu {mu:.4f} (non-centred {mu_noncentred:.4f}), tau "
+          f"{tau:.4f}; logZ {log_z:.4f} (non-centred {log_z_noncentred:.4f})")
+    if not abs(mu - mu_noncentred) < 2.0:
+        raise AssertionError("centred eight schools: mu off the non-centred run's")
+    if not (math.isfinite(log_z) and np.isfinite(pt.sample_array()).all()):
+        raise AssertionError("centred eight schools: non-finite logZ or samples")
     return launches
 
 
@@ -1503,6 +1697,46 @@ def torch_sampler_phase():
         raise AssertionError("torch SliceSampler: card run disagrees with the CPU run")
 
 
+def discrete_phase():
+    """The ordinal and Bool targets through their default explorers, card
+    against CPU: ``ising_target(0.4, 3)`` with ``BinaryGibbs``, the Poisson
+    count and the binary mixture with the masked torch ``SliceSampler`` (no
+    kernel takes them: 0 launches), one round each, bitwise equal; then the
+    Ising model on the card against its enumeration (logZ within 0.2, mean
+    |M| within 0.05, states exactly binary)."""
+    phase("7b ordinal and Bool targets, card vs CPU")
+    from pigeons_tpu_torch import (PT, Inputs, SliceSamplerCUDA, binary_mixture_target,
+                                   ising_target, poisson_count_target)
+
+    SliceSamplerCUDA.reset_launches()
+    for name, target in (("Ising 3 x 3", ising_target(0.4, 3)),
+                         ("Poisson count", poisson_count_target(5.0, 1)),
+                         ("binary mixture", binary_mixture_target())):
+        t0 = time.perf_counter()
+        g, c = (PT(Inputs(target=target, n_chains=DISCRETE_CHAINS, n_replicates=DISCRETE_REPLICATES,
+                          seed=4, n_rounds=1, show_report=False, device=dev)).run()
+                for dev in ("cuda", "cpu"))
+        same = (torch.equal(g.chain_of.cpu(), c.chain_of) and torch.equal(g.states.cpu(), c.states)
+                and np.array_equal(g.reduced.exp_steps, c.reduced.exp_steps))
+        print(f"{name} ({type(g.explorer).__name__}): card and CPU runs bitwise equal {same} "
+              f"({time.perf_counter() - t0:.1f} s for both)")
+        if not same:
+            raise AssertionError(f"{name}: card run disagrees with the CPU run")
+    if any(SliceSamplerCUDA.launches.values()):
+        raise AssertionError(f"the discrete targets launched {SliceSamplerCUDA.launches}")
+    target = ising_target(0.4, 3)
+    lz, mag = target.enumerate_oracle()
+    pt = PT(Inputs(target=target, n_chains=6, n_replicates=ISING_REPLICATES, seed=1,
+                   n_rounds=ISING_ROUNDS, show_report=False, device="cuda")).run()
+    samples = pt.sample_array()[:, :-1]
+    est_mag = float(np.abs((2.0 * samples - 1.0).mean(axis=1)).mean())
+    print(f"Ising on the card: logZ {pt.reports[-1].log_z_estimate:.4f} (exact {lz:.4f}), |M| "
+          f"{est_mag:.4f} (exact {mag:.4f}), round trips {pt.n_round_trips}")
+    if not (abs(pt.reports[-1].log_z_estimate - lz) < 0.2 and abs(est_mag - mag) < 0.05
+            and set(np.unique(samples)) <= {0.0, 1.0}):
+        raise AssertionError("Ising: off its enumeration")
+
+
 def determinism_phase():
     phase("4 determinism")
     from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA, toy_mvn_target
@@ -1844,6 +2078,23 @@ def invariance_phase(ref_params, delta_twin):
             self.seen = (keys, xs, betas, out)
             return out
 
+    from pigeons_tpu_torch import BayesianModel, bernoulli_target
+    from pigeons_tpu_torch.models import distributions as D_
+
+    class BernoulliPosterior(BayesianModel):
+        """The Bernoulli model, whose posterior Beta(3, 9) is iid-sampleable:
+        draws mapped to the logit coordinate."""
+
+        def __init__(self, model):
+            super().__init__(model.priors, model.log_likelihood_fn)
+
+        def to(self, device):
+            return BernoulliPosterior(super().to(device))
+
+        def sample_iid_target(self, keys):
+            theta = D_.Beta(3.0, 9.0).sample(keys)
+            return self.unconstrain({"theta": theta})
+
     dev = torch.device("cuda")
     far = {"mean": torch.linspace(-1.0, 1.0, D, device=dev),
            "std": torch.linspace(0.5, 1.5, D, device=dev),
@@ -1861,6 +2112,8 @@ def invariance_phase(ref_params, delta_twin):
         ("K1, variational term, far reference", toy_mvn_target(D), SliceSamplerCUDA(), blend,
          k1v, False),
         ("K2 full (funnel)", funnel(F_NX), SliceSamplerCUDA(n_passes=F_PASSES), {}, k2, False),
+        ("K2 full (Bernoulli, posterior Beta(3, 9))", BernoulliPosterior(bernoulli_target()),
+         SliceSamplerCUDA(n_passes=F_PASSES), {}, k2, False),
         ("K2 full, variational blend (toy MVN), far reference", toy_mvn_target(D),
          SliceSamplerCUDA(parallel_coords=False), blend, k2, False),
         ("K2 delta (toy MVN)", toy_mvn_target(D), delta, {}, k2, False),
@@ -1911,8 +2164,12 @@ def main():
     k1v["launches"] = config4_phase()
     bayesian["hierarchical_normal"]["launches"] = hierarchical_phase()
     bayesian["unid"]["launches"] = unid_phase()
-    bayesian["eight_schools"]["launches"] = eight_schools_phase()
+    bayesian["eight_schools"]["launches"], mu_noncentred, log_z_noncentred = eight_schools_phase()
     bayesian["logistic_regression"]["launches"] = logistic_regression_phase()
+    bayesian["mrna"]["launches"] = mrna_phase()
+    bayesian["bernoulli"]["launches"] = bernoulli_phase()
+    bayesian["eight_schools_centered"]["launches"] = centered_eight_schools_phase(
+        mu_noncentred, log_z_noncentred)
     k2v["launches"] = variational_funnel_phase()
     run2a, target2a = config2a_phase()
     run2b, target2b = config2b_phase()
@@ -1924,6 +2181,7 @@ def main():
                                lanes=B_COMPARE_LANES, max_differ=2, queued=True,
                                queue_width=B_QUEUE_WIDTH, window=B_WINDOW)
     torch_sampler_phase()
+    discrete_phase()
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

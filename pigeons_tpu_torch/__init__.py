@@ -19,20 +19,28 @@ from .models import (
     BayesianModel,
     CustomPath,
     CustomPathTarget,
+    IsingTarget,
+    PoissonCount,
     StandardNormalReference,
     TestSwapper,
     banana,
+    bernoulli_target,
+    binary_mixture_target,
     eight_schools,
     funnel,
     hierarchical_normal,
+    ising_target,
     logistic_regression,
+    mrna_target,
     mvn_target,
+    poisson_count_target,
     toy_mvn_target,
     unid_target,
 )
 from .ops import (
     MALA,
     AutoMALA,
+    BinaryGibbs,
     DiagonalPreconditioner,
     IdentityPreconditioner,
     MixDiagonalPreconditioner,
@@ -52,6 +60,7 @@ from .variational import GaussianReference
 __all__ = [
     "AutoMALA",
     "BayesianModel",
+    "BinaryGibbs",
     "ChildProcess",
     "CustomPath",
     "CustomPathTarget",
@@ -61,11 +70,13 @@ __all__ = [
     "Inputs",
     "InterpolatingPath",
     "InvarianceTestResult",
+    "IsingTarget",
     "MALA",
     "MixDiagonalPreconditioner",
     "NoOpExplorer",
     "PT",
     "ParallelismInvarianceError",
+    "PoissonCount",
     "Result",
     "RoundReport",
     "Schedule",
@@ -77,6 +88,8 @@ __all__ = [
     "ToyExplorer",
     "VariationalPath",
     "banana",
+    "bernoulli_target",
+    "binary_mixture_target",
     "check_against_serial",
     "communication_barriers",
     "diagnostics",
@@ -87,14 +100,17 @@ __all__ = [
     "hierarchical_normal",
     "increment_n_rounds",
     "invariance_test",
+    "ising_target",
     "leapfrog",
     "load_pt",
     "log_joint",
     "logistic_regression",
+    "mrna_target",
     "mvn_target",
     "optimal_schedule",
     "pigeons",
     "plots",
+    "poisson_count_target",
     "process_sample",
     "reports_dataframe",
     "split_rhat",

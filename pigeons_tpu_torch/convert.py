@@ -26,9 +26,10 @@ def bayesian_model_from_numpy(name: str, **data):
     """The port's library model ``name`` on the JAX model's own data, given
     as numpy arrays: ``hierarchical_normal`` takes ``data [n_groups,
     n_per_group]`` (the observations its likelihood closes over),
-    ``eight_schools`` ``y [J]`` and ``sigma [J]``, ``logistic_regression``
-    ``X [n, d]`` and ``y [n]``, ``unid_target`` ``n_trials`` and
-    ``n_successes``."""
+    ``eight_schools`` ``y [J]``, ``sigma [J]`` and optionally ``centered``,
+    ``logistic_regression`` ``X [n, d]`` and ``y [n]``, ``unid_target``
+    ``n_trials`` and ``n_successes``, ``bernoulli_target`` ``data [n]``,
+    ``mrna_target`` ``ts [n]`` and ``ys [n]``."""
     from .models import library
 
     def f32(a):
@@ -37,12 +38,18 @@ def bayesian_model_from_numpy(name: str, **data):
     if name == "hierarchical_normal":
         return library.hierarchical_normal(data=f32(data["data"]))
     if name == "eight_schools":
-        return library.eight_schools(y=f32(data["y"]), sigma=f32(data["sigma"]))
+        return library.eight_schools(bool(data.get("centered", False)), y=f32(data["y"]),
+                                     sigma=f32(data["sigma"]))
     if name == "logistic_regression":
         return library.logistic_regression(X=f32(data["X"]), y=f32(data["y"]))
     if name == "unid_target":
         return library.unid_target(int(data["n_trials"]), int(data["n_successes"]))
-    raise ValueError(f"no library model {name!r} in the port (ROADMAP queue 1, item 11b)")
+    if name == "bernoulli_target":
+        return library.bernoulli_target(np.asarray(data["data"], dtype=np.float32))
+    if name == "mrna_target":
+        return library.mrna_target(f32(data["ts"]), f32(data["ys"]))
+    raise ValueError(f"no library model {name!r}: the JAX package's library has no such "
+                     "BayesianModel")
 
 
 def state_from_numpy(pt, arrays, round_idx: int):

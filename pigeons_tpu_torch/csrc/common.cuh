@@ -2,8 +2,8 @@
 // sweep_slice.cu): the machines' phase codes, the counter-based random
 // numbers of pigeons_tpu/ops/pallas_slice.py (_fmix32, _hash_words,
 // _uniform_from_bits), the Cephes float32 log, exp and log1p, softplus and
-// sigmoid on top of them, the kernels' dynamic shared memory and the launch
-// macro.
+// sigmoid on top of them, XLA's expm1 and glibc's powf of base 10, the
+// kernels' dynamic shared memory and the launch macro.
 //
 // log and exp follow pigeons_tpu_torch/f32math.py step for step, which in
 // turn follows the polynomials XLA's CPU backend emits, with a fused
@@ -145,5 +145,70 @@ __device__ inline float softplus(float x) {
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (cephes_expf(-x) + 1.0f); }
+
+// XLA's float32 tanh, step for step as f32math._tanh: the argument clamped
+// to +-7.99881172, an odd over an even polynomial, the argument itself below
+// 0.0004, +-1 from 20 on.
+__device__ inline float xla_tanhf(float h) {
+  const float lim = f32(0x40FFF644u);
+  float hc = h < -lim ? -lim : h;
+  hc = hc > lim ? lim : hc;
+  const float z = hc * hc;
+  float p = __fmaf_rn(z, f32(0xA59F25C0u), f32(0x2A61337Eu));
+  p = __fmaf_rn(z, p, f32(0xAEBD37FFu));
+  p = __fmaf_rn(z, p, f32(0x335C0041u));
+  p = __fmaf_rn(z, p, f32(0x3779434Au));
+  p = __fmaf_rn(z, p, f32(0x3A270DEDu));
+  p = __fmaf_rn(z, p, f32(0x3BA059DCu));
+  float q = __fmaf_rn(z, f32(0x35A0D3D8u), f32(0x38F895D6u));
+  q = __fmaf_rn(z, q, f32(0x3B14AA05u));
+  q = __fmaf_rn(z, q, f32(0x3BA059DDu));
+  const float t = fabsf(h) < f32(0x39D1B717u) ? h : (hc * p) / q;
+  return fabsf(h) >= 20.0f ? copysignf(1.0f, h) : t;
+}
+
+// XLA's float32 expm1, as f32math._expm1: exp(x) - 1 above |x| = 0.5, else
+// tanh(x / 2) (exp(x) + 1); x itself where x / 2 is 0.
+__device__ inline float xla_expm1f(float x) {
+  const float e = cephes_expf(x);
+  const float h = x * 0.5f;
+  const float out = fabsf(x) > 0.5f ? e - 1.0f : xla_tanhf(h) * (e + 1.0f);
+  return h == 0.0f ? x : out;
+}
+
+// 2^(i/32), i = 0 .. 31: the exp2 step of glibc_pow10f.
+static __constant__ double kPow10Tab[32] = {
+    0x1p+0, 0x1.059b0d3158574p+0, 0x1.0b5586cf9890fp+0, 0x1.11301d0125b51p+0,
+    0x1.172b83c7d517bp+0, 0x1.1d4873168b9aap+0, 0x1.2387a6e756238p+0, 0x1.29e9df51fdee1p+0,
+    0x1.306fe0a31b715p+0, 0x1.371a7373aa9cbp+0, 0x1.3dea64c123422p+0, 0x1.44e086061892dp+0,
+    0x1.4bfdad5362a27p+0, 0x1.5342b569d4f82p+0, 0x1.5ab07dd485429p+0, 0x1.6247eb03a5585p+0,
+    0x1.6a09e667f3bcdp+0, 0x1.71f75e8ec5f74p+0, 0x1.7a11473eb0187p+0, 0x1.82589994cce13p+0,
+    0x1.8ace5422aa0dbp+0, 0x1.93737b0cdc5e5p+0, 0x1.9c49182a3f09p+0, 0x1.a5503b23e255dp+0,
+    0x1.ae89f995ad3adp+0, 0x1.b7f76f2fb5e47p+0, 0x1.c199bdd85529cp+0, 0x1.cb720dcef9069p+0,
+    0x1.d5818dcfba487p+0, 0x1.dfc97337b9b5fp+0, 0x1.ea4afa2a490dap+0, 0x1.f50765b6e454p+0};
+
+// 10^q in float32 as glibc's powf computes it (f32math._pow10): q log2(10)
+// in double, its exp2 by the 32-entry table of 2^(i/32) and a cubic, in
+// double without fused multiply-adds, rounded once; subnormal results are
+// flushed to 0, as XLA's CPU code flushes them.
+__device__ inline float glibc_pow10f(float q) {
+  const double shift = 0x1.8p+47;
+  const double xd = (double)q * 0x1.a934f0979b22dp+1;
+  const double kd = (xd + shift) - shift;
+  double kf = kd * 32.0;
+  kf = isnan(kf) ? 0.0 : kf;
+  kf = kf < -1e5 ? -1e5 : (kf > 1e5 ? 1e5 : kf);
+  const long long k = (long long)kf;
+  const double r = xd - kd;
+  long long e = k >> 5;
+  e = e < -1022 ? -1022 : (e > 1023 ? 1023 : e);
+  const double s = kPow10Tab[k & 31] * __longlong_as_double((e + 1023) << 52);
+  const double y = (0x1.c6af84b912394p-5 * r + 0x1.ebfce50fac4f3p-3) * (r * r) +
+                   (0x1.62e42ff0c52d6p-1 * r + 1.0);
+  float out = (float)(y * s);
+  out = out < FLT_MIN ? 0.0f : out;
+  if (isinf(q)) out = q > 0.0f ? q : 0.0f;
+  return isnan(q) ? q : out;
+}
 
 }  // namespace pigeons

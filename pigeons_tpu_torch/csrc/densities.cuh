@@ -36,15 +36,25 @@ namespace pigeons {
 // kUnid                state logit(p1), logit(p2); params[1..3] = the binomial's
 //                      log coefficient, successes, trials - successes;
 // kLogisticRegression  state (w[d - 1], b), arrays X [n, d - 1] row-major and
-//                      y [n], params[1] = n.
+//                      y [n], params[1] = n;
+// kBernoulli           state logit(theta), array y [n] (0 / 1), params[1] = n;
+// kEightSchoolsCentered state (theta[J], mu, log tau), arrays y[J], sigma[J],
+//                      log(sigma)[J], params[1..2] = 1 / 20, -log 20 (the
+//                      pseudo-prior's): the three sums of library.py:
+//                      CenteredEightSchoolsLikelihood, 3 J terms;
+// kMrna                state the logits of lt0, lkm0, lbeta, ldelta, lsigma
+//                      (their Uniform blocks of the prior table map them),
+//                      arrays ts [n], ys [n], params[1] = n.
 enum Density {
   kToyMvn = 0, kFunnel = 1, kBanana = 2, kMvn = 3,
-  kHierarchicalNormal = 4, kEightSchools = 5, kUnid = 6, kLogisticRegression = 7
+  kHierarchicalNormal = 4, kEightSchools = 5, kUnid = 6, kLogisticRegression = 7,
+  kBernoulli = 8, kEightSchoolsCentered = 9, kMrna = 10
 };
 
 template <Density K>
 constexpr bool is_bayesian = K == kHierarchicalNormal || K == kEightSchools || K == kUnid ||
-                             K == kLogisticRegression;
+                             K == kLogisticRegression || K == kBernoulli ||
+                             K == kEightSchoolsCentered || K == kMrna;
 
 constexpr int kMaxDensityParams = 8;
 struct DensityParams {
@@ -63,9 +73,10 @@ struct DensityArrays {
 // offset + size of the unconstrained state, a distribution and the bijector
 // to its support. p: kNormal (loc, 1 / scale, -log scale); kHalfCauchy
 // (1 / scale, log 2 - log(pi scale)); kUniform (lo, hi - lo, the block's
-// constant log density, log(hi - lo)). A row of the launcher's table is
-// (offset, size, dist, bijector, p[0..3]) as eight floats.
-enum PriorKind { kNormal = 0, kHalfCauchy = 1, kUniform = 2 };
+// constant log density, log(hi - lo)); kBeta (a - 1, b - 1, -log B(a, b) as
+// XLA folds it), on (0, 1). A row of the launcher's table is (offset, size,
+// dist, bijector, p[0..3]) as eight floats.
+enum PriorKind { kNormal = 0, kHalfCauchy = 1, kUniform = 2, kBeta = 3 };
 enum BijectorKind { kIdentity = 0, kPositive = 1, kInterval = 2 };
 constexpr int kMaxPriorBlocks = 8;
 struct PriorBlock {
@@ -216,9 +227,18 @@ __device__ inline float block_log_jacobian(const View& s, const PriorBlock& b) {
 }
 
 // A block's log density of its constrained values (models/distributions.py:
-// Normal.log_prob, HalfCauchy.log_prob), the bijector applied here.
+// Normal.log_prob, HalfCauchy.log_prob, Beta.log_prob), the bijector applied
+// here.
 template <class View>
 __device__ inline float block_log_prob(const View& s, const PriorBlock& b) {
+  if (b.dist == kBeta) {  // x = sigmoid(u), the unit interval's
+    return sum_in_order(
+        [&](int i) {
+          const float x = sigmoid(s(b.offset + i));
+          return __fmaf_rn(cephes_logf(x), b.p[0], b.p[1] * cephes_log1pf(-x)) + b.p[2];
+        },
+        0, b.size);
+  }
   if (b.dist == kNormal) {
     const auto t = [&](int i) {
       const float z = (s(b.offset + i) - b.p[0]) * b.p[1];
@@ -240,9 +260,24 @@ __device__ inline float block_log_prob(const View& s, const PriorBlock& b) {
       0, b.size);
 }
 
+// The constant log densities of the kUniform blocks, added in block order:
+// XLA folds them into one (models/bayesian.py: _prior_of). *any: whether
+// there is one that is not 0.
+__device__ inline float prior_constant(const PriorTable& table, bool* any) {
+  float c = 0.0f;
+  *any = false;
+  for (int k = 0; k < table.n; ++k) {
+    const PriorBlock& b = table.block[k];
+    if (b.dist != kUniform || b.p[2] == 0.0f) continue;
+    c = *any ? c + b.p[2] : b.p[2];
+    *any = true;
+  }
+  return c;
+}
+
 // models/bayesian.py: log_prior. The log-Jacobian first, one summand per
-// block that has one, then one summand per block whose log density is not the
-// constant 0.
+// block that has one, then one summand per block whose log density is not a
+// constant, then the blocks' constants as one summand (prior_constant).
 template <class View>
 __device__ inline float log_prior(const View& s, const PriorTable& table) {
   float lp = 0.0f;
@@ -256,13 +291,11 @@ __device__ inline float log_prior(const View& s, const PriorTable& table) {
   }
   for (int k = 0; k < table.n; ++k) {
     const PriorBlock& b = table.block[k];
-    if (b.dist == kUniform) {
-      if (b.p[2] != 0.0f) lp = lp + b.p[2];
-    } else {
-      lp = lp + block_log_prob(s, b);
-    }
+    if (b.dist != kUniform) lp = lp + block_log_prob(s, b);
   }
-  return lp;
+  bool any;
+  const float c = prior_constant(table, &any);
+  return any ? lp + c : lp;
 }
 
 // What log_prior adds for block b of the state: its log-Jacobian (lj) and its
@@ -297,14 +330,11 @@ __device__ inline float combine_prior(const PriorTable& table, const float* lj, 
     first = false;
   }
   for (int k = 0; k < table.n; ++k) {
-    const PriorBlock& b = table.block[k];
-    if (b.dist == kUniform) {
-      if (b.p[2] != 0.0f) acc = acc + b.p[2];
-    } else {
-      acc = acc + (k == kq ? q.lp : lp[k]);
-    }
+    if (table.block[k].dist != kUniform) acc = acc + (k == kq ? q.lp : lp[k]);
   }
-  return acc;
+  bool any;
+  const float c = prior_constant(table, &any);
+  return any ? acc + c : acc;
 }
 
 // The variational reference's log density, coordinates added in order
@@ -336,10 +366,13 @@ __device__ inline float variational_log_density(const View& s, int d, const Vari
 //   finish       the reference's density, the in-order sums over the terms,
 //                the interpolation and the NaN guard.
 struct Prepared {
-  float a;  // funnel: u; banana: x^2; hierarchical: mu; unid: p
-  float b;  // funnel: exp(u); hierarchical: tau
-  float c;  // funnel, banana: coordinate 0's own term; kHierarchicalNormal: sigma
-  float e;  // kHierarchicalNormal: -log sigma
+  float a;  // funnel: u; banana: x^2; hierarchical: mu; unid: p; kBernoulli: log theta;
+            // kMrna: t0
+  float b;  // funnel: exp(u); hierarchical: tau; kBernoulli: log1p(-theta); kMrna: km0
+  float c;  // funnel, banana: coordinate 0's own term; kHierarchicalNormal, kMrna: sigma
+  float e;  // kHierarchicalNormal, kMrna: -log sigma; kEightSchoolsCentered: -log tau
+  float f, g, h;  // kMrna: -beta, -delta, delta - beta (1 where near)
+  bool near;      // kMrna: |delta - beta| < 1e-7
 };
 
 template <Density K>
@@ -350,8 +383,9 @@ template <Density K>
 __device__ __host__ inline int end_term(int d, const DensityParams& p) {
   if constexpr (K == kHierarchicalNormal) return (d - 3) * (int)p.v[1];
   if constexpr (K == kEightSchools) return d - 2;
+  if constexpr (K == kEightSchoolsCentered) return 3 * (d - 2);
   if constexpr (K == kUnid) return 1;
-  if constexpr (K == kLogisticRegression) return (int)p.v[1];
+  if constexpr (K == kLogisticRegression || K == kBernoulli || K == kMrna) return (int)p.v[1];
   return d;
 }
 
@@ -360,13 +394,14 @@ template <Density K>
 __device__ __forceinline__ bool prepare_reads(int c, int d) {
   if constexpr (K == kFunnel || K == kBanana) return c == 0;
   if constexpr (K == kHierarchicalNormal) return c >= d - 3;
-  if constexpr (K == kEightSchools) return c >= d - 2;
-  return K == kUnid;
+  if constexpr (K == kEightSchools || K == kEightSchoolsCentered) return c >= d - 2;
+  return K == kUnid || K == kBernoulli || K == kMrna;
 }
 
 template <Density K>
-__device__ inline Prepared prepare(const LaneView& s, int d, const DensityParams& p) {
-  Prepared r{0.0f, 0.0f, 0.0f, 0.0f};
+__device__ inline Prepared prepare(const LaneView& s, int d, const DensityParams& p,
+                                   const PriorTable& prior) {
+  Prepared r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, false};
   if constexpr (K == kFunnel) {
     const float x0 = s(0);
     const float m = x0 * f32(0x3EAAAAABu);                          // y / 3
@@ -387,6 +422,29 @@ __device__ inline Prepared prepare(const LaneView& s, int d, const DensityParams
     r.b = cephes_expf(s(d - 1));
   } else if constexpr (K == kUnid) {
     r.a = sigmoid(s(0)) * sigmoid(s(1));
+  } else if constexpr (K == kBernoulli) {
+    const float theta = sigmoid(s(0));
+    r.a = cephes_logf(theta);
+    r.b = cephes_log1pf(-theta);
+  } else if constexpr (K == kEightSchoolsCentered) {
+    r.a = s(d - 2);
+    r.b = cephes_expf(s(d - 1));
+    r.e = -s(d - 1);  // log(exp(u)) is u
+  } else if constexpr (K == kMrna) {
+    // each parameter lo + (hi - lo) sigmoid(u) from its Uniform block, then 10^q
+    float q[5];
+    for (int k = 0; k < 5; ++k)
+      q[k] = __fmaf_rn(sigmoid(s(k)), prior.block[k].p[1], prior.block[k].p[0]);
+    r.a = glibc_pow10f(q[0]);
+    r.b = glibc_pow10f(q[1]);
+    const float beta = glibc_pow10f(q[2]), delta = glibc_pow10f(q[3]);
+    r.c = glibc_pow10f(q[4]);
+    r.e = -(q[4] == 0.0f ? 0.0f : f32(0x40135D8Eu) * q[4]);  // log(10^q) = q log(10)
+    r.f = -beta;
+    r.g = -delta;
+    const float dmb = delta - beta;
+    r.near = fabsf(dmb) < 1e-7f;
+    r.h = r.near ? 1.0f : dmb;
   }
   return r;
 }
@@ -414,6 +472,24 @@ __device__ __forceinline__ float target_term(const LaneView& s, int t, const Pre
   } else if constexpr (K == kUnid) {
     const float acc = __fmaf_rn(cephes_logf(pr.a), p.v[2], p.v[1]);
     return __fmaf_rn(cephes_log1pf(-pr.a), p.v[3], acc);
+  } else if constexpr (K == kBernoulli) {
+    return arr.ptr[0][t] > 0.0f ? pr.a : pr.b;
+  } else if constexpr (K == kEightSchoolsCentered) {
+    // [A, B, C]: theta ~ N(mu, tau), y ~ N(theta, sigma), the pseudo-prior N(0, 20)
+    const int J = arr.n[0];
+    if (t < J) return observation_term(s(t), pr.a, pr.b, pr.e);
+    if (t < 2 * J) return observation_term(arr.ptr[0][t - J], s(t - J), arr.ptr[1][t - J],
+                                           -arr.ptr[2][t - J]);
+    return normal_term(s(t - 2 * J), 0.0f, p.v[1], p.v[2]);
+  } else if constexpr (K == kMrna) {
+    // get_mu with its selects, then the normal term of observation t
+    const float tmt0 = arr.ptr[0][t] - pr.a;
+    const float a = pr.f * tmt0, b = pr.g * tmt0;
+    const float diff = a > b ? -cephes_expf(a) * xla_expm1f(b - a)
+                             : cephes_expf(b) * xla_expm1f(a - b);
+    const float val = pr.b * (pr.near ? tmt0 : diff / pr.h);
+    const float mu = tmt0 <= 0.0f ? 0.0f : val;
+    return observation_term(arr.ptr[1][t], mu, pr.c, pr.e);
   } else if constexpr (K == kLogisticRegression) {
     // row t of the design matrix times w, column by column, then + b
     const int n_w = arr.n[0] / arr.n[1];
@@ -447,8 +523,12 @@ __device__ inline float finish(const LaneView& s, const Term& term, int d, float
     float lik;
     if constexpr (K == kHierarchicalNormal) {
       lik = sum_by_rows(term, d - 3, (int)p.v[1]);
-    } else if constexpr (K == kLogisticRegression) {
+    } else if constexpr (K == kLogisticRegression || K == kMrna) {
       lik = sum_by_windows(term, end_term<K>(d, p), 32);
+    } else if constexpr (K == kEightSchoolsCentered) {
+      const int J = d - 2;
+      lik = (sum_in_order(term, 0, J) + sum_in_order(term, J, 2 * J)) -
+            sum_in_order(term, 2 * J, 3 * J);
     } else {
       lik = sum_in_order(term, 0, end_term<K>(d, p));
     }

@@ -443,7 +443,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
     // kept for the lane's current state, recomputed for a query of a coordinate
     // that prepare reads
     const auto prepared = [&](int c, float q) {
-      return prepare<K>(LaneView{xs, stride, c, q}, d, params);
+      return prepare<K>(LaneView{xs, stride, c, q}, d, params, in.prior);
     };
     Prepared pr_cur = prepared(-1, 0.0f);
     [[maybe_unused]] auto many = [&] {
@@ -745,7 +745,8 @@ bool consistent(int density, int d, const DensityInputs& in) {
   int covered = 0;
   for (int k = 0; k < in.prior.n; ++k) {
     const PriorBlock& b = in.prior.block[k];
-    if (b.offset != covered || b.size < 1 || b.dist < kNormal || b.dist > kUniform ||
+    if (b.offset != covered || b.size < 1 || b.dist < kNormal || b.dist > kBeta ||
+        (b.dist == kBeta && b.bijector != kInterval) ||
         b.bijector < kIdentity || b.bijector > kInterval)
       return false;
     covered += b.size;
@@ -762,6 +763,22 @@ bool consistent(int density, int d, const DensityInputs& in) {
     case kLogisticRegression: {
       const int n_obs = (int)in.params.v[1];
       return d > 1 && n_obs >= 1 && n[0] == n_obs * (d - 1) && n[1] == n_obs && n[2] + n[3] == 0;
+    }
+    case kBernoulli: {
+      const int n_obs = (int)in.params.v[1];
+      return d == 1 && n_obs >= 1 && n[0] == n_obs && n[1] + n[2] + n[3] == 0;
+    }
+    case kEightSchoolsCentered:
+      return d > 2 && n[0] == d - 2 && n[1] == d - 2 && n[2] == d - 2 && n[3] == 0;
+    case kMrna: {  // five parameters, each on a Uniform block of its own
+      const int n_obs = (int)in.params.v[1];
+      if (d != 5 || in.prior.n != 5 || n_obs < 1 || n[0] != n_obs || n[1] != n_obs ||
+          n[2] + n[3] != 0)
+        return false;
+      for (int k = 0; k < 5; ++k)
+        if (in.prior.block[k].dist != kUniform || in.prior.block[k].bijector != kInterval)
+          return false;
+      return true;
     }
     default: return false;
   }
@@ -829,6 +846,9 @@ extern "C" int slice_sweep(const float* x, const float* betas, const int64_t* se
     case kEightSchools: return launch_full<kEightSchools>(a, group);
     case kUnid: return launch_full<kUnid>(a, group);
     case kLogisticRegression: return launch_full<kLogisticRegression>(a, group);
+    case kBernoulli: return launch_full<kBernoulli>(a, group);
+    case kEightSchoolsCentered: return launch_full<kEightSchoolsCentered>(a, group);
+    case kMrna: return launch_full<kMrna>(a, group);
     default: return -1;
   }
 }

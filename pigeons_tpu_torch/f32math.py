@@ -1,4 +1,5 @@
-"""float32 ``exp``, ``log``, ``log1p``, ``erfinv`` and ``lgamma`` as plain torch ops.
+"""float32 ``exp``, ``expm1``, ``log``, ``log1p``, ``erfinv``, ``lgamma`` and the
+power ``10 ** q`` as plain torch ops.
 
 The JAX package computes its swap acceptances (``exp``), its streaming
 logsumexp recorders (``log1p`` of ``exp``) and its normal draws (``erf_inv``)
@@ -24,9 +25,23 @@ Newton step, which can be 1 ulp off the correctly rounded ``sqrt`` used here;
 normal draws then differ by at most 2 ulp. All of them give identical bits
 on torch's CPU and CUDA backends.
 
+``expm1`` is XLA's CPU expansion: ``exp(x) - 1`` for ``|x| > 0.5``, else
+``tanh(x / 2) (exp(x) + 1)`` with XLA's rational ``tanh``; bitwise. ``10 ** q``
+(:func:`pow10`) is not XLA's own code: its CPU backend calls the C library's
+``powf``, and on glibc (2.28 on) that is the Arm optimized-routines
+algorithm: ``log2`` of the base by a 16-entry table and a degree-5 polynomial
+(for the base 10 one double constant, ``_LOG2_10``), ``q`` times it in double,
+then ``exp2`` by a 32-entry table and a cubic, all in double, rounded once to
+float32. :func:`pow10` is that algorithm in double arithmetic without fused
+multiply-adds (glibc's FMA build fuses four of them; in double that moves the
+float32 result only when it lies within about 2^-50 of a rounding boundary):
+bitwise equal to XLA's on every float32 ``q`` of a sweep of 4 million over
+[-5, 5] (``tests/test_torch_library_models.py``), subnormal results flushed
+to 0 as XLA's CPU code flushes them.
+
 Gradients. The bit-level forwards view floats as integers, which autograd
 cannot pass through, so ``fma``, ``exp``, ``log``, ``log1p`` and ``lgamma``
-are ``torch.autograd.Function``s whose forward is the plain function above
+(and ``expm1`` and ``pow10``) are ``torch.autograd.Function``s whose forward is the plain function above
 and whose backward is the analytic derivative in float32, the rule that
 ``jax.grad`` applies to the same primitive (``exp``'s is ``g * exp(x)``,
 not a derivative of the Cephes polynomial). A call goes through the
@@ -89,6 +104,34 @@ _LANCZOS = (676.520368121885098567009190444019, -1259.13921672240287047156078755
             9.984369578019570859563e-6, 1.50563273514931155834e-7)
 _LOG_SQRT_2PI = (math.log(2.0) + math.log(math.pi)) / 2.0
 _LOG_7_5 = math.log(7.5)
+
+# XLA's float32 tanh, the small-argument branch of its expm1: the argument is
+# clamped to +-7.99881172, odd polynomial over even polynomial in its square,
+# the argument itself below 0.0004
+_TANH_CLAMP = _f(0x40FFF644)
+_TANH_SMALL = _f(0x39D1B717)
+_TANH_P = [_f(b) for b in (0xA59F25C0, 0x2A61337E, 0xAEBD37FF, 0x335C0041, 0x3779434A,
+                           0x3A270DED, 0x3BA059DC)]
+_TANH_Q = [_f(b) for b in (0x35A0D3D8, 0x38F895D6, 0x3B14AA05, 0x3BA059DD)]
+
+# glibc's powf (the Arm optimized-routines algorithm): log2(10) as its log2
+# step computes it (table entry 13, degree-5 polynomial, fused multiply-adds;
+# the correctly rounded log2(10) is 0x1.a934f0979a371p+1), the exp2 step's
+# shift, cubic and table of 2^(i/32)
+_LOG2_10 = float.fromhex("0x1.a934f0979b22dp+1")
+_EXP2_SHIFT = float.fromhex("0x1.8p+47")
+_EXP2_C = [float.fromhex(h) for h in ("0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3",
+                                      "0x1.62e42ff0c52d6p-1")]
+_EXP2_TAB = [struct.unpack("<d", struct.pack("<Q", b + (i << 47)))[0] for i, b in enumerate((
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f, 0x3fef9301d0125b51,
+    0x3fef72b83c7d517b, 0x3fef54873168b9aa, 0x3fef387a6e756238, 0x3fef1e9df51fdee1,
+    0x3fef06fe0a31b715, 0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429, 0x3feea47eb03a5585,
+    0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74, 0x3feea11473eb0187, 0x3feea589994cce13,
+    0x3feeace5422aa0db, 0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c, 0x3fef3720dcef9069,
+    0x3fef5818dcfba487, 0x3fef7c97337b9b5f, 0x3fefa4afa2a490da, 0x3fefd0765b6e4540))]
+_LN10 = _round(math.log(10.0))
 
 
 def _fma(a, b, c) -> torch.Tensor:
@@ -163,6 +206,42 @@ def _log1p(x: torch.Tensor) -> torch.Tensor:
         q = _fma(q, xd, c)
     small = x + _fma(x2, -0.5, (x * x2) * (p / q))
     return torch.where(torch.abs(x) < _LOG1P_SMALL, small, _log(x + 1.0))
+
+
+def _tanh(h: torch.Tensor) -> torch.Tensor:
+    hc = torch.clamp(h, -_TANH_CLAMP, _TANH_CLAMP)
+    z = hc * hc
+    zd = z.double()  # exact; converted once for the polynomials' steps
+    p = _fma(zd, _TANH_P[0], _TANH_P[1])
+    for c in _TANH_P[2:]:
+        p = _fma(zd, p, c)
+    q = _fma(zd, _TANH_Q[0], _TANH_Q[1])
+    for c in _TANH_Q[2:]:
+        q = _fma(zd, q, c)
+    t = torch.where(torch.abs(h) < _TANH_SMALL, h, (hc * p) / q)
+    return torch.where(torch.abs(h) >= 20.0, torch.copysign(torch.ones_like(h), h), t)
+
+
+def _expm1(x: torch.Tensor) -> torch.Tensor:
+    e = _exp(x)
+    h = x * 0.5
+    out = torch.where(torch.abs(x) > 0.5, e - 1.0, _tanh(h) * (e + 1.0))
+    return torch.where(h == 0, x, out)
+
+
+def _pow10(q: torch.Tensor) -> torch.Tensor:
+    xd = q.double() * _LOG2_10
+    kd = (xd + _EXP2_SHIFT) - _EXP2_SHIFT  # xd rounded to a multiple of 1/32
+    k = (kd * 32.0).nan_to_num(0.0).clamp(-1e5, 1e5).to(torch.int64)
+    r = xd - kd
+    tab = torch.tensor(_EXP2_TAB, dtype=torch.float64, device=q.device)
+    e = (k >> 5).clamp(-1022, 1023)
+    s = tab[k & 31] * ((e + 1023) << 52).view(torch.float64)  # times 2^e, exactly
+    y = (_EXP2_C[0] * r + _EXP2_C[1]) * (r * r) + (_EXP2_C[2] * r + 1.0)
+    out = (y * s).float()
+    out = torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+    out = torch.where(torch.isinf(q), torch.where(q > 0, q, torch.zeros_like(q)), out)
+    return torch.where(torch.isnan(q), q, out)
 
 
 def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -288,6 +367,32 @@ class _Lgamma(torch.autograd.Function):
         return g * torch.digamma(x)
 
 
+class _Expm1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _expm1(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y + 1.0)
+
+
+class _Pow10(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q):
+        y = _pow10(q)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (_LN10 * y)
+
+
 def fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with a single rounding (:func:`_fma`); its
     gradient is ``(g b, g a, g)``."""
@@ -313,3 +418,14 @@ def lgamma(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``gammaln`` for ``x >= 0.5`` (:func:`_lgamma`); gradient
     ``g digamma(x)``."""
     return _Lgamma.apply(x) if needs_grad(x) else _lgamma(x)
+
+
+def expm1(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``expm1`` (:func:`_expm1`); gradient ``g (expm1(x) + 1)``."""
+    return _Expm1.apply(x) if needs_grad(x) else _expm1(x)
+
+
+def pow10(q: torch.Tensor) -> torch.Tensor:
+    """``10 ** q`` in float32 as XLA's CPU code computes it, glibc's ``powf``
+    (:func:`_pow10`); gradient ``g log(10) 10^q``."""
+    return _Pow10.apply(q) if needs_grad(q) else _pow10(q)

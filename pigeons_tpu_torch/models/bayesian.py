@@ -25,7 +25,7 @@ import torch
 
 from .. import rng
 from ..paths import DeviceDensity, InterpolatingPath
-from .distributions import IDENTITY, INTERVAL, POSITIVE
+from .distributions import IDENTITY, INTERVAL, POSITIVE, Interval, Uniform
 from .target import Reference, Target
 
 MAX_PRIOR_BLOCKS = 8  # csrc/densities.cuh: PriorTable
@@ -75,11 +75,16 @@ class BayesianModel(Target):
             logjac = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
         return q, logjac
 
-    def unconstrain(self, q) -> torch.Tensor:
+    def unconstrain(self, q, fused: bool = True) -> torch.Tensor:
+        """Constrained values back to the flat unconstrained vector; with
+        ``fused`` false, as the JAX package's op-by-op evaluation gives it
+        (``Interval.inverse``)."""
         parts = []
         for name, dist in self.priors.items():
             _, size, shape = self._slices[name]
-            v = dist.bijector.inverse(q[name])
+            bijector = dist.bijector
+            v = bijector.inverse(q[name]) if fused or not isinstance(bijector, Interval) else \
+                bijector.inverse(q[name], False)
             parts.append(v.reshape(v.shape[: v.dim() - len(shape)] + (size,)))
         return torch.cat(parts, dim=-1)
 
@@ -99,11 +104,20 @@ class BayesianModel(Target):
         return self._prior_of(*self.constrain(x))
 
     def _prior_of(self, q, logjac):
+        """The log-Jacobian, then each prior's log density in dict order; the
+        priors whose log density is a constant (``Uniform``) are added last,
+        as one constant: XLA folds their float32 sum (in dict order) and adds
+        it once (read off the slice kernel's densities of ``mrna_target``,
+        five uniform priors); a constant 0 is not added."""
         lp = logjac
+        constant = None
         for name, dist in self.priors.items():
-            if not (getattr(dist, "total", None) == 0.0):  # a constant 0 is not added
+            total = getattr(dist, "total", None)
+            if total is None:
                 lp = lp + dist.log_prob(q[name])
-        return lp
+            elif total != 0.0:
+                constant = np.float32(total) if constant is None else np.float32(constant + np.float32(total))
+        return lp if constant is None else lp + float(constant)
 
     def log_likelihood(self, x):
         q, _ = self.constrain(x)
@@ -133,17 +147,26 @@ class BayesianModel(Target):
 
     # -- target interface ---------------------------------------------------
 
-    def default_reference(self) -> Reference:
-        def sample_iid(keys):
-            # jax.random.split(key, n): child i is fold_in(key, i)
-            q = {name: dist.sample(rng.fold_in(keys, i))
-                 for i, (name, dist) in enumerate(self.priors.items())}
-            return self.unconstrain(q)
+    def _prior_draws(self, keys, fused: bool):
+        # jax.random.split(key, n): child i is fold_in(key, i)
+        q = {name: dist.sample(rng.fold_in(keys, i)) if fused or not isinstance(dist, Uniform)
+             else dist.sample(rng.fold_in(keys, i), False)
+             for i, (name, dist) in enumerate(self.priors.items())}
+        return self.unconstrain(q, fused)
 
-        return Reference(log_density=self.log_prior, sample_iid=sample_iid, prior_of=self)
+    def default_reference(self) -> Reference:
+        return Reference(log_density=self.log_prior,
+                         sample_iid=lambda keys: self._prior_draws(keys, True), prior_of=self)
 
     def initialization(self, keys):
-        return self.default_reference().sample_iid(keys)
+        """The prior's draws as the JAX package makes its initial states: op
+        by op (an eager ``vmap``, ``pigeons_tpu/pt.py:756``), where the
+        reference chain's later draws run inside its compiled scan. The two
+        differ for a ``Uniform`` prior other than on (0, 1): there XLA fuses
+        the draw's scaling into a multiply-add and divides by the interval's
+        width through its reciprocal (``Uniform.sample``,
+        ``Interval.inverse``)."""
+        return self._prior_draws(keys, False)
 
     def prior_table(self):
         """The prior as the slice kernel reads it: one row ``(offset, size,

@@ -13,8 +13,10 @@ float32 reciprocal, logs of constants are folded (computed here with the same
 Cephes polynomial), a multiply that feeds an add is one fused multiply-add,
 and an event is summed in order. ``Normal``, ``HalfCauchy`` and ``Uniform``
 with their bijectors are bit for bit the JAX ones, in the densities and inside
-the slice kernel (whose prior table names them, ``csrc/densities.cuh``); the
-others are held to a float32 tolerance (``tests/test_torch_bayesian.py``).
+the slice kernel (whose prior table names them, ``csrc/densities.cuh``), and
+so is ``Beta`` wherever its constant (three ``gammaln``s that XLA folds) is
+XLA's (``tests/test_torch_library_models.py``); the others are held to a
+float32 tolerance (``tests/test_torch_bayesian.py``).
 """
 
 from __future__ import annotations
@@ -225,8 +227,14 @@ class Interval:
         terms = (self.log_width + log_sigmoid(u)) + log_sigmoid(-u)
         return x, sum_in_order(_event(terms, shape))
 
-    def inverse(self, x):
-        t = (x - _f32(self.lo)) * _recip(self.hi - self.lo)
+    def inverse(self, x, fused: bool = True):
+        """``logit((x - lo) / (hi - lo))``, the division a multiplication by
+        the width's float32 reciprocal as XLA compiles it; with ``fused``
+        false a true division, as the JAX package's op-by-op evaluation."""
+        if fused:
+            t = (x - _f32(self.lo)) * _recip(self.hi - self.lo)
+        else:  # a tensor divisor: torch's CUDA division by a Python number multiplies
+            t = (x - _f32(self.lo)) / x.new_full((), _f32(self.hi - self.lo))
         t = torch.clamp(t, _f32(1e-7), _f32(1.0 - 1e-7))
         return f32math.log(t) - f32math.log1p(-t)
 
@@ -236,7 +244,7 @@ class Interval:
 # ---------------------------------------------------------------------------
 
 # distribution kinds of csrc/densities.cuh (the kernel's prior table)
-NORMAL, HALF_CAUCHY, UNIFORM = 0, 1, 2
+NORMAL, HALF_CAUCHY, UNIFORM, BETA = 0, 1, 2, 3
 
 
 @dataclass(frozen=True)
@@ -312,13 +320,51 @@ class Uniform(Distribution):
         batch = x.shape[: x.dim() - len(self.shape)]
         return torch.full(batch, self.total, dtype=x.dtype, device=x.device)
 
-    def sample(self, keys):
-        return rng.uniform(keys, self.shape, self.lo, self.hi)
+    def sample(self, keys, fused: bool = True):
+        """``jax.random.uniform(key, shape, lo, hi)`` as XLA compiles it: the
+        scaling and the shift one fused multiply-add; with ``fused`` false
+        two roundings, as the JAX package's op-by-op evaluation."""
+        if not fused:
+            return rng.uniform(keys, self.shape, self.lo, self.hi)
+        u = rng.uniform(keys, self.shape)
+        lo = torch.tensor(_f32(self.lo), device=keys.device)
+        return torch.maximum(lo, f32math.fma(u, float(np.float32(self.hi) - np.float32(self.lo)),
+                                             _f32(self.lo)))
 
 
 def _gammaln(v: float) -> np.float32:
     """``gammaln`` of a constant as the JAX package folds it (float32 Lanczos)."""
     return np.float32(float(f32math.lgamma(torch.tensor(v, dtype=torch.float32))))
+
+
+_LANCZOS_BASE = 0.99999999999980993227684700473478
+_LANCZOS = (676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+            771.3234287776530788486528258894, -176.61502916214059906584551354,
+            12.507343278686904814458936853, -0.13857109526572011689554707,
+            9.984369578019570859563e-6, 1.50563273514931155834e-7)
+
+
+def _folded_gammaln(v: float) -> np.float32:
+    """``gammaln`` of a constant ``v >= 0.5`` as XLA's constant folding
+    evaluates it: the Lanczos sum that the JAX package's ``gammaln`` is
+    lowered to, one float32 operation at a time, with correctly rounded
+    ``log`` and ``log1p`` and no fused multiply-add. Not the runtime's
+    :func:`f32math.lgamma`: ``gammaln(2)`` folds to 2^-21, not 0. Equal to
+    XLA's folded value at 0.5, 0.7, 1, 1.5, 2, 2.5, 3, 9 and 12 (so
+    ``Beta(1, 1)``, ``Beta(3, 9)``, ``Beta(0.5, 0.7)`` and ``Beta(1, 1.5)``
+    are bitwise), within 1 ulp of it elsewhere (71 of 315 arguments drawn
+    in [0.5, 50] differ, 3.5, 4 and 5.5 among them): XLA's folding takes
+    some step that this does not repeat."""
+    f = np.float32
+    z = f(f(v) - f(1.0))
+    a = f(_LANCZOS_BASE)
+    for i, c in enumerate(_LANCZOS):
+        a = f(a + f(f(c) / f(z + f(i + 1))))
+    lanczos_half = f(7.5)
+    t = f(lanczos_half + z)
+    log_t = f(f(math.log(7.5)) + f(math.log1p(float(f(z / lanczos_half)))))
+    r = f(f(f(z + f(0.5)) - f(t / log_t)) * log_t)
+    return f(f(f((math.log(2.0) + math.log(math.pi)) / 2.0) + r) + f(math.log(float(a))))
 
 
 @dataclass(frozen=True)
@@ -330,11 +376,23 @@ class Beta(Distribution):
     def bijector(self):
         return Interval(0.0, 1.0)
 
+    @property
+    def log_norm(self) -> float:
+        """``-log B(a, b)``, folded as XLA folds it (:func:`_folded_gammaln`)."""
+        g = _folded_gammaln
+        return float(-((g(self.a) + g(self.b)) - g(self.a + self.b)))
+
+    @property
+    def device_block(self):
+        return BETA, (_f32(self.a - 1), _f32(self.b - 1), self.log_norm)
+
     def log_prob(self, x):
-        lbeta = float((_gammaln(self.a) + _gammaln(self.b)) - _gammaln(self.a + self.b))
+        """``(a - 1) log x + (b - 1) log1p(-x) - log B(a, b)`` as XLA evaluates
+        it: the first product fused into the sum, the constant added last
+        (with ``a = b = 1`` the products by 0 stay, as in XLA's code)."""
+        _, (a1, b1, log_norm) = self.device_block
         x = _event(x, self.shape)
-        terms = _f32(self.a - 1) * f32math.log(x) + _f32(self.b - 1) * f32math.log1p(-x) - lbeta
-        return sum_in_order(terms)
+        return sum_in_order(f32math.fma(f32math.log(x), a1, b1 * f32math.log1p(-x)) + log_norm)
 
     def sample(self, keys):
         """By the ratio of two gamma draws, ``Ga / (Ga + Gb)``: the law of
@@ -348,21 +406,22 @@ def _gamma(keys, a: float, shape, n_tries: int = 24):
     """Marsaglia-Tsang gamma draws of shape ``a`` for keys ``[..., 2]``, each
     element keeping the first accepted of ``n_tries`` proposals (one is
     rejected with probability below 0.05, so none is left with probability
-    below 1e-31)."""
+    below 1e-31). Proposal ``t`` draws from ``fold_in(keys, 2 + t)``; the
+    proposals are drawn all at once, along an axis of their own, so that a
+    draw is a few dozen launches, not a few thousand."""
     boost = a < 1.0
     a1 = a + 1.0 if boost else a
     d = a1 - 1.0 / 3.0
     c = 1.0 / math.sqrt(9.0 * d)
-    out = None
-    for t in range(n_tries):
-        kt = rng.fold_in(keys, 2 + t)
-        z = rng.normal(rng.fold_in(kt, 0), shape)
-        u = rng.uniform(rng.fold_in(kt, 1), shape)
-        v = (1.0 + c * z) ** 3
-        ok = (v > 0) & (f32math.log(u) < 0.5 * z * z + d - d * v + d * f32math.log(v.clamp_min(1e-30)))
-        draw = d * v
-        out = torch.where(ok, draw, torch.full_like(draw, float("nan"))) if out is None else \
-            torch.where(torch.isnan(out) & ok, draw, out)
+    axis = keys.dim() - 1  # the proposals' axis: [..., n_tries, *shape]
+    kt = rng.fold_in(keys.unsqueeze(-2), torch.arange(2, 2 + n_tries, device=keys.device))
+    z = rng.normal(rng.fold_in(kt, 0), shape)
+    u = rng.uniform(rng.fold_in(kt, 1), shape)
+    v = (1.0 + c * z) ** 3
+    ok = (v > 0) & (f32math.log(u) < 0.5 * z * z + d - d * v + d * f32math.log(v.clamp_min(1e-30)))
+    first = ok.to(torch.uint8).argmax(dim=axis, keepdim=True)
+    out = (d * v).gather(axis, first).squeeze(axis)
+    out = torch.where(ok.any(dim=axis), out, torch.full_like(out, float("nan")))
     if boost:
         out = out * rng.uniform(rng.fold_in(keys, 1), shape) ** (1.0 / a)
     return out

@@ -1,13 +1,13 @@
 """Example targets: Neal's funnel, the banana and the flat-prior isotropic
-Gaussian with raw (unconstrained) densities, and the ``BayesianModel``
-targets hierarchical normal, eight schools (non-centred), the
-unidentifiable binomial and logistic regression.
+Gaussian with raw (unconstrained) densities; the ``BayesianModel`` targets
+hierarchical normal, eight schools (centred and non-centred), the
+unidentifiable binomial, logistic regression, the Bernoulli model and the
+mRNA transfection model; and the mixed targets with ordinal and Bool
+coordinates, ``poisson_count_target`` and ``binary_mixture_target`` (the
+Ising model is in ``models/ising.py``).
 
 Counterpart of the same names of ``pigeons_tpu/models/library.py``, with
-batched ``log_density(x [..., d]) -> [...]``. Of that module's
-``BayesianModel`` targets, ``eight_schools(centered=True)``,
-``bernoulli_target`` and ``mrna_target`` are not ported yet (ROADMAP queue 1,
-item 11b).
+batched ``log_density(x [..., d]) -> [...]``.
 
 Each density is written operation for operation as XLA's CPU backend
 evaluates the JAX one (read off its optimized LLVM IR): divisions by
@@ -30,20 +30,26 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import f32math, rng
-from ..paths import (BANANA, EIGHT_SCHOOLS, FUNNEL, HIERARCHICAL_NORMAL, LOGISTIC_REGRESSION,
-                     MVN as MVN_KIND, UNID, sum_squares)
+from ..paths import (BANANA, BERNOULLI, EIGHT_SCHOOLS, EIGHT_SCHOOLS_CENTERED, FUNNEL,
+                     HIERARCHICAL_NORMAL, LOGISTIC_REGRESSION, MRNA, MVN as MVN_KIND, UNID,
+                     sum_squares)
 from .bayesian import BayesianModel
 from .distributions import (
     _LOG_2PI_F32,
     LOG_2PI,
+    Beta,
     HalfCauchy,
     Normal,
     Uniform,
+    _const_log,
+    _f32,
+    _recip,
     binomial_log_coefficient,
     binomial_logpmf,
     normal_constants,
@@ -188,6 +194,126 @@ class MVN(Target):
 
     def default_reference(self) -> Reference:
         return StandardNormalReference(self.dim, sigma=2.0 / math.sqrt(self.precision)).as_reference()
+
+
+def _poisson(keys, rate: float):
+    """Poisson(``rate``) draws for keys ``[..., 2]``, as float32: the law of
+    ``jax.random.poisson``, not its stream. One uniform a draw, inverted
+    through the float64 distribution function (its tail past ``rate + 30
+    sqrt(rate) + 30`` has probability below 1e-100)."""
+    u = rng.uniform(keys).double()
+    k_max = int(rate + 30.0 * math.sqrt(rate) + 30.0)
+    k = torch.arange(k_max + 1, dtype=torch.float64, device=keys.device)
+    cdf = torch.cumsum(torch.exp(k * math.log(rate) - torch.lgamma(k + 1.0) - rate), 0)
+    return torch.searchsorted(cdf, u).clamp_max(k_max).to(torch.float32)
+
+
+@dataclass(frozen=True)
+class PoissonCount(Target):
+    """Mixed integer / continuous toy target: ``k ~ Poisson(rate)`` (an
+    ordinal coordinate, ``integer_mask``) beside ``n_cont`` iid ``N(0, 1)``
+    coordinates; its reference is the target itself. The state carries whole
+    values at the count coordinate."""
+
+    rate: float = 5.0
+    n_cont: int = 1
+
+    @property
+    def dim(self):
+        return 1 + self.n_cont
+
+    @property
+    def integer_mask(self):
+        m = np.zeros(self.dim, bool)
+        m[0] = True
+        return m
+
+    def log_density(self, s):
+        """``k log(rate) - lgamma(k + 1) - rate`` plus the normal terms, -inf
+        where ``k`` is negative or not whole."""
+        k, x = s[..., 0], s[..., 1:]
+        valid = (k >= 0) & (torch.abs(k - torch.round(k)) < 0.5)
+        lp_k = f32math.fma(k, _f32(math.log(self.rate)), -f32math.lgamma(k + 1.0)) - _f32(self.rate)
+        lp_x = sum_in_order(f32math.fma(-0.5 * x, x, _NEG_HALF_LOG_2PI))
+        return torch.where(valid, lp_k + lp_x, torch.full_like(lp_k, -float("inf")))
+
+    def default_reference(self) -> Reference:
+        return Reference(log_density=self.log_density, sample_iid=self.sample_iid_target)
+
+    def sample_iid_target(self, keys):
+        kk, kx = rng.split(keys).unbind(-2)
+        return torch.cat([_poisson(kk, self.rate)[..., None], rng.normal(kx, (self.n_cont,))], dim=-1)
+
+    def initialization(self, keys):
+        return self.sample_iid_target(keys)
+
+
+def poisson_count_target(rate: float = 5.0, n_cont: int = 1) -> PoissonCount:
+    return PoissonCount(rate, n_cont)
+
+
+@dataclass(frozen=True)
+class BinaryMixture(Target):
+    """Mixed Bool / continuous toy target: ``b_i ~ Bernoulli(p)`` for ``i =
+    1, 2`` (``binary_mask``) and ``x_j | b ~ N(mu (b_1 + b_2), 1)``. The
+    reference is Bernoulli(1/2) on the Bool block and ``N(0, 3)`` on the
+    continuous one. States carry {0., 1.} at the Bool coordinates."""
+
+    p: float = 0.4
+    mu: float = 1.5
+    n_cont: int = 2
+
+    @property
+    def dim(self):
+        return 2 + self.n_cont
+
+    @property
+    def binary_mask(self):
+        m = np.zeros(self.dim, bool)
+        m[:2] = True
+        return m
+
+    @staticmethod
+    def _valid(b):
+        return ((b == 0.0) | (b == 1.0)).all(dim=-1)
+
+    def log_density(self, s):
+        b, x = s[..., :2], s[..., 2:]
+        lp_b = sum_in_order(f32math.fma(b, _f32(math.log(self.p)), (1.0 - b) * _f32(math.log(1.0 - self.p))))
+        m = _f32(self.mu) * sum_in_order(b)
+        dev = x - m[..., None]
+        lp_x = sum_in_order(f32math.fma(dev * dev, -0.5, _NEG_HALF_LOG_2PI))
+        return torch.where(self._valid(b), lp_b + lp_x, torch.full_like(lp_x, -float("inf")))
+
+    def default_reference(self) -> Reference:
+        n_c = self.n_cont
+        const = _f32(-(_const_log(3.0) + 0.5 * LOG_2PI))
+
+        def ref_log_density(s):
+            b, x = s[..., :2], s[..., 2:]
+            z = x * _INV_3
+            lp = _f32(-2.0 * math.log(2.0)) + sum_in_order(f32math.fma(z * z, -0.5, const))
+            return torch.where(self._valid(b), lp, torch.full_like(lp, -float("inf")))
+
+        def ref_sample(keys):
+            kb, kx = rng.split(keys).unbind(-2)
+            b = (rng.uniform(kb, (2,)) < 0.5).to(torch.float32)
+            return torch.cat([b, 3.0 * rng.normal(kx, (n_c,))], dim=-1)
+
+        return Reference(log_density=ref_log_density, sample_iid=ref_sample)
+
+    def sample_iid_target(self, keys):
+        kb, kx = rng.split(keys).unbind(-2)
+        b = (rng.uniform(kb, (2,)) < _f32(self.p)).to(torch.float32)
+        x = _f32(self.mu) * b.sum(-1, keepdim=True) + rng.normal(kx, (self.n_cont,))
+        return torch.cat([b, x], dim=-1)
+
+    def initialization(self, keys):
+        return self.default_reference().sample_iid(keys)
+
+
+def binary_mixture_target(p: float = 0.4, mu: float = 1.5, n_cont: int = 2) -> BinaryMixture:
+    return BinaryMixture(p, mu, n_cont)
 
 
 def funnel(n_x: int = 9, scale: float = 1.0) -> Funnel:
@@ -506,14 +632,74 @@ _EIGHT_SCHOOLS_Y = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
 _EIGHT_SCHOOLS_SIGMA = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
 
 
+_PSEUDO_SCALE = 20.0  # the centred model's pseudo-prior on theta
+
+
+class CenteredEightSchoolsLikelihood:
+    """Centred eight schools: ``theta[j] ~ N(mu, tau)`` and ``y[j] ~
+    N(theta[j], sigma[j])``, with the pseudo-prior ``N(0, 20)`` of theta
+    (its prior in the model, so that the reference is iid-sampleable)
+    divided back out: three sums of ``J`` terms, ``(A + B) - C``, each in
+    order (``terms`` lays them out ``[A, B, C]``).
+
+    ``B`` has two forms. Inside the slice kernel, which receives ``y`` and
+    ``sigma`` as array inputs, it divides by ``sigma`` and reads ``log
+    sigma`` through the Cephes log (:meth:`sweep`, K2 and its twin); in the
+    runtime's density pass XLA folds the constant arrays into their float32
+    reciprocals and logs (:meth:`__call__`)."""
+
+    def __init__(self, y, sigma, log_sigma=None):
+        self.y = y.to(torch.float32).contiguous()
+        self.sigma = sigma.to(torch.float32).contiguous()
+        self.log_sigma = f32math.log(self.sigma) if log_sigma is None else log_sigma
+        # the runtime's folded constants
+        self.inv_sigma = torch.tensor([_recip(v) for v in self.sigma.tolist()], device=self.y.device)
+        self.neg_log_sigma = torch.tensor([-_const_log(v) for v in self.sigma.tolist()],
+                                          device=self.y.device)
+
+    def to(self, device):
+        return CenteredEightSchoolsLikelihood(self.y.to(device), self.sigma.to(device),
+                                              self.log_sigma.to(device))
+
+    def device(self):
+        return (EIGHT_SCHOOLS_CENTERED, normal_constants(_PSEUDO_SCALE),
+                (self.y, self.sigma, self.log_sigma))
+
+    def _terms(self, q, observation):
+        theta, log_tau = q["theta"], q["log_tau"][..., None]
+        a = _observation_terms(theta, q["mu"][..., None], q["tau"][..., None], -log_tau)
+        return torch.cat([a, observation, normal_terms(theta, 0.0, _PSEUDO_SCALE)], dim=-1)
+
+    def terms(self, q):
+        """The kernel's terms ``[..., 3 J]``."""
+        return self._terms(q, _observation_terms(self.y, q["theta"], self.sigma, -self.log_sigma))
+
+    def finish(self, terms):
+        a, b, c = terms.chunk(3, dim=-1)
+        return (sum_in_order(a) + sum_in_order(b)) - sum_in_order(c)
+
+    def sweep(self, q):
+        return self.finish(self.terms(q))
+
+    def __call__(self, q):
+        z = (self.y - q["theta"]) * self.inv_sigma
+        observation = f32math.fma(f32math.fma(z, z, _LOG_2PI_F32), -0.5, self.neg_log_sigma)
+        return self.finish(self._terms(q, observation))
+
+
 def eight_schools(centered: bool = False, y=None, sigma=None) -> BayesianModel:
-    """Eight schools, non-centred: ``theta = mu + tau theta_trans``; ``y
-    [J]`` and ``sigma [J]`` replace the schools' effects and standard errors."""
-    if centered:
-        raise NotImplementedError(
-            "eight_schools(centered=True) is not ported yet (ROADMAP queue 1, item 11b)")
+    """Eight schools; ``y [J]`` and ``sigma [J]`` replace the schools' effects
+    and standard errors. Non-centred: ``theta = mu + tau theta_trans``;
+    centred: ``theta`` itself, under the pseudo-prior ``N(0, 20)``
+    (:class:`CenteredEightSchoolsLikelihood`)."""
     y = torch.as_tensor(_EIGHT_SCHOOLS_Y if y is None else y, dtype=torch.float32)
     sigma = torch.as_tensor(_EIGHT_SCHOOLS_SIGMA if sigma is None else sigma, dtype=torch.float32)
+    if centered:
+        return BayesianModel(
+            {"theta": Normal(shape=(y.shape[0],), scale=_PSEUDO_SCALE), "mu": Normal(scale=5.0),
+             "tau": HalfCauchy(scale=5.0)},
+            CenteredEightSchoolsLikelihood(y, sigma),
+        )
     likelihood = EightSchoolsLikelihood(y, sigma)
     return BayesianModel(
         {"theta_trans": Normal(shape=(y.shape[0],)), "mu": Normal(scale=5.0),
@@ -547,4 +733,117 @@ def hierarchical_normal(n_groups: int = 20, n_per_group: int = 10, seed: int = 0
             "sigma": HalfCauchy(scale=2.5),
         },
         HierarchicalNormalLikelihood(data),
+    )
+
+
+class BernoulliLikelihood:
+    """``y[i] ~ Bernoulli(theta)``: ``where(y > 0, log theta, log1p(-theta))``
+    for each observation, added in order."""
+
+    def __init__(self, y):
+        self.y = y.to(torch.float32).contiguous()
+
+    def to(self, device):
+        return BernoulliLikelihood(self.y.to(device))
+
+    def device(self):
+        return BERNOULLI, (float(self.y.numel()),), (self.y,)
+
+    def terms(self, q):
+        p = q["theta"][..., None]
+        return torch.where(self.y > 0, f32math.log(p), f32math.log1p(-p))
+
+    def finish(self, terms):
+        return sum_in_order(terms)
+
+    def __call__(self, q):
+        return self.finish(self.terms(q))
+
+
+_BERNOULLI_DATA = [0, 1, 0, 0, 0, 0, 0, 0, 0, 1]
+
+
+def bernoulli_target(data=None) -> BayesianModel:
+    """``theta ~ Beta(1, 1)``, ``data[i] ~ Bernoulli(theta)``; ``data``
+    (0/1) replaces the ten observations. With the default data the
+    evidence is ``B(3, 9)``: ``log B(3, 9) = -6.204558``."""
+    y = torch.as_tensor(np.asarray(_BERNOULLI_DATA if data is None else data, dtype=np.float32))
+    return BayesianModel({"theta": Beta(1.0, 1.0)}, BernoulliLikelihood(y))
+
+
+def load_mrna_data():
+    """``(ts [150], ys [150])``: the Ballnus et al. (2017) transfection data,
+    the port's own copy of the file the JAX package reads."""
+    raw = np.loadtxt(Path(__file__).parent / "data" / "Ballnus_et_al_2017_M1a.csv", delimiter=",")
+    return (torch.tensor(raw[:, 0], dtype=torch.float32),
+            torch.tensor(raw[:, 1], dtype=torch.float32))
+
+
+_MRNA_NAMES = ("lt0", "lkm0", "lbeta", "ldelta", "lsigma")
+_LN10_F32 = float(np.float32(math.log(10.0)))
+
+
+def mrna_mean(tmt0, km0, beta, delta):
+    """The expected level at ``t - t0 = tmt0``: ``km0 / (delta - beta)
+    (e^{-beta tmt0} - e^{-delta tmt0})`` by the expm1 form of ``get_mu``
+    (``pigeons_tpu/models/library.py``), with its selects (``km0 tmt0``
+    where ``|delta - beta| < 1e-7``, 0 where ``tmt0 <= 0``): a lane's value
+    of the branch not taken may be infinite or NaN and is discarded, not
+    multiplied by 0. A subnormal level is kept (XLA's code flushes it to
+    0): it is then subtracted from an observation of 1e-3 or more, which it
+    cannot change. ``km0``, ``beta``, ``delta`` ``[..., 1]``."""
+    dmb = delta - beta
+    a, b = -beta * tmt0, -delta * tmt0
+    diff = torch.where(a > b, -f32math.exp(a) * f32math.expm1(b - a),
+                       f32math.exp(b) * f32math.expm1(a - b))
+    near = torch.abs(dmb) < 1e-7
+    val = km0 * torch.where(near, tmt0, diff / torch.where(near, torch.ones_like(dmb), dmb))
+    return torch.where(tmt0 <= 0.0, torch.zeros_like(val), val)
+
+
+class MrnaLikelihood:
+    """``ys[i] ~ N(mu(ts[i]), sigma)`` with ``mu`` from :func:`mrna_mean`;
+    the five parameters are ``log10`` of ``t0``, ``km0``, ``beta``,
+    ``delta`` and ``sigma`` (``f32math.pow10``, glibc's ``powf`` as XLA's CPU
+    code calls it). XLA rewrites ``log(10 ** lsigma)`` to ``lsigma log(10)``
+    (0 where ``lsigma`` is 0). The 150 terms are summed by windows of 32
+    (:func:`sum_by_windows`) in the runtime's pass (its reduce-window, read
+    off the compiled module) and inside the slice kernel alike
+    (``tests/summation_order_study.py``)."""
+
+    def __init__(self, ts, ys):
+        self.ts = ts.to(torch.float32).contiguous()
+        self.ys = ys.to(torch.float32).contiguous()
+
+    def to(self, device):
+        return MrnaLikelihood(self.ts.to(device), self.ys.to(device))
+
+    def device(self):
+        return MRNA, (float(self.ts.numel()),), (self.ts, self.ys)
+
+    def terms(self, q):
+        t0, km0, beta, delta, sigma = (f32math.pow10(q[n])[..., None] for n in _MRNA_NAMES)
+        lsigma = q["lsigma"][..., None]
+        log_sigma = torch.where(lsigma == 0.0, torch.zeros_like(lsigma), _LN10_F32 * lsigma)
+        mu = mrna_mean(self.ts - t0, km0, beta, delta)
+        return _observation_terms(self.ys, mu, sigma, -log_sigma)
+
+    def finish(self, terms):
+        return sum_by_windows(terms)
+
+    def __call__(self, q):
+        return self.finish(self.terms(q))
+
+
+def mrna_target(ts=None, ys=None) -> BayesianModel:
+    """The mRNA transfection model (Ballnus et al. 2017 data): five
+    log10-scale parameters with uniform priors; ``ts [n]`` and ``ys [n]``
+    replace the 150 observations (:func:`load_mrna_data`)."""
+    if ts is None:
+        ts, ys = load_mrna_data()
+    ts, ys = torch.as_tensor(ts, dtype=torch.float32), torch.as_tensor(ys, dtype=torch.float32)
+    return BayesianModel(
+        {"lt0": Uniform(-2.0, 1.0), "lkm0": Uniform(-5.0, 5.0), "lbeta": Uniform(-5.0, 5.0),
+         "ldelta": Uniform(-5.0, 5.0), "lsigma": Uniform(-2.0, 2.0)},
+        MrnaLikelihood(ts, ys),
     )

@@ -48,7 +48,7 @@ class Target:
 
     def default_explorer(self):
         """The slice sampler, with a target's ``integer_mask`` /
-        ``binary_mask`` handed on (the port's sampler raises for them)."""
+        ``binary_mask`` handed on."""
         from ..ops import SliceSampler
 
         masks = {name: getattr(self, name) for name in ("integer_mask", "binary_mask")

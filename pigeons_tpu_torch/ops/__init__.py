@@ -1,4 +1,5 @@
 from .base import Explorer, NoOpExplorer, StepOut, ToyExplorer
+from .binary_gibbs import BinaryGibbs
 from .cuda_slice import SliceSamplerCUDA
 from .slice_sampler import SliceSampler
 from .automala import AutoMALA

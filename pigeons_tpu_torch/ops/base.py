@@ -42,6 +42,9 @@ def _zero_stats(B: int, device):
 class Explorer:
     extra_names: tuple = ()
 
+    def check_target(self, target) -> None:
+        """Raise if this explorer cannot move ``target``'s states."""
+
     def check_path(self, path) -> None:
         """Raise if this explorer cannot move along ``path``."""
 

@@ -502,6 +502,19 @@ class SliceSamplerCUDA(Explorer):
             path = path.fixed
         return self.coord_deltas and self.parallel_coords and hasattr(path, "coord_factor")
 
+    def check_target(self, target) -> None:
+        """The kernels take continuous coordinates only: a target with an
+        ``integer_mask`` or a ``binary_mask`` raises. (The JAX
+        ``SliceSamplerPallas`` runs its XLA sampler for such a target instead,
+        without saying so.)"""
+        for mask in ("integer_mask", "binary_mask"):
+            if getattr(target, mask, None) is not None:
+                raise NotImplementedError(
+                    f"SliceSamplerCUDA: {type(target).__name__} has a {mask} (ordinal or Bool "
+                    "coordinates), which the CUDA slice kernels do not take. Pass "
+                    "explorer=SliceSampler(), the target's default explorer, which takes the "
+                    "masks from the target.")
+
     def check_path(self, path) -> None:
         if self._banded(path):
             return
@@ -521,11 +534,10 @@ class SliceSamplerCUDA(Explorer):
             "slice kernel K2, which evaluates the density inside the kernel "
             "(csrc/densities.cuh). It has the toy MVN, the funnel, the banana, the "
             "flat-prior MVN and the BayesianModel targets hierarchical_normal, "
-            "eight_schools(centered=False), unid_target and logistic_regression under their "
-            "own prior; the "
-            "other library models and a BayesianModel under another reference are ROADMAP "
-            "queue 1, item 11b-models; user-supplied densities and CustomPath item 11b-user. Pass "
-            "explorer=SliceSampler() for this run."
+            "eight_schools (centred and not), unid_target, logistic_regression, "
+            "bernoulli_target and mrna_target under their own prior; a BayesianModel under "
+            "another reference, user-supplied densities and CustomPath are ROADMAP queue 1, "
+            "item 11b-user. Pass explorer=SliceSampler() for this run."
         )
 
     def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None,

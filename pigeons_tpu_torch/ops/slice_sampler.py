@@ -26,8 +26,18 @@ XLA's CPU code (the step-out and the candidate are fused multiply-adds,
 ``exponential`` is ``-log1p(-u)`` with the Cephes ``log1p``), so that on a
 density that agrees bit for bit the whole step does.
 
-Integer and binary coordinates (``integer_mask``, ``binary_mask``) are not
-ported yet.
+Mixed coordinate types, as in the JAX sampler (reference
+``SliceSampler.jl:65-86,136-142,189``). ``integer_mask`` marks ordinal
+coordinates: the window is ``L = old - floor(u (w + 1))``, ``R = L + w``
+(``w`` must be a whole number), a shrink candidate is ``Lb + floor(u (Rb -
+Lb + 1))``, drawn from the inclusive range, and the bracket is exhausted when
+``Rb - Lb < 0.5``. ``binary_mask`` marks Bool coordinates, which take the
+exact Gibbs draw instead of a slice: one evaluation at the flipped value,
+``p(0) = 1 / (1 + exp(lp1 - lp0))`` against the uniform of ``fold_in(k_c,
+0)``, counted as one accepted, considered step. A mask is per coordinate and
+the same for every lane, so each coordinate step takes one branch for the
+whole batch, as ``lax.cond`` on the shared coordinate index does in the JAX
+version. States stay float, holding whole numbers or {0, 1} there.
 """
 
 from __future__ import annotations
@@ -62,15 +72,21 @@ class SliceSampler(Explorer):
 
     def __init__(self, w: float = 10.0, p: int = 20, n_passes: int = 3,
                  max_iter: int = 1024, integer_mask=None, binary_mask=None):
-        if integer_mask is not None or binary_mask is not None:
-            raise NotImplementedError(
-                "SliceSampler: integer_mask and binary_mask (ordinal and Bool coordinates) "
-                "are not ported to pigeons_tpu_torch yet (ROADMAP queue 1, item 14)"
-            )
         self.w = float(w)
         self.p = int(p)
         self.n_passes = int(n_passes)
         self.max_iter = int(max_iter)
+        if integer_mask is not None:
+            integer_mask = np.asarray(integer_mask, bool)
+            if integer_mask.any() and self.w != round(self.w):
+                raise ValueError(
+                    f"integer coordinates need a whole-number slice width; got w={self.w}")
+        if binary_mask is not None:
+            binary_mask = np.asarray(binary_mask, bool)
+            if integer_mask is not None and (binary_mask & integer_mask).any():
+                raise ValueError("a coordinate cannot be both binary and integer")
+        self.integer_mask = integer_mask
+        self.binary_mask = binary_mask
 
     def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None,
                      chain_params=None, scan_idx=None) -> StepOut:
@@ -97,9 +113,24 @@ class SliceSampler(Explorer):
                 xq[:, c] = v
                 return lp_fn(xq)
 
+            if self.binary_mask is not None and self.binary_mask[c]:
+                # the exact full conditional of a Bool coordinate
+                lp_other = lp_at(1.0 - old)
+                is_one = old > 0.5
+                lp1 = torch.where(is_one, lp_cur, lp_other)
+                lp0v = torch.where(is_one, lp_other, lp_cur)
+                p_zero = 1.0 / (1.0 + f32math.exp(lp1 - lp0v))
+                u = rng.uniform(rng.fold_in(rng.fold_in(keys, i), 0))
+                new = torch.where(u < p_zero, 0.0, 1.0)
+                x[:, c] = new
+                lp_cur = torch.where(new == old, lp_cur, lp_other)
+                acc_sum, acc_n, n_evals = acc_sum + 1.0, acc_n + 1.0, n_evals + 1.0
+                continue
+            is_int = self.integer_mask is not None and bool(self.integer_mask[c])
+
             k_c, e, u_init = coordinate_draws(keys, i)
             z = lp_cur - e
-            L = f32math.fma(u_init, -W, old)
+            L = old - torch.floor(u_init * (W + 1.0)) if is_int else f32math.fma(u_init, -W, old)
             R = L + W
             lpL, lpR = lp_at(L), lp_at(R)
             start_dbl = (z < lpL) | (z < lpR) if self.p > 0 else torch.zeros_like(z, dtype=torch.bool)
@@ -117,7 +148,14 @@ class SliceSampler(Explorer):
                 grow_left = u_side <= 0.5
                 span = R - L
                 dbl_q = torch.where(grow_left, L - span, R + span)
-                cand_draw = f32math.fma(u_shr, Rb - Lb, Lb)
+                if is_int:  # the inclusive range {Lb .. Rb}
+                    cand_draw = Lb + torch.floor(u_shr * ((Rb - Lb) + 1.0))
+                elif self.integer_mask is not None:
+                    # XLA selects between the two draws of a traced is_int,
+                    # and the continuous one's multiply is no longer fused
+                    cand_draw = Lb + u_shr * (Rb - Lb)
+                else:
+                    cand_draw = f32math.fma(u_shr, Rb - Lb, Lb)
                 M = (Lh + Rh) * 0.5
                 ph_dbl, ph_shr, ph_chk = phase == DOUBLE, phase == SHRINK, phase == CHECK
                 query = torch.where(ph_dbl, dbl_q, torch.where(ph_shr, cand_draw,
@@ -167,7 +205,10 @@ class SliceSampler(Explorer):
                 shrink_left = cand < old
                 Lb = torch.where(rejected & shrink_left, cand, Lb)
                 Rb = torch.where(rejected & ~shrink_left, cand, Rb)
-                degenerate = torch.abs(Rb - Lb) <= 3.5e-4 * torch.maximum(torch.abs(Lb), torch.abs(Rb))
+                if is_int:  # a single candidate left
+                    degenerate = (Rb - Lb) < 0.5
+                else:
+                    degenerate = torch.abs(Rb - Lb) <= 3.5e-4 * torch.maximum(torch.abs(Lb), torch.abs(Rb))
                 bail = rejected & (degenerate | (n_shr >= self.max_iter))
 
                 accepted = accepted | accept_shr | accept_chk

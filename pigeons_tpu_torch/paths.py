@@ -19,7 +19,7 @@ from . import f32math, rng
 
 # density kinds of csrc/densities.cuh (enum Density)
 (TOY_MVN, FUNNEL, BANANA, MVN, HIERARCHICAL_NORMAL, EIGHT_SCHOOLS, UNID,
- LOGISTIC_REGRESSION) = range(8)
+ LOGISTIC_REGRESSION, BERNOULLI, EIGHT_SCHOOLS_CENTERED, MRNA) = range(11)
 
 
 class DeviceDensity(NamedTuple):

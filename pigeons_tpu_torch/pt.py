@@ -131,6 +131,7 @@ class PT:
             self._density_path = VariationalPath(self.path, self.variational)
             self._ref_params = self.variational.init_params(self.dim, self.device)
         self.explorer = inputs.explorer or target.default_explorer()
+        self.explorer.check_target(target)
         self.explorer.check_path(self._density_path)
         # the explorer's adapted state, a dict of tensors [n_chains, ...] (or ())
         self.exp_state = self.explorer.init_state(n, self.dim, self.device)

@@ -6,7 +6,10 @@ either package, at a ladder count of choice.
 
 NRPT from the prior to the posterior of ``hierarchical_normal()`` (the
 default; 20 groups x 10 observations, d = 23, the target of bench config 5),
-``eight_schools()`` or ``unid_target()``: 32 chains, seed 1, one slice pass
+``eight_schools()``, ``eight_schools(centered=True)`` (``--model
+eight_schools_centered``), ``unid_target()``, ``bernoulli_target()`` or
+``mrna_target()`` (150 observations, d = 5; the mRNA path of
+``chip_smoke.py``, ``M_JAX`` there): 32 chains, seed 1, one slice pass
 per scan, rounds of 2, 4, 8, 16, 32 and 64 scans, each adapting the schedule
 for the next. Without ``--port`` the JAX package runs it on the CPU with
 ``SliceSamplerPallas(interpret=True)`` (hierarchical normal at 16 ladders:
@@ -16,7 +19,7 @@ interpreter's reach); with ``--port DEVICE`` the port runs it with
 posterior means and standard deviations of the model's scalar parameters
 (constrained), the barrier, logZ, round trips and restarts; the line of the
 64-scan round of the JAX package's run gives the numbers that
-``chip_smoke.py`` holds the card's runs to (``H_JAX_*`` there).
+``chip_smoke.py`` holds the card's runs to (``H_JAX`` and ``M_JAX`` there).
 
 The two packages run the same law, not the same trajectory: the prior's
 half-Cauchy draws go through a tangent that the packages round differently
@@ -37,27 +40,30 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 ROUNDS = (2, 4, 8, 16, 32, 64)
-MODELS = {"hierarchical_normal": ("hierarchical_normal", ("mu", "tau", "sigma")),
-          "eight_schools": ("eight_schools", ("mu", "tau")),
-          "unid": ("unid_target", ("p1", "p2"))}
+MODELS = {"hierarchical_normal": ("hierarchical_normal", {}, ("mu", "tau", "sigma")),
+          "eight_schools": ("eight_schools", {}, ("mu", "tau")),
+          "eight_schools_centered": ("eight_schools", {"centered": True}, ("mu", "tau")),
+          "unid": ("unid_target", {}, ("p1", "p2")),
+          "bernoulli_target": ("bernoulli_target", {}, ("theta",)),
+          "mrna_target": ("mrna_target", {}, ("lt0", "lkm0", "lbeta", "ldelta", "lsigma"))}
 
 
 def main():
     args = sys.argv[1:]
     ladders = int(args[args.index("--ladders") + 1]) if "--ladders" in args else 16
     name = args[args.index("--model") + 1] if "--model" in args else "hierarchical_normal"
-    factory, scalars = MODELS[name]
+    factory, kwargs, scalars = MODELS[name]
     common = dict(n_chains=32, n_replicates=ladders, seed=1, show_report=False)
     if "--port" in args:
         import pigeons_tpu_torch as P
 
-        target = getattr(P, factory)()
+        target = getattr(P, factory)(**kwargs)
         pt = P.PT(P.Inputs(target=target, explorer=P.SliceSamplerCUDA(n_passes=1),
                            device=args[args.index("--port") + 1], **common))
     else:
         import pigeons_tpu as P
 
-        target = getattr(P, factory)()
+        target = getattr(P, factory)(**kwargs)
         pt = P.PT(P.Inputs(target=target,
                            explorer=P.SliceSamplerPallas(interpret=True, n_passes=1), **common))
     print(f"{name}, 32 chains x {ladders} ladders, seed 1, "

@@ -32,6 +32,7 @@
 #define __device__
 #define __host__
 #define __shared__
+#define __constant__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 
@@ -68,6 +69,7 @@ template <class To, class From> inline To stub_bit_cast(From v) {
 inline float __uint_as_float(uint32_t v) { return stub_bit_cast<float>(v); }
 inline float __int_as_float(int32_t v) { return stub_bit_cast<float>(v); }
 inline int32_t __float_as_int(float v) { return stub_bit_cast<int32_t>(v); }
+inline double __longlong_as_double(long long v) { return stub_bit_cast<double>(v); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
 namespace cuda_stub {

@@ -1,5 +1,5 @@
-"""In which order XLA's CPU code adds up the two many-term likelihoods, read
-off the JAX package's slice kernel.
+"""In which order XLA's CPU code adds up the many-term likelihoods, read off
+the JAX package's slice kernel.
 
     JAX_PLATFORMS=cpu python tests/summation_order_study.py [--lanes 128]
 
@@ -15,7 +15,9 @@ order; ``V`` partial sums over the rows (row ``r`` in partial ``r mod V``)
 combined by halving, then the rows past the last full ``V`` in order;
 ``library.row_partials`` (the rule the port follows); windows of ``W`` terms
 (``library.sum_by_windows``). A candidate that matches every lane is XLA's
-order at that shape, or indistinguishable from it there.
+order at that shape, or indistinguishable from it there. For the mRNA
+model's 150 terms it counts the kernel's lanes and, separately, the lanes of
+the runtime's pass (``jit(vmap(log_likelihood))``) that each order gives.
 
 Not a test: a study (about two minutes); ``tests/test_torch_sweep_bayesian.py``
 holds the port's rule at the shapes it covers.
@@ -121,6 +123,36 @@ def logistic(n, d, lanes):
     return {k: int(((prior + v).astype(np.float32) == lp).sum()) for k, v in sums.items()}
 
 
+def mrna(lanes):
+    """The mRNA model's 150 terms: the kernel's order (its returned densities
+    at beta = 1, against the port's prior plus each candidate sum; the prior
+    also with its five uniform constants added one by one instead of folded
+    into one, ``BayesianModel._prior_of``) and the runtime pass's
+    (``jit(vmap(log_likelihood))`` of the JAX model at the same states)."""
+    import jax
+
+    from pigeons_tpu.models.library import _load_mrna_data
+
+    jm = J.mrna_target()
+    ts, ys = _load_mrna_data()
+    tm = convert.bayesian_model_from_numpy("mrna_target", ts=ts, ys=ys)
+    x, lp = _final_states(jm, lanes)
+    q, logjac = tm.constrain(x)
+    prior = tm.log_prior(x).numpy()
+    one_by_one = logjac.numpy()
+    for dist in tm.priors.values():
+        one_by_one = (one_by_one + np.float32(dist.total)).astype(np.float32)
+    terms = tm.log_likelihood_fn.terms(q)
+    sums = {"in order": _in_order(terms.numpy())}
+    sums.update({f"windows of {W}": library.sum_by_windows(terms, W).numpy() for W in (8, 16, 32, 64)})
+    kernel = {k: int(((prior + v).astype(np.float32) == lp).sum()) for k, v in sums.items()}
+    kernel["windows of 32, constants one by one"] = int(
+        ((one_by_one + sums["windows of 32"]).astype(np.float32) == lp).sum())
+    lik = np.asarray(jax.jit(jax.vmap(jm.log_likelihood))(x.numpy()))
+    runtime = {k: int((v == lik).sum()) for k, v in sums.items()}
+    return kernel, runtime
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--lanes", type=int, default=128)
@@ -131,6 +163,8 @@ def main():
               f"{library.row_partials(shape[0])}): {hierarchical(shape, args.lanes)}", flush=True)
     for n, d in LOGISTIC_SIZES:
         print(f"logistic regression n={n}, d={d}: {logistic(n, d, args.lanes)}", flush=True)
+    kernel, runtime = mrna(args.lanes)
+    print(f"mRNA, 150 observations: the kernel {kernel}; the runtime pass {runtime}", flush=True)
 
 
 if __name__ == "__main__":

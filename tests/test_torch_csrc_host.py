@@ -245,6 +245,9 @@ BAYESIAN = {
     "unid": lambda: T.unid_target(),
     # two windows of the likelihood's sum, the first short of 32 terms
     "logistic_regression_40x3": lambda: T.logistic_regression(40, 3, seed=1),
+    "bernoulli": lambda: T.bernoulli_target(),
+    "eight_schools_centered": lambda: T.eight_schools(centered=True),
+    "mrna": lambda: T.mrna_target(),
 }
 
 

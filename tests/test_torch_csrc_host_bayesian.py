@@ -3,7 +3,9 @@ against the twin: the rest of ``tests/test_torch_csrc_host.py``, which has the
 helpers and says how the sources are built and what is compared (everything
 bitwise). Here: each model's density for 1, 8, 16 and 32 threads per lane
 (the hierarchical normal also at shapes whose rows do not fill the four
-partial sums of its likelihood), and the launcher's own choice of group.
+partial sums of its likelihood; the Bernoulli model with its Beta prior
+block, centred eight schools and mRNA with ``expm1`` and glibc's ``powf``
+of base 10), and the launcher's own choice of group.
 """
 
 import functools
@@ -54,7 +56,8 @@ def test_k2_bayesian_host_build_matches_twin(host_libraries, name, group):
 
 
 @pytest.mark.parametrize("name", ["hierarchical_normal", "eight_schools",
-                                  "logistic_regression_40x3"])
+                                  "logistic_regression_40x3", "bernoulli",
+                                  "eight_schools_centered", "mrna"])
 def test_k2_launchers_group_matches_twin(host_libraries, name):
     """The launcher's own choice of threads per lane (group 0)."""
     model = BAYESIAN[name]()

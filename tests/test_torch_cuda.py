@@ -282,7 +282,9 @@ def test_funnel_card_run_matches_cpu_run(cuda_device):
 
 
 BAYESIAN = {"hierarchical_normal": T.hierarchical_normal, "eight_schools": T.eight_schools,
-            "unid": T.unid_target, "logistic_regression": T.logistic_regression}
+            "unid": T.unid_target, "logistic_regression": T.logistic_regression,
+            "bernoulli": T.bernoulli_target, "mrna": T.mrna_target,
+            "eight_schools_centered": lambda: T.eight_schools(centered=True)}
 
 
 @functools.lru_cache(maxsize=None)

@@ -192,12 +192,6 @@ def test_two_leg_run_with_the_torch_sampler_matches_jax():
     assert abs(ja.global_barrier_variational - ta.global_barrier_variational) < 1e-3
 
 
-@pytest.mark.parametrize("mask", ["integer_mask", "binary_mask"])
-def test_integer_and_binary_coordinates_raise(mask):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.SliceSampler(**{mask: [True, False]})
-
-
 def test_defaults_match_jax():
     j, t = J.SliceSampler(), T.SliceSampler()
     assert (j.w, j.p, j.n_passes, j.max_iter) == (t.w, t.p, t.n_passes, t.max_iter)
