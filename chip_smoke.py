@@ -152,15 +152,20 @@ H_JAX = {"mu": 0.667063, "tau": 1.017755, "sigma": 0.477138, "barrier": 7.937929
 # the mRNA path (PR 10): mrna_target() (150 observations, d = 5) at the
 # hierarchical cell's width and rounds. The same rounds at 16 ladders as the
 # JAX package runs them on the CPU (``JAX_PLATFORMS=cpu python
-# tests/bayesian_reference_run.py --model mrna_target --ladders 16``): the line
-# of the 4-scan round (the second), where the two runs are still one run, and
-# of the 64-scan round: pooled posterior means of the five log10-scale
-# parameters, barrier and logZ, and the pooled deviations that set the
-# tolerances of the last round (three standard errors of 16 ladders).
-M_JAX_ROUND2 = {"lt0": -0.198050, "lkm0": 0.977340, "lbeta": -0.624946, "ldelta": -0.427771,
-                "lsigma": 1.567400, "barrier": 3.679385, "logZ": -13039.858088}
-M_JAX = {"lt0": 0.096173, "lkm0": 1.036174, "lbeta": -1.295894, "ldelta": -1.746246,
-         "lsigma": 0.410640, "barrier": 8.545976, "logZ": -488.366605}
+# tests/bayesian_reference_run.py --model mrna_target --ladders 16``), the
+# line of every round (2, 4, ..., 64 scans; the last is M_JAX): pooled
+# posterior means of the five log10-scale parameters, barrier and logZ, and
+# the pooled deviations of the last round (three standard errors of 16
+# ladders: the tolerance of the full-width run).
+_M_NAMES = ("lt0", "lkm0", "lbeta", "ldelta", "lsigma", "barrier", "logZ")
+M_JAX_ROUNDS = [dict(zip(_M_NAMES, v)) for v in (
+    (-0.291734, 1.039604, -0.505033, -2.241624, 1.901108, 6.079096, -784.344481),
+    (-0.198050, 0.977340, -0.624946, -0.427771, 1.567400, 3.679385, -13039.858088),
+    (0.015603, 2.841221, -1.018447, -1.858639, 1.062483, 4.038112, -120851.989142),
+    (-0.349320, 1.796502, -1.268918, -2.044482, 0.726091, 5.450694, -649.618894),
+    (-0.239119, 1.008174, -1.451108, -1.776715, 0.476409, 7.873853, -498.367941),
+    (0.096173, 1.036174, -1.295894, -1.746246, 0.410640, 8.545976, -488.366605))]
+M_JAX = M_JAX_ROUNDS[-1]
 M_JAX_SD = {"lt0": 0.106800, "lkm0": 0.053797, "lbeta": 0.924310, "ldelta": 0.730853,
             "lsigma": 0.029144}
 # the Bernoulli model's evidence: log B(3, 9)
@@ -589,19 +594,24 @@ def k1_variational_phase():
 
 def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_ops,
             prepare_ops=ops(0), prepare_coords=(), variational=None, variational_ops=ops(0),
-            extra_bytes=0, groups=(), inputs=None, n_passes=F_PASSES, keep=None):
+            extra_bytes=0, groups=(), inputs=None, n_passes=F_PASSES, keep=None, coord_ops=None,
+            full_query_ops=None):
     """Kernel K2 against its twin for one path and mode, ``n_passes`` passes
     over ``inputs`` (states, betas, lane seeds; by default
     :func:`lane_inputs`), and ``keep`` (a dict) given the inputs and the
     twin's result. A density
     query needs ``query_ops`` (a query of a coordinate in ``prepare_coords``
-    ``prepare_ops`` besides; a query of a lane that follows the variational
+    ``prepare_ops`` besides, one of coordinate c ``coord_ops[c]`` besides; a
+    query of a lane that follows the variational
     reference ``variational_ops`` instead), an ENTER iteration ``enter_ops``
     besides, a lane ``lane_ops`` once. ``variational`` is ``None`` or the
     keywords ``isvar`` and ``ref_params`` of a variational launch. ``groups``:
     numbers of threads per lane that must give the same bits as the
     launcher's own choice. Returns the timings and the bound of this run's
-    work."""
+    work. Where ``full_query_ops`` is given (a row whose queries recompute
+    only what they change), the bound with one full evaluation of the
+    density a query instead, as the other rows count it, is printed
+    beside."""
     from pigeons_tpu_torch.ops import cuda_slice
 
     kw = variational or {}
@@ -635,14 +645,24 @@ def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_op
         follows = kw["isvar"] > 0
     q_var = float(got[2][2][follows].double().sum()) + float(follows.sum())
     q_prepare = float(by_coord[list(prepare_coords)].sum()) if prepare_coords else 0.0
+    by_coord_ops = sum((float(by_coord[c]) * v for c, v in (coord_ops or {}).items()), ops(0))
     # per lane: its hash state (an xor and fmix32) and what the mode needs
-    need = (B * (ops(0, 9) + lane_ops) + iterations * LOOP + (iterations - (q_var - float(follows.sum()))) * query_ops
-            + q_var * variational_ops + q_prepare * prepare_ops
-            + n[ENTER] * (2 * DRAW + LOG + M_ENTER + enter_ops) + n[INIT_R] * MORE_DBL
-            + n[DOUBLE] * (DRAW + M_DOUBLE)
-            + n[SHRINK] * (DRAW + M_SHRINK) + (n[SHRINK] - considered) * M_REJECT
-            + n[CHECK] * M_CHECK)
-    bound_ms, bound_by = bound(2 * 4 * B * d + (4 + 8 + 4 + 12) * B + extra_bytes, need)
+    def need_of(query_ops, by_query):
+        return (B * (ops(0, 9) + lane_ops) + iterations * LOOP
+                + (iterations - (q_var - float(follows.sum()))) * query_ops
+                + q_var * variational_ops + by_query
+                + n[ENTER] * (2 * DRAW + LOG + M_ENTER + enter_ops) + n[INIT_R] * MORE_DBL
+                + n[DOUBLE] * (DRAW + M_DOUBLE)
+                + n[SHRINK] * (DRAW + M_SHRINK) + (n[SHRINK] - considered) * M_REJECT
+                + n[CHECK] * M_CHECK)
+
+    n_bytes = 2 * 4 * B * d + (4 + 8 + 4 + 12) * B + extra_bytes
+    need = need_of(query_ops, q_prepare * prepare_ops + by_coord_ops)
+    bound_ms, bound_by = bound(n_bytes, need)
+    if full_query_ops is not None:
+        full_ms, full_by = bound(n_bytes, need_of(full_query_ops, q_prepare * prepare_ops))
+        print(f"{name}: bound with one full evaluation a query {full_ms:.6f} ms by {full_by}, "
+              f"{full_ms / ms:.2%} of the kernel's time")
     print(f"{name}: kernel {ms:.4f} ms (median of 20), twin {plain_ms:.4f} ms (one run, counting "
           f"phases), B={B}, d={d}, {n_passes} pass{'es' * (n_passes > 1)}; {iterations:.0f} "
           f"iterations, slowest lane "
@@ -750,20 +770,38 @@ def k2_new_models_rows(B, B_small, dev):
     from pigeons_tpu_torch import bernoulli_target, eight_schools, mrna_target
 
     out = {}
-    # mRNA: every query recomputes prepare (five sigmoids, fused maps and 10^q,
-    # log sigma, the near test: a query of any coordinate changes every term);
-    # a term: t - t0, two products, one exp and one expm1 (the branch taken),
-    # their product, a division, km0's product, two selects, the normal term;
-    # the sum by windows (n + 5 adds)
+    # mRNA, as ManyTerms computes it: a query recomputes its
+    # coordinate's parameter (a sigmoid, the fused map, 10^q, for beta or
+    # delta the near test, for sigma its log) and its prior block (two
+    # softplus), the sum by windows (n + 5 adds), the prior's sum and the
+    # interpolation. Its terms by coordinate: t0, beta, delta: t - t0, two
+    # products, the larger and the smaller (4), one exp and one expm1, the
+    # sign, their product, a division, km0's product and the select, the
+    # normal term; km0 (each term's shape kept): t - t0, the product, the
+    # select and the normal term; sigma (each level kept): the normal term.
+    # The exp and the expm1 are charged only to the terms with t past t0's
+    # largest value, 10 (lt0 < 1): a term at t <= t0 skips them. The lane's
+    # first evaluation: all five parameters, blocks and terms. Printed
+    # beside: the bound at PR 10's count, one full evaluation a query
+    # (prepare's five parameters, every term with its exp and expm1)
     model = mrna_target().to(dev)
     path = model.create_path(model.default_reference())
     density = path.device_density()
     n_obs = density.arrays[0].numel()
-    prepare = 5 * (SIGMOID + ops(2) + POW10) + ops(8)
-    query = (prepare + n_obs * (ops(8) + EXP + EXP + EXPM1_EXTRA + OBSERVATION) + ops(n_obs + 5)
-             + prior_ops(density.prior) + ops(2) + INTERPOLATE)
-    out["mrna"] = k2_mode("K2 full (mRNA)", path, False, B, model.dim, 1.0, query, ops(0), query,
-                          extra_bytes=4 * 2 * n_obs, groups=(1, 8, 16, 32))
+    n_late = int((density.arrays[0] > 10.0).sum())
+    terms = n_obs * (ops(11) + OBSERVATION) + n_late * (EXP + EXP + EXPM1_EXTRA)
+    query = (SIGMOID + ops(5) + POW10 + 2 * SOFTPLUS + ops(5) + ops(n_obs + 5) + ops(6)
+             + INTERPOLATE)
+    by_coord = {0: terms, 1: n_obs * (ops(3) + OBSERVATION), 2: terms, 3: terms,
+                4: n_obs * OBSERVATION}
+    lane = (5 * (SIGMOID + ops(2) + POW10) + ops(8) + terms + ops(n_obs + 5)
+            + prior_ops(density.prior) + ops(2) + INTERPOLATE)
+    full = (5 * (SIGMOID + ops(2) + POW10) + ops(8)
+            + n_obs * (ops(8) + EXP + EXP + EXPM1_EXTRA + OBSERVATION) + ops(n_obs + 5)
+            + prior_ops(density.prior) + ops(2) + INTERPOLATE)
+    out["mrna"] = k2_mode("K2 full (mRNA)", path, False, B, model.dim, 1.0, query, ops(0), lane,
+                          extra_bytes=4 * 2 * n_obs, groups=(1, 8, 16, 32), coord_ops=by_coord,
+                          full_query_ops=full)
     # Bernoulli: prepare (sigmoid, log, log1p) for every query; a term is a
     # compare and a select, 9 adds; the Beta block
     model = bernoulli_target().to(dev)
@@ -774,19 +812,33 @@ def k2_new_models_rows(B, B_small, dev):
              + ops(1) + INTERPOLATE)
     out["bernoulli"] = k2_mode("K2 full (Bernoulli)", path, False, B_small, model.dim, 1.0, query,
                                ops(0), query, extra_bytes=4 * n_obs, groups=(1, 8, 16, 32))
-    # centred eight schools: 3 x 8 terms (theta's normal term under mu and
-    # tau, the observation's, the pseudo-prior's: seven operations) and their
-    # 23 adds and one subtract; prepare is one exp
+    # centred eight schools, as ManyTerms computes it: a query
+    # of theta_j recomputes its three terms (theta's normal term under mu and
+    # tau, the observation's, the pseudo-prior's: seven operations, C's also
+    # the pseudo-prior block's) and resumes the three sums at j (an add for
+    # the running value, J - 1 - j adds each); one of mu or log tau
+    # recomputes A's 8 terms and 7 adds and its prior block (normal; the
+    # half-Cauchy's exp and log1p), prepare one exp; every query (A + B) - C,
+    # the prior's sum and the interpolation. The lane's first evaluation: all
+    # 24 terms, their 23 adds and the subtract, the prior. Printed beside:
+    # the bound at PR 10's count, one full evaluation a query
     model = eight_schools(centered=True).to(dev)
     path = model.create_path(model.default_reference())
     density = path.device_density()
     d = model.dim
-    query = (8 * (2 * OBSERVATION + ops(1) + ops(7)) + ops(24) + prior_ops(density.prior) + ops(1)
-             + INTERPOLATE)
+    J = d - 2
+    term = OBSERVATION + ops(1)
+    by_coord = {j: 2 * term + ops(7) + ops(3 * (J - 1 - j) + 3 * (j > 0)) for j in range(J)}
+    by_coord[J] = J * term + ops(J - 1) + ops(7)
+    by_coord[J + 1] = J * term + ops(J - 1) + EXP + LOG1P + ops(5)
+    lane = (J * (2 * term + ops(7)) + ops(3 * J) + prior_ops(density.prior) + ops(1)
+            + INTERPOLATE + EXP)
     out["eight_schools_centered"] = k2_mode(
-        "K2 full (eight schools, centred)", path, False, B_small, d, 1.0, query, ops(0),
-        query + EXP, prepare_ops=EXP, prepare_coords=(d - 2, d - 1), extra_bytes=4 * 3 * 8,
-        groups=(1, 8, 16, 32))
+        "K2 full (eight schools, centred)", path, False, B_small, d, 1.0,
+        ops(2 + 3) + INTERPOLATE, ops(0), lane, prepare_ops=EXP, prepare_coords=(d - 2, d - 1),
+        extra_bytes=4 * 3 * 8, groups=(1, 8, 16, 32), coord_ops=by_coord,
+        full_query_ops=(J * (2 * OBSERVATION + ops(1) + ops(7)) + ops(3 * J)
+                        + prior_ops(density.prior) + ops(1) + INTERPOLATE))
     return out
 
 
@@ -1166,19 +1218,19 @@ def mrna_phase():
     """The mRNA transfection model end to end at the hierarchical cell's
     width (32 chains x 256 ladders, rounds of 2..64 scans), and the same
     rounds at the JAX package's ladder count; returns the launches of K2 the
-    full-width run made. At 16 ladders the port's run is the JAX run for its
-    first two rounds (the same permutations, states bit for bit on the CPU),
-    so the 4-scan round is held within 1e-3 relative of ``M_JAX_ROUND2``.
-    From then on the runs part: the JAX runtime's fused density pass gives
-    some lanes' likelihood in other last bits than the kernel's form, which
-    moves the adapted schedule by 1e-7 after round 2, and lanes far out in
-    the flat tails of the uniform priors take other slice decisions
-    (ROADMAP §3). So the last round, at 16 ladders and at 256, is held within
-    three standard errors of the JAX run's pooled means, taking its 16
-    ladders as 16 independent draws; barrier and logZ (inside the run's
-    transient, as in the JAX run, whose logZ moved by 10 nats from round 5
-    to 6) printed beside the JAX run's. The share of target-chain samples
-    with lbeta > ldelta, the model's two modes, is printed, not gated."""
+    full-width run made. At 16 ladders the port's run is the JAX run for
+    its first two rounds (the same permutations, states bit for bit on the
+    CPU); with the runtime's density pass in the form of XLA's fused loop
+    (``library.MrnaLikelihood``) the runs agree within 1e-5 through round 3
+    and 1e-3 through round 5. So rounds 1 to 5 are held within 1e-3
+    relative of ``M_JAX_ROUNDS`` (pooled means, barrier, logZ). The runs
+    part in round 6 (ROADMAP §3 item 4 says what is left), so the last
+    round, at 16 ladders and at 256, is
+    held within three standard errors of the JAX run's pooled means, taking
+    its 16 ladders as 16 independent draws; barrier and logZ (inside the
+    run's transient) printed beside the JAX run's. The share of target-chain
+    samples with lbeta > ldelta, the model's two modes, is printed, not
+    gated."""
     phase("3k mRNA")
     from pigeons_tpu_torch import mrna_target
 
@@ -1206,12 +1258,14 @@ def mrna_phase():
         print(f"{H_CHAINS} chains x {ladders} ladders, rounds of {H_ROUNDS} scans")
         target = mrna_target()
 
-        def check_round2(pt):
-            if ladders == H_JAX_LADDERS and pt.round_idx == 2:
-                gate("16 ladders, round 2 (4 scans)", stats(pt, target)[0], M_JAX_ROUND2,
-                     {k: 1e-3 * abs(v) for k, v in M_JAX_ROUND2.items()})
+        def check_round(pt):
+            if ladders == H_JAX_LADDERS:
+                want = M_JAX_ROUNDS[pt.round_idx - 1]
+                tolerance = {k: 1e-3 * abs(v) for k, v in want.items()}
+                gate(f"16 ladders, round {pt.round_idx}", stats(pt, target)[0], want,
+                     tolerance if pt.round_idx <= 5 else {})
 
-        pt, n_launches = bayesian_run(target, H_CHAINS, ladders, H_ROUNDS, on_round=check_round2)
+        pt, n_launches = bayesian_run(target, H_CHAINS, ladders, H_ROUNDS, on_round=check_round)
         launches = launches or n_launches
         print_round(pt, H_CHAINS * ladders)
         got, modes = stats(pt, target)
@@ -1227,11 +1281,21 @@ def mrna_phase():
 def bernoulli_phase():
     """The Bernoulli model (Beta(1, 1) prior, ten observations, two of them
     1), whose evidence is log B(3, 9): 10 chains x 64 ladders, rounds
-    doubling to 32 scans; logZ within 0.1 of it."""
+    doubling to 32 scans; logZ within 0.1 of it. Printed beside it: whether
+    the prior's draws (``rng.beta``, ``jax.random.beta``'s stream), the
+    reference chain's and the initial states', are on the card the CPU's
+    bits."""
     phase("3l Bernoulli")
-    from pigeons_tpu_torch import bernoulli_target
+    from pigeons_tpu_torch import bernoulli_target, rng
 
-    pt, launches = bayesian_run(bernoulli_target(), S_CHAINS, S_REPLICATES, S_ROUNDS)
+    model = bernoulli_target()
+    keys = rng.keys_for(rng.key(SEED), torch.arange(S_CHAINS * S_REPLICATES))
+    for form, draw in (("reference", lambda k: model.default_reference().sample_iid(k)),
+                       ("initial", model.initialization)):
+        card, cpu = draw(keys.cuda()).cpu(), draw(keys)
+        print(f"Beta(1, 1) {form} draws of {keys.shape[0]} keys: card and CPU bitwise equal "
+              f"{torch.equal(card.view(torch.int32), cpu.view(torch.int32))}")
+    pt, launches = bayesian_run(model, S_CHAINS, S_REPLICATES, S_ROUNDS)
     print_round(pt, S_CHAINS * S_REPLICATES)
     print(f"logZ by round {[round(r.log_z_estimate, 4) for r in pt.reports]}, exact "
           f"{BERNOULLI_LOG_Z:.6f}")

@@ -52,6 +52,13 @@ from .ops import (
     log_joint,
 )
 from .paths import InterpolatingPath, ScaledPrecisionNormalPath, VariationalPath, toy_mvn_path
+
+# The JAX package's name for its kernel-backed slice sampler, so that a script
+# written for it imports unchanged: the two constructors share w, p,
+# n_passes, max_iter, coord_deltas and parallel_coords with the same defaults
+# (tests/test_torch_api_surface.py); the Pallas tiling and interpreter options
+# and the masks, which the CUDA kernels do not take, raise a TypeError here.
+SliceSamplerPallas = SliceSamplerCUDA
 from .pt import PT, RoundReport, pigeons
 from .schedule import Schedule, equally_spaced_schedule
 from .submission import ChildProcess, Result
@@ -83,6 +90,7 @@ __all__ = [
     "ScaledPrecisionNormalPath",
     "SliceSampler",
     "SliceSamplerCUDA",
+    "SliceSamplerPallas",
     "StandardNormalReference",
     "TestSwapper",
     "ToyExplorer",

@@ -398,6 +398,28 @@ __device__ __forceinline__ bool prepare_reads(int c, int d) {
   return K == kUnid || K == kBernoulli || K == kMrna;
 }
 
+// kMrna: parameter k of the five from its coordinate u and its Uniform block,
+// lo + (hi - lo) sigmoid(u), then 10^q; the near test whenever beta or delta
+// is new (each of beta, delta is the exact negation of what r keeps).
+__device__ inline void mrna_parameter(Prepared& r, int k, float u, const PriorBlock& b) {
+  const float q = __fmaf_rn(sigmoid(u), b.p[1], b.p[0]);
+  const float v = glibc_pow10f(q);
+  if (k == 0) {
+    r.a = v;
+  } else if (k == 1) {
+    r.b = v;
+  } else if (k == 4) {
+    r.c = v;
+    r.e = -(q == 0.0f ? 0.0f : f32(0x40135D8Eu) * q);  // log(10^q) = q log(10)
+  } else {
+    if (k == 2) r.f = -v;
+    else r.g = -v;
+    const float dmb = -r.g - -r.f;
+    r.near = fabsf(dmb) < 1e-7f;
+    r.h = r.near ? 1.0f : dmb;
+  }
+}
+
 template <Density K>
 __device__ inline Prepared prepare(const LaneView& s, int d, const DensityParams& p,
                                    const PriorTable& prior) {
@@ -431,22 +453,45 @@ __device__ inline Prepared prepare(const LaneView& s, int d, const DensityParams
     r.b = cephes_expf(s(d - 1));
     r.e = -s(d - 1);  // log(exp(u)) is u
   } else if constexpr (K == kMrna) {
-    // each parameter lo + (hi - lo) sigmoid(u) from its Uniform block, then 10^q
-    float q[5];
-    for (int k = 0; k < 5; ++k)
-      q[k] = __fmaf_rn(sigmoid(s(k)), prior.block[k].p[1], prior.block[k].p[0]);
-    r.a = glibc_pow10f(q[0]);
-    r.b = glibc_pow10f(q[1]);
-    const float beta = glibc_pow10f(q[2]), delta = glibc_pow10f(q[3]);
-    r.c = glibc_pow10f(q[4]);
-    r.e = -(q[4] == 0.0f ? 0.0f : f32(0x40135D8Eu) * q[4]);  // log(10^q) = q log(10)
-    r.f = -beta;
-    r.g = -delta;
-    const float dmb = delta - beta;
-    r.near = fabsf(dmb) < 1e-7f;
-    r.h = r.near ? 1.0f : dmb;
+    for (int k = 0; k < 5; ++k) mrna_parameter(r, k, s(k), prior.block[k]);
   }
   return r;
+}
+
+// prepare for the state of s (coordinate s.c holding s.q) from `cur`, the
+// current state's: kMrna recomputes the queried coordinate's parameter only
+// (one 10^q, not five), every other kind all of prepare.
+template <Density K>
+__device__ inline Prepared prepare_query(const Prepared& cur, const LaneView& s, int d,
+                                         const DensityParams& p, const PriorTable& prior) {
+  if constexpr (K == kMrna) {
+    Prepared r = cur;
+    mrna_parameter(r, s.c, s.q, prior.block[s.c]);
+    return r;
+  } else {
+    return prepare<K>(s, d, p, prior);
+  }
+}
+
+// kMrna: get_mu's level over km0 at t - t0 = tmt0 (library.py: _mrna_shape):
+// tmt0 where delta is near beta, else exp(a) - exp(b) over delta - beta with
+// a = -beta tmt0, b = -delta tmt0, as -exp(a) expm1(b - a) for a > b and
+// exp(b) expm1(a - b) else. Written as one exp and one expm1 of the larger
+// and the smaller of a and b, so that the threads of a warp whose terms lie
+// on either side of t0 take one path.
+__device__ __forceinline__ float mrna_shape(float tmt0, const Prepared& pr) {
+  const float a = pr.f * tmt0, b = pr.g * tmt0;
+  const bool a_hi = a > b;
+  const float hi = a_hi ? a : b, lo = a_hi ? b : a;
+  const float e = cephes_expf(hi);
+  const float diff = (a_hi ? -e : e) * xla_expm1f(lo - hi);
+  return pr.near ? tmt0 : diff / pr.h;
+}
+
+// The level km0 * shape, 0 before t0.
+__device__ __forceinline__ float mrna_level(float tmt0, float km0, float shape) {
+  const float val = km0 * shape;
+  return tmt0 <= 0.0f ? 0.0f : val;
 }
 
 // kHierarchicalNormal's term of observation t, in group (row) r.
@@ -484,12 +529,8 @@ __device__ __forceinline__ float target_term(const LaneView& s, int t, const Pre
   } else if constexpr (K == kMrna) {
     // get_mu with its selects, then the normal term of observation t
     const float tmt0 = arr.ptr[0][t] - pr.a;
-    const float a = pr.f * tmt0, b = pr.g * tmt0;
-    const float diff = a > b ? -cephes_expf(a) * xla_expm1f(b - a)
-                             : cephes_expf(b) * xla_expm1f(a - b);
-    const float val = pr.b * (pr.near ? tmt0 : diff / pr.h);
-    const float mu = tmt0 <= 0.0f ? 0.0f : val;
-    return observation_term(arr.ptr[1][t], mu, pr.c, pr.e);
+    return observation_term(arr.ptr[1][t], mrna_level(tmt0, pr.b, mrna_shape(tmt0, pr)), pr.c,
+                            pr.e);
   } else if constexpr (K == kLogisticRegression) {
     // row t of the design matrix times w, column by column, then + b
     const int n_w = arr.n[0] / arr.n[1];

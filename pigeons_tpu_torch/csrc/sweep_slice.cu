@@ -39,8 +39,9 @@
 // batch's groups would no longer all be resident. Delta mode keeps one thread
 // per lane (a delta query is O(1)).
 //
-// The two likelihoods of many terms (kHierarchicalNormal, kLogisticRegression:
-// 200 observations each) share more than the terms (ManyTerms). Every
+// The likelihoods of many terms (kHierarchicalNormal, kLogisticRegression:
+// 200 observations each; kMrna: 150; and kEightSchoolsCentered's
+// three sums) share more than the terms (ManyTerms). Every
 // partial sum that XLA forms is added by a thread of its own, in its own
 // order (the hierarchical normal's row partials, library.py: sum_by_rows;
 // the logistic regression's windows of 32), the partials meet by
@@ -57,9 +58,16 @@
 // coordinate that prepare reads (mu, log tau, log sigma) recomputes all. The
 // logistic regression keeps each observation's logit over the coordinates
 // before the sweep's coordinate c, one fused multiply-add on at every
-// ENTER, and a query runs the chain from c on. The additions are the same,
-// in the same order, so the bits are the twin's, which recomputes
-// everything for every query.
+// ENTER, and a query runs the chain from c on. mRNA's terms read all five
+// parameters, but a query recomputes only its own parameter (one 10^q in
+// double, prepare_query) and its prior block; the lane keeps each term's
+// level over km0 and its level, so that a query of km0 or sigma computes no
+// exp, and a term before t0 none (its level is 0); its five windows of 32 are
+// five threads' sums. Centred eight schools keeps its 3 J terms and each of
+// its three sums' running values: a query of theta_j recomputes three terms
+// in three threads and resumes each sum at j; its pseudo-prior block is C's
+// sum (the same terms). The additions are the same, in the same order, so
+// the bits are the twin's, which recomputes everything for every query.
 //
 // Layout. Input and output are the row-major [B, d] states. With one thread
 // per lane a block of 128 lanes loads its contiguous [128, d] tile with
@@ -100,8 +108,10 @@
 // 2.27 / 1.98 ms at B = 8,192, 14.48 / 2.94 / 2.53 / 2.33 ms at B = 10,240,
 // 10.91 / 1.82 / 1.02 / 0.63 ms at B = 640 (2.44, 2.78 and 0.74 ms before);
 // the funnel at B = 3,072 0.260 ms against 0.238 ms for the sources without
-// the variational branch. 53 to 126 registers (tools/torch_build_report.py),
-// no instance spills.
+// the variational branch. mRNA at B = 8,192: 1.87 ms at G = 8, 3.29 ms with
+// the sources before its ManyTerms form; centred eight schools at B = 640:
+// 0.340 against 0.520 ms at G = 32 (the same tool in turns). 53 to 126
+// registers (tools/torch_build_report.py), no instance spills.
 //
 // Numerics follow the JAX kernel as XLA's CPU backend runs it, like kernel K1
 // (banded_slice.cu): uniforms from chained murmur3 finalizers, -log(u) with
@@ -140,9 +150,10 @@ struct DensityInputs {
 };
 
 // Whether density K with G threads per lane runs the shared reduction of
-// ManyTerms: the two likelihoods of many terms.
+// ManyTerms: the likelihoods of many terms, and centred eight schools' three sums.
 template <Density K, int G>
-constexpr bool kManyTerms = G > 1 && (K == kHierarchicalNormal || K == kLogisticRegression);
+constexpr bool kManyTerms = G > 1 && (K == kHierarchicalNormal || K == kLogisticRegression ||
+                                      K == kMrna || K == kEightSchoolsCentered);
 
 // A lane of a many-term density, worked by the G threads of its group: what
 // each thread does in a query, and what the lane keeps of its current state
@@ -157,6 +168,13 @@ constexpr bool kManyTerms = G > 1 && (K == kHierarchicalNormal || K == kLogistic
 //   kLogisticRegression       scratch [n_terms] a query's terms; pre [n_terms]
 //                             each observation's logit over the coordinates
 //                             before the sweep's coordinate
+//   kMrna                     scratch [n_terms] a query's terms; shape [2]
+//                             [n_terms], level [2][n_terms] each term's level
+//                             over km0 and level (mrna_shape, mrna_level) at
+//                             the current state (0) and the shrink candidate (1)
+//   kEightSchoolsCentered     cur [3 J] the terms A, B, C; run [3 J] each sum's
+//                             running value after each of its terms; scratch
+//                             [3 J] a query's A terms
 template <Density K, int G>
 struct ManyTerms {
   static_assert(kManyTerms<K, G>, "a density without many terms");
@@ -173,6 +191,8 @@ struct ManyTerms {
       const int R = d - 3, P = row_partials(R);
       return 2 * kMaxPriorBlocks + 3 * (R / P * P) + 2 * (int)p.v[1] + 2 * n_terms;
     }
+    if constexpr (K == kEightSchoolsCentered) return 2 * kMaxPriorBlocks + 3 * n_terms;
+    if constexpr (K == kMrna) return 2 * kMaxPriorBlocks + 5 * n_terms;
     return 2 * kMaxPriorBlocks + 2 * n_terms;
   }
 
@@ -192,11 +212,15 @@ struct ManyTerms {
   __device__ __forceinline__ float* part_q() const { return part_cur() + n_main; }
   __device__ __forceinline__ float* row_q() const { return part_q() + 2 * n_main; }
   __device__ __forceinline__ float* cur() const { return row_q() + 2 * n; }
+  __device__ __forceinline__ float* run() const { return cur() + n_terms; }
   __device__ __forceinline__ float* scratch() const {
     if constexpr (K == kHierarchicalNormal) return cur() + n_terms;
+    if constexpr (K == kEightSchoolsCentered) return run() + n_terms;
     return buf + 2 * kMaxPriorBlocks;
   }
   __device__ __forceinline__ float* pre() const { return scratch() + n_terms; }
+  __device__ __forceinline__ float* shape(int slot) const { return scratch() + (1 + slot) * n_terms; }
+  __device__ __forceinline__ float* level(int slot) const { return scratch() + (3 + slot) * n_terms; }
 
   // The path's log density with coordinate c holding q (c < 0: the current
   // state, whose terms, partial sums and prior blocks it keeps). slot: 1 for
@@ -207,24 +231,34 @@ struct ManyTerms {
     const LaneView s{xs, 1, c, q};
     const PriorTable& prior = in.prior;
     float* blk = this->blk();
-    int kq = -1;
-    BlockTerms bq{0.0f, 0.0f};
     if (c < 0) {  // block k by thread k mod G; read after the likelihood's __syncwarp
       for (int k = g; k < prior.n; k += G) {
         const BlockTerms t = block_terms(s, prior.block[k]);
         blk[k] = t.lj;
         blk[kMaxPriorBlocks + k] = t.lp;
       }
-    } else {  // the query's block, by every thread
-      kq = block_of(prior, c);
-      bq = block_terms(s, prior.block[kq]);
-      if (slot == 1) cand = bq;
     }
-    float lik;
+    float lik, sum_c = 0.0f;
     if constexpr (K == kHierarchicalNormal) {
       lik = row_likelihood(s, c, pr, slot, in);
+    } else if constexpr (K == kEightSchoolsCentered) {
+      lik = centred_likelihood(s, c, pr, in, &sum_c);
+    } else if constexpr (K == kMrna) {
+      mrna_terms(c, pr, slot, in);
+      lik = window_sum();
     } else {
       lik = window_likelihood(s, c, in);
+    }
+    int kq = -1;
+    BlockTerms bq{0.0f, 0.0f};
+    if (c >= 0) {  // the query's block, by every thread
+      kq = block_of(prior, c);
+      if (K == kEightSchoolsCentered && kq == 0) {
+        bq = {0.0f, sum_c};  // theta's pseudo-prior: its terms are C's (consistent())
+      } else {
+        bq = block_terms(s, prior.block[kq]);
+      }
+      if (slot == 1) cand = bq;
     }
     // finish's blend, with log_prior's sum from the blocks
     float lref = combine_prior(prior, blk, blk + kMaxPriorBlocks, kq, bq);
@@ -296,9 +330,116 @@ struct ManyTerms {
     return acc;
   }
 
-  // sum_by_windows(32): thread w adds window w (w + G, ... where there are
-  // more), the windows' sums are added in order. A query of coordinate c runs
-  // each logit's chain of fused multiply-adds from c on, from pre.
+  // (A + B) - C, three in-order sums of J terms (finish), each by a thread
+  // of its own (g = 0, 1, 2) from the lane's terms and running values: a
+  // query of theta_c recomputes the three terms c, J + c, 2 J + c, and each
+  // sum resumes at c; one of mu or log tau recomputes every term of A, whose
+  // sum runs again, B's and C's totals stand. c < 0: every term, into cur and
+  // run. *sum_c: C's total.
+  __device__ __forceinline__ float centred_likelihood(const LaneView& s, int c,
+                                                      const Prepared& pr,
+                                                      const DensityInputs& in, float* sum_c) {
+    const int J = d - 2;
+    float* cur = this->cur();
+    float* run = this->run();
+    float mine = 0.0f;  // thread g < 3: sum g's total
+    if (c < 0) {
+      for (int t = g; t < n_terms; t += G) cur[t] = target_term<K>(s, t, pr, in.params, in.arrays);
+      __syncwarp(mask);
+      if (g < 3) {
+        float acc = cur[g * J];
+        run[g * J] = acc;
+        for (int i = 1; i < J; ++i) run[g * J + i] = acc = acc + cur[g * J + i];
+        mine = acc;
+      }
+    } else if (c < J) {
+      if (g < 3) {
+        const float t = target_term<K>(s, g * J + c, pr, in.params, in.arrays);
+        float acc = c == 0 ? t : run[g * J + c - 1] + t;
+#pragma unroll 8
+        for (int i = c + 1; i < J; ++i) acc = acc + cur[g * J + i];
+        mine = acc;
+      }
+    } else {
+      float* scratch = this->scratch();
+      for (int t = g; t < J; t += G) scratch[t] = target_term<K>(s, t, pr, in.params, in.arrays);
+      __syncwarp(mask);
+      if (g == 0) {
+        float acc = scratch[0];
+        for (int i = 1; i < J; ++i) acc = acc + scratch[i];
+        mine = acc;
+      } else if (g < 3) {
+        mine = run[g * J + J - 1];
+      }
+    }
+    const float a = __shfl_sync(mask, mine, 0, G);
+    const float b = __shfl_sync(mask, mine, 1, G);
+    *sum_c = __shfl_sync(mask, mine, 2, G);
+    return (a + b) - *sum_c;
+  }
+
+  // mRNA's terms into scratch. Every term reads every parameter, but a query
+  // of km0 (c = 1) leaves each term's shape (its level over km0) as it is, and
+  // one of sigma (c = 4) its level: the lane keeps both for its current state
+  // (slot 0) and the shrink candidate (slot 1, which commit() takes over), and
+  // such a query recomputes no exp. Thread g keeps the terms g, g + G, ... .
+  __device__ __forceinline__ void mrna_terms(int c, const Prepared& pr, int slot,
+                                             const DensityInputs& in) {
+    const float* ts = in.arrays.ptr[0];
+    const float* ys = in.arrays.ptr[1];
+    float* scratch = this->scratch();
+    float* shape_cur = shape(0);
+    float* level_cur = level(0);
+    const int keep = c < 0 ? 0 : slot == 1 ? 1 : -1;  // the slot this query's terms go to
+    for (int t = g; t < n_terms; t += G) {
+      float lvl;
+      if (c == 4) {
+        lvl = level_cur[t];
+      } else {
+        const float tmt0 = ts[t] - pr.a;
+        float sh = 0.0f;  // the level before t0 is 0, whatever the shape
+        if (c == 1) {
+          sh = shape_cur[t];
+        } else if (!(tmt0 <= 0.0f)) {
+          sh = mrna_shape(tmt0, pr);
+        }
+        lvl = mrna_level(tmt0, pr.b, sh);
+        if (keep >= 0) {
+          shape(keep)[t] = sh;
+          level(keep)[t] = lvl;
+        }
+      }
+      scratch[t] = observation_term(ys[t], lvl, pr.c, pr.e);
+    }
+    __syncwarp(mask);
+  }
+
+  // sum_by_windows(32) of scratch: thread w adds window w (w + G, ... where
+  // there are more), the windows' sums are added in order.
+  __device__ __forceinline__ float window_sum() const {
+    const float* scratch = this->scratch();
+    constexpr int W = 32;
+    const int lead = ((W - n_terms % W) % W) / 2;
+    const int n_windows = (n_terms + lead + W - 1) / W;
+    float total = 0.0f;
+    for (int w0 = 0; w0 < n_windows; w0 += G) {
+      float mine = 0.0f;
+      const int w = w0 + g;
+      if (w < n_windows) {
+        const int start = w * W - lead;
+        const int end = start + W < n_terms ? start + W : n_terms;
+#pragma unroll 8  // the loads of a window issue together; the adds stay in order
+        for (int i = start < 0 ? 0 : start; i < end; ++i) mine = mine + scratch[i];
+      }
+      for (int k = 0; k < G && w0 + k < n_windows; ++k)
+        total = total + __shfl_sync(mask, mine, k, G);
+    }
+    return total;
+  }
+
+  // The logistic regression's terms into scratch, then window_sum(). A query
+  // of coordinate c runs each logit's chain of fused multiply-adds from c
+  // on, from pre.
   __device__ __forceinline__ float window_likelihood(const LaneView& s, int c,
                                                      const DensityInputs& in) {
     const int n_w = d - 1;
@@ -319,22 +460,7 @@ struct ManyTerms {
       }
     }
     __syncwarp(mask);
-    constexpr int W = 32;
-    const int lead = ((W - n_terms % W) % W) / 2;
-    const int n_windows = (n_terms + lead + W - 1) / W;
-    float total = 0.0f;
-    for (int w0 = 0; w0 < n_windows; w0 += G) {
-      float mine = 0.0f;
-      const int w = w0 + g;
-      if (w < n_windows) {
-        const int start = w * W - lead;
-        const int end = start + W < n_terms ? start + W : n_terms;
-        for (int i = start < 0 ? 0 : start; i < end; ++i) mine = mine + scratch[i];
-      }
-      for (int k = 0; k < G && w0 + k < n_windows; ++k)
-        total = total + __shfl_sync(mask, mine, k, G);
-    }
-    return total;
+    return window_sum();
   }
 
   // At ENTER of coordinate c: pre becomes each logit's chain over the
@@ -353,9 +479,22 @@ struct ManyTerms {
 
   // The machine accepted the shrink candidate of coordinate c (xs and pr_cur
   // hold it): its row, partial sums and prior block become the current ones.
-  // A coordinate that prepare reads changes every term: recomputed.
+  // A coordinate that prepare reads changes every term: recomputed. Centred
+  // eight schools recomputes its 3 J terms and sums for any coordinate.
   __device__ __forceinline__ void commit(int c, const Prepared& pr_cur, float beta,
                                          const DensityInputs& in, const VariationalLane& var) {
+    if constexpr (K == kEightSchoolsCentered) {
+      evaluate(-1, 0.0f, pr_cur, 0, beta, in, var);
+      return;
+    }
+    if constexpr (K == kMrna) {
+      if (c != 4) {
+        for (int t = g; t < n_terms; t += G) {
+          shape(0)[t] = shape(1)[t];
+          level(0)[t] = level(1)[t];
+        }
+      }
+    }
     if constexpr (K == kHierarchicalNormal) {
       if (prepare_reads<K>(c, d)) {
         evaluate(-1, 0.0f, pr_cur, 0, beta, in, var);
@@ -446,6 +585,9 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
       return prepare<K>(LaneView{xs, stride, c, q}, d, params, in.prior);
     };
     Prepared pr_cur = prepared(-1, 0.0f);
+    const auto prepared_from_cur = [&](int c, float q) {
+      return prepare_query<K>(pr_cur, LaneView{xs, stride, c, q}, d, params, in.prior);
+    };
     [[maybe_unused]] auto many = [&] {
       if constexpr (kManyTerms<K, G>) {
         return ManyTerms<K, G>(xs, terms, d, n_terms, g, mask, params);
@@ -519,7 +661,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         if (is_enter) base = lp_cur - quadratic_term(a, xc);
         lp_q = base + quadratic_term(a, query);
       } else {
-        lp_q = evaluate(c, query, prepare_reads<K>(c, d) ? prepared(c, query) : pr_cur,
+        lp_q = evaluate(c, query, prepare_reads<K>(c, d) ? prepared_from_cur(c, query) : pr_cur,
                         ph_shr ? 1 : 0);
       }
       n_evals += 1.0f;
@@ -597,7 +739,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         // in its own program order
         xs[c * stride] = cand;
         lp_cur = lp_cand;
-        if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared(-1, 0.0f);
+        if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared_from_cur(c, cand);
         if constexpr (kManyTerms<K, G>) many.commit(c, pr_cur, beta, in, var);
       }
       acc_sum += accepted ? 1.0f : 0.0f;
@@ -701,8 +843,14 @@ constexpr bool cheap_terms = K != kLogisticRegression;
 // again where even groups of 8 would overfill it. Dear terms keep 32 at any
 // batch: a lane's terms are nearly all its work (logistic regression, 8 / 16
 // / 32 threads: 1.83 / 1.03 / 0.66 ms at B = 640, 2.96 / 2.33 / 2.04 at
-// 8,192, 2.99 / 2.59 / 2.38 at 10,240). One thread also where the group's
-// buffers do not fit.
+// 8,192, 2.99 / 2.59 / 2.38 at 10,240). mRNA's terms (an exp, an expm1 and
+// two divisions) are cheap by this measure: at its path's B = 8,192, 1 / 8 /
+// 16 / 32 threads take 11.55 / 1.87 / 2.05 / 2.20 ms (before its ManyTerms
+// form 18.17 / 2.75 / 2.87 / 3.19), so the rule's 8 stands; centred eight
+// schools at its B = 640 0.861 / 0.424 / 0.379 / 0.340 ms (the rule's 32),
+// Bernoulli 0.088 / 0.089 / 0.087 / 0.087 ms (one term a thread at most:
+// the group does not matter; the rule's 16). (NVIDIA H100 80GB HBM3,
+// 700.00 W.) One thread also where the group's buffers do not fit.
 template <Density K>
 int pick_group(int B, int d, const DensityParams& params) {
   const int n_all_terms = end_term<K>(d, params);
@@ -768,8 +916,12 @@ bool consistent(int density, int d, const DensityInputs& in) {
       const int n_obs = (int)in.params.v[1];
       return d == 1 && n_obs >= 1 && n[0] == n_obs && n[1] + n[2] + n[3] == 0;
     }
-    case kEightSchoolsCentered:
-      return d > 2 && n[0] == d - 2 && n[1] == d - 2 && n[2] == d - 2 && n[3] == 0;
+    case kEightSchoolsCentered: {  // theta's block first, the pseudo-prior's N(0, 20)
+      const PriorBlock& b = in.prior.block[0];
+      return d > 2 && n[0] == d - 2 && n[1] == d - 2 && n[2] == d - 2 && n[3] == 0 &&
+             b.size == d - 2 && b.dist == kNormal && b.bijector == kIdentity && b.p[0] == 0.0f &&
+             b.p[1] == in.params.v[1] && b.p[2] == in.params.v[2];
+    }
     case kMrna: {  // five parameters, each on a Uniform block of its own
       const int n_obs = (int)in.params.v[1];
       if (d != 5 || in.prior.n != 5 || n_obs < 1 || n[0] != n_obs || n[1] != n_obs ||

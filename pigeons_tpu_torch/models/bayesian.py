@@ -25,7 +25,7 @@ import torch
 
 from .. import rng
 from ..paths import DeviceDensity, InterpolatingPath
-from .distributions import IDENTITY, INTERVAL, POSITIVE, Interval, Uniform
+from .distributions import IDENTITY, INTERVAL, POSITIVE, Interval
 from .target import Reference, Target
 
 MAX_PRIOR_BLOCKS = 8  # csrc/densities.cuh: PriorTable
@@ -149,8 +149,7 @@ class BayesianModel(Target):
 
     def _prior_draws(self, keys, fused: bool):
         # jax.random.split(key, n): child i is fold_in(key, i)
-        q = {name: dist.sample(rng.fold_in(keys, i)) if fused or not isinstance(dist, Uniform)
-             else dist.sample(rng.fold_in(keys, i), False)
+        q = {name: dist.sample(rng.fold_in(keys, i), fused)
              for i, (name, dist) in enumerate(self.priors.items())}
         return self.unconstrain(q, fused)
 
@@ -165,7 +164,8 @@ class BayesianModel(Target):
         differ for a ``Uniform`` prior other than on (0, 1): there XLA fuses
         the draw's scaling into a multiply-add and divides by the interval's
         width through its reciprocal (``Uniform.sample``,
-        ``Interval.inverse``)."""
+        ``Interval.inverse``), and for a ``Beta`` prior, whose compiled draw
+        folds the functions of its parameters (``rng.beta``)."""
         return self._prior_draws(keys, False)
 
     def prior_table(self):

@@ -264,7 +264,11 @@ class Distribution:
     def log_prob(self, x):  # summed over the event
         raise NotImplementedError
 
-    def sample(self, keys):
+    def sample(self, keys, fused: bool = True):
+        """Draws for ``keys [..., 2]``, as the runtime's compiled scan gives
+        them (``fused``: constants folded, multiply-adds fused) or as an
+        eager call does; the two agree where the distribution does not say
+        otherwise."""
         raise NotImplementedError
 
 
@@ -290,7 +294,7 @@ class Normal(Distribution):
             return acc
         return sum_in_order(f32math.fma(t, -0.5, neg_log_scale))
 
-    def sample(self, keys):
+    def sample(self, keys, fused: bool = True):
         return f32math.fma(rng.normal(keys, self.shape), _f32(self.scale), _f32(self.loc))
 
 
@@ -394,37 +398,11 @@ class Beta(Distribution):
         x = _event(x, self.shape)
         return sum_in_order(f32math.fma(f32math.log(x), a1, b1 * f32math.log1p(-x)) + log_norm)
 
-    def sample(self, keys):
-        """By the ratio of two gamma draws, ``Ga / (Ga + Gb)``: the law of
-        ``jax.random.beta``, not its stream."""
-        ka, kb = rng.fold_in(keys, 0), rng.fold_in(keys, 1)
-        ga, gb = _gamma(ka, self.a, self.shape), _gamma(kb, self.b, self.shape)
-        return ga / (ga + gb)
-
-
-def _gamma(keys, a: float, shape, n_tries: int = 24):
-    """Marsaglia-Tsang gamma draws of shape ``a`` for keys ``[..., 2]``, each
-    element keeping the first accepted of ``n_tries`` proposals (one is
-    rejected with probability below 0.05, so none is left with probability
-    below 1e-31). Proposal ``t`` draws from ``fold_in(keys, 2 + t)``; the
-    proposals are drawn all at once, along an axis of their own, so that a
-    draw is a few dozen launches, not a few thousand."""
-    boost = a < 1.0
-    a1 = a + 1.0 if boost else a
-    d = a1 - 1.0 / 3.0
-    c = 1.0 / math.sqrt(9.0 * d)
-    axis = keys.dim() - 1  # the proposals' axis: [..., n_tries, *shape]
-    kt = rng.fold_in(keys.unsqueeze(-2), torch.arange(2, 2 + n_tries, device=keys.device))
-    z = rng.normal(rng.fold_in(kt, 0), shape)
-    u = rng.uniform(rng.fold_in(kt, 1), shape)
-    v = (1.0 + c * z) ** 3
-    ok = (v > 0) & (f32math.log(u) < 0.5 * z * z + d - d * v + d * f32math.log(v.clamp_min(1e-30)))
-    first = ok.to(torch.uint8).argmax(dim=axis, keepdim=True)
-    out = (d * v).gather(axis, first).squeeze(axis)
-    out = torch.where(ok.any(dim=axis), out, torch.full_like(out, float("nan")))
-    if boost:
-        out = out * rng.uniform(rng.fold_in(keys, 1), shape) ** (1.0 / a)
-    return out
+    def sample(self, keys, fused: bool = True):
+        """``jax.random.beta`` (``rng.beta``): its stream, compiled
+        (``fused``, the reference chain's draws) or eager (the initial
+        states)."""
+        return rng.beta(keys, self.a, self.b, self.shape, fused)
 
 
 def cauchy(keys, shape=()):
@@ -446,7 +424,7 @@ class Cauchy(Distribution):
         z = (_event(x, self.shape) - _f32(self.loc)) * _recip(self.scale)
         return sum_in_order(-_const_log(math.pi * self.scale) - f32math.log1p(z * z))
 
-    def sample(self, keys):
+    def sample(self, keys, fused: bool = True):
         return f32math.fma(cauchy(keys, self.shape), _f32(self.scale), _f32(self.loc))
 
 
@@ -469,7 +447,7 @@ class HalfCauchy(Distribution):
         z = _event(x, self.shape) * _recip(self.scale)
         return sum_in_order(self.log_norm - f32math.log1p(z * z))
 
-    def sample(self, keys):
+    def sample(self, keys, fused: bool = True):
         return torch.abs(_f32(self.scale) * cauchy(keys, self.shape))
 
 
@@ -482,7 +460,7 @@ class Exponential(Distribution):
     def log_prob(self, x):
         return sum_in_order(f32math.fma(_event(x, self.shape), -_f32(self.rate), _const_log(self.rate)))
 
-    def sample(self, keys):
+    def sample(self, keys, fused: bool = True):
         u = rng.uniform(keys, self.shape)
         return -f32math.log1p(-u) * _recip(self.rate)
 
@@ -500,7 +478,7 @@ class LogNormal(Distribution):
         t = f32math.fma(z, z, _LOG_2PI_F32)
         return sum_in_order(f32math.fma(t, -0.5, -_const_log(self.scale)) - lx)
 
-    def sample(self, keys):
+    def sample(self, keys, fused: bool = True):
         return f32math.exp(f32math.fma(rng.normal(keys, self.shape), _f32(self.scale), _f32(self.loc)))
 
 

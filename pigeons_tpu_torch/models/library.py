@@ -196,18 +196,6 @@ class MVN(Target):
         return StandardNormalReference(self.dim, sigma=2.0 / math.sqrt(self.precision)).as_reference()
 
 
-def _poisson(keys, rate: float):
-    """Poisson(``rate``) draws for keys ``[..., 2]``, as float32: the law of
-    ``jax.random.poisson``, not its stream. One uniform a draw, inverted
-    through the float64 distribution function (its tail past ``rate + 30
-    sqrt(rate) + 30`` has probability below 1e-100)."""
-    u = rng.uniform(keys).double()
-    k_max = int(rate + 30.0 * math.sqrt(rate) + 30.0)
-    k = torch.arange(k_max + 1, dtype=torch.float64, device=keys.device)
-    cdf = torch.cumsum(torch.exp(k * math.log(rate) - torch.lgamma(k + 1.0) - rate), 0)
-    return torch.searchsorted(cdf, u).clamp_max(k_max).to(torch.float32)
-
-
 @dataclass(frozen=True)
 class PoissonCount(Target):
     """Mixed integer / continuous toy target: ``k ~ Poisson(rate)`` (an
@@ -240,12 +228,15 @@ class PoissonCount(Target):
     def default_reference(self) -> Reference:
         return Reference(log_density=self.log_density, sample_iid=self.sample_iid_target)
 
-    def sample_iid_target(self, keys):
+    def sample_iid_target(self, keys, fused: bool = True):
+        """``jax.random.poisson`` and normals (``rng.poisson``), compiled
+        (``fused``) or eager."""
         kk, kx = rng.split(keys).unbind(-2)
-        return torch.cat([_poisson(kk, self.rate)[..., None], rng.normal(kx, (self.n_cont,))], dim=-1)
+        k = rng.poisson(kk, self.rate, fused).to(torch.float32)
+        return torch.cat([k[..., None], rng.normal(kx, (self.n_cont,))], dim=-1)
 
     def initialization(self, keys):
-        return self.sample_iid_target(keys)
+        return self.sample_iid_target(keys, fused=False)
 
 
 def poisson_count_target(rate: float = 5.0, n_cont: int = 1) -> PoissonCount:
@@ -783,22 +774,37 @@ _MRNA_NAMES = ("lt0", "lkm0", "lbeta", "ldelta", "lsigma")
 _LN10_F32 = float(np.float32(math.log(10.0)))
 
 
-def mrna_mean(tmt0, km0, beta, delta):
-    """The expected level at ``t - t0 = tmt0``: ``km0 / (delta - beta)
-    (e^{-beta tmt0} - e^{-delta tmt0})`` by the expm1 form of ``get_mu``
-    (``pigeons_tpu/models/library.py``), with its selects (``km0 tmt0``
-    where ``|delta - beta| < 1e-7``, 0 where ``tmt0 <= 0``): a lane's value
-    of the branch not taken may be infinite or NaN and is discarded, not
-    multiplied by 0. A subnormal level is kept (XLA's code flushes it to
-    0): it is then subtracted from an observation of 1e-3 or more, which it
-    cannot change. ``km0``, ``beta``, ``delta`` ``[..., 1]``."""
+def _mrna_shape(tmt0, beta, delta):
+    """``get_mu``'s level over ``km0``: ``tmt0`` where ``|delta - beta| <
+    1e-7``, else ``(e^{-beta tmt0} - e^{-delta tmt0}) / (delta - beta)`` by
+    its expm1 form."""
     dmb = delta - beta
     a, b = -beta * tmt0, -delta * tmt0
     diff = torch.where(a > b, -f32math.exp(a) * f32math.expm1(b - a),
                        f32math.exp(b) * f32math.expm1(a - b))
     near = torch.abs(dmb) < 1e-7
-    val = km0 * torch.where(near, tmt0, diff / torch.where(near, torch.ones_like(dmb), dmb))
+    return torch.where(near, tmt0, diff / torch.where(near, torch.ones_like(dmb), dmb))
+
+
+def mrna_mean(tmt0, km0, shape):
+    """The expected level at ``t - t0 = tmt0``: ``km0 / (delta - beta)
+    (e^{-beta tmt0} - e^{-delta tmt0})`` by the expm1 form of ``get_mu``
+    (``pigeons_tpu/models/library.py``), from its ``shape``
+    (:func:`_mrna_shape`), with its selects (``km0 tmt0`` where ``|delta -
+    beta| < 1e-7``, 0 where ``tmt0 <= 0``): a lane's value of the branch not
+    taken may be infinite or NaN and is discarded, not multiplied by 0. A
+    subnormal level is kept (XLA's code flushes it to 0): it is then
+    subtracted from an observation of 1e-3 or more, which it cannot change.
+    ``km0`` ``[..., 1]``."""
+    val = km0 * shape
     return torch.where(tmt0 <= 0.0, torch.zeros_like(val), val)
+
+
+# The runtime pass's terms in XLA's fused loop (read off its machine code): a
+# body over 8 observations at a time, then the rest one by one. The body
+# contracts the residual ``ys - km0 * shape`` into one fused multiply-add;
+# the rest rounds the product first, as the terms alone and the slice kernel do.
+_MRNA_VECTOR_WIDTH = 8
 
 
 class MrnaLikelihood:
@@ -809,7 +815,10 @@ class MrnaLikelihood:
     (0 where ``lsigma`` is 0). The 150 terms are summed by windows of 32
     (:func:`sum_by_windows`) in the runtime's pass (its reduce-window, read
     off the compiled module) and inside the slice kernel alike
-    (``tests/summation_order_study.py``)."""
+    (``tests/summation_order_study.py``). The two passes differ in the
+    terms: the runtime's (``__call__``) fuses the residual of the first
+    ``n - n mod 8`` observations (``_MRNA_VECTOR_WIDTH``), the kernel's
+    (``sweep``: ``terms`` and ``finish``) fuses none."""
 
     def __init__(self, ts, ys):
         self.ts = ts.to(torch.float32).contiguous()
@@ -821,18 +830,35 @@ class MrnaLikelihood:
     def device(self):
         return MRNA, (float(self.ts.numel()),), (self.ts, self.ys)
 
-    def terms(self, q):
+    def _terms(self, q, fused: bool):
         t0, km0, beta, delta, sigma = (f32math.pow10(q[n])[..., None] for n in _MRNA_NAMES)
         lsigma = q["lsigma"][..., None]
         log_sigma = torch.where(lsigma == 0.0, torch.zeros_like(lsigma), _LN10_F32 * lsigma)
-        mu = mrna_mean(self.ts - t0, km0, beta, delta)
-        return _observation_terms(self.ys, mu, sigma, -log_sigma)
+        tmt0 = self.ts - t0
+        shape = _mrna_shape(tmt0, beta, delta)
+        mu = mrna_mean(tmt0, km0, shape)
+        if not fused:
+            return _observation_terms(self.ys, mu, sigma, -log_sigma)
+        residual = torch.where(tmt0 <= 0.0, self.ys.expand_as(shape),
+                               f32math.fma(-km0.expand_as(shape), shape, self.ys))
+        n = self.ts.shape[-1]
+        body = torch.arange(n, device=self.ts.device) < n - n % _MRNA_VECTOR_WIDTH
+        residual = torch.where(body, residual, self.ys - mu)
+        z = residual / sigma
+        return f32math.fma(f32math.fma(z, z, _LOG_2PI_F32), -0.5, -log_sigma)
+
+    def terms(self, q):
+        """The slice kernel's terms ``[..., n]``."""
+        return self._terms(q, fused=False)
 
     def finish(self, terms):
         return sum_by_windows(terms)
 
-    def __call__(self, q):
+    def sweep(self, q):
         return self.finish(self.terms(q))
+
+    def __call__(self, q):
+        return self.finish(self._terms(q, fused=True))
 
 
 def mrna_target(ts=None, ys=None) -> BayesianModel:

@@ -529,6 +529,13 @@ class SliceSamplerCUDA(Explorer):
                 "explorer=SliceSampler() for this run."
             )
         fixed = path.fixed if isinstance(path, VariationalPath) else path
+        if getattr(fixed, "has_coordwise", False):
+            raise NotImplementedError(
+                f"SliceSamplerCUDA: {type(fixed).__name__} has coordinate-wise densities but "
+                "no device density. They are torch callables, which the CUDA kernels cannot "
+                "run: K1's coordinate terms and K2's densities are compiled into the kernels "
+                "(csrc/densities.cuh), and a route for a user's own is ROADMAP queue 1, item "
+                "11b-user. Pass explorer=SliceSampler() for this run.")
         raise NotImplementedError(
             f"SliceSamplerCUDA: {type(fixed).__name__} has no device density for the general "
             "slice kernel K2, which evaluates the density inside the kernel "
@@ -562,8 +569,9 @@ class SliceSamplerCUDA(Explorer):
                                         self.n_passes, self.max_iter, term)
             lp = None
         else:
-            # a delta query cannot read the reference's per-coordinate arrays
-            deltas = self.coord_deltas and hasattr(path, "coord_log_density")
+            # delta mode has one coordinate term, the toy path's (kToyMvn); a
+            # delta query cannot read the reference's per-coordinate arrays
+            deltas = self.coord_deltas and hasattr(path, "coord_factor")
             x_new, lp, stats = sweep(xs, betas, seeds, path, deltas, self.w, self.p,
                                      self.n_passes, self.max_iter, isvar, ref_params)
         return StepOut(x=x_new, lp=lp, accept_sum=stats[0], accept_n=stats[1],

@@ -9,7 +9,7 @@ gets from ``vmap`` is written out.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import KW_ONLY, dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -59,11 +59,25 @@ def _guarded_mul(w, v):
 class InterpolatingPath:
     """Linear path ``(1 - beta) ref(x) + beta target(x)`` between two batched
     log densities ``x [..., d] -> [...]``; ``sample_reference(keys) -> x``
-    draws iid reference states for keys ``[..., 2]``."""
+    draws iid reference states for keys ``[..., 2]``.
+
+    ``ref_coord_log_density`` / ``target_coord_log_density``: optional
+    coordinate-wise decompositions ``(v, c) -> [...]``, batched over ``v``
+    (``c`` a coordinate index, or indices that broadcast against ``v``), with
+    ``log_density(x) == sum_c coord(x[..., c], c)``. The JAX package's
+    Pallas sampler answers single-coordinate queries from them; here the
+    runtime and the torch explorers evaluate the path through
+    ``log_density`` and ignore them, as the JAX XLA ``SliceSampler`` does,
+    and ``SliceSamplerCUDA`` takes such a path only where it also has a
+    device density. The fields after them are the port's own, keyword only,
+    so that a positional call means what it means to the JAX class."""
 
     ref_log_density: Callable
     target_log_density: Callable
     sample_reference: Optional[Callable] = None
+    ref_coord_log_density: Optional[Callable] = None
+    target_coord_log_density: Optional[Callable] = None
+    _: KW_ONLY
     # set when the slice kernel can evaluate both endpoints on the device
     device: Optional[DeviceDensity] = None
     # x -> (ref_log_density(x), target_log_density(x)) where the two share work
@@ -95,6 +109,16 @@ class InterpolatingPath:
     def has_iid_reference(self) -> bool:
         return self.sample_reference is not None
 
+    @property
+    def has_coordwise(self) -> bool:
+        return self.ref_coord_log_density is not None and self.target_coord_log_density is not None
+
+    def coord_log_density(self, v, c, beta):
+        """Contribution of coordinate ``c`` holding ``v`` at ``beta``."""
+        lref = self.ref_coord_log_density(v, c)
+        ltgt = self.target_coord_log_density(v, c)
+        return _guarded_mul(1.0 - beta, lref) + _guarded_mul(beta, ltgt)
+
 
 @dataclass(frozen=True)
 class ScaledPrecisionNormalPath:
@@ -105,6 +129,8 @@ class ScaledPrecisionNormalPath:
     precision0: float
     precision1: float
     dim: int
+
+    has_coordwise = True
 
     def precision(self, beta):
         # (1 - beta) p0 + beta p1 as XLA evaluates it: one fused multiply-add

@@ -17,7 +17,9 @@ combined by halving, then the rows past the last full ``V`` in order;
 (``library.sum_by_windows``). A candidate that matches every lane is XLA's
 order at that shape, or indistinguishable from it there. For the mRNA
 model's 150 terms it counts the kernel's lanes and, separately, the lanes of
-the runtime's pass (``jit(vmap(log_likelihood))``) that each order gives.
+the runtime's pass (``jit(vmap(log_likelihood))``) that each order gives,
+the last with the pass's own terms (``MrnaLikelihood``: the residual fused
+in XLA's vector body).
 
 Not a test: a study (about two minutes); ``tests/test_torch_sweep_bayesian.py``
 holds the port's rule at the shapes it covers.
@@ -150,6 +152,9 @@ def mrna(lanes):
         ((one_by_one + sums["windows of 32"]).astype(np.float32) == lp).sum())
     lik = np.asarray(jax.jit(jax.vmap(jm.log_likelihood))(x.numpy()))
     runtime = {k: int((v == lik).sum()) for k, v in sums.items()}
+    # the runtime pass's own terms (the first n - n mod 8 residuals fused)
+    fused = library.sum_by_windows(tm.log_likelihood_fn._terms(q, fused=True)).numpy()
+    runtime["windows of 32, the pass's fused terms"] = int((fused == lik).sum())
     return kernel, runtime
 
 

@@ -71,29 +71,41 @@ def test_k2_launchers_group_matches_twin(host_libraries, name):
 
 
 # the shapes of the shared reduction (row_partials): 8 partial sums of one row
-# each; 8 with 3 rows past them; 4 with 1 row past them; and the logistic
-# regression's 7 windows of 32 (the library's 200 x 10)
+# each; 8 with 3 rows past them; 4 with 1 row past them; the logistic
+# regression's 7 windows of 32 (the library's 200 x 10); mRNA's 5 windows of
+# its 150 terms; centred eight schools' three sums of 8
 MANY_TERMS = {
     "hierarchical_normal_8x4": lambda: T.hierarchical_normal(8, 4, seed=4),
     "hierarchical_normal_19x3": lambda: T.hierarchical_normal(19, 3, seed=5),
     "hierarchical_normal_21x2": lambda: T.hierarchical_normal(21, 2, seed=6),
     "logistic_regression_200x10": lambda: T.logistic_regression(),
+    "mrna_target": lambda: T.mrna_target(),
+    "eight_schools_centered": lambda: T.eight_schools(centered=True),
 }
+# the coordinates from which on prepare reads them (the second kind); mRNA's
+# every coordinate is of it, and each has its own query form (which of its
+# kept shapes and levels a query reads)
+SECOND_KIND = {"eight_schools_centered": -2, "mrna_target": 0}
 
 
 @pytest.mark.parametrize("group", [8, 32])
 @pytest.mark.parametrize("name", sorted(MANY_TERMS))
 def test_k2_many_terms_keep_their_terms(host_libraries, name, group):
-    """The shared reduction of the two many-term likelihoods: a lane keeps
-    its terms, partial sums and prior blocks from query to query and takes a
+    """The shared reduction of the many-term likelihoods: a lane keeps its
+    terms, partial sums and prior blocks from query to query and takes a
     candidate's over when the machine accepts it, for both kinds of
     coordinate (theta_trans and mu, log tau, log sigma; the weights and the
-    bias). Bitwise the twin, which recomputes everything for every query; the
-    sweep accepts and rejects candidates on both kinds."""
+    bias; centred eight schools' theta and mu, log tau; any of mRNA's five,
+    each of which recomputes one of its parameters). Bitwise the twin, which
+    recomputes everything for every query; the sweep accepts and rejects
+    candidates on both kinds."""
     path, x, betas, seeds, want, counts = _twin_case(name, 3, 1)
     got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, False, 1, group,
               max_iter=SHORT)
     _assert_bitwise(got, want, ("x", "lp", "stats"))
     moved = want[0] != x
-    assert moved[:, :-3].any() and moved[:, -3:].any()
+    split = SECOND_KIND.get(name, -3)
+    assert moved[:, split:].any() and (split == 0 or moved[:, :split].any())
+    if name == "mrna_target":
+        assert moved.any(0).all()
     assert float(want[2][0].sum()) < float(counts[3])  # fewer accepted than shrink candidates

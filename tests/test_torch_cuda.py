@@ -341,14 +341,16 @@ def test_bayesian_kernel_matches_twin_for_each_group(cuda_device, name, n, varia
         assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
 
 
-# the two many-term likelihoods at their paths' batches (chip_smoke.py: the
-# hierarchical cell's 8,192 lanes, the logistic regression's 10,240), at the
-# smaller paths' 640, and under a variational reference with active 0 and 1
+# the many-term likelihoods at their paths' batches (chip_smoke.py: the
+# hierarchical cell's and mRNA's 8,192 lanes, the logistic regression's
+# 10,240, centred eight schools' 640), at the smaller paths' 640, and under a
+# variational reference with active 0 and 1
 MANY_TERM_CASES = [("hierarchical_normal", 640, None), ("hierarchical_normal", 8192, None),
                    ("hierarchical_normal", 8192, 0.0), ("hierarchical_normal", 8192, 1.0),
                    ("logistic_regression", 640, None), ("logistic_regression", 8192, None),
                    ("logistic_regression", 10240, None), ("logistic_regression", 10240, 0.0),
-                   ("logistic_regression", 10240, 1.0)]
+                   ("logistic_regression", 10240, 1.0), ("mrna", 8192, None), ("mrna", 8192, 1.0),
+                   ("eight_schools_centered", 640, None), ("eight_schools_centered", 640, 1.0)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,9 +374,9 @@ def _many_term_case(name, n, active):
 @pytest.mark.parametrize("group", [0, 8, 16, 32])
 @pytest.mark.parametrize("name,n,active", MANY_TERM_CASES)
 def test_many_term_kernel_matches_twin_at_the_paths_batches(cuda_device, name, n, active, group):
-    """The shared reduction and the cached terms of the hierarchical normal
-    and the logistic regression, for the launcher's choice and every group it
-    can pick: bitwise the twin."""
+    """The shared reduction and the cached terms of the hierarchical normal,
+    the logistic regression, mRNA and centred eight schools, for the
+    launcher's choice and every group it can pick: bitwise the twin."""
     path, x, betas, seeds, extra, want = _many_term_case(name, n, active)
     got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group,
                                 **extra)
@@ -466,11 +468,11 @@ def test_general_kernel_rejects_bad_arrays(cuda_device):
     x, betas, seeds = _lane_inputs(4, 23, 0, cuda_device)
     density = path.device_density()
     short = path.__class__(path.ref_log_density, path.target_log_density, path.sample_reference,
-                           density._replace(arrays=(density.arrays[0][:-1].contiguous(),)))
+                           device=density._replace(arrays=(density.arrays[0][:-1].contiguous(),)))
     with pytest.raises(RuntimeError, match="does not take"):
         cuda_slice.sweep_cuda(x, betas, seeds, short)
     on_cpu = path.__class__(path.ref_log_density, path.target_log_density, path.sample_reference,
-                            density._replace(arrays=(density.arrays[0].cpu(),)))
+                            device=density._replace(arrays=(density.arrays[0].cpu(),)))
     with pytest.raises(ValueError, match="density array"):
         cuda_slice.sweep_cuda(x, betas, seeds, on_cpu)
     vpath = T.VariationalPath(path, T.GaussianReference())
@@ -813,3 +815,20 @@ def test_invariance_on_card(cuda_device, name):
     res = T.invariance_test(target, explorer, n_iid_samples=10_000, device="cuda", **kw)
     assert SliceSamplerCUDA.launches == {k: int(k == kernel) for k in SliceSamplerCUDA.launches}
     assert res.passed == (not name.endswith("_control")), (res.failed_dims, res.pvalues.min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("draw", ["gamma 0.3", "gamma 4", "beta 1 1", "beta 3 9", "poisson 5",
+                                  "poisson 40"])
+def test_jax_random_draws_on_card_match_cpu(cuda_device, draw, fused):
+    """``rng.gamma``, ``rng.beta`` and ``rng.poisson`` (JAX's streams,
+    ``tests/test_torch_rng.py``) give the CPU's bits on the card, both forms."""
+    kind, *params = draw.split()
+    fn = {"gamma": rng.gamma, "beta": rng.beta, "poisson": rng.poisson}[kind]
+    params = [float(p) for p in params]
+    keys = rng.keys_for(rng.key(7), torch.arange(4096))
+    want = fn(keys, *params, fused=fused)
+    got = fn(keys.to(cuda_device), *params, fused=fused).cpu()
+    assert torch.equal(got.view(torch.int32) if got.is_floating_point() else got,
+                       want.view(torch.int32) if want.is_floating_point() else want)

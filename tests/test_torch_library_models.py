@@ -18,13 +18,13 @@
 (c) The three models on the JAX models' own data
     (``convert.bayesian_model_from_numpy``): ``log_prior``,
     ``log_likelihood`` and ``log_density`` of ``jit(vmap(...))`` bitwise
-    for Bernoulli and centred eight schools; for mRNA the prior is bitwise
-    and the likelihood within 5e-7 relative (24 of 512 lanes not bitwise:
-    XLA evaluates the 150 terms inside its fused reduction, where their last
-    bits differ from the same terms alone, which the port gives bit for
-    bit). ``constrain`` bitwise, ``unconstrain``, names and prior draws
-    (within 1e-5; ``Beta.sample``'s law, KS) as in
-    ``tests/test_torch_bayesian.py``; ``Uniform.sample`` bitwise;
+    (mRNA's runtime pass in XLA's fused form: the residual of the first
+    ``n - n mod 8`` observations one fused multiply-add, read off the
+    compiled loop's machine code). ``constrain`` bitwise, ``unconstrain``,
+    names and prior draws in both forms, initial (eager) and the reference
+    chain's (compiled): bitwise for Bernoulli (``rng.beta``, JAX's stream)
+    and mRNA, within 1e-5 for centred eight schools (the half-Cauchy's
+    tangent); ``Uniform.sample`` bitwise;
     ``paths.value_and_grad`` against ``jax.value_and_grad``: values within
     1e-6 relative, gradients within 1e-5 of the lane's largest, as PR 7's
     file holds the others.
@@ -34,9 +34,12 @@
     are summed by windows of 32 inside the kernel as in the runtime pass;
     mRNA also at states whose levels are subnormal).
 (e) Three-round ``PT`` runs of each model in both packages from one state
-    (``convert.state_from_numpy``), the reference chain's iid draws the JAX
-    package's: permutations, restarts, round trips and step counts exact,
-    barrier and logZ within 1e-3, states within 1e-5.
+    (``convert.state_from_numpy``), the reference chain's iid draws the
+    port's own (centred eight schools: the JAX package's, its half-Cauchy
+    draws differ in last bits): permutations, restarts, round trips and step
+    counts exact, barrier and logZ within 1e-3, states within 1e-5; and a
+    seeded ``bernoulli_target()`` run from its start, which is the JAX run:
+    the same bits in every round.
 The kernel itself is compiled for the host in
 ``tests/test_torch_csrc_host_bayesian.py`` and runs on the card in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -203,9 +206,7 @@ def test_model_densities_match_jax(name):
         have = getattr(tm, fn)(tx).numpy()
         n_diff = _n_differ(have, want)
         print(f"{name} {fn}: {n_diff} of {N} not bitwise equal")
-        if name != "mrna_target" or fn == "log_prior":
-            assert n_diff == 0
-        np.testing.assert_allclose(have, want, rtol=5e-7, atol=1e-6)
+        assert n_diff == 0
     lp, post = tm.prior_and_posterior(tx)
     assert torch.equal(lp, tm.log_prior(tx)) and torch.equal(post, tm.log_density(tx))
 
@@ -226,23 +227,24 @@ def test_constrain_matches_jax(name):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_prior_draws_match_jax(name):
-    """One child key per prior, mapped to unconstrained space: within 1e-5 of
-    the JAX draws (the half-Cauchy's tangent, the interval's inverse).
-    ``Beta.sample`` has the law of ``jax.random.beta``, not its stream: the
-    Bernoulli model's ``Beta(1, 1)`` draws are held to the uniform law (KS
-    at level 1e-3)."""
-    from scipy import stats as sps
-
+    """One child key per prior, mapped to unconstrained space, both forms:
+    the initial states (eager) and the reference chain's draws (compiled).
+    Bitwise for the Bernoulli model (``Beta(1, 1)`` by ``rng.beta``, JAX's
+    stream) and mRNA (uniforms); within 1e-5 for centred eight schools (the
+    half-Cauchy's tangent)."""
     jm, tm = _models(name)
-    want = np.asarray(jax.vmap(jm.initialization)(jrng.keys_for(jax.random.key(2), jnp.arange(2048))))
-    have = tm.initialization(trng.keys_for(trng.key(2), torch.arange(2048)))
-    print(f"{name}: {_n_differ(have.numpy(), want)} of {want.size} coordinates not bitwise equal")
-    if name == "bernoulli_target":
-        theta = tm.constrain(have)[0]["theta"].numpy()
-        assert sps.kstest(theta, "uniform").pvalue > 1e-3
-        assert sps.ks_2samp(theta, 1.0 / (1.0 + np.exp(-want[:, 0]))).pvalue > 1e-3
-    else:
-        np.testing.assert_allclose(have.numpy(), want, rtol=1e-5, atol=1e-5)
+    jk = jrng.keys_for(jax.random.key(2), jnp.arange(2048))
+    tk = trng.keys_for(trng.key(2), torch.arange(2048))
+    pairs = ((np.asarray(jax.vmap(jm.initialization)(jk)), tm.initialization(tk)),
+             (np.asarray(jax.jit(jax.vmap(jm.default_reference().sample_iid))(jk)),
+              tm.default_reference().sample_iid(tk)))
+    for form, (want, have) in zip(("initial", "reference"), pairs):
+        n_diff = _n_differ(have.numpy(), want)
+        print(f"{name}, {form} draws: {n_diff} of {want.size} coordinates not bitwise equal")
+        if name == "eight_schools_centered":
+            np.testing.assert_allclose(have.numpy(), want, rtol=1e-5, atol=1e-5)
+        else:
+            assert n_diff == 0
 
 
 def test_uniform_sample_is_jaxs():
@@ -357,10 +359,9 @@ def test_twin_matches_pallas_kernel(name, n_passes):
 
 def _prior_with_jax_draws(jm, tm):
     """The port model's own prior (so that the kernel path stays), with its
-    iid draws taken from the JAX model for the same keys: ``Beta.sample``
-    has the law of ``jax.random.beta``, not its stream, and the half-Cauchy
-    differs in last bits (both tested above), so that with the port's own
-    draws the reference chain's regenerations would part the two runs."""
+    iid draws taken from the JAX model for the same keys: the half-Cauchy
+    differs in last bits (tested above), so that with the port's own draws
+    the reference chain's regenerations could part the two runs."""
     draw = jax.jit(jax.vmap(jm.default_reference().sample_iid))
 
     def sample_iid(keys):
@@ -373,12 +374,16 @@ def _prior_with_jax_draws(jm, tm):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_three_round_run_matches_jax(name):
-    """From the JAX run's state after round 1, with the reference chain's
-    iid draws the JAX package's (:func:`_prior_with_jax_draws`)."""
+    """From the JAX run's state after round 1, the reference chain's iid
+    draws the port's own (``rng.beta`` is JAX's stream, mRNA's uniforms
+    bitwise); centred eight schools' half-Cauchy draws differ in last bits
+    (above), so there they are the JAX package's (:func:`_prior_with_jax_draws`)."""
     jm, tm = _models(name)
     kw = dict(seed=3, n_rounds=3, show_report=False, n_chains=4, n_replicates=2)
     ja = J.PT(J.Inputs(target=jm, explorer=SliceSamplerPallas(interpret=True, n_passes=1), **kw))
-    ta = T.PT(T.Inputs(target=tm, reference=_prior_with_jax_draws(jm, tm),
+    reference = (_prior_with_jax_draws(jm, tm) if name == "eight_schools_centered"
+                 else tm.default_reference())
+    ta = T.PT(T.Inputs(target=tm, reference=reference,
                        explorer=SliceSamplerCUDA(n_passes=1), device="cpu", **kw))
     assert ta.path.device_density() is not None  # the kernel path
     ja.run_round()
@@ -403,3 +408,23 @@ def test_three_round_run_matches_jax(name):
     jq, tq = jm.constrained_samples(ja), tm.constrained_samples(ta)
     for key in jq:
         np.testing.assert_allclose(tq[key], jq[key], rtol=1e-4, atol=1e-4)
+
+
+def test_seeded_bernoulli_run_is_the_jax_run():
+    """``pigeons(target=bernoulli_target(), seed=3)`` in both packages, from
+    their own initial states and reference draws (``rng.beta``): every
+    round's restarts, logZ and barrier, and the states and permutations at
+    the end, the same bits."""
+    kw = dict(seed=3, n_rounds=3, show_report=False, n_chains=4, n_replicates=2)
+    ja = J.pigeons(target=J.bernoulli_target(),
+                   explorer=SliceSamplerPallas(interpret=True, n_passes=1), **kw)
+    ta = T.pigeons(target=T.bernoulli_target(), explorer=SliceSamplerCUDA(n_passes=1),
+                   device="cpu", **kw)
+    assert len(ja.reports) == len(ta.reports) == 3
+    for rj, rt in zip(ja.reports, ta.reports):
+        assert rj.n_tempered_restarts == rt.n_tempered_restarts
+        assert rj.log_z_estimate == rt.log_z_estimate
+        assert rj.global_barrier == rt.global_barrier
+    assert sum(r.n_tempered_restarts for r in ta.reports) > 0
+    assert np.array_equal(np.asarray(ja.states), ta.states.numpy())
+    assert np.array_equal(np.asarray(ja.chain_of), ta.chain_of.numpy())

@@ -1,5 +1,6 @@
 """Build the port's CUDA kernels and print what ``ptxas -v`` says of every
-kernel instance: registers, spills, shared memory, and the seconds ``nvcc``
+kernel instance: registers, stack frame (local memory, which a dynamically
+indexed array or struct takes), spills, shared memory, and the seconds ``nvcc``
 took. Needs ``nvcc``; run from the repository root:
 
     python3 tools/torch_build_report.py
@@ -30,14 +31,15 @@ def main() -> None:
         text = res.stderr + res.stdout
         rows = []
         for m in re.finditer(r"Compiling entry function '(\S+)' for 'sm_90a'.*?"
-                             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
-                             r"Used (\d+) registers", text, re.S):
+                             r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads.*?Used (\d+) registers", text, re.S):
             demangled = subprocess.run(["c++filt", m.group(1)], capture_output=True, text=True).stdout.strip()
             short = demangled.replace("(anonymous namespace)::", "").replace("pigeons::", "")
             short = short[: short.index(">(") + 1] if ">(" in short else short
-            rows.append((short, int(m.group(4)), int(m.group(2)), int(m.group(3))))
-        for short, regs, st, ld in sorted(rows):
-            print(f"  {short}: {regs} registers, spill stores {st} B, loads {ld} B")
+            rows.append((short, int(m.group(5)), int(m.group(2)), int(m.group(3)), int(m.group(4))))
+        for short, regs, frame, st, ld in sorted(rows):
+            print(f"  {short}: {regs} registers, stack frame {frame} B, spill stores {st} B, "
+                  f"loads {ld} B")
     out.unlink(missing_ok=True)
 
 

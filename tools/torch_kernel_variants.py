@@ -23,16 +23,19 @@ It then times, at the shapes of ``chip_smoke.py``:
   32 threads per lane, the launcher's own choice and the parent;
 * K2 in full mode on each ``BayesianModel`` path (hierarchical normal, eight
   schools, unid, logistic regression; 1 pass) at 640 and 8,192 lanes (the
-  logistic regression also at its path's 10,240) for 1, 8, 16 and 32 threads
-  per lane, the launcher's own choice and, with ``--parent-abi 5``, the
-  parent;
+  logistic regression also at its path's 10,240), mRNA at its path's 8,192,
+  centred eight schools and Bernoulli at their 640, for 1, 8, 16 and 32
+  threads per lane, the launcher's own choice and, with ``--parent-abi 5``,
+  the parent;
 * K2 in delta mode (toy MVN, B=20,480, d=100, 1 pass) and the parent's.
 
 Every variant's output must equal the first variant's bit for bit (what a
 kernel computes does not depend on how its work is mapped to threads). The
 variants of one kernel are timed in turns, forwards then backwards, twice
 over, each turn the median of 20 CUDA-event timings: compare within a run
-only. Prints ``ptxas -v`` for the default build, a table, the card's name and
+only. Beside them each variant's device time from ``torch.profiler`` (20
+calls): a CUDA-event time counts what the card waits for the host's launch,
+which at 640 lanes is most of it. Prints ``ptxas -v`` for the default build, a table, the card's name and
 power limit, and writes ``chiprun_out/kernel_variants.json``. ``--k2-only``
 skips the builds and races of K1's variants.
 """
@@ -54,8 +57,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from pigeons_tpu_torch import (_build, eight_schools, funnel, hierarchical_normal,  # noqa: E402
-                               logistic_regression, unid_target)
+from pigeons_tpu_torch import (_build, bernoulli_target, eight_schools, funnel,  # noqa: E402
+                               hierarchical_normal, logistic_regression, mrna_target,
+                               unid_target)
 from pigeons_tpu_torch.ops import cuda_slice  # noqa: E402
 from pigeons_tpu_torch.paths import toy_mvn_path  # noqa: E402
 
@@ -164,9 +168,28 @@ def k2_call(lib, x, betas, seeds, path, coord_deltas, group, arrays=False):
     return call
 
 
+def device_ms(call, n=20):
+    """The kernel's own time per call in ms: ``torch.profiler``'s device time
+    of the sweep kernels over ``n`` calls. Unlike a CUDA-event time, which
+    starts before the host has launched the kernel, it leaves out what the
+    card waits for the host (a small launch is the wrapper's host time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if "slice_sweep_kernel" in e.key or "banded_slice_kernel" in e.key)
+    return us / n / 1000.0
+
+
 def race(title, variants):
     """Check that all ``variants`` (name -> call) agree bit for bit, then time
-    them in turns. Returns name -> list of the turns' medians in ms."""
+    them in turns. Returns name -> list of the turns' medians in ms, and the
+    kernel's device time (``device_ms``) under ``"<name>, device"``."""
     names = list(variants)
     outs = {name: variants[name]() for name in names}
     torch.cuda.synchronize()
@@ -178,10 +201,13 @@ def race(title, variants):
     for order in (names, names[::-1], names, names[::-1]):
         for name in order:
             times[name].append(chip_smoke.cuda_ms(variants[name], 20))
+    device = {name: device_ms(variants[name]) for name in names}
     print(f"-- {title}: {len(names)} variants bitwise equal")
     for name in names:
         print(f"{name:>36}: median {np.median(times[name]):.4f} ms, turns "
-              + " ".join(f"{t:.4f}" for t in times[name]), flush=True)
+              + " ".join(f"{t:.4f}" for t in times[name])
+              + f"; device {device[name]:.4f} ms", flush=True)
+    times.update({f"{name}, device": [ms] for name, ms in device.items()})
     return times
 
 
@@ -260,13 +286,18 @@ def main():
                                                                k2_variants(mx, mb, ms, fpath))
     results["K2 full, toy MVN B=20480 d=100 1 pass"] = race("K2 full, toy MVN",
                                                             k2_variants(x, betas, seeds, toy))
+    small, large = (chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES,
+                    chip_smoke.H_CHAINS * chip_smoke.H_REPLICATES)
     for name, make in (("hierarchical normal", hierarchical_normal),
                        ("eight schools", eight_schools), ("unid", unid_target),
-                       ("logistic regression", logistic_regression)):
+                       ("logistic regression", logistic_regression), ("mRNA", mrna_target),
+                       ("centred eight schools", lambda: eight_schools(centered=True)),
+                       ("Bernoulli", bernoulli_target)):
         model = make().to(x.device)
         mpath = model.create_path(model.default_reference())
-        sizes = [chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES,
-                 chip_smoke.H_CHAINS * chip_smoke.H_REPLICATES]
+        # each at its path's batch; the first four also at the other
+        sizes = {"mRNA": [large], "centred eight schools": [small],
+                 "Bernoulli": [small]}.get(name, [small, large])
         if name == "logistic regression":  # its path's batch
             sizes.append(chip_smoke.LR_CHAINS * chip_smoke.LR_REPLICATES)
         for many in sizes:
