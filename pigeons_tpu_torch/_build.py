@@ -44,26 +44,29 @@ def nvcc() -> str:
     return found
 
 
-def library_path(defines: tuple = (), csrc: Path = CSRC) -> Path:
+def library_path(defines: tuple = (), csrc: Path = CSRC, sources: tuple = SOURCES) -> Path:
     h = hashlib.sha256()
-    for name in (*SOURCES, *HEADERS):
+    for name in (*sources, *HEADERS):
         h.update((csrc / name).read_bytes())
-    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines, *sources)).encode())
     return BUILD_DIR / f"libpigeons_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False, defines: tuple = (), csrc: Path = CSRC) -> tuple[Path, float]:
-    """Compile the kernels of ``csrc`` with ``-D`` for each of ``defines``,
-    unless the keyed library exists. Returns its path and the seconds spent
-    compiling (0.0 when it was already built). ``verbose`` prints what
-    ``ptxas -v`` says of each kernel: registers, shared memory, spills."""
-    out = library_path(defines, csrc)
+def build(verbose: bool = False, defines: tuple = (), csrc: Path = CSRC,
+          sources: tuple = SOURCES) -> tuple[Path, float]:
+    """Compile the kernels of ``sources`` in ``csrc`` with ``-D`` for each of
+    ``defines``, unless the keyed library exists. Returns its path and the
+    seconds spent compiling (0.0 when it was already built). ``verbose``
+    prints what ``ptxas -v`` says of each kernel: registers, shared memory,
+    spills. A library of fewer sources than ``SOURCES`` lacks the others'
+    entry points: ``open_library`` does not take it."""
+    out = library_path(defines, csrc, sources)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
-           *(str(csrc / name) for name in SOURCES)]
+           *(str(csrc / name) for name in sources)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     t0 = time.perf_counter()

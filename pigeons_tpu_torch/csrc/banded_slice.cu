@@ -43,7 +43,16 @@
 // term, no spills). Side by side (tools/torch_kernel_variants.py, NVIDIA H100
 // 80GB HBM3, 700.00 W, d = 100, 3 passes, half the lanes variational): toy
 // 0.1727 ms and variational 0.2088 ms at B = 5,120, 0.4560 ms and 0.6259 ms
-// at B = 20,480.
+// at B = 20,480. Both terms take as many iterations (8.92 and 8.76 million at
+// B = 5,120): the gap is the term, 1,240 SASS instructions in the variational
+// instance against 744, 4 blocks of 256 an SM against 5. Tried on it and not
+// kept, for no gain beyond the 1-2% by which two builds of one source differ
+// in turns (tools/torch_kernel_variants.py --variational): the guarded
+// products' weights decided once an element; dividing by std through its
+// reciprocal with one remainder correction (the true division's bits for all
+// 2^32 numerators at 215 std values); reading the coordinate's table at every
+// query (slower); 5 blocks an SM by __launch_bounds__ (48 registers and
+// spills: 0.2169 against 0.2064 ms at B = 5,120, and the toy term slower).
 //
 // Times (tools/torch_kernel_variants.py, NVIDIA H100 80GB HBM3, 700.00 W, one
 // run, B = 20,480, d = 100, 3 passes): 0.407 ms against 0.542 ms for one

@@ -206,11 +206,15 @@ __device__ __forceinline__ float normal_term(float y, float loc, float inv_scale
   return __fmaf_rn(-__fmaf_rn(z, z, f32(kLog2Pi)), 0.5f, neg_log_scale);
 }
 
-// The same for a scale that is no constant: a true division
-// (models/library.py: _observation_terms).
-__device__ __forceinline__ float observation_term(float y, float loc, float scale, float neg_log_scale) {
-  const float z = (y - loc) / scale;
+// The same for a scale that is no constant, of a residual res = y - loc: a
+// true division (models/library.py: _observation_terms, MrnaLikelihood.terms).
+__device__ __forceinline__ float residual_term(float res, float scale, float neg_log_scale) {
+  const float z = res / scale;
   return __fmaf_rn(__fmaf_rn(z, z, f32(kLog2Pi)), -0.5f, neg_log_scale);
+}
+
+__device__ __forceinline__ float observation_term(float y, float loc, float scale, float neg_log_scale) {
+  return residual_term(y - loc, scale, neg_log_scale);
 }
 
 // log |dx/du| summed over a block's coordinates (models/distributions.py:
@@ -337,16 +341,17 @@ __device__ inline float combine_prior(const PriorTable& table, const float* lj, 
   return any ? acc + c : acc;
 }
 
-// The variational reference's log density, coordinates added in order
-// (variational/gaussian.py: GaussianReference.log_density).
+// The variational reference's term of coordinate i at value u, and its log
+// density, coordinates added in order (variational/gaussian.py:
+// GaussianReference.log_density).
+__device__ __forceinline__ float variational_term(const VariationalLane& v, int i, float u) {
+  const float q = (u - v.mean[i]) / v.std[i];
+  return v.half_log_norm[i] - (q * q) * 0.5f;
+}
+
 template <class View>
 __device__ inline float variational_log_density(const View& s, int d, const VariationalLane& v) {
-  return sum_in_order(
-      [&](int i) {
-        const float q = (s(i) - v.mean[i]) / v.std[i];
-        return v.half_log_norm[i] - (q * q) * 0.5f;
-      },
-      0, d);
+  return sum_in_order([&](int i) { return variational_term(v, i, s(i)); }, 0, d);
 }
 
 // A density is evaluated in three steps, so that the threads of a group can
@@ -488,11 +493,19 @@ __device__ __forceinline__ float mrna_shape(float tmt0, const Prepared& pr) {
   return pr.near ? tmt0 : diff / pr.h;
 }
 
-// The level km0 * shape, 0 before t0.
-__device__ __forceinline__ float mrna_level(float tmt0, float km0, float shape) {
-  const float val = km0 * shape;
-  return tmt0 <= 0.0f ? 0.0f : val;
+// The residual y - km0 * shape of observation t (the level is 0 before t0),
+// as XLA's vectorised loop forms it, in the runtime's pass and inside the
+// JAX slice kernel alike: the first n - n mod 8 observations (the loop's
+// body, t < n_body) contract it into one fused multiply-add, the rest round
+// the product first.
+__device__ __forceinline__ float mrna_residual(int t, int n_body, float y, float tmt0, float km0,
+                                               float shape) {
+  const float res = t < n_body ? __fmaf_rn(-km0, shape, y) : y - km0 * shape;
+  return tmt0 <= 0.0f ? y : res;
 }
+
+// The body of XLA's loop over mRNA's n observations: whole vectors of 8.
+__device__ __host__ __forceinline__ int mrna_body(int n) { return n - n % 8; }
 
 // kHierarchicalNormal's term of observation t, in group (row) r.
 __device__ __forceinline__ float group_term(const LaneView& s, int r, int t, const Prepared& pr,
@@ -529,8 +542,9 @@ __device__ __forceinline__ float target_term(const LaneView& s, int t, const Pre
   } else if constexpr (K == kMrna) {
     // get_mu with its selects, then the normal term of observation t
     const float tmt0 = arr.ptr[0][t] - pr.a;
-    return observation_term(arr.ptr[1][t], mrna_level(tmt0, pr.b, mrna_shape(tmt0, pr)), pr.c,
-                            pr.e);
+    const float res = mrna_residual(t, mrna_body(arr.n[0]), arr.ptr[1][t], tmt0, pr.b,
+                                    mrna_shape(tmt0, pr));
+    return residual_term(res, pr.c, pr.e);
   } else if constexpr (K == kLogisticRegression) {
     // row t of the design matrix times w, column by column, then + b
     const int n_w = arr.n[0] / arr.n[1];
@@ -547,12 +561,13 @@ __device__ __forceinline__ float target_term(const LaneView& s, int t, const Pre
 // The path's log density at beta from the target's terms, NaN read as -inf
 // (the runtime's guard for out-of-support queries). `s` is the state, for the
 // reference's density; term(t) is target_term t. A lane under the variational
-// reference (var.use) has that reference's density for the path's own and the
-// path's target at beta = 1 (paths.py: VariationalPath).
-template <Density K, class Term>
+// reference (var.use) has that reference's density, var_ref(), for the path's
+// own and the path's target at beta = 1 (paths.py: VariationalPath).
+template <Density K, class Term, class VarRef>
 __device__ inline float finish(const LaneView& s, const Term& term, int d, float beta,
                                const Prepared& pr, const DensityParams& p,
-                               const PriorTable& prior, const VariationalLane& var) {
+                               const PriorTable& prior, const VariationalLane& var,
+                               const VarRef& var_ref) {
   float lref, ltgt;
   if constexpr (K == kToyMvn) {
     const float sq = sum_squares(term, d);
@@ -585,7 +600,7 @@ __device__ inline float finish(const LaneView& s, const Term& term, int d, float
     }
   }
   if (var.use) {
-    lref = variational_log_density(s, d, var);
+    lref = var_ref();
     // the fixed path at beta = 1, 0 * ref + 1 * target
     if constexpr (K != kToyMvn) ltgt = 0.0f + ltgt;
   }
@@ -598,7 +613,7 @@ __device__ inline float log_density(const LaneView& s, int d, float beta, const 
                                     const DensityParams& p, const DensityArrays& arr,
                                     const PriorTable& prior, const VariationalLane& var) {
   return finish<K>(s, [&](int t) { return target_term<K>(s, t, pr, p, arr); }, d, beta, pr, p,
-                   prior, var);
+                   prior, var, [&] { return variational_log_density(s, d, var); });
 }
 
 // Coordinate terms f(v) of the separable densities, NaN read as -inf.

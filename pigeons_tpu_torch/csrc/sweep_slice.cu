@@ -61,13 +61,35 @@
 // ENTER, and a query runs the chain from c on. mRNA's terms read all five
 // parameters, but a query recomputes only its own parameter (one 10^q in
 // double, prepare_query) and its prior block; the lane keeps each term's
-// level over km0 and its level, so that a query of km0 or sigma computes no
+// level over km0 and its residual, so that a query of km0 or sigma computes no
 // exp, and a term before t0 none (its level is 0); its five windows of 32 are
 // five threads' sums. Centred eight schools keeps its 3 J terms and each of
 // its three sums' running values: a query of theta_j recomputes three terms
 // in three threads and resumes each sum at j; its pseudo-prior block is C's
 // sum (the same terms). The additions are the same, in the same order, so
 // the bits are the twin's, which recomputes everything for every query.
+//
+// Under a variational reference a lane with G > 1 threads keeps its
+// reference's d terms and their in-order sum's running values (RefTerms), on
+// every density kind; the funnel and the banana keep their target's terms the
+// same way, for the fixed reference too (KeptSums). A query of x_c then
+// computes term c of each (one division each, for the funnel) and resumes
+// both sums at c, where every thread used to compute all d reference terms
+// and every target term; only a query of coordinate 0, which prepare reads,
+// computes every target term, shared over the group. pick_group counts the
+// reference's d terms with the target's. On the two-leg funnel (B = 768, d =
+// 10, 1 pass): 0.1534 ms at the launcher's 32 threads a lane against 0.2214 ms
+// for the sources before (tools/torch_kernel_variants.py --variational, in
+// turns), and in builds of the same call that left one of them out (their
+// switches are gone since) 0.2075 ms without RefTerms and 0.1850 ms without
+// KeptSums; at B = 6,144 0.3462 ms (8 threads; 0.3287 ms at 16) against
+// 0.5292 ms. Its clock64() split (-DPIGEONS_K2_CLOCKS): the slowest lane's
+// 166 iterations take 0.712 us each (1,420 cycles: 27% the machine's steps,
+// 23% the reference, 17% the sums, 16% the target's terms, 14% the draw) and
+// account for 118 of the launch's 135 us; without RefTerms, 0.857 us (46% the
+// sums with the reference's density). Hashing the next iteration's draws ahead while the
+// density runs moved it by 1% (0.1517 ms) and took 1% at 6,144 lanes: not
+// kept.
 //
 // Layout. Input and output are the row-major [B, d] states. With one thread
 // per lane a block of 128 lanes loads its contiguous [128, d] tile with
@@ -149,6 +171,197 @@ struct DensityInputs {
   const float *isvar, *mean, *std, *active;
 };
 
+// The parts of a lane's machine iteration that tools/torch_kernel_variants.py
+// times with clock64() in a build with -DPIGEONS_K2_CLOCKS (never the
+// product's): the draw (and ENTER's log), prepare, the target's terms, the
+// group's __syncwarp, the in-order sums, the reference's density, and the
+// machine's steps and branches.
+enum ClockPart { kDraw, kPrepare, kTerms, kSync, kSums, kReference, kMachine, kClockParts };
+
+#ifdef PIGEONS_K2_CLOCKS
+constexpr int kClockLanes = 8192;
+// per lane b < kClockLanes: cycles by part, then the loop's cycles and nanoseconds
+__device__ unsigned long long k2_clocks[kClockLanes][kClockParts + 2];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#endif
+
+// A lane's reference density, kept term by term in shared memory with G > 1
+// threads a lane: the variational reference's d terms for a lane under it
+// (gauss), and for kFunnel and kBanana otherwise the fixed path's
+// N(0, sigma^2 I), whose sum of squares runs over m_i = x_i / sigma. cur [d]
+// holds the current state's terms, run [d] the in-order sum's value after
+// each of them. A query of coordinate c computes term c (one division; every
+// thread of the group computes it: in a warp that costs what one thread's
+// does, and nothing needs to be broadcast) and resumes the sum at c: d - 1 - c
+// adds where every thread used to compute d terms and add them. The shrink
+// candidate's term is kept apart and becomes the lane's when it is accepted
+// (commit). The additions are the twin's, in its order.
+struct RefTerms {
+  float* cur;
+  float* run;
+  int d;
+  bool gauss;  // the variational reference; else the sum of squares of x / sigma
+  VariationalLane var;
+  float inv_sigma;
+  float cand = 0.0f;  // the term at the last shrink candidate
+
+  __device__ __forceinline__ float term(int i, float u) const {
+    if (gauss) return variational_term(var, i, u);
+    return u * inv_sigma;
+  }
+  __device__ __forceinline__ float add(float acc, float r) const {
+    return gauss ? acc + r : __fmaf_rn(r, r, acc);
+  }
+  __device__ __forceinline__ float first(float r) const { return gauss ? r : r * r; }
+  __device__ __forceinline__ float density(float acc) const { return gauss ? acc : acc * -0.5f; }
+
+  // cur[i] for i = g, g + G, ...; the group meets at __syncwarp before resume(0)
+  template <int G>
+  __device__ __forceinline__ void terms(const float* xs, int g) {
+    for (int i = g; i < d; i += G) cur[i] = term(i, xs[i]);
+  }
+  // run from coordinate c on, by every thread of the group alike
+  __device__ __forceinline__ void resume(int c) {
+    float acc = c == 0 ? first(cur[0]) : add(run[c - 1], cur[c]);
+    run[c] = acc;
+    for (int i = c + 1; i < d; ++i) run[i] = acc = add(acc, cur[i]);
+  }
+  __device__ __forceinline__ float total() const { return density(run[d - 1]); }
+  // the density with coordinate c at u; slot 1 for the shrink candidate
+  __device__ __forceinline__ float query(int c, float u, int slot) {
+    const float r = term(c, u);
+    if (slot == 1) cand = r;
+    float acc = c == 0 ? first(r) : add(run[c - 1], r);
+#pragma unroll 4  // the loads issue together; the adds stay in order
+    for (int i = c + 1; i < d; ++i) acc = add(acc, cur[i]);
+    return density(acc);
+  }
+  // The shrink candidate of coordinate c is the lane's; no thread of the
+  // group may still be reading the kept values (the caller makes sure).
+  __device__ __forceinline__ void commit(int c) {
+    cur[c] = cand;
+    resume(c);
+  }
+};
+
+// Whether density K with G threads a lane keeps its target's terms (KeptSums).
+template <Density K, int G>
+constexpr bool kKeptSums = G > 1 && (K == kFunnel || K == kBanana);
+
+// kFunnel and kBanana with G > 1 threads a lane. The target is coordinate 0's
+// own term (prepare) plus the in-order sum of the terms of coordinates 1 ..
+// d - 1, each a function of its coordinate and of what prepare computes from
+// coordinate 0. The lane keeps those terms and the sum's running values for
+// its current state, and its reference's (RefTerms): a query of x_c, c >= 1,
+// computes term c (the funnel's: one division) and resumes both sums at c; a
+// query of coordinate 0 computes every term, shared over the group as before.
+// Buffers: tcur [d] the terms (from 1), trun [d] the running sums, tq [d] a
+// query of coordinate 0's terms; then the reference's cur [d] and run [d].
+template <Density K, int G>
+struct KeptSums {
+  static constexpr int kFloatsPerCoord = 5;
+  float* xs;
+  float* buf;
+  int d, g;
+  unsigned mask;
+  RefTerms ref;
+  float cand = 0.0f;  // the target's term at the last shrink candidate
+
+  __device__ __forceinline__ float* tcur() const { return buf; }
+  __device__ __forceinline__ float* trun() const { return buf + d; }
+  __device__ __forceinline__ float* tq() const { return buf + 2 * d; }
+
+  // the target's terms g + 1, g + 1 + G, ... of the state with coordinate c
+  // (0, or -1 for none) at q
+  __device__ __forceinline__ void target_terms(float* out, int c, float q, const Prepared& pr,
+                                               const DensityParams& p) const {
+    const LaneView s{xs, 1, c, q};
+    for (int t = 1 + g; t < d; t += G) out[t] = target_term<K>(s, t, pr, p, DensityArrays{});
+  }
+  // trun from term `from` (>= 1) on
+  __device__ __forceinline__ void resume(int from) {
+    if (d < 2) return;
+    float* tcur = this->tcur();
+    float* trun = this->trun();
+    float acc = from == 1 ? tcur[1] : trun[from - 1] + tcur[from];
+    trun[from] = acc;
+    for (int t = from + 1; t < d; ++t) trun[t] = acc = acc + tcur[t];
+  }
+  // finish's blend from the target's in-order sum and the reference's density
+  __device__ __forceinline__ float blend(float beta, const Prepared& pr, float sum, float lref) const {
+    float ltgt = pr.c + sum;
+    if (ref.gauss) ltgt = 0.0f + ltgt;  // the fixed path at beta = 1
+    return nan_to_neg_inf(interpolate(beta, lref, ltgt));
+  }
+
+  // the lane's current state from scratch (its start)
+  __device__ __forceinline__ float init(const Prepared& pr, float beta, const DensityParams& p) {
+    target_terms(tcur(), -1, 0.0f, pr, p);
+    ref.terms<G>(xs, g);
+    __syncwarp(mask);
+    resume(1);
+    ref.resume(0);
+    return blend(beta, pr, d > 1 ? trun()[d - 1] : 0.0f, ref.total());
+  }
+
+  // the density with coordinate c at q, pr prepared for that state; slot 1
+  // for the shrink candidate
+  template <class Mark>
+  __device__ __forceinline__ float evaluate(int c, float q, const Prepared& pr, int slot,
+                                            float beta, const DensityParams& p,
+                                            const Mark& mark) {
+    float sum = 0.0f;  // sum_in_order(term, 1, d)
+    if (c == 0) {
+      float* tq = this->tq();
+      target_terms(tq, 0, q, pr, p);
+      mark(kTerms);
+      __syncwarp(mask);
+      mark(kSync);
+      if (d > 1) sum = tq[1];
+      for (int t = 2; t < d; ++t) sum = sum + tq[t];
+    } else {
+      const float tc = target_term<K>(LaneView{xs, 1, c, q}, c, pr, p, DensityArrays{});
+      if (slot == 1) cand = tc;
+      mark(kTerms);
+      const float* tcur = this->tcur();
+      sum = c == 1 ? tc : trun()[c - 1] + tc;
+#pragma unroll 4  // the loads issue together; the adds stay in order
+      for (int t = c + 1; t < d; ++t) sum = sum + tcur[t];
+    }
+    mark(kSums);
+    const float lref = ref.query(c, q, slot);
+    mark(kReference);
+    if (c == 0) __syncwarp(mask);  // all have read tq before the next such query writes it
+    return blend(beta, pr, sum, lref);
+  }
+
+  // The machine accepted the shrink candidate x_c = cand (pr_cur holds it):
+  // it and its terms become the lane's; one of coordinate 0 changes every
+  // target term, recomputed over the group. Queries of x_c, c >= 1, meet at
+  // no __syncwarp, so a thread may be iterations ahead of another: x_c is
+  // stored here, after every thread of the group has left the queries (and
+  // ENTER's read of x_c) that read the kept values.
+  __device__ __forceinline__ void commit(int c, float cand_x, const Prepared& pr_cur,
+                                         const DensityParams& p) {
+    __syncwarp(mask);
+    xs[c] = cand_x;
+    if (c == 0) {
+      target_terms(tcur(), -1, 0.0f, pr_cur, p);
+      __syncwarp(mask);
+      resume(1);
+    } else {
+      tcur()[c] = cand;
+      resume(c);
+    }
+    ref.commit(c);
+  }
+};
+
 // Whether density K with G threads per lane runs the shared reduction of
 // ManyTerms: the likelihoods of many terms, and centred eight schools' three sums.
 template <Density K, int G>
@@ -169,12 +382,15 @@ constexpr bool kManyTerms = G > 1 && (K == kHierarchicalNormal || K == kLogistic
 //                             each observation's logit over the coordinates
 //                             before the sweep's coordinate
 //   kMrna                     scratch [n_terms] a query's terms; shape [2]
-//                             [n_terms], level [2][n_terms] each term's level
-//                             over km0 and level (mrna_shape, mrna_level) at
-//                             the current state (0) and the shrink candidate (1)
+//                             [n_terms], resid [2][n_terms] each term's level
+//                             over km0 and residual (mrna_shape, mrna_residual)
+//                             at the current state (0) and the shrink
+//                             candidate (1)
 //   kEightSchoolsCentered     cur [3 J] the terms A, B, C; run [3 J] each sum's
 //                             running value after each of its terms; scratch
 //                             [3 J] a query's A terms
+// and under a variational reference the reference's RefTerms, cur [d] and
+// run [d], past them (base_floats).
 template <Density K, int G>
 struct ManyTerms {
   static_assert(kManyTerms<K, G>, "a density without many terms");
@@ -185,8 +401,9 @@ struct ManyTerms {
   int n = 0, P = 1, n_main = 0;  // kHierarchicalNormal: a row's terms, the partial sums
                                  // (a power of 2), the rows they add
   BlockTerms cand{0.0f, 0.0f};  // the prior block's terms at the last shrink candidate
+  RefTerms ref;                 // the variational reference's, for a lane under it
 
-  static __device__ __host__ int lane_floats(int d, int n_terms, const DensityParams& p) {
+  static __device__ __host__ int base_floats(int d, int n_terms, const DensityParams& p) {
     if constexpr (K == kHierarchicalNormal) {
       const int R = d - 3, P = row_partials(R);
       return 2 * kMaxPriorBlocks + 3 * (R / P * P) + 2 * (int)p.v[1] + 2 * n_terms;
@@ -196,9 +413,16 @@ struct ManyTerms {
     return 2 * kMaxPriorBlocks + 2 * n_terms;
   }
 
+  static __device__ __host__ int lane_floats(int d, int n_terms, const DensityParams& p,
+                                             bool variational) {
+    return base_floats(d, n_terms, p) + (variational ? 2 * d : 0);
+  }
+
   __device__ ManyTerms(float* xs_, float* buf_, int d_, int n_terms_, int g_, unsigned mask_,
-                       const DensityParams& p)
-      : xs(xs_), buf(buf_), d(d_), n_terms(n_terms_), g(g_), mask(mask_) {
+                       const DensityParams& p, const VariationalLane& var)
+      : xs(xs_), buf(buf_), d(d_), n_terms(n_terms_), g(g_), mask(mask_),
+        ref{buf_ + base_floats(d_, n_terms_, p), buf_ + base_floats(d_, n_terms_, p) + d_, d_,
+            true, var, 0.0f} {
     if constexpr (K == kHierarchicalNormal) {
       n = (int)p.v[1];
       P = row_partials(d - 3);
@@ -220,7 +444,7 @@ struct ManyTerms {
   }
   __device__ __forceinline__ float* pre() const { return scratch() + n_terms; }
   __device__ __forceinline__ float* shape(int slot) const { return scratch() + (1 + slot) * n_terms; }
-  __device__ __forceinline__ float* level(int slot) const { return scratch() + (3 + slot) * n_terms; }
+  __device__ __forceinline__ float* resid(int slot) const { return scratch() + (3 + slot) * n_terms; }
 
   // The path's log density with coordinate c holding q (c < 0: the current
   // state, whose terms, partial sums and prior blocks it keeps). slot: 1 for
@@ -237,6 +461,7 @@ struct ManyTerms {
         blk[k] = t.lj;
         blk[kMaxPriorBlocks + k] = t.lp;
       }
+      if (var.use) ref.terms<G>(xs, g);  // so are the reference's terms
     }
     float lik, sum_c = 0.0f;
     if constexpr (K == kHierarchicalNormal) {
@@ -264,7 +489,8 @@ struct ManyTerms {
     float lref = combine_prior(prior, blk, blk + kMaxPriorBlocks, kq, bq);
     float ltgt = lref + lik;
     if (var.use) {
-      lref = variational_log_density(s, d, var);
+      if (c < 0) ref.resume(0);
+      lref = c < 0 ? ref.total() : ref.query(c, q, slot);
       ltgt = 0.0f + ltgt;
     }
     __syncwarp(mask);  // all have read the buffers before the next query writes them
@@ -380,36 +606,38 @@ struct ManyTerms {
 
   // mRNA's terms into scratch. Every term reads every parameter, but a query
   // of km0 (c = 1) leaves each term's shape (its level over km0) as it is, and
-  // one of sigma (c = 4) its level: the lane keeps both for its current state
-  // (slot 0) and the shrink candidate (slot 1, which commit() takes over), and
-  // such a query recomputes no exp. Thread g keeps the terms g, g + G, ... .
+  // one of sigma (c = 4) its residual: the lane keeps both for its current
+  // state (slot 0) and the shrink candidate (slot 1, which commit() takes
+  // over), and such a query recomputes no exp. Thread g keeps the terms g,
+  // g + G, ... .
   __device__ __forceinline__ void mrna_terms(int c, const Prepared& pr, int slot,
                                              const DensityInputs& in) {
     const float* ts = in.arrays.ptr[0];
     const float* ys = in.arrays.ptr[1];
+    const int n_body = mrna_body(n_terms);
     float* scratch = this->scratch();
     float* shape_cur = shape(0);
-    float* level_cur = level(0);
+    float* resid_cur = resid(0);
     const int keep = c < 0 ? 0 : slot == 1 ? 1 : -1;  // the slot this query's terms go to
     for (int t = g; t < n_terms; t += G) {
-      float lvl;
+      float res;
       if (c == 4) {
-        lvl = level_cur[t];
+        res = resid_cur[t];
       } else {
         const float tmt0 = ts[t] - pr.a;
-        float sh = 0.0f;  // the level before t0 is 0, whatever the shape
+        float sh = 0.0f;  // the residual before t0 is y, whatever the shape
         if (c == 1) {
           sh = shape_cur[t];
         } else if (!(tmt0 <= 0.0f)) {
           sh = mrna_shape(tmt0, pr);
         }
-        lvl = mrna_level(tmt0, pr.b, sh);
+        res = mrna_residual(t, n_body, ys[t], tmt0, pr.b, sh);
         if (keep >= 0) {
           shape(keep)[t] = sh;
-          level(keep)[t] = lvl;
+          resid(keep)[t] = res;
         }
       }
-      scratch[t] = observation_term(ys[t], lvl, pr.c, pr.e);
+      scratch[t] = residual_term(res, pr.c, pr.e);
     }
     __syncwarp(mask);
   }
@@ -491,7 +719,7 @@ struct ManyTerms {
       if (c != 4) {
         for (int t = g; t < n_terms; t += G) {
           shape(0)[t] = shape(1)[t];
-          level(0)[t] = level(1)[t];
+          resid(0)[t] = resid(1)[t];
         }
       }
     }
@@ -510,15 +738,20 @@ struct ManyTerms {
     const int k = block_of(in.prior, c);
     blk()[k] = cand.lj;
     blk()[kMaxPriorBlocks + k] = cand.lp;
+    if (var.use) ref.commit(c);
     __syncwarp(mask);
   }
 };
 
-// Floats of a lane's buffers past its state with G > 1 threads per lane.
+// Floats of a lane's buffers past its state with G > 1 threads per lane:
+// ManyTerms' or KeptSums', else the target's terms and, under a variational
+// reference, its RefTerms.
 template <Density K, int G>
-__device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityParams& p) {
-  if constexpr (kManyTerms<K, G>) return ManyTerms<K, G>::lane_floats(d, n_terms, p);
-  return G == 1 ? 0 : n_terms;
+__device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityParams& p,
+                                             bool variational) {
+  if constexpr (kManyTerms<K, G>) return ManyTerms<K, G>::lane_floats(d, n_terms, p, variational);
+  if constexpr (kKeptSums<K, G>) return KeptSums<K, G>::kFloatsPerCoord * d;
+  return G == 1 ? 0 : n_terms + (variational ? 2 * d : 0);
 }
 
 // Blocks of kThreads that an SM must be able to hold at once: the compiler
@@ -539,9 +772,8 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                    int max_iter) {
   static_assert(G == 1 || !kDelta, "a delta query is O(1): nothing to share out");
   // G == 1: the states [d][T], coordinate-major. G > 1: the states [T / G][d],
-  // then each group's buffers [T / G][lane_floats]: its target terms, or
-  // ManyTerms' buffers. Then the variational reference's mean, std and log
-  // norms [3][d].
+  // then each group's buffers [T / G][lane_floats] (buffer_floats). Then the
+  // variational reference's mean, std and log norms [3][d].
   float* shared = dynamic_shared();
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -551,11 +783,11 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
   const int n_tile = n_here * d;
   const DensityParams& params = in.params;
   const int n_terms = end_term<K>(d, params);
-  const int lane_floats = buffer_floats<K, G>(d, n_terms, params);
+  const bool variational = in.isvar != nullptr;
+  const int lane_floats = buffer_floats<K, G>(d, n_terms, params, variational);
   for (int i = tid; i < n_tile; i += T)
     shared[G == 1 ? (i % d) * T + i / d : i] = x[lane0 * d + i];
   float* var_arrays = shared + (G == 1 ? T * d : lanes_per_block * (d + lane_floats));
-  const bool variational = in.isvar != nullptr;
   if (variational) {
     for (int i = tid; i < d; i += T) {
       const float sd = in.std[i];
@@ -590,29 +822,58 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
     };
     [[maybe_unused]] auto many = [&] {
       if constexpr (kManyTerms<K, G>) {
-        return ManyTerms<K, G>(xs, terms, d, n_terms, g, mask, params);
+        return ManyTerms<K, G>(xs, terms, d, n_terms, g, mask, params, var);
+      } else if constexpr (kKeptSums<K, G>) {
+        return KeptSums<K, G>{xs, terms, d, g, mask,
+                              RefTerms{terms + 3 * d, terms + 4 * d, d, var.use, var,
+                                       params.v[0]}};
       } else {
         return 0;
       }
     }();
+    // the other densities' reference terms under a variational reference
+    [[maybe_unused]] RefTerms ref{terms + n_terms, terms + n_terms + d, d, true, var, 0.0f};
+
+#ifdef PIGEONS_K2_CLOCKS
+    long long clk_acc[kClockParts] = {};
+    long long clk_last = 0;
+    const auto mark = [&](int part) {
+      const long long now = clock64();
+      clk_acc[part] += now - clk_last;
+      clk_last = now;
+    };
+#else
+    const auto mark = [](int) {};
+#endif
 
     // The density of the lane's state with coordinate c (if any) holding q;
-    // slot 1 for the shrink candidate (ManyTerms keeps its terms). Every
-    // thread of the group calls it at the same point and gets the same bits:
-    // thread g computes the terms g, g + G, ..., and all of them run the
-    // in-order sums over the group's buffer, or ManyTerms shares them out.
+    // slot 1 for the shrink candidate (ManyTerms, KeptSums and RefTerms keep
+    // its terms). Every thread of the group calls it at the same point and
+    // gets the same bits: thread g computes the terms g, g + G, ..., and all
+    // of them run the in-order sums over the group's buffer, or ManyTerms
+    // shares them out, or KeptSums and RefTerms resume their sums at c.
     auto evaluate = [&](int c, float q, const Prepared& pr, [[maybe_unused]] int slot) {
       const LaneView s{xs, stride, c, q};
       if constexpr (kManyTerms<K, G>) {
         return many.evaluate(c, q, pr, slot, beta, in, var);
+      } else if constexpr (kKeptSums<K, G>) {
+        return c < 0 ? many.init(pr, beta, params)
+                     : many.evaluate(c, q, pr, slot, beta, params, mark);
       } else if constexpr (G == 1) {
         return log_density<K>(s, d, beta, pr, params, in.arrays, in.prior, var);
       } else {
         for (int t = first_term<K> + g; t < n_terms; t += G)
           terms[t] = target_term<K>(s, t, pr, params, in.arrays);
+        if (var.use && c < 0) ref.terms<G>(xs, g);
+        mark(kTerms);
         __syncwarp(mask);
+        mark(kSync);
         const float lp = finish<K>(s, [&](int t) { return terms[t]; }, d, beta, pr, params,
-                                   in.prior, var);
+                                   in.prior, var, [&] {
+                                     if (c < 0) ref.resume(0);
+                                     return c < 0 ? ref.total() : ref.query(c, q, slot);
+                                   });
+        mark(kSums);
         __syncwarp(mask);  // all have read the terms before the next query overwrites them
         return lp;
       }
@@ -624,8 +885,15 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
     const int n_steps = n_passes * d;
     int phase = n_steps > 0 ? ENTER : DONE;
     int j = 0, c = 0, K_dbl = 0, n_shr = 0;  // j: coordinate steps done, c = j % d
+#ifdef PIGEONS_K2_CLOCKS
+    for (int k = 0; k < kClockParts; ++k) clk_acc[k] = 0;  // the loop's alone
+    const unsigned long long ns0 = global_ns();
+    const long long clk0 = clock64();
+    clk_last = clk0;
+#endif
 
     for (uint32_t it = 0; phase != DONE; ++it) {
+      mark(kMachine);
       // draws 4 it + (0: u_init, 1: u_z, 2: u_side, 3: u_shr). ENTER uses the
       // first two and the log, DOUBLE the third, SHRINK the fourth, INIT_R and
       // CHECK none: one hash outside ENTER serves whichever phase the lane is in
@@ -654,6 +922,8 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                           : phase == CHECK   ? M
                                              : old;
 
+      mark(kDraw);
+
       float lp_q;
       if constexpr (kDelta) {
         static_assert(!kDelta || K == kToyMvn, "no coordinate term for this density");
@@ -661,8 +931,10 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         if (is_enter) base = lp_cur - quadratic_term(a, xc);
         lp_q = base + quadratic_term(a, query);
       } else {
-        lp_q = evaluate(c, query, prepare_reads<K>(c, d) ? prepared_from_cur(c, query) : pr_cur,
-                        ph_shr ? 1 : 0);
+        const Prepared pr_q = prepare_reads<K>(c, d) ? prepared_from_cur(c, query) : pr_cur;
+        mark(kPrepare);
+        lp_q = evaluate(c, query, pr_q, ph_shr ? 1 : 0);
+        mark(kTerms);
       }
       n_evals += 1.0f;
 
@@ -737,10 +1009,19 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
       if (accepted) {
         // every thread of the group stores the same value, and reads it back
         // in its own program order
-        xs[c * stride] = cand;
         lp_cur = lp_cand;
         if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared_from_cur(c, cand);
-        if constexpr (kManyTerms<K, G>) many.commit(c, pr_cur, beta, in, var);
+        if constexpr (kKeptSums<K, G>) {
+          many.commit(c, cand, pr_cur, params);  // stores x_c once no thread reads it
+        } else {
+          xs[c * stride] = cand;
+          if constexpr (kManyTerms<K, G>) {
+            many.commit(c, pr_cur, beta, in, var);
+          } else if constexpr (G > 1) {
+            // evaluate's last __syncwarp: no thread still reads the kept terms
+            if (var.use) ref.commit(c);
+          }
+        }
       }
       acc_sum += accepted ? 1.0f : 0.0f;
 
@@ -768,6 +1049,14 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
       stats[(int64_t)B + b] = acc_n;
       stats[2 * (int64_t)B + b] = n_evals;
     }
+#ifdef PIGEONS_K2_CLOCKS
+    mark(kMachine);
+    if (g == 0 && b < kClockLanes) {
+      for (int k = 0; k < kClockParts; ++k) k2_clocks[b][k] = clk_acc[k];
+      k2_clocks[b][kClockParts] = clock64() - clk0;
+      k2_clocks[b][kClockParts + 1] = global_ns() - ns0;
+    }
+#endif
   }
 
   __syncthreads();
@@ -806,8 +1095,10 @@ struct SweepArgs {
 
 template <Density K, bool kDelta, int G>
 int launch(SweepArgs a) {
-  const int lane_floats = buffer_floats<K, G>(a.d, end_term<K>(a.d, a.in.params), a.in.params);
-  const size_t var_floats = a.in.isvar != nullptr ? (size_t)3 * a.d : 0;
+  const bool variational = a.in.isvar != nullptr;
+  const int lane_floats =
+      buffer_floats<K, G>(a.d, end_term<K>(a.d, a.in.params), a.in.params, variational);
+  const size_t var_floats = variational ? (size_t)3 * a.d : 0;
   int threads;
   const size_t shared = shared_bytes(G, a.d, lane_floats, var_floats, &threads);
   if (shared == 0) return -2;  // d too large for a lane's state in shared memory
@@ -849,21 +1140,26 @@ constexpr bool cheap_terms = K != kLogisticRegression;
 // form 18.17 / 2.75 / 2.87 / 3.19), so the rule's 8 stands; centred eight
 // schools at its B = 640 0.861 / 0.424 / 0.379 / 0.340 ms (the rule's 32),
 // Bernoulli 0.088 / 0.089 / 0.087 / 0.087 ms (one term a thread at most:
-// the group does not matter; the rule's 16). (NVIDIA H100 80GB HBM3,
-// 700.00 W.) One thread also where the group's buffers do not fit.
+// the group does not matter; the rule's 16). The two-leg funnel, 9 target
+// and 10 reference terms: 1 / 8 / 16 / 32 threads 0.479 / 0.189 / 0.174 /
+// 0.153 ms at its B = 768 (the rule's 32), 0.815 / 0.336 / 0.329 / 0.366 ms
+// at 6,144 (the rule's 8). (NVIDIA H100 80GB HBM3, 700.00 W.) One thread also
+// where the group's buffers do not fit.
 template <Density K>
-int pick_group(int B, int d, const DensityParams& params) {
+int pick_group(int B, int d, const DensityParams& params, bool variational) {
   const int n_all_terms = end_term<K>(d, params);
-  const int n_terms = n_all_terms - first_term<K>;
-  if (K == kToyMvn || K == kMvn || n_terms <= 1) return 1;
+  const int n_target = n_all_terms - first_term<K>;
+  if (K == kToyMvn || K == kMvn || n_target <= 1) return 1;
+  // a lane under a variational reference has its d terms besides
+  const int n_terms = n_target + (variational ? d : 0);
   int group = n_terms <= 8 ? 8 : n_terms <= 16 ? 16 : 32;
   if (cheap_terms<K>) {
     while (group > 8 && (int64_t)B * group > kResidentThreads / 4) group /= 2;
     if ((int64_t)B * group > kResidentThreads) return 1;
   }
   int threads;
-  if (shared_bytes(group, d, buffer_floats<K, 8>(d, n_all_terms, params), (size_t)3 * d,
-                   &threads) == 0)
+  if (shared_bytes(group, d, buffer_floats<K, 8>(d, n_all_terms, params, variational),
+                   (size_t)3 * d, &threads) == 0)
     return 1;
   return group;
 }
@@ -871,7 +1167,7 @@ int pick_group(int B, int d, const DensityParams& params) {
 // kUnid has one term: it is built for one thread per lane only.
 template <Density K>
 int launch_full(const SweepArgs& a, int group) {
-  if (!group) group = pick_group<K>(a.B, a.d, a.in.params);
+  if (!group) group = pick_group<K>(a.B, a.d, a.in.params, a.in.isvar != nullptr);
   if (group == 1) return launch<K, false, 1>(a);
   if constexpr (K != kUnid) {
     switch (group) {
@@ -937,6 +1233,17 @@ bool consistent(int density, int d, const DensityInputs& in) {
 }
 
 }  // namespace
+
+#ifdef PIGEONS_K2_CLOCKS
+// The last launch's clock64() split of lanes 0 .. n_lanes - 1 (at most
+// kClockLanes), copied to the host array out [n_lanes][kClockParts + 2]:
+// cycles by ClockPart, then the loop's cycles and its nanoseconds.
+extern "C" int k2_clock_split(unsigned long long* out, int n_lanes) {
+  if (n_lanes > kClockLanes) return -1;
+  return (int)cudaMemcpyFromSymbol(out, k2_clocks,
+                                   sizeof(unsigned long long) * (kClockParts + 2) * n_lanes);
+}
+#endif
 
 // x, betas, seeds, x_out, lp_out, stats: device pointers of the [B, d] float32
 // states, the [B] float32 annealing parameters, the [B] int64 lane seeds

@@ -800,10 +800,11 @@ def mrna_mean(tmt0, km0, shape):
     return torch.where(tmt0 <= 0.0, torch.zeros_like(val), val)
 
 
-# The runtime pass's terms in XLA's fused loop (read off its machine code): a
-# body over 8 observations at a time, then the rest one by one. The body
-# contracts the residual ``ys - km0 * shape`` into one fused multiply-add;
-# the rest rounds the product first, as the terms alone and the slice kernel do.
+# mRNA's terms in XLA's fused loop (read off the runtime pass's machine code;
+# the JAX slice kernel's queries give the same bits, tests/test_torch_library_
+# models.py): a body over 8 observations at a time, then the rest one by one.
+# The body contracts the residual ``ys - km0 * shape`` into one fused
+# multiply-add; the rest rounds the product first.
 _MRNA_VECTOR_WIDTH = 8
 
 
@@ -815,10 +816,11 @@ class MrnaLikelihood:
     (0 where ``lsigma`` is 0). The 150 terms are summed by windows of 32
     (:func:`sum_by_windows`) in the runtime's pass (its reduce-window, read
     off the compiled module) and inside the slice kernel alike
-    (``tests/summation_order_study.py``). The two passes differ in the
-    terms: the runtime's (``__call__``) fuses the residual of the first
-    ``n - n mod 8`` observations (``_MRNA_VECTOR_WIDTH``), the kernel's
-    (``sweep``: ``terms`` and ``finish``) fuses none."""
+    (``tests/summation_order_study.py``). Both fuse the residual of the
+    first ``n - n mod 8`` observations (``_MRNA_VECTOR_WIDTH``): XLA
+    compiles the terms into the same vectorised loop in the runtime's pass
+    (``__call__``) and inside the JAX slice kernel (``sweep``: ``terms`` and
+    ``finish``), so the two forms are one."""
 
     def __init__(self, ts, ys):
         self.ts = ts.to(torch.float32).contiguous()
@@ -830,15 +832,14 @@ class MrnaLikelihood:
     def device(self):
         return MRNA, (float(self.ts.numel()),), (self.ts, self.ys)
 
-    def _terms(self, q, fused: bool):
+    def terms(self, q):
+        """The terms ``[..., n]`` of the runtime's pass and the slice kernel."""
         t0, km0, beta, delta, sigma = (f32math.pow10(q[n])[..., None] for n in _MRNA_NAMES)
         lsigma = q["lsigma"][..., None]
         log_sigma = torch.where(lsigma == 0.0, torch.zeros_like(lsigma), _LN10_F32 * lsigma)
         tmt0 = self.ts - t0
         shape = _mrna_shape(tmt0, beta, delta)
         mu = mrna_mean(tmt0, km0, shape)
-        if not fused:
-            return _observation_terms(self.ys, mu, sigma, -log_sigma)
         residual = torch.where(tmt0 <= 0.0, self.ys.expand_as(shape),
                                f32math.fma(-km0.expand_as(shape), shape, self.ys))
         n = self.ts.shape[-1]
@@ -847,18 +848,13 @@ class MrnaLikelihood:
         z = residual / sigma
         return f32math.fma(f32math.fma(z, z, _LOG_2PI_F32), -0.5, -log_sigma)
 
-    def terms(self, q):
-        """The slice kernel's terms ``[..., n]``."""
-        return self._terms(q, fused=False)
-
     def finish(self, terms):
         return sum_by_windows(terms)
 
     def sweep(self, q):
         return self.finish(self.terms(q))
 
-    def __call__(self, q):
-        return self.finish(self._terms(q, fused=True))
+    __call__ = sweep
 
 
 def mrna_target(ts=None, ys=None) -> BayesianModel:

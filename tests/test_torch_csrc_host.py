@@ -139,6 +139,23 @@ def test_k1_variational_host_build_matches_twin(host_libraries, B, d, n_passes):
     assert B == 1 or not torch.equal(want[0], toy[0])  # (the one lane of B = 1 has beta = 1)
 
 
+@pytest.mark.parametrize("beta", [0.0, 1.0])
+@pytest.mark.parametrize("std", [1e-3, 1e3])
+def test_k1_variational_at_extreme_std_and_beta(host_libraries, std, beta):
+    """Every coordinate's std far from the target's, every lane at one end of
+    the path: at beta = 0 a variational lane's term is its reference's alone,
+    at beta = 1 the target's (the guarded products' weights are 0)."""
+    B, d = 40, 13
+    x, betas, seeds = _inputs(B, d, 3)
+    betas = torch.full((B,), beta)
+    a = toy_mvn_path(d).coord_factor(betas)
+    term = _variational_term(betas, d, 4, 1.0)._replace(std=torch.full((d,), std))
+    got = _k1_variational(host_libraries["banded_slice"], x, a, seeds, term, 2)
+    want = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=2, variational=term)
+    _assert_bitwise(got, want, ("x", "stats"))
+    assert not torch.equal(want[0], x)
+
+
 def test_k1_variational_before_activation_is_the_toy_term(host_libraries):
     x, betas, seeds = _inputs(37, 13, 2)
     a = toy_mvn_path(13).coord_factor(betas)

@@ -461,6 +461,73 @@ def test_general_kernel_under_a_variational_reference(cuda_device, name, active,
         assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
 
 
+def _two_leg_funnel_row(n, device):
+    """``chip_smoke.py`` phase 2e's inputs at ``n`` lanes: the funnel d = 10,
+    each ladder's 2 x 6 chains (768 lanes: 64 ladders; 6,144: 12 + 12 chains
+    x 256 ladders, bench config 3's width with an equal variational leg), its
+    first half variational, a reference whose mean and std differ by
+    coordinate, active."""
+    d, half = 10, 6 if n == 768 else 12
+    fixed = _k2_full_case("funnel", d, n)[0]
+    path = T.VariationalPath(fixed, T.GaussianReference())
+    rs = np.random.RandomState(4)
+    extra = {"isvar": ((torch.arange(n, device=device) % (2 * half)) < half).float(),
+             "ref_params": {"mean": torch.tensor((rs.normal(size=d) * 0.3).astype(np.float32),
+                                                 device=device),
+                            "std": torch.tensor((2.0 * np.exp(rs.normal(size=d) * 0.3))
+                                                .astype(np.float32), device=device),
+                            "active": torch.tensor(1.0, device=device)}}
+    return path, _lane_inputs(n, d, 11, device), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
+@pytest.mark.parametrize("n", [768, 6144])
+def test_k2_variational_row_matches_twin_on_card(cuda_device, n, group):
+    """K2 under a variational reference at the two-leg funnel's 768 lanes and
+    at 6,144: 0 differing bits against the twin at every group and the
+    launcher's choice (the lane keeps its reference's and the funnel's terms
+    from query to query; the twin recomputes them)."""
+    path, (x, betas, seeds), extra = _two_leg_funnel_row(n, cuda_device)
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, group=group, **extra)
+    for tensor_name, g, w in zip(("x", "lp", "stats"), got, _row_twin(n), strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
+
+
+@functools.lru_cache(maxsize=None)
+def _row_twin(n):
+    """The twin's sweep of a row's inputs, once for all group sizes."""
+    path, (x, betas, seeds), extra = _two_leg_funnel_row(n, torch.device("cuda"))
+    return cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1, **extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5120, 20480])
+def test_k1_variational_row_matches_twin_on_card(cuda_device, n):
+    """K1's variational term at config 4's 5,120 lanes and config 1's width:
+    ``chip_smoke.py`` phase 2c's inputs (each ladder's first 10 lanes
+    variational, the reference active), 0 differing bits against the twin."""
+    d = 100
+    rs0 = np.random.RandomState(0)
+    x = torch.tensor((rs0.normal(size=(n, d)) * 0.5).astype(np.float32), device=cuda_device)
+    betas = torch.tensor(rs0.uniform(0.0, 1.0, n).astype(np.float32), device=cuda_device)
+    seeds = cuda_slice.lane_seeds(rng.keys_for(rng.key(13, cuda_device),
+                                               torch.arange(n, device=cuda_device)))
+    path = toy_mvn_path(d)
+    rs = np.random.RandomState(4)
+    term = cuda_slice.VariationalTerm(
+        betas, ((torch.arange(n, device=cuda_device) % 20) < 10).float(),
+        torch.tensor([1.0], device=cuda_device), float(path.coord_factor(torch.ones(()))),
+        torch.tensor((rs.normal(size=d) * 0.05).astype(np.float32), device=cuda_device),
+        torch.tensor((np.sqrt(0.1) * np.exp(rs.normal(size=d) * 0.2)).astype(np.float32),
+                     device=cuda_device))
+    a = path.coord_factor(betas)
+    got = cuda_slice.banded_sweep(x, a, seeds, n_passes=3, variational=term)
+    want = cuda_slice.banded_sweep_reference(x, a, seeds, n_passes=3, variational=term)
+    for tensor_name, g, w in zip(("x", "stats"), got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), tensor_name
+
+
 @pytest.mark.cuda
 def test_general_kernel_rejects_bad_arrays(cuda_device):
     model = T.hierarchical_normal().to(cuda_device)

@@ -327,15 +327,35 @@ def _fast_decay_states(B, rs):
     return xs
 
 
+# The lane at which the 16-ladder mRNA run (32 chains, seed 1, rounds of 2,
+# 4, ... scans) first left the JAX package's run before the kernel's terms
+# fused their residuals as XLA does (tools/torch_mrna_divergence.py): round
+# 3, scan 6, ladder 8, chain 30; its state, beta and key. The JAX kernel
+# takes its lsigma to 0.38328347, the unfused terms to 0.37713006.
+PARTING_LANE = {"x": (0.9055174589157104, 0.4279673397541046, -0.31143495440483093,
+                      -1.1911488771438599, 0.44949644804000854),
+                "beta": 0.9935380220413208, "key": (1467162574, 920604853)}
+
+
+def _posterior_states(B, rs):
+    """mRNA states about the parting lane's, inside the posterior's bulk:
+    there the level km0 (e^{-beta (t - t0)} - e^{-delta (t - t0)}) / (delta -
+    beta) is of the observations' size, and whether its product with km0 is
+    rounded before the subtraction shows in a term's last bits."""
+    return (np.asarray(PARTING_LANE["x"], np.float32)
+            + rs.normal(size=(B, 5)).astype(np.float32) * 0.01).astype(np.float32)
+
+
 @pytest.mark.parametrize("n_passes", [1, 3])
-@pytest.mark.parametrize("name", MODELS + ["mrna_fast_decay"])
+@pytest.mark.parametrize("name", MODELS + ["mrna_fast_decay", "mrna_posterior"])
 def test_twin_matches_pallas_kernel(name, n_passes):
     """Bitwise: states, returned densities, accept_sum, accept_n, n_evals."""
-    fast_decay = name == "mrna_fast_decay"
-    jm, tm = _models("mrna_target" if fast_decay else name)
+    fast_decay, posterior = name == "mrna_fast_decay", name == "mrna_posterior"
+    jm, tm = _models("mrna_target" if fast_decay or posterior else name)
     B = 24
     rs = np.random.RandomState(n_passes)
-    xs = _fast_decay_states(B, rs) if fast_decay else rs.normal(size=(B, jm.dim)).astype(np.float32)
+    xs = (_fast_decay_states(B, rs) if fast_decay else _posterior_states(B, rs) if posterior
+          else rs.normal(size=(B, jm.dim)).astype(np.float32))
     betas = rs.uniform(0.0, 1.0, B).astype(np.float32)
     betas[[0, 1, -2, -1]] = 0.0, 1.0, 0.0, 1.0
     ref = _jax_sweep(jm.create_path(jm.default_reference()), xs, betas, 7, n_passes)
@@ -351,6 +371,28 @@ def test_twin_matches_pallas_kernel(name, n_passes):
         assert _n_differ(got[key].numpy(), want) == 0, key
     assert not np.array_equal(out.x.numpy(), xs)
     assert torch.equal(out.lp, cuda_slice.sweep_density(tpath)(out.x, torch.from_numpy(betas)))
+
+
+def test_mrna_kernel_terms_fuse_as_xla_does():
+    """ROADMAP §3 item 4: the one lane, one pass at which the runs parted.
+    The JAX kernel's queries fuse the residual of the first n - n mod 8
+    observations, as the runtime's pass does; with the terms rounded first
+    the twin (and kernel K2) took lsigma elsewhere."""
+    jm, tm = _models("mrna_target")
+    xs = np.asarray([PARTING_LANE["x"]], np.float32)
+    betas = np.asarray([PARTING_LANE["beta"]], np.float32)
+    key = np.asarray([PARTING_LANE["key"]], np.uint32)
+    ld = lambda x, beta, isvar, rp: (lambda lp: jnp.where(jnp.isnan(lp), -jnp.inf, lp))(
+        jm.create_path(jm.default_reference()).log_density(x, beta))
+    want = SliceSamplerPallas(interpret=True, n_passes=1).step_batched(
+        jnp.asarray(key), jnp.asarray(xs), jnp.zeros(1), ld, jnp.asarray(betas), jnp.zeros(1), (),
+        (), 6, ld_coord=None)
+    got = SliceSamplerCUDA(n_passes=1).step_batched(
+        torch.from_numpy(key.astype(np.int64)), torch.from_numpy(xs), torch.from_numpy(betas),
+        tm.create_path(tm.default_reference()))
+    assert _n_differ(got.x.numpy(), np.asarray(want.x)) == 0
+    assert got.x[0, 4].item() == np.float32(0.38328346610069275)
+    assert _n_differ(got.n_steps.numpy(), np.asarray(want.n_steps)) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Times variants of the port's CUDA kernels side by side on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py [--k2-only] [--parent-csrc DIR ... [--parent-abi N]]
+    python3 tools/torch_kernel_variants.py [--k2-only | --variational] [--parent-csrc DIR ... [--parent-abi N]]
 
 Run from the repository root. Builds ``pigeons_tpu_torch/csrc`` once for each
 setting of kernel K1's tile size and refill threshold (``-DPIGEONS_K1_CHUNK=
@@ -29,6 +29,26 @@ It then times, at the shapes of ``chip_smoke.py``:
   the parent;
 * K2 in delta mode (toy MVN, B=20,480, d=100, 1 pass) and the parent's.
 
+``--variational`` times only the two rows under a variational reference,
+each against the parent (``--parent-csrc``):
+
+* K2 on the two-leg funnel (d=10, 1 pass, half the lanes variational, the
+  reference active) at its path's 768 lanes and at 6,144 (bench config 3's
+  width with an equal variational leg), for 1, 8, 16 and 32 threads a lane
+  and the launcher's choice, and the plain funnel on the same inputs; then
+  the same launch in a build with ``PIGEONS_K2_CLOCKS``, whose
+  ``clock64()`` split of each lane's loop by part (the draw, prepare, the
+  target's terms, the group's ``__syncwarp``, the sums, the reference, the
+  machine) it prints for the slowest lane (the twin's iteration count)
+  beside its nanoseconds and the kernel's device time;
+* K1's variational term at B=5,120 (config 4) and 20,480, d=100, 3 passes,
+  against the toy term on the same inputs, and against a copy of the
+  sources whose kernel must keep 5 blocks an SM (``__launch_bounds__``);
+  each instance's resident blocks (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+  from a query this tool appends to its own copy of ``banded_slice.cu``),
+  the SASS length of both instances (``cuobjdump``) and the iterations per
+  element of both terms.
+
 Every variant's output must equal the first variant's bit for bit (what a
 kernel computes does not depend on how its work is mapped to threads). The
 variants of one kernel are timed in turns, forwards then backwards, twice
@@ -46,6 +66,7 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -69,11 +90,13 @@ GROUPS = (1, 8, 16, 32)
 W, P, MAX_ITER = 10.0, 20, 1024  # the explorer's defaults
 
 
-def load(defines=(), csrc=_build.CSRC, verbose=False):
-    path, seconds = _build.build(verbose=verbose, defines=defines, csrc=csrc)
-    print(f"built {path.name} ({' '.join(defines) or 'defaults'}, {csrc}) in {seconds:.2f} s",
-          flush=True)
-    return ctypes.CDLL(str(path))
+def load(defines=(), csrc=_build.CSRC, verbose=False, sources=_build.SOURCES):
+    path, seconds = _build.build(verbose=verbose, defines=defines, csrc=csrc, sources=sources)
+    print(f"built {path.name} ({' '.join(defines) or 'defaults'}, {csrc}, "
+          f"{' '.join(sources)}) in {seconds:.2f} s", flush=True)
+    lib = ctypes.CDLL(str(path))
+    lib.path = path
+    return lib
 
 
 def k1_call(lib, x, a, seeds, n_passes, variational=None, first_version=False):
@@ -132,15 +155,16 @@ def race_terms(lib, B, d):
     return times
 
 
-def k2_call(lib, x, betas, seeds, path, coord_deltas, group, arrays=False):
+def k2_call(lib, x, betas, seeds, path, coord_deltas, group, arrays=False, variational=None):
     """``group=None``: an entry point of before the ``group`` argument.
     ``arrays``: this tree's entry point, which takes the density's arrays,
-    the prior table and the variational reference (none here)."""
+    the prior table and the variational reference (``variational``: the
+    keywords ``isvar`` and ``ref_params`` of a variational launch, or none)."""
     B, d = x.shape
     density = path.device_density()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if arrays:
-        inputs = cuda_slice.kernel_inputs(density, B, d, x.device)
+        inputs = cuda_slice.kernel_inputs(density, B, d, x.device, **(variational or {}))
         middle = (inputs.params, inputs.arrays, inputs.array_lens, inputs.prior, inputs.n_prior,
                   *inputs.variational)
         tail = [group]
@@ -211,13 +235,15 @@ def race(title, variants):
     return times
 
 
-def k1_iterations(x, a, seeds):
+def k1_iterations(x, a, seeds, variational=None):
     """What kernel K1's mapping of elements to warps has to balance: the
-    twin's count of iterations for every element, and the warp-iterations
-    they cost with one thread per element (a warp of 32 consecutive elements
-    runs as long as its slowest) against lanes that are always full."""
+    twin's count of iterations for every element (with the ``variational``
+    term, if given), and the warp-iterations they cost with one thread per
+    element (a warp of 32 consecutive elements runs as long as its slowest)
+    against lanes that are always full."""
     its = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
-    cuda_slice.banded_sweep_reference(x, a, seeds, element_iterations=its)
+    cuda_slice.banded_sweep_reference(x, a, seeds, element_iterations=its,
+                                      variational=variational)
     flat = its.flatten()
     ranked = flat.sort().values
     quantiles = {q: int(ranked[int(q * (flat.numel() - 1))]) for q in (0.5, 0.9, 0.99, 0.999)}
@@ -230,13 +256,225 @@ def k1_iterations(x, a, seeds):
             "warp_iterations_thread_per_element": per_warp, "warp_iterations_full_lanes": packed}
 
 
+CLOCK_PARTS = ("draw", "prepare", "target terms", "__syncwarp", "sums", "reference", "machine")
+
+
+def two_leg_funnel(B):
+    """``chip_smoke.py`` phase 2e's row at ``B`` lanes: the funnel d = 10,
+    each ladder's 2 x 6 chains (768 lanes) or 12 + 12 (6,144: bench config
+    3's width with an equal variational leg), its first half variational,
+    the reference active with a mean and std that differ by coordinate."""
+    from pigeons_tpu_torch import GaussianReference, VariationalPath
+
+    target = funnel(chip_smoke.F_NX)
+    d = chip_smoke.F_NX + 1
+    path = VariationalPath(target.create_path(target.default_reference()), GaussianReference())
+    x, betas, seeds = chip_smoke.lane_inputs(B, d, 2.0, 11)
+    dev = x.device
+    half = chip_smoke.VF_CHAINS if B == 2 * chip_smoke.VF_CHAINS * chip_smoke.VF_REPLICATES \
+        else chip_smoke.F_CHAINS
+    rs = np.random.RandomState(4)
+    var = {"isvar": ((torch.arange(B, device=dev) % (2 * half)) < half).float(),
+           "ref_params": {"mean": torch.tensor((rs.normal(size=d) * 0.3).astype(np.float32),
+                                               device=dev),
+                          "std": torch.tensor((2.0 * np.exp(rs.normal(size=d) * 0.3))
+                                              .astype(np.float32), device=dev),
+                          "active": torch.tensor(1.0, device=dev)}}
+    return path, (x, betas, seeds), var
+
+
+def clock_split(lib, call, iterations, device_ms_):
+    """Run ``call`` (a launch of a ``PIGEONS_K2_CLOCKS`` build) and print the
+    split of the slowest lane's loop (most iterations by the twin) by part,
+    its nanoseconds and microseconds an iteration, beside the launch's
+    device time; and the same split summed over all lanes, as shares."""
+    call()
+    torch.cuda.synchronize()
+    B = len(iterations)
+    buf = np.zeros((B, len(CLOCK_PARTS) + 2), np.uint64)
+    err = lib.k2_clock_split(buf.ctypes.data_as(ctypes.c_void_p), B)
+    if err:
+        raise RuntimeError(f"k2_clock_split: error {err}")
+    its = np.asarray(iterations.cpu(), np.int64)
+    slow = int(np.argmax(its))
+    cyc, ns = buf[slow, :-2].astype(np.float64), float(buf[slow, -1])
+    total = float(buf[slow, -2])
+    parts = {name: float(c) for name, c in zip(CLOCK_PARTS, cyc)}
+    row = {"slowest_lane": slow, "iterations": int(its[slow]), "loop_cycles": total,
+           "loop_ns": ns, "us_per_iteration": ns / 1e3 / its[slow],
+           "cycles_per_iteration": total / its[slow], "device_ms": device_ms_,
+           "cycles_by_part": parts,
+           "share_by_part_all_lanes": {name: float(v) for name, v in zip(
+               CLOCK_PARTS, buf[:, :-2].astype(np.float64).sum(0) / buf[:, -2].astype(
+                   np.float64).sum())},
+           "slowest_lane_by_ns": int(np.argmax(buf[:, -1])), "max_loop_ns": float(buf[:, -1].max())}
+    print(f"   slowest lane {slow}: {its[slow]} iterations, {total:.0f} cycles, {ns / 1e3:.2f} us "
+          f"({ns / 1e3 / its[slow]:.3f} us, {total / its[slow]:.0f} cycles an iteration; launch "
+          f"device time {device_ms_ * 1e3:.2f} us; longest lane loop {buf[:, -1].max() / 1e3:.2f} "
+          f"us); cycles by part: "
+          + ", ".join(f"{n} {c:.0f} ({c / total:.1%})" for n, c in parts.items()), flush=True)
+    return row
+
+
+def sass_lengths(lib_path, out_name=None):
+    """Instructions of each kernel instance in the library's SASS
+    (``cuobjdump -sass``), written whole to ``chiprun_out/out_name`` if given
+    (K2's 30 instances are some 50 MB)."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True)
+    if res.returncode:
+        print(f"cuobjdump failed: {res.stderr[:300]}")
+        return {}
+    if out_name:
+        os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+        (ROOT / "chiprun_out" / out_name).write_text(res.stdout)
+    lengths, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            lengths[name] = 0
+        elif name and line.strip().startswith("/*") and "*/" in line and ";" in line:
+            lengths[name] += 1
+    for name, n in lengths.items():
+        demangled = subprocess.run(["c++filt", name], capture_output=True, text=True).stdout.strip()
+        print(f"   SASS {n} instructions: {demangled[:150]}")
+    return lengths
+
+
+K1_OCCUPANCY = r'''
+// The blocks of kernel K1's instance for coordinate term `term` that one SM
+// holds at once at width d, with the launch's shared memory.
+extern "C" int banded_slice_occupancy(int term, int d, int* blocks_per_sm) {
+  const int max_lanes = max_tile_lanes(d);
+  const auto query = [&](auto kernel, CoordTerm t) {
+    const size_t shared = shared_bytes(max_lanes, t, d);
+    const cudaError_t err = allow_shared_bytes(kernel, shared);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                              shared);
+  };
+  if (term == kToyQuadratic) return query(banded_slice_kernel<kToyQuadratic>, kToyQuadratic);
+  return query(banded_slice_kernel<kVariationalQuadratic>, kVariationalQuadratic);
+}
+'''
+
+
+def k1_copy(name, min_blocks=None):
+    """Kernel K1 alone, built from a copy of ``csrc`` under the build
+    directory with :data:`K1_OCCUPANCY` appended to ``banded_slice.cu`` and,
+    given ``min_blocks``, the kernel held to that many blocks an SM."""
+    src = _build.BUILD_DIR / f"k1_{name}"
+    src.mkdir(parents=True, exist_ok=True)
+    for header in _build.HEADERS:
+        shutil.copy(_build.CSRC / header, src / header)
+    text = (_build.CSRC / "banded_slice.cu").read_text()
+    if min_blocks is not None:
+        bounds = "__launch_bounds__(kThreads)"
+        if text.count(bounds) != 1:
+            raise RuntimeError(f"banded_slice.cu: expected one {bounds}")
+        text = text.replace(bounds, f"__launch_bounds__(kThreads, {min_blocks})")
+    (src / "banded_slice.cu").write_text(text + K1_OCCUPANCY)
+    return load(verbose=True, csrc=src, sources=("banded_slice.cu",))
+
+
+def variational_main(args, parents):
+    """``--variational``: the two rows under a variational reference."""
+    results = {}
+    k2_src = ("sweep_slice.cu",)
+    k2 = load(verbose=True, sources=k2_src)
+    clocks = load(("PIGEONS_K2_CLOCKS",), sources=k2_src)
+    for B in (2 * chip_smoke.VF_CHAINS * chip_smoke.VF_REPLICATES,
+              2 * chip_smoke.F_CHAINS * chip_smoke.F_REPLICATES):
+        path, (x, betas, seeds), var = two_leg_funnel(B)
+        want = cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=chip_smoke.F_PASSES,
+                                          **var)
+        iterations = want[2][2]
+        variants = {f"this tree, group {g}": k2_call(k2, x, betas, seeds, path, False, g, True, var)
+                    for g in GROUPS}
+        variants["this tree, launcher's choice"] = k2_call(k2, x, betas, seeds, path, False, 0,
+                                                           True, var)
+        for name, parent in parents.items():
+            variants[name] = k2_call(parent, x, betas, seeds, path, False, 0, True, var)
+        title = f"K2 funnel under the variational reference, B={B} d=10 1 pass"
+        got = variants[next(iter(variants))]()
+        for t, w in zip(got, want):
+            if not torch.equal(t.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"{title}: this tree differs from the twin")
+        results[title] = race(title, variants)
+        fixed = path.fixed
+        plain = {name: k2_call(lib, x, betas, seeds, fixed, False, 0, True)
+                 for name, lib in (("this tree", k2), *parents.items())}
+        results[f"K2 plain funnel on the same inputs, B={B}"] = race(
+            f"K2 plain funnel on the same inputs, B={B}", plain)
+        print(f"-- clock64 split, B={B}, the launcher's group; twin's iterations: slowest lane "
+              f"{int(iterations.max())}, mean {float(iterations.mean()):.1f}", flush=True)
+        call = k2_call(clocks, x, betas, seeds, path, False, 0, True, var)
+        results[f"clock split, B={B}"] = clock_split(clocks, call, iterations, device_ms(call))
+    results["K2 SASS"] = sass_lengths(k2.path)
+
+    k1 = {"this tree": k1_copy("this_tree"), "5 blocks an SM": k1_copy("5_blocks", 5)}
+    occupancy = {}
+    for name, lib in k1.items():
+        for term in (0, 1):
+            blocks = ctypes.c_int(0)
+            lib.banded_slice_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            err = lib.banded_slice_occupancy(term, chip_smoke.D, ctypes.byref(blocks))
+            occupancy[f"{name}, {('toy', 'variational')[term]} term"] = blocks.value
+            print(f"K1 {name}, {('toy', 'variational')[term]} term: {blocks.value} blocks of 256 "
+                  f"an SM (error {err})")
+    results["K1 resident blocks"] = occupancy
+    results["K1 SASS"] = sass_lengths(k1["this tree"].path, "k1_sass.txt")
+    for B in (2 * chip_smoke.V_CHAINS * chip_smoke.V_REPLICATES,
+              chip_smoke.N_CHAINS * chip_smoke.N_REPLICATES):
+        x, a, seeds, term = k1_variational_inputs(B, chip_smoke.D)
+        want = cuda_slice.banded_sweep_reference(x, a, seeds, variational=term)
+        variational = {name: k1_call(lib, x, a, seeds, 3, term) for name, lib in k1.items()}
+        toy = {name: k1_call(lib, x, a, seeds, 3) for name, lib in k1.items()}
+        for name, parent in parents.items():
+            variational[name] = k1_call(parent, x, a, seeds, 3, term)
+            toy[name] = k1_call(parent, x, a, seeds, 3)
+        got = variational["this tree"]()
+        for t, w in zip(got, want):
+            if not torch.equal(t.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"K1 variational term, B={B}: differs from the twin")
+        results[f"K1 variational term, B={B} d=100 3 passes"] = race(
+            f"K1 variational term, B={B}", variational)
+        results[f"K1 toy term on the same inputs, B={B}"] = race(f"K1 toy term, B={B}", toy)
+        if B == 2 * chip_smoke.V_CHAINS * chip_smoke.V_REPLICATES:
+            results["K1 iterations, toy term"] = k1_iterations(x, a, seeds)
+            results["K1 iterations, variational term"] = k1_iterations(x, a, seeds, term)
+    return results
+
+
+def k1_variational_inputs(B, d):
+    """``chip_smoke.py`` phase 2c's inputs at ``B`` lanes."""
+    x, betas, seeds = chip_smoke.lane_inputs(B, d, 0.5, 13)
+    dev = x.device
+    path = toy_mvn_path(d)
+    rs = np.random.RandomState(4)
+    half = chip_smoke.V_CHAINS
+    term = cuda_slice.VariationalTerm(
+        betas, ((torch.arange(B, device=dev) % (2 * half)) < half).float(),
+        torch.ones(1, device=dev), float(path.coord_factor(torch.ones(()))),
+        torch.tensor((rs.normal(size=d) * 0.05).astype(np.float32), device=dev),
+        torch.tensor((np.sqrt(0.1) * np.exp(rs.normal(size=d) * 0.2)).astype(np.float32),
+                     device=dev))
+    return x, path.coord_factor(betas), seeds, term
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--k2-only", action="store_true")
+    ap.add_argument("--variational", action="store_true")
     ap.add_argument("--parent-csrc", type=Path, action="append", default=[])
     ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4, 5))
     args = ap.parse_args()
     chip_smoke.device_phase()
+    if args.variational:
+        parents = {("parent" if i == 0 else f"parent {i + 1}"): load(csrc=csrc.resolve())
+                   for i, csrc in enumerate(args.parent_csrc)}
+        write_results(variational_main(args, parents), None, "kernel_variants_variational.json")
+        return
 
     default = load(verbose=True)
     k1_libs = {} if args.k2_only else {
@@ -312,11 +550,15 @@ def main():
                               arrays=args.parent_abi >= 5)
     results["K2 delta, toy MVN B=20480 d=100 1 pass"] = race("K2 delta, toy MVN", delta)
 
+    write_results(results, iterations, "kernel_variants.json")
+
+
+def write_results(results, iterations, name):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
-    with open(ROOT / "chiprun_out" / "kernel_variants.json", "w") as f:
+    with open(ROOT / "chiprun_out" / name, "w") as f:
         json.dump({"card": smi, "turn_medians_ms": results, "k1_iterations": iterations}, f,
                   indent=1)
 
