@@ -43,13 +43,21 @@ drives these paths end to end through
 * the ordinal and Bool targets (Ising with ``BinaryGibbs``, the Poisson
   count and the binary mixture with the masked torch ``SliceSampler``), card
   against CPU, no kernel launched, and the Ising model against its
-  enumeration.
+  enumeration;
+* config 2a's cell with ``NUTS()`` and with ``AAPS(step_size=0.8)`` in place
+  of AutoMALA (phase 3n: the dynamic trajectories of the gradient path, no
+  kernel), each held to config 2a's law and an explore of 640 of its lanes
+  held card against CPU; and the combinators ``Compose``, ``Mix`` and
+  ``ScanMix`` on the toy MVN, card against CPU (phase 6c: the slice
+  sampler inside them is the torch ``SliceSampler``, which the JAX
+  package's combinators run for ``SliceSamplerPallas``; no kernel
+  launches).
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU (and one
 AutoMALA explore of 640 lanes of config 2a and one queued explore of 64
-lanes of config 2b, decision by decision). Then checkpoints and checks:
-config 1 at full width, checkpointed every round, stopped after round 3 and
+lanes of config 2b, decision by decision, phase 6d). Then checkpoints and
+checks: config 1 at full width, checkpointed every round, stopped after round 3 and
 resumed (``increment_n_rounds``, ``pigeons(folder)``) must be the
 uninterrupted run bit for bit, and so must config 4 stopped after its first
 fitted round and config 2a at 64 ladders (phase 9, with each checkpoint
@@ -58,9 +66,10 @@ one-ladder K1 run passes ``checked_round``'s serial check in a child process
 on the card, a corrupted copy of its round fails it, and ``profile_round``
 writes a trace of K1's launches (9c); the exact invariance test at N =
 10,000 of K1 with each term, K2 in each mode (its delta mode's only path,
-that launch held against the twin) and under the variational blend, MALA
-and AutoMALA passes, each kernel launched once, the variational term at
-beta = 0.3, where the reference weighs in, K2 with the Bernoulli density on
+that launch held against the twin) and under the variational blend, MALA,
+AutoMALA, AAPS, NUTS, ``Mix`` and ``ScanMix`` (the last four on the toy MVN
+at d = 3, the JAX test's cases) pass, each kernel launched once, the
+variational term at beta = 0.3, where the reference weighs in, K2 with the Bernoulli density on
 its posterior Beta(3, 9); a kernel that drifts and a step that reads a
 wrong reference fail (10). Every phase raises on failure. Without a CUDA device, or without the repository beside
 it, it exits non-zero and prints no result. The line before the last is a
@@ -80,7 +89,8 @@ SHRINK iteration one draw, INIT_R and CHECK none, each its density queries.
 ``--profile`` also writes ``torch.profiler`` tables of one round of each
 path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt``,
 ``profile_config4.txt``, ``profile_hierarchical.txt``,
-``profile_config2a.txt`` and ``profile_config2b.txt``, and prints each
+``profile_config2a.txt``, ``profile_config2b.txt`` and
+``profile_config2a_nuts.txt`` (config 2a's cell with ``NUTS()``), and prints each
 round's device ops, busy share, host syncs and explorer evaluations per
 scan. ``--parent-csrc
 DIR`` builds an earlier version of the CUDA sources (with this tree's entry
@@ -188,17 +198,30 @@ LR_CHAINS, LR_REPLICATES, LR_ROUNDS = 10, 1024, (2, 4, 8, 16, 32)
 # has made no tempered restart yet)
 A_CHAINS, A_REPLICATES, A_WARMUP_ROUNDS, A_WARMUP_SCANS, A_MEASURE_SCANS = 10, 1024, 4, 4, 32
 A_DENSE_ITERS, A_COMPARE_LADDERS, A_PROFILE_SCANS = 16, 64, 2
+# phase 3n: config 2a's cell with NUTS() at its defaults and with AAPS at a
+# fixed step, its warm-up, then a timed round of N_MEASURE_SCANS scans: 16,
+# not 8, since a tempered restart needs at least N_CHAINS - 1 = 9 scans inside
+# one round (the round-trip machine starts again each round), and the gate
+# asks for one. On the CPU at 64 ladders no step from 0.2 to 1.5 bailed a
+# move, 0.1 bailed 0.77% and 0.05 up to 15% a round (``python
+# tools/torch_aaps_step.py``; PERF.md §6); a scan's leapfrogs fall with the
+# step, and at 0.8 the run's largest weight gap (0.82) was still within 0.15
+# of the small steps' (0.67-0.70)
+N_MEASURE_SCANS, N_AAPS_STEP = 16, 0.8
+# phase 6c: the combinators on the toy MVN, 4 chains, 3 rounds, card and CPU
+C_DIM, C_CHAINS, C_ROUNDS = 2, 4, 3
 
 # bench config 2b (bench.py:421-483): logistic regression 4,096 x 256 (d=257)
 # with the queued AutoMALA (queue 512, window 2), 10 chains x 819 ladders =
 # 8,190 lanes, seed 1; bench.py warms up for 4 rounds of 4 scans, the port for
-# 2 since PR 10 (the script's time: PERF.md §6, PR 10). bench.py times the best
-# of 3 rounds of 8 scans; the port times one round of 8. Its control (sequential
+# 1 (the script's time: PERF.md §6). bench.py times the best
+# of 3 rounds of 8 scans; the port times one round of 4. Its control (sequential
 # AutoMALA(), 2 + 2 scans), dense leapfrog (64 chained steps) and host serial
 # rate (bench.py:363-418) are bench.py's; the column form's leapfrog (the
 # likelihood before the dense form) runs at 1,024 of the lanes.
 B_N, B_D, B_CHAINS, B_REPLICATES = 4096, 256, 10, 819
-B_WARMUP_ROUNDS, B_WARMUP_SCANS, B_MEASURE_SCANS, B_CONTROL_SCANS = 2, 4, 8, 2
+B_WARMUP_ROUNDS, B_WARMUP_SCANS, B_MEASURE_SCANS, B_CONTROL_SCANS = 1, 4, 4, 2
+B_BENCH_SCANS = 8
 B_QUEUE_WIDTH, B_WINDOW, B_DENSE_ITERS, B_COLUMN_LANES, B_COLUMN_ITERS = 512, 2, 64, 1024, 4
 B_CHECK_LANES, B_COMPARE_LANES, B_PROFILE_SCANS, B_HOST_SECONDS = 256, 64, 2, 3.0
 # bench.py's count of a density-and-gradient evaluation: 4 n (d + 1) operations
@@ -209,8 +232,9 @@ B_FLOP_PER_EVAL = 4.0 * B_N * (B_D + 1)
 # 1.98 GHz. An SM has 64 int32 lanes of one operation each: a quarter of that.
 # phase 9: rounds of 2^r scans, each run stopped after CK_*STOP rounds and
 # resumed; config 1 at its full width, config 4 at its own, config 2a at
-# A_COMPARE_LADDERS ladders; 9c's one-ladder run checked at its last round
-CK_ROUNDS, CK_STOP, CK_V_ROUNDS, CK_V_STOP, CK_A_ROUNDS, CK_A_STOP = 5, 3, 4, 2, 3, 2
+# A_COMPARE_LADDERS ladders (2 rounds, stopped after the first: its scans
+# are seconds of eager launches); 9c's one-ladder run checked at its last round
+CK_ROUNDS, CK_STOP, CK_V_ROUNDS, CK_V_STOP, CK_A_ROUNDS, CK_A_STOP = 5, 3, 4, 2, 2, 1
 CK_S_ROUNDS = 3
 # phase 10: the reference's sample count and seed; MALA's step for the toy MVN
 # (sd 0.32); the beta of the variational blend's tests, where the reference's
@@ -485,11 +509,10 @@ def k1_phase():
     got = cuda_slice.banded_sweep_cuda(x, a, seeds)
     counts = torch.zeros(6, dtype=torch.int64, device=x.device)
     want = cuda_slice.banded_sweep_reference(x, a, seeds, phase_counts=counts)
-    torch.cuda.synchronize()
     max_abs = compare("K1", got, want)
+    _, plain_ms = timed_once(lambda: cuda_slice.banded_sweep_reference(x, a, seeds))
     ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), 20)
     parent = parent_ms("K1", lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), got, ms)
-    plain_ms = cuda_ms(lambda: cuda_slice.banded_sweep_reference(x, a, seeds), 3)
     n = [float(v) for v in counts[:5]]
     iterations, considered = sum(n), float(got[1][1].double().sum())
     # the kernel's n_evals counts an ENTER iteration twice
@@ -498,7 +521,8 @@ def k1_phase():
         raise AssertionError(f"K1: phase counts {n} do not add up to the kernel's n_evals")
     need = k1_need(B * D, n, considered, COORD_TERM)
     bound_ms, bound_by = bound(2 * 4 * B * D + (4 + 8 + 12) * B, need)
-    print(f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms (medians, B={B}, d={D}, 3 passes); "
+    print(f"kernel {ms:.4f} ms (median of 20), twin {plain_ms:.4f} ms (one warm run), B={B}, "
+          f"d={D}, 3 passes; "
           f"{iterations:.0f} iterations: ENTER {n[ENTER]:.0f}, DOUBLE {n[DOUBLE]:.0f}, SHRINK "
           f"{n[SHRINK]:.0f} ({considered:.0f} considered), CHECK {n[CHECK]:.0f}; needs "
           f"{need[0]:.4g} float32 and {need[1]:.4g} int32 operations, "
@@ -1604,7 +1628,8 @@ def config2b_phase():
     print(f"float32 products: allow_tf32 {precision[0]}, precision {precision[1]!r}")
     if precision != (False, "highest"):
         raise AssertionError("config 2b: float32 products would run in TF32")
-    print(f"timed round cut from bench.py's best of 3 rounds of {B_MEASURE_SCANS} scans to one")
+    print(f"timed round cut from bench.py's best of 3 rounds of {B_BENCH_SCANS} scans to one "
+          f"of {B_MEASURE_SCANS}")
     target = logistic_regression(B_N, B_D, seed=0)
     if not target.log_likelihood_fn.uses_dense:
         raise AssertionError("config 2b: the likelihood is not in its dense form")
@@ -1703,6 +1728,221 @@ def config2b_phase():
           f"({dense_rate * B_FLOP_PER_EVAL / 1e12:.6g} TFLOP/s), column form {column_rate:.6g}, "
           f"host numpy serial {host:.6g}")
     return pt, target
+
+
+def counting_aaps(step_size):
+    """``AAPS(step_size)`` that also counts, on the device, its moves and
+    the moves it bailed (a segment that diverged or reached
+    ``max_segment_steps``): ``moves``, ``bailed``. The explorer's own
+    statistics say nothing of a bail (the JAX explorer's do not either)."""
+    from pigeons_tpu_torch import AAPS
+
+    class CountingAAPS(AAPS):
+        moves, bailed = 0, 0
+
+        def _segment(self, *args):
+            out = super()._segment(*args)
+            self._oks.append(out[5])
+            return out
+
+        def step_batched(self, keys, xs, *args, **kw):
+            self._oks = []
+            out = super().step_batched(keys, xs, *args, **kw)
+            self.bailed = self.bailed + (~torch.stack(self._oks).all(0)).sum()
+            self.moves += xs.shape[0]
+            return out
+
+    return CountingAAPS(step_size=step_size)
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Counts the reads of device values on the host inside the block (the
+    synchronizing calls torch's sync debug mode warns of): the list it
+    yields holds the count after the block."""
+    import warnings
+
+    count = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield count
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    count.append(sum("synchroniz" in str(w.message) for w in caught))
+
+
+def nuts_aaps_phase():
+    """NUTS and AAPS at config 2a's width end to end on the card: the
+    gradient path with dynamic trajectories (torch ops, no kernel of the
+    port on it). Gated as config 2a is on the law (every pooled posterior
+    weight within 1 of the weight that made the data), finite logZ,
+    restarts and no K1 / K2 launch; NUTS also on its step size having moved
+    from 1.0, its acceptance finite in (0, 1] and its depth recorded at every
+    chain. Prints each timed round's scan time, leapfrogs per lane and scan,
+    host reads per scan and evals/s (a leapfrog is an eval, as
+    ``bench.py:152-158`` counts them), and AAPS's share of bailed moves.
+    Returns the two runs and the target."""
+    phase("3n NUTS and AAPS at config 2's width")
+    from pigeons_tpu_torch import NUTS, PT, Inputs, SliceSamplerCUDA, logistic_regression, rng
+
+    target = logistic_regression(200, 10, seed=0)
+    w_true = rng.normal(rng.fold_in(rng.key(0), 1), (10,)).numpy()
+    lanes = A_CHAINS * A_REPLICATES
+    runs = {}
+    for name, explorer in (("NUTS", NUTS()), ("AAPS", counting_aaps(N_AAPS_STEP))):
+        t0 = time.perf_counter()
+        SliceSamplerCUDA.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        pt = PT(Inputs(target=target, n_chains=A_CHAINS, n_replicates=A_REPLICATES, seed=SEED,
+                       explorer=explorer, show_report=False, device="cuda"))
+        for _ in range(A_WARMUP_ROUNDS):
+            pt.run_round(n_scans=A_WARMUP_SCANS)
+        moves, bailed = getattr(explorer, "moves", 0), getattr(explorer, "bailed", 0)
+        with host_reads() as reads:
+            pt.run_round(n_scans=N_MEASURE_SCANS)
+        launches = dict(SliceSamplerCUDA.launches)
+        rep, red = pt.reports[-1], pt.reduced
+        print(f"{name}: {A_WARMUP_ROUNDS} warm-up rounds of {A_WARMUP_SCANS} scans, then "
+              f"{N_MEASURE_SCANS} scans of {lanes} lanes in {rep.wall_time_s:.4f} s "
+              f"({rep.wall_time_s / N_MEASURE_SCANS * 1e3:.3f} ms per scan), {eval_rate(pt):.6g} "
+              f"evals/s (an eval is one leapfrog: a density and its gradient), "
+              f"{float(np.sum(red.exp_steps)) / (N_MEASURE_SCANS * lanes):.2f} leapfrogs per lane "
+              f"and scan, {reads[0] / N_MEASURE_SCANS:.1f} synchronizing calls (host reads) per "
+              f"scan, peak device "
+              f"memory {rep.peak_memory_bytes} B; phase {time.perf_counter() - t0:.1f} s")
+        print(f"{name}: barrier {pt.global_barrier:.6f}, logZ {rep.log_z_estimate:.6f}, round "
+              f"trips {pt.n_round_trips}, restarts {pt.n_tempered_restarts}, swap accept mean "
+              f"{rep.mean_swap_accept:.4f}; kernel launches {launches}")
+        w = target.constrained_samples(pt)["w"].mean(0)
+        print(f"{name}: pooled posterior mean of w {[round(float(v), 3) for v in w]}, largest "
+              f"gap to the weights that made the data {np.abs(w - w_true).max():.4f}")
+        if any(launches.values()):
+            raise AssertionError(f"{name} launched slice kernels: {launches}")
+        if not np.abs(w - w_true).max() < 1.0:
+            raise AssertionError(f"{name}: posterior mean of the weights off")
+        if not (math.isfinite(rep.log_z_estimate) and pt.n_tempered_restarts > 0):
+            raise AssertionError(f"{name}: no finite logZ or no tempered restart")
+        if name == "NUTS":
+            acc, depth = red.extra_mean[:, 0], red.extra_mean[:, 1]
+            step = pt.exp_state["step_size"].cpu().numpy()
+            print(f"NUTS: adapted step size {float(step[0]):.6f}; leaf acceptance by chain "
+                  f"{np.round(acc, 4).tolist()}; depth by chain {np.round(depth, 3).tolist()}")
+            if np.all(step == 1.0):
+                raise AssertionError("NUTS: the step size did not move from 1.0")
+            if not (np.all(np.isfinite(acc)) and np.all((acc > 0.0) & (acc <= 1.0))):
+                raise AssertionError(f"NUTS: leaf acceptance {acc} not finite in (0, 1]")
+            if not (red.extra_n[:, 1] > 0).all():
+                raise AssertionError("NUTS: tree depth not recorded at every chain")
+        else:
+            warm = float(bailed) / moves
+            timed = float(explorer.bailed - bailed) / (explorer.moves - moves)
+            print(f"AAPS(step_size={N_AAPS_STEP}): bailed moves {warm:.4%} of the warm-up's, "
+                  f"{timed:.4%} of the timed round's")
+        runs[name] = pt
+    return runs, target
+
+
+def explore_card_vs_cpu(pt, target, explorer, label, lanes=A_COMPARE_LADDERS * A_CHAINS):
+    """One explore (``explorer.step_batched``) of the first ``lanes`` lanes of
+    a run, from the same states, keys and chain params, on the card and on
+    the CPU. A lane's decisions are its leapfrog count, its depth (NUTS,
+    the second statistic) and whether it moved; at most 1 % of the lanes
+    may differ in one, and the others must agree within 1e-4 in state."""
+    from pigeons_tpu_torch import rng
+    from pigeons_tpu_torch.tree import tree_map
+
+    n = pt.n_chains
+    R = -(-lanes // n)
+    chain_flat = pt._chain_of[:R].reshape(-1)[:lanes]
+    k = rng.scan_key(pt._key[:R], pt.round_idx + 1, 2, rng.EXPLORE)
+    keys = rng.keys_for(k, torch.arange(n, device="cuda")).reshape(R * n, 2)[:lanes]
+    inputs = dict(keys=keys, xs=pt._states[:lanes], betas=pt.betas[chain_flat])
+    params = tree_map(lambda v: v[chain_flat], pt.exp_state)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = target.to(dev)
+        out[dev] = explorer.step_batched(
+            **{key: v.to(dev) for key, v in inputs.items()},
+            path=model.create_path(model.default_reference()),
+            chain_params=tree_map(lambda v: v.to(dev), params), scan_idx=2)
+        print(f"{label} on {dev}: {time.perf_counter() - t0:.3f} s")
+    g, c = out["cuda"], out["cpu"]
+    x0 = inputs["xs"].cpu()
+    agree = (g.n_steps.cpu() == c.n_steps) & ((g.x.cpu() != x0).any(1) == (c.x != x0).any(1))
+    if g.extras_sum is not None:
+        agree &= g.extras_sum[:, 1].cpu() == c.extras_sum[:, 1]
+    diff = float((g.x.cpu() - c.x)[agree].abs().max())
+    print(f"{label}: {int((~agree).sum())} of {lanes} lanes differ in a decision; lanes that "
+          f"agree: max |state diff| {diff}; {float(c.n_steps.mean()):.2f} leapfrogs a lane")
+    if (~agree).sum() > 0.01 * lanes or diff > 1e-4:
+        raise AssertionError(f"{label}: card and CPU disagree")
+
+
+def nuts_aaps_card_vs_cpu_phase(runs, target):
+    """Phase 3n's card-against-CPU check: one NUTS and one AAPS explore of
+    640 of each run's lanes."""
+    phase("3n NUTS and AAPS, card vs CPU")
+    from pigeons_tpu_torch import AAPS, NUTS
+
+    explore_card_vs_cpu(runs["NUTS"], target, NUTS(), "NUTS explore")
+    explore_card_vs_cpu(runs["AAPS"], target, AAPS(step_size=N_AAPS_STEP), "AAPS explore")
+
+
+def combinators_phase():
+    """The combinators card against CPU: 4 chains of the toy MVN (d=2), 3
+    rounds, for each combinator on the card and on the CPU. ``Mix``'s
+    per-lane choices for every scan's keys must be the CPU's bit for bit;
+    the runs' states must agree within 1e-4 at all but 1 % of the lanes,
+    and their swaps exactly; no slice kernel launches (the slice sampler in
+    them is the torch ``SliceSampler``, as the JAX package's combinators run
+    the XLA sampler for ``SliceSamplerPallas``)."""
+    phase("6c combinators, card vs CPU")
+    from pigeons_tpu_torch import (MALA, PT, AutoMALA, Compose, Inputs, Mix, ScanMix,
+                                   SliceSampler, SliceSamplerCUDA, rng, toy_mvn_target)
+
+    cases = (("Compose(SliceSampler(n_passes=1), MALA(0.3))",
+              lambda: Compose(SliceSampler(n_passes=1), MALA(step_size=0.3))),
+             ("Mix(MALA(0.3), AutoMALA())", lambda: Mix(MALA(step_size=0.3), AutoMALA())),
+             ("ScanMix(SliceSampler(n_passes=1), AutoMALA())",
+              lambda: ScanMix(SliceSampler(n_passes=1), AutoMALA())))
+    for name, make in cases:
+        t0 = time.perf_counter()
+        runs = {}
+        SliceSamplerCUDA.reset_launches()
+        for dev in ("cuda", "cpu"):
+            runs[dev] = PT(Inputs(target=toy_mvn_target(C_DIM), n_chains=C_CHAINS,
+                                  n_rounds=C_ROUNDS, seed=SEED, explorer=make(),
+                                  show_report=False, device=dev)).run()
+        launches = dict(SliceSamplerCUDA.launches)
+        g, c = runs["cuda"], runs["cpu"]
+        close = (g.states.cpu() - c.states).abs().max(-1).values <= 1e-4
+        swaps = torch.equal(g.chain_of.cpu(), c.chain_of)
+        print(f"{name}: {int((~close).sum())} of {close.numel()} lanes differ card against CPU, "
+              f"permutations equal {swaps}, restarts {g.n_tempered_restarts} / "
+              f"{c.n_tempered_restarts}, kernel launches {launches}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if isinstance(g.explorer, Mix):
+            picks = []
+            for r in range(1, C_ROUNDS + 1):
+                for scan in range(1, 2**r + 1):
+                    keys = {}
+                    for dev, pt in runs.items():
+                        k = rng.scan_key(pt._key, r, scan, rng.EXPLORE)
+                        keys[dev] = pt.explorer.choices(
+                            rng.keys_for(k, torch.arange(C_CHAINS, device=pt.device))
+                            .reshape(-1, 2))[0]
+                    picks.append(torch.equal(keys["cuda"].cpu(), keys["cpu"]))
+            print(f"{name}: per-lane choices of {len(picks)} scans bit for bit card against "
+                  f"CPU: {all(picks)}")
+            if not all(picks):
+                raise AssertionError(f"{name}: Mix's choices differ card against CPU")
+        if any(launches.values()):
+            raise AssertionError(f"{name}: slice kernels launched: {launches}")
+        if (~close).sum() > 0.01 * close.numel() or not swaps:
+            raise AssertionError(f"{name}: card and CPU runs disagree")
 
 
 def automala_card_vs_cpu_phase(pt, target, title="6b AutoMALA, card vs CPU",
@@ -1930,12 +2170,17 @@ def profile_phase():
     config2b = Inputs(target=logistic_regression(B_N, B_D), n_chains=B_CHAINS,
                       n_replicates=B_REPLICATES, seed=SEED, show_report=False, device="cuda",
                       explorer=AutoMALA(queued=True, queue_width=B_QUEUE_WIDTH, window=B_WINDOW))
+    from pigeons_tpu_torch import NUTS
+
+    nuts = Inputs(target=logistic_regression(), n_chains=A_CHAINS, n_replicates=A_REPLICATES,
+                  seed=SEED, explorer=NUTS(), show_report=False, device="cuda")
     for name, inputs, n_scans, kernel in (("config1", config1, WARMUP_SCANS, "banded_slice"),
                                           ("funnel", funnel_inputs(), F_WARMUP_SCANS, "slice_sweep"),
                                           ("config4", config4, V_WARMUP_SCANS, "banded_slice"),
                                           ("hierarchical", hierarchical, 8, "slice_sweep"),
                                           ("config2a", config2a, A_PROFILE_SCANS, None),
-                                          ("config2b", config2b, B_PROFILE_SCANS, None)):
+                                          ("config2b", config2b, B_PROFILE_SCANS, None),
+                                          ("config2a_nuts", nuts, A_WARMUP_SCANS, None)):
         pt = PT(inputs)
         pt.run_round(n_scans=n_scans)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2169,7 +2414,8 @@ def invariance_phase(ref_params, delta_twin):
     twin's result on the same inputs (``delta_twin``, from phase 2b).
     Returns its launches."""
     phase("10 invariance")
-    from pigeons_tpu_torch import (MALA, AutoMALA, GaussianReference, IdentityPreconditioner,
+    from pigeons_tpu_torch import (AAPS, MALA, NUTS, AutoMALA, GaussianReference,
+                                   IdentityPreconditioner, Mix, ScanMix, SliceSampler,
                                    SliceSamplerCUDA, funnel, invariance_test, toy_mvn_target)
     from pigeons_tpu_torch.ops import cuda_slice
     from pigeons_tpu_torch.ops.base import Explorer, StepOut
@@ -2239,6 +2485,19 @@ def invariance_phase(ref_params, delta_twin):
         ("MALA", toy_mvn_target(D),
          MALA(step_size=I_MALA_STEP, preconditioner=IdentityPreconditioner()), {}, None, False),
         ("AutoMALA", toy_mvn_target(D), AutoMALA(), {}, None, False),
+        # the cases of AAPS, NUTS and the mixtures in tests/test_invariance.py:13-52
+        ("AAPS(0.4), identity", toy_mvn_target(3),
+         AAPS(step_size=0.4, preconditioner=IdentityPreconditioner()), {}, None, False),
+        ("NUTS(0.5), identity", toy_mvn_target(3),
+         NUTS(step_size=0.5, preconditioner=IdentityPreconditioner()), {}, None, False),
+        ("Mix(SliceSampler, MALA(0.4))", toy_mvn_target(3),
+         Mix(SliceSampler(n_passes=1), MALA(step_size=0.4,
+                                            preconditioner=IdentityPreconditioner())),
+         {}, None, False),
+        ("ScanMix(SliceSampler, MALA(0.4))", toy_mvn_target(3),
+         ScanMix(SliceSampler(n_passes=1), MALA(step_size=0.4,
+                                                preconditioner=IdentityPreconditioner())),
+         {}, None, False),
         ("BrokenKernel (must fail)", toy_mvn_target(D), BrokenKernel(), {}, None, True),
         ("K1, wrong reference (must fail)", toy_mvn_target(D),
          WrongReference(SliceSamplerCUDA()), blend, k1v, True),
@@ -2292,11 +2551,15 @@ def main():
     k2v["launches"] = variational_funnel_phase()
     run2a, target2a = config2a_phase()
     run2b, target2b = config2b_phase()
+    nuts_aaps_runs, target2a_n = nuts_aaps_phase()
+    nuts_aaps_card_vs_cpu_phase(nuts_aaps_runs, target2a_n)
+    del nuts_aaps_runs
     determinism_phase()
     quickstart_phase()
     small_reference_phase()
     automala_card_vs_cpu_phase(run2a, target2a)
-    automala_card_vs_cpu_phase(run2b, target2b, "6c queued AutoMALA at config 2b, card vs CPU",
+    combinators_phase()
+    automala_card_vs_cpu_phase(run2b, target2b, "6d queued AutoMALA at config 2b, card vs CPU",
                                lanes=B_COMPARE_LANES, max_differ=2, queued=True,
                                queue_width=B_QUEUE_WIDTH, window=B_WINDOW)
     torch_sampler_phase()

@@ -38,13 +38,18 @@ from .models import (
     unid_target,
 )
 from .ops import (
+    AAPS,
     MALA,
+    NUTS,
     AutoMALA,
     BinaryGibbs,
+    Compose,
     DiagonalPreconditioner,
     IdentityPreconditioner,
+    Mix,
     MixDiagonalPreconditioner,
     NoOpExplorer,
+    ScanMix,
     SliceSampler,
     SliceSamplerCUDA,
     ToyExplorer,
@@ -65,10 +70,12 @@ from .submission import ChildProcess, Result
 from .variational import GaussianReference
 
 __all__ = [
+    "AAPS",
     "AutoMALA",
     "BayesianModel",
     "BinaryGibbs",
     "ChildProcess",
+    "Compose",
     "CustomPath",
     "CustomPathTarget",
     "DiagonalPreconditioner",
@@ -79,7 +86,9 @@ __all__ = [
     "InvarianceTestResult",
     "IsingTarget",
     "MALA",
+    "Mix",
     "MixDiagonalPreconditioner",
+    "NUTS",
     "NoOpExplorer",
     "PT",
     "ParallelismInvarianceError",
@@ -88,6 +97,7 @@ __all__ = [
     "RoundReport",
     "Schedule",
     "ScaledPrecisionNormalPath",
+    "ScanMix",
     "SliceSampler",
     "SliceSamplerCUDA",
     "SliceSamplerPallas",

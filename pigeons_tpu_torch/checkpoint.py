@@ -4,14 +4,15 @@ Counterpart of ``pigeons_tpu/checkpoint.py`` (reference
 ``src/pt/checkpoint.jl``). With ``Inputs.checkpoint`` each round writes
 ``<exec_folder>/round=r/checkpoint/``: ``checkpoint.npz`` with the run state
 as host arrays (states, permutations, schedules, the explorer's adapted
-state, the variational reference's parameters, the recorded traces) and
+state as the leaves ``exp_state_{i}`` of its tree, the variational
+reference's parameters, the recorded traces) and
 ``meta.pkl`` with the ``Inputs`` and the host-side state (round index,
-reports, reduced recorders, barriers); a ``.finished`` marker is written
-last. :func:`load_pt` rebuilds the run, on the device it is given (by
-default the ``Inputs.device`` that was written): the device is a load-time
-parameter, not part of the checkpoint. Keys derive from (seed, round, scan)
-and each round recomputes its densities from the states, so a resumed run is
-the uninterrupted run bit for bit.
+reports, reduced recorders, barriers, the adapted state's tree structure); a
+``.finished`` marker is written last. :func:`load_pt` rebuilds the run, on
+the device it is given (by default the ``Inputs.device`` that was written):
+the device is a load-time parameter, not part of the checkpoint. Keys derive
+from (seed, round, scan) and each round recomputes its densities from the
+states, so a resumed run is the uninterrupted run bit for bit.
 
 Serialization uses cloudpickle where it is installed (closures then pickle
 by value) and plain ``pickle`` otherwise. Every ``torch.Tensor`` is written
@@ -36,6 +37,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import tree
 
 THRESHOLD_BYTES = 1 << 14
 
@@ -192,8 +195,10 @@ def write_checkpoint(pt) -> str:
     for name in ("traces", "extended_traces", "index_process"):
         if getattr(pt, name) is not None:
             arrays[name] = getattr(pt, name)
-    for k, v in (pt.exp_state or {}).items():
-        arrays[f"exp_state_{k}"] = _host(v)
+    # the adapted state (a dict, or a combinator's tuple of them) as its leaves
+    # and its structure, as the JAX package writes it
+    for i, v in enumerate(tree.leaves(pt.exp_state)):
+        arrays[f"exp_state_{i}"] = _host(v)
     for k, v in (pt._ref_params or {}).items():
         arrays[f"ref_params_{k}"] = _host(v)
     meta = {
@@ -203,6 +208,7 @@ def write_checkpoint(pt) -> str:
         "reduced": pt.reduced,
         "barriers": pt.barriers,
         "barriers_var": pt.barriers_var,
+        "exp_state_structure": tree.structure(pt.exp_state),
     }
     # pickle first: an Inputs that does not pickle leaves no folder behind
     data, immutables = dumps(meta, "the run's Inputs")
@@ -253,7 +259,12 @@ def load_pt(exec_folder: str, device: Optional[str] = None, round_idx: Optional[
     for name in ("traces", "extended_traces", "index_process"):
         if name in arrays:
             setattr(pt, name, arrays[name])
-    if pt.exp_state:
+    if "exp_state_structure" in meta:
+        struct = meta["exp_state_structure"]
+        n_leaves = len(tree.leaves(struct))
+        pt.exp_state = tree.unflatten(struct, [torch.from_numpy(arrays[f"exp_state_{i}"]).to(dev)
+                                               for i in range(n_leaves)])
+    elif pt.exp_state:  # written before the structure was: a flat dict, by name
         pt.exp_state = {k: torch.from_numpy(arrays[f"exp_state_{k}"]).to(dev)
                         for k in pt.exp_state}
     if pt._ref_params is not None:

@@ -11,7 +11,8 @@ reference's parameters ``ref_params_mean``, ``ref_params_std`` and
 built from the same ``Inputs``, so that both packages continue one run from
 one state: round ``round_idx + 1`` then draws from the same keys in both.
 :func:`explorer_state_from_numpy` does the same for an adapted explorer's
-state (a gradient explorer's ``step_size`` and ``std_devs``).
+state (a gradient explorer's ``step_size`` and ``std_devs``, a combinator's
+tuple of them).
 """
 
 from __future__ import annotations
@@ -89,16 +90,22 @@ def state_from_numpy(pt, arrays, round_idx: int):
 def explorer_state_from_numpy(pt, exp_state):
     """Load the JAX run's explorer state ``exp_state`` (a mapping of arrays
     ``[n_chains, ...]``, e.g. ``step_size [N]`` and ``std_devs [N, d]`` of
-    ``MALA`` / ``AutoMALA``) into ``pt``, as float32 tensors on its device.
-    Returns ``pt``."""
+    ``MALA`` / ``AutoMALA``; for a combinator a tuple of its components'
+    states) into ``pt``, as float32 tensors on its device. Returns ``pt``."""
     want = pt.explorer.init_state(pt.n_chains, pt.dim, pt.device)
     if not want:
         raise ValueError(f"{type(pt.explorer).__name__} keeps no adapted state")
-    state = {}
-    for name, like in want.items():
-        arr = np.asarray(exp_state[name], dtype=np.float32)
+
+    def load(like, given, where):
+        if isinstance(like, dict):
+            return {name: load(v, given[name], f"{where}[{name!r}]") for name, v in like.items()}
+        if isinstance(like, tuple):
+            return tuple(load(v, g, f"{where}[{i}]") for i, (v, g) in
+                         enumerate(zip(like, given, strict=True)))
+        arr = np.asarray(given, dtype=np.float32)
         if arr.shape != tuple(like.shape):
-            raise ValueError(f"exp_state[{name!r}]: expected {tuple(like.shape)}, got {arr.shape}")
-        state[name] = torch.tensor(arr, device=pt.device)
-    pt.exp_state = state
+            raise ValueError(f"{where}: expected {tuple(like.shape)}, got {arr.shape}")
+        return torch.tensor(arr, device=pt.device)
+
+    pt.exp_state = load(want, exp_state, "exp_state")
     return pt

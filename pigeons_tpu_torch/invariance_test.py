@@ -25,6 +25,7 @@ import torch
 from . import rng
 from .checks import check_device
 from .paths import VariationalPath, lane_log_density
+from .tree import tree_map
 
 
 class InvarianceTestResult(NamedTuple):
@@ -60,7 +61,7 @@ def invariance_test(target, explorer, seed: int = 1, n_iid_samples: int = 10_000
     state = explorer.init_state(1, target.dim, dev)
     chain_params = None
     if state:
-        chain_params = {k: v.expand(n_iid_samples, *v.shape[1:]) for k, v in state.items()}
+        chain_params = tree_map(lambda v: v.expand(n_iid_samples, *v.shape[1:]), state)
     lp = lane_log_density(path, xs, betas, isvar, ref_params)
     out = explorer.step_batched(step_keys, xs, betas, path, isvar=isvar,
                                 ref_params=ref_params, lp=lp, chain_params=chain_params,

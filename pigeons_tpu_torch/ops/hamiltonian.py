@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import rng
@@ -30,6 +31,20 @@ from ..paths import value_and_grad
 
 def _squared_norm(v):
     return torch.sum(v * v, dim=-1)
+
+
+def lane_dot(a, b):
+    """``a . b`` of each lane: ``[B, d]`` x ``[B, d]`` -> ``[B]``."""
+    return torch.sum(a * b, dim=-1)
+
+
+def adapted_std_devs(std_devs, reduced):
+    """The target's std deviations from the online variance recorder (the
+    reference's ``_transformed_online``; its last entry is the log density),
+    one row per chain of ``std_devs [n_chains, d]``: what an adapting
+    preconditioner is built from between rounds."""
+    std = np.sqrt(np.maximum(reduced.online_var[:-1], 0.0)).astype(np.float32)
+    return torch.tensor(std, device=std_devs.device).expand(std_devs.shape[0], -1).clone()
 
 
 def log_joint(lp, v):

@@ -18,12 +18,12 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from .. import f32math, rng
 from .base import Explorer, StepOut
-from .hamiltonian import LaneGradient, MixDiagonalPreconditioner, leapfrog1_cached, log_joint
+from .hamiltonian import (LaneGradient, MixDiagonalPreconditioner, adapted_std_devs,
+                          leapfrog1_cached, log_joint)
 
 
 def select(mask, new, old):
@@ -59,14 +59,10 @@ class GradientExplorer(Explorer):
         return self.preconditioner.adapts
 
     def _std_devs(self, state, reduced):
-        """The target's std deviations from the online variance recorder (the
-        reference's ``_transformed_online``; its last entry is the log
-        density), one row per chain."""
+        """The std deviations the preconditioner is built from next round."""
         if not self.preconditioner.adapts:
             return state["std_devs"]
-        std = np.sqrt(np.maximum(reduced.online_var[:-1], 0.0)).astype(np.float32)
-        n = state["std_devs"].shape[0]
-        return torch.tensor(std, device=state["std_devs"].device).expand(n, -1).clone()
+        return adapted_std_devs(state["std_devs"], reduced)
 
     def _start(self, xs, betas, path, isvar, ref_params, lp, chain_params):
         """The lanes' gradient function, their density and raw gradient at

@@ -59,6 +59,7 @@ from .recorders import (
 )
 from .schedule import equally_spaced_schedule
 from .swaps import deo_partner_map, metropolis_accept_pr, swap_scan
+from .tree import tree_map
 
 
 @dataclass
@@ -133,7 +134,8 @@ class PT:
         self.explorer = inputs.explorer or target.default_explorer()
         self.explorer.check_target(target)
         self.explorer.check_path(self._density_path)
-        # the explorer's adapted state, a dict of tensors [n_chains, ...] (or ())
+        # the explorer's adapted state: a tree (tree.py) of tensors [n_chains, ...]
+        # (a dict, a combinator's tuple of its components' states, or ())
         self.exp_state = self.explorer.init_state(n, self.dim, self.device)
         self.accept_fn = metropolis_accept_pr
         record_swap_stats = True
@@ -299,7 +301,7 @@ class PT:
         k_explore = rng.scan_key(self._key, self.round_idx, scan_idx, rng.EXPLORE)
         lane_keys = rng.keys_for(k_explore, torch.arange(n, device=self.device)).reshape(R * n, 2)
         chain_params = (
-            {k: v[chain_flat] for k, v in self.exp_state.items()} if self.exp_state else None
+            tree_map(lambda v: v[chain_flat], self.exp_state) if self.exp_state else None
         )
         out = self.explorer.step_batched(lane_keys, states, betas[chain_flat], self._density_path,
                                          isvar=self._is_var[chain_flat],

@@ -5,8 +5,9 @@ function of ``(seed, round, scan, replica, purpose)`` through ``fold_in``, so
 the streams do not depend on the device or the batch layout. The functions
 reproduce ``jax.random`` (JAX 0.9, ``jax_threefry_partitionable=True``) bit
 for bit: the same seed gives the same keys, bits and uniforms as the JAX
-package, and the same normals; and ``gamma``, ``loggamma``, ``beta`` and
-``poisson`` are ``jax.random``'s algorithms on these streams.
+package, and the same normals, Gumbel draws, Bernoulli draws and integers
+(``randint``); and ``gamma``, ``loggamma``, ``beta`` and ``poisson`` are
+``jax.random``'s algorithms on these streams.
 
 A key is a ``[..., 2]`` tensor of uint32 words held as int64 (torch has no
 full uint32 arithmetic); every operation masks back to 32 bits. Leading
@@ -106,6 +107,33 @@ def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
     ``fold_in(key, i)``."""
     idx = torch.arange(n, dtype=torch.int64, device=keys.device)
     return fold_in(keys.unsqueeze(-2), idx)
+
+
+_TINY = f32math._f(0x00800000)  # the smallest normal float32
+
+
+def gumbel(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default ``mode="low"``:
+    ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+    return -f32math.log(-f32math.log(uniform(keys, shape, _TINY, 1.0)))
+
+
+def bernoulli(keys: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli`` in its default ``mode="low"``: ``uniform < p``."""
+    return uniform(keys, shape) < p
+
+
+def randint(keys: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` in int32: two words of ``bits`` from the two
+    children of ``split(key)``, combined modulo the span as ``(hi mod span)
+    m + lo mod span`` with ``m = (2^16 mod span)^2 mod span``, every product
+    and sum wrapping as uint32; ``minval`` where ``maxval <= minval``."""
+    k_hi, k_lo = split(keys).unbind(-2)
+    hi, lo = bits(k_hi, shape), bits(k_lo, shape)
+    span = maxval - minval if maxval > minval else 1
+    multiplier = ((2**16 % span) ** 2 & _M32) % span
+    offset = (((hi % span) * multiplier) & _M32) + lo % span
+    return (minval + (offset & _M32) % span).to(torch.int32)
 
 
 def master_key(seed: int, device=None) -> torch.Tensor:

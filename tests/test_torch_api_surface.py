@@ -27,8 +27,6 @@ from pigeons_tpu_torch import submission as TS
 # JAX names the port does not export yet, each with the ROADMAP queue-1 item
 # (ROADMAP.md section 1) that ports it
 NOT_PORTED = {
-    "AAPS": "item 14", "NUTS": "item 14", "Compose": "item 14", "Mix": "item 14",
-    "ScanMix": "item 14",
     "ExternalTarget": "item 16", "LazyTarget": "item 16", "NativeTarget": "item 16",
     "StreamTarget": "item 16", "BlangTarget": "item 16", "TreePPLTarget": "item 16",
     "StanTarget": "item 16", "stan_target": "item 16",

@@ -744,6 +744,28 @@ def test_gradient_explore_card_matches_cpu(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["NUTS", "AAPS"])
+def test_nuts_aaps_step_card_matches_cpu(cuda_device, name):
+    """One NUTS and one AAPS step of 640 lanes of config 2a's target from the
+    same inputs: lanes whose leapfrog count, depth (NUTS) and move agree are
+    within 1e-4 in state; at most 1 % of the lanes differ."""
+    explorer = T.NUTS(step_size=0.3) if name == "NUTS" else T.AAPS(step_size=0.2)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        path, keys, x, beta, params = _config2a_lanes(dev, seed=6)
+        outs.append((explorer.step_batched(keys, x, beta, path, chain_params=params,
+                                           scan_idx=2), x.cpu()))
+    (c, x0), (g, _) = outs
+    agree = (g.n_steps.cpu() == c.n_steps) & ((g.x.cpu() != x0).any(1) == (c.x != x0).any(1))
+    if g.extras_sum is not None:
+        agree &= g.extras_sum[:, 1].cpu() == c.extras_sum[:, 1]
+    print(f"{name}: {int((~agree).sum())} of {len(agree)} lanes differ card against CPU, "
+          f"{float(c.n_steps.mean()):.2f} leapfrogs a lane")
+    assert (~agree).sum() <= 0.01 * len(agree)
+    assert float((g.x.cpu() - c.x)[agree].abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kw", [dict(window=3), dict(queued=True, queue_width=64),
                                 dict(queued=True, queue_width=128, window=2, queue_tail_width=-1)])
 def test_automala_search_variants_bitwise_on_card(cuda_device, kw):

@@ -4,9 +4,10 @@ the kernels' plain twins, against the JAX package's.
 The draws are the JAX ``invariance_test``'s: the same keys give the same
 iid batches within 2e-6 (the normals are within 2 ulp of XLA's). Then one
 step of every explorer of the port, each kernel's twin in each of its
-modes among them, must leave the target invariant at the JAX test's
-``N = 4000`` and threshold; the explorers that both packages have give
-the JAX test's p-values. A kernel that drifts must fail, in both packages.
+modes among them, AAPS, NUTS, ``Mix`` and ``ScanMix`` too
+(``tests/test_invariance.py:13-52``), must leave the target invariant at
+the JAX test's ``N = 4000`` and threshold; the explorers that both packages
+have give the JAX test's p-values. A kernel that drifts must fail, in both packages.
 The variational term is tested at beta = 0.3, where the reference's half
 of the blend weighs 0.7 (at beta = 1 it weighs nothing), under a reference
 far from the target, and a step that reads a wrong reference must fail.
@@ -67,11 +68,27 @@ CASES = {
     "k2_full_variational_toy_mvn": (T.toy_mvn_target(3),
                                     T.SliceSamplerCUDA(parallel_coords=False), BLEND),
     "k2_delta_toy_mvn": (T.toy_mvn_target(3), T.SliceSamplerCUDA(parallel_coords=False), {}),
+    "aaps": (T.toy_mvn_target(3),
+             T.AAPS(step_size=0.4, preconditioner=T.IdentityPreconditioner()), {}),
+    "nuts": (T.toy_mvn_target(3),
+             T.NUTS(step_size=0.5, preconditioner=T.IdentityPreconditioner()), {}),
+    "mix": (T.toy_mvn_target(3),
+            T.Mix(T.SliceSampler(n_passes=1),
+                  T.MALA(step_size=0.4, preconditioner=T.IdentityPreconditioner())), {}),
+    "scanmix": (T.toy_mvn_target(3),
+                T.ScanMix(T.SliceSampler(n_passes=1),
+                          T.MALA(step_size=0.4, preconditioner=T.IdentityPreconditioner())), {}),
 }
 JAX_EXPLORERS = {
     "slice_sampler": lambda: J.SliceSampler(n_passes=1),
     "mala": lambda: J.MALA(step_size=0.4, preconditioner=J.IdentityPreconditioner()),
     "automala": lambda: J.AutoMALA(preconditioner=J.IdentityPreconditioner()),
+    "aaps": lambda: J.AAPS(step_size=0.4, preconditioner=J.IdentityPreconditioner()),
+    "nuts": lambda: J.NUTS(step_size=0.5, preconditioner=J.IdentityPreconditioner()),
+    "mix": lambda: J.Mix(J.SliceSampler(n_passes=1),
+                         J.MALA(step_size=0.4, preconditioner=J.IdentityPreconditioner())),
+    "scanmix": lambda: J.ScanMix(J.SliceSampler(n_passes=1),
+                                 J.MALA(step_size=0.4, preconditioner=J.IdentityPreconditioner())),
 }
 
 

@@ -273,3 +273,44 @@ def test_poisson_is_jaxs(lam, fused):
     have = trng.poisson(tk, lam, fused=fused).numpy()
     assert np.array_equal(have, want)
     assert abs(have.mean() - lam) < 4 * np.sqrt(lam / DRAW_KEYS)
+
+
+# ---------------------------------------------------------------------------
+# the draws of AAPS, NUTS and Mix: gumbel, bernoulli, randint
+
+
+def _lane_keys(seed, n=4096):
+    return (jrng.keys_for(jrng.master_key(seed), jnp.arange(n)),
+            trng.keys_for(trng.master_key(seed), torch.arange(n)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(), (5,)])
+def test_gumbel_bitwise(seed, shape):
+    """``jax.random.gumbel`` (``mode="low"``), compiled and eager."""
+    jk, tk = _lane_keys(seed)
+    t = trng.gumbel(tk, shape).numpy()
+    for fn in (jax.jit(jax.vmap(lambda k: jax.random.gumbel(k, shape))),
+               jax.vmap(lambda k: jax.random.gumbel(k, shape))):
+        assert np.array_equal(_bits32(np.asarray(fn(jk))), _bits32(t))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("p", [0.5, 0.1])
+def test_bernoulli_bitwise(seed, p):
+    jk, tk = _lane_keys(seed)
+    j = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.bernoulli(k, p)))(jk))
+    assert np.array_equal(trng.bernoulli(tk, p).numpy(), j)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi,shape", [(0, 2, ()), (0, 3, ()), (0, 5, ()), (-2, 4, (3,)),
+                                         (0, 65537, ()), (0, 2**31 - 1, (3,)), (3, 3, ())])
+def test_randint_bitwise(seed, lo, hi, shape):
+    """``jax.random.randint`` in int32, at the spans ``Mix`` draws (K = 2, 3,
+    5 components) and at spans where the uint32 products wrap."""
+    jk, tk = _lane_keys(seed)
+    j = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.randint(k, shape, lo, hi)))(jk))
+    t = trng.randint(tk, shape, lo, hi)
+    assert t.dtype == torch.int32
+    assert np.array_equal(t.numpy(), j)
