@@ -799,7 +799,7 @@ def k2_bayesian_phase():
     query = (2 * SIGMOID + ops(1) + LOG + LOG1P + ops(5) + prior_ops(density.prior) + ops(1)
              + INTERPOLATE)
     out["unid"] = k2_mode("K2 full (unid)", path, False, B_small, 2, 1.0, query, ops(0), query,
-                          groups=(1,))
+                          groups=(1, 8, 16, 32))
     # logistic regression: for each observation a row of the design matrix
     # times w (a multiply and d - 2 fused multiply-adds), + b, y z - softplus(z)
     # (a multiply, softplus, a subtract); their sum by windows (n + 7 adds)

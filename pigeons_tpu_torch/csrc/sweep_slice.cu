@@ -91,6 +91,35 @@
 // density runs moved it by 1% (0.1517 ms) and took 1% at 6,144 lanes: not
 // kept.
 //
+// Eight schools and unid (kSpeculate, speculated_sweep), the rows of the TPU
+// kernel above with these two densities. Their paths launch K2 at 640 lanes
+// (10 chains x 64 ladders, 1 pass) with queries of a few terms, some 20
+// warps on 132 SMs: the launch lasts as long as the slowest
+// lane's chain of dependent iterations, 131 for eight schools and 73 for
+// unid at 2.1 us each (tools/torch_kernel_variants.py --speculate, clock64()
+// split of the sources before, 278 and 153 us on the device), whatever the
+// card's rates. But within a run of the machine (the doublings of a
+// coordinate, its shrink rejections, its halvings) the queries do not
+// depend on the densities, only where the run stops does: the draws are
+// counter-based, hash(4 it + k) of the iteration alone. So a group of G
+// threads evaluates the machine's next G queries, one a thread, the group
+// shares the draws by a ballot and shuffles, each thread tests the machine's
+// end-of-run condition at its own iteration with the densities of those
+// before it, and the group takes the iterations up to the first that ends
+// the run: the same bits as one thread taking them in turn. The slowest
+// lane needs 26 rounds (eight schools, G = 16 or 32) and 5 (unid, G = 32) of
+// about 3.2 us each: a query alone in one thread (eight schools' 8
+// divisions in series, 65% of a round), the chain of brackets (20-25%), the
+// ballots and shuffles. Device times at 640 lanes (NVIDIA H100 80GB HBM3,
+// 700.00 W, the same tool and call, sources before in turns): eight schools
+// 0.087 / 0.089 ms at G = 16 / 32 against 0.269, unid 0.023 ms at G = 32
+// against 0.154; at 8,192 lanes, G = 8: 0.151 against 0.330 and 0.033
+// against 0.146. Tried and dropped: slots of 8 threads sharing eight
+// schools' 8 terms (0.097 ms at 4 slots, 0.36 at 8,192 lanes), terms kept
+// for the current state (slower on both rows: the slowest lane's queries of
+// mu and log tau recompute every term), each slot hashing the draws of the
+// slots before it (a round 2x as long).
+//
 // Layout. Input and output are the row-major [B, d] states. With one thread
 // per lane a block of 128 lanes loads its contiguous [128, d] tile with
 // coalesced reads into shared memory, transposed to [d][128], so that thread
@@ -180,8 +209,11 @@ enum ClockPart { kDraw, kPrepare, kTerms, kSync, kSums, kReference, kMachine, kC
 
 #ifdef PIGEONS_K2_CLOCKS
 constexpr int kClockLanes = 8192;
-// per lane b < kClockLanes: cycles by part, then the loop's cycles and nanoseconds
-__device__ unsigned long long k2_clocks[kClockLanes][kClockParts + 2];
+// per lane b < kClockLanes: cycles by part, then the loop's cycles, its
+// nanoseconds and its passes (the machine's iterations, or the speculated
+// machine's rounds)
+constexpr int kClockColumns = kClockParts + 3;
+__device__ unsigned long long k2_clocks[kClockLanes][kClockColumns];
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -743,12 +775,20 @@ struct ManyTerms {
   }
 };
 
+// Whether density K with G threads a lane runs the speculated machine
+// (speculated_sweep): eight schools and unid, whose queries are a few terms.
+template <Density K>
+constexpr bool kSpeculated = K == kEightSchools || K == kUnid;
+template <Density K, int G>
+constexpr bool kSpeculate = G > 1 && kSpeculated<K>;
+
 // Floats of a lane's buffers past its state with G > 1 threads per lane:
-// ManyTerms' or KeptSums', else the target's terms and, under a variational
-// reference, its RefTerms.
+// ManyTerms' or KeptSums', none for the speculated machine, else the target's
+// terms and, under a variational reference, its RefTerms.
 template <Density K, int G>
 __device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityParams& p,
                                              bool variational) {
+  if constexpr (kSpeculate<K, G>) return 0;
   if constexpr (kManyTerms<K, G>) return ManyTerms<K, G>::lane_floats(d, n_terms, p, variational);
   if constexpr (kKeptSums<K, G>) return KeptSums<K, G>::kFloatsPerCoord * d;
   return G == 1 ? 0 : n_terms + (variational ? 2 * d : 0);
@@ -762,6 +802,241 @@ __device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityPa
 // at 640 lanes); the hierarchical normal's 117 were as fast as 80.
 template <Density K, int G>
 constexpr int kMinBlocks = kManyTerms<K, G> && K == kLogisticRegression ? 6 : 1;
+
+// What a lane's sweep hands back: its density and its three stats.
+struct LaneResult {
+  float lp, acc_sum, acc_n, n_evals;
+};
+
+// The slice machine of one lane, run by its group of G threads in rounds of
+// speculated queries (kSpeculate). A run of the machine's iterations, the
+// ENTER + INIT_R + DOUBLE steps of a coordinate, a run of SHRINK rejections
+// or one of CHECK halvings, goes on while the density values say so, but its
+// queries do not depend on them: iteration it draws hash(4 it + k) whatever
+// happened before, a doubling grows the side its own draw names, a rejected
+// candidate becomes the bracket's end on its side of old, a halving keeps the
+// half that holds cand. So thread s of the group (its slot) computes the
+// query the machine would make s iterations on, should none of the
+// iterations before it end the run: it draws its own iteration's uniform,
+// the group shares them (a ballot of the doublings' sides, a shuffle of each
+// shrink draw), and every thread runs the chain of brackets of all G steps
+// and keeps its own. The slots evaluate their queries together, a whole
+// density each (log_density, the twin's form), each tests the machine's own
+// condition for the end of the run at its iteration (with the densities of
+// the slots before it, by shuffles), and the group takes the first slot that
+// ends it (a ballot), or all of them. Every thread then holds the machine's
+// state after that slot's iteration, read from that slot, and the counter
+// it, n_evals and acc_n advance by the iterations taken: the same bits as the
+// machine of one thread, iteration for iteration, as every query and step
+// takes the machine's operations. The slots after the first that ends a run
+// are discarded.
+template <Density K, int G, class Mark>
+__device__ LaneResult speculated_sweep(float* xs, int g, unsigned mask, int d, float beta,
+                                       const DensityInputs& in, const VariationalLane& var,
+                                       uint32_t hash_base, float W, float narrow_w, int p,
+                                       int n_steps, int max_iter, const Mark& mark) {
+  const int s = g;  // this thread's slot: iteration it + s of the round
+  const int base = (int)(threadIdx.x & 31) - g;  // the group's first lane in its warp
+  const DensityParams& params = in.params;
+  const auto from = [&](float v, int slot) { return __shfl_sync(mask, v, slot, G); };
+  // one bit a slot, from a ballot of the group
+  const auto slots = [&](bool v) {
+    const unsigned bits = __ballot_sync(mask, v) >> base;
+    return G == 32 ? bits : bits & ((1u << G) - 1u);
+  };
+  // the first slot that ends the run, else the last
+  const auto taken = [](unsigned ends) { return ends ? __ffs((int)ends) - 1 : G - 1; };
+
+  Prepared pr_cur = prepare<K>(LaneView{xs, 1, -1, 0.0f}, d, params, in.prior);
+  // the density with coordinate c (if any) at q
+  const auto density = [&](int c, float q) {
+    const LaneView v{xs, 1, c, q};
+    const Prepared pr = c >= 0 && prepare_reads<K>(c, d)
+                            ? prepare_query<K>(pr_cur, v, d, params, in.prior)
+                            : pr_cur;
+    return log_density<K>(v, d, beta, pr, params, in.arrays, in.prior, var);
+  };
+  const auto degenerate = [](float lb, float rb) {
+    const float aL = fabsf(lb), aR = fabsf(rb);
+    const float mx = (isnan(aL) || isnan(aR)) ? NAN : fmaxf(aL, aR);
+    return fabsf(rb - lb) <= mx * 3.5e-4f;
+  };
+
+  float lp_cur = density(-1, 0.0f);
+  mark(kClockParts);  // the loop's clocks alone
+  float old = 0.f, z = 0.f, L = 0.f, R = 0.f, lpL = 0.f, lpR = 0.f, Lb = 0.f, Rb = 0.f;
+  float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f;
+  float acc_sum = 0.f, acc_n = 0.f, n_evals = 0.f;
+  int phase = n_steps > 0 ? ENTER : DONE;
+  int j = 0, c = 0, K_dbl = 0, n_shr = 0;  // j: coordinate steps done, c = j % d
+  uint32_t it = 0;
+  const auto next_coordinate = [&](bool accepted) {
+    if (accepted) {
+      lp_cur = lp_cand;
+      if (prepare_reads<K>(c, d))
+        pr_cur = prepare_query<K>(pr_cur, LaneView{xs, 1, c, cand}, d, params, in.prior);
+      __syncwarp(mask);  // no thread of the group still reads x_c
+      xs[c] = cand;      // every thread stores the same value
+      acc_sum += 1.0f;
+    }
+    j += 1;
+    c = c + 1 == d ? 0 : c + 1;
+    phase = j >= n_steps ? DONE : ENTER;
+  };
+
+  while (phase != DONE) {
+    mark(kMachine);
+    if (phase == ENTER) {
+      const uint32_t ctr = 4u * it;
+      old = xs[c];
+      z = lp_cur - (-cephes_logf(draw(hash_base, ctr + 1u)));
+      L = __fmaf_rn(draw(hash_base, ctr), -W, old);
+      R = L + W;
+    }
+    // This slot's query q. Every thread runs the chain of all slots' steps and
+    // keeps its own: lo, hi the bracket after its step (a doubling run, a
+    // CHECK run) or before its candidate (a SHRINK run, every candidate before
+    // it rejected); last_lo, last_hi the latest steps up to it that set lpL,
+    // lpR (lpLh, lpRh); to_left whether its halving keeps the left half.
+    const int first = phase;  // ENTER, INIT_R or DOUBLE: the kind of step 0
+    float q = 0.0f, lo = 0.0f, hi = 0.0f;
+    int last_lo = -1, last_hi = -1;
+    bool to_left = false;
+    if (phase <= DOUBLE) {
+      // step i: ENTER (query L, sets lpL), INIT_R (R, lpR) or DOUBLE (the
+      // side its draw names: one draw a slot, the sides by a ballot)
+      const int kind_s = min(first + s, DOUBLE);
+      const bool left_s =
+          kind_s == ENTER || (kind_s == DOUBLE && draw(hash_base, 4u * (it + s) + 2u) <= 0.5f);
+      const unsigned lefts = slots(left_s);
+      float Li = L, Ri = R;
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int kind = min(first + i, DOUBLE);
+        const bool left = lefts >> i & 1u;
+        const float span = Ri - Li;
+        const float qi = kind == DOUBLE ? (left ? Li - span : Ri + span) : kind == ENTER ? Li : Ri;
+        if (kind == DOUBLE) {
+          if (left) Li = qi;
+          else Ri = qi;
+        }
+        if (i <= s) {
+          if (left) last_lo = i;
+          else last_hi = i;
+        }
+        if (i == s) q = qi, lo = Li, hi = Ri;
+      }
+    } else if (phase == SHRINK) {
+      // one draw a slot, shared by shuffles
+      const float u = draw(hash_base, 4u * (it + s) + 3u);
+      float lbi = Lb, rbi = Rb;
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const float qi = __fmaf_rn(from(u, i), rbi - lbi, lbi);
+        if (i == s) q = qi, lo = lbi, hi = rbi;
+        if (qi < old) lbi = qi;
+        else rbi = qi;
+      }
+    } else {  // CHECK: halve towards cand while its half is wider than narrow_w
+      float lhi = Lh, rhi = Rh;
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const float Mi = (lhi + rhi) * 0.5f;
+        const bool left = cand < Mi;
+        if (left) rhi = Mi;
+        else lhi = Mi;
+        if (i <= s) {
+          if (left) last_hi = i;
+          else last_lo = i;
+        }
+        if (i == s) q = Mi, to_left = left, lo = lhi, hi = rhi;
+      }
+    }
+    mark(kDraw);
+    const float lp = density(c, q);
+    mark(kTerms);
+    // the densities of the latest steps that set each side; every thread
+    // takes part in every shuffle
+    const float lp_lo = from(lp, max(last_lo, 0)), lp_hi = from(lp, max(last_hi, 0));
+    int n_taken;
+    if (phase <= DOUBLE) {
+      const float lpL_s = last_lo >= 0 ? lp_lo : lpL;
+      const float lpR_s = last_hi >= 0 ? lp_hi : lpR;
+      const int K_s = first < DOUBLE ? p - (s - (INIT_R - first)) : K_dbl - (s + 1);
+      const unsigned ends = slots(min(first + s, DOUBLE) != ENTER &&
+                                  !(K_s > 0 && ((z < lpL_s) || (z < lpR_s))));
+      n_taken = taken(ends) + 1;
+      L = from(lo, n_taken - 1);
+      R = from(hi, n_taken - 1);
+      lpL = from(lpL_s, n_taken - 1);
+      lpR = from(lpR_s, n_taken - 1);
+      mark(kSync);
+      if (first + n_taken - 1 > ENTER)
+        K_dbl = first < DOUBLE ? p - (n_taken - 1 - (INIT_R - first)) : K_dbl - n_taken;
+      if (ends) {  // start_shrink
+        Lb = L;
+        Rb = R;
+        n_shr = 0;
+        phase = SHRINK;
+      } else {
+        phase = first + n_taken - 1 == ENTER ? INIT_R : DOUBLE;
+      }
+    } else if (phase == SHRINK) {
+      const bool consider = z < lp;
+      if (!consider) {  // the bracket after this slot's rejection
+        if (q < old) lo = q;
+        else hi = q;
+      }
+      const bool bail = !consider && (degenerate(lo, hi) || n_shr + s + 1 >= max_iter);
+      const unsigned ends = slots(consider || bail);
+      n_taken = taken(ends) + 1;
+      Lb = from(lo, n_taken - 1);
+      Rb = from(hi, n_taken - 1);
+      cand = from(q, n_taken - 1);
+      lp_cand = from(lp, n_taken - 1);
+      mark(kSync);
+      n_shr += n_taken;
+      if (z < lp_cand) {
+        acc_n += 1.0f;
+        if ((R - L) <= narrow_w) {
+          next_coordinate(true);
+        } else {  // to_check
+          Lh = L;
+          Rh = R;
+          lpLh = lpL;
+          lpRh = lpR;
+          phase = CHECK;
+        }
+      } else if (ends) {  // bail
+        next_coordinate(false);
+      }
+    } else {
+      const bool crossed = (old < q) != to_left;
+      const float lpLh_s = last_lo >= 0 ? lp_lo : lpLh;
+      const float lpRh_s = last_hi >= 0 ? lp_hi : lpRh;
+      const bool chk_rej = crossed && (z >= lpLh_s) && (z >= lpRh_s);
+      const unsigned rejects = slots(chk_rej);
+      const unsigned ends = slots(chk_rej || !((hi - lo) > narrow_w));
+      n_taken = taken(ends) + 1;
+      Lh = from(lo, n_taken - 1);
+      Rh = from(hi, n_taken - 1);
+      lpLh = from(lpLh_s, n_taken - 1);
+      lpRh = from(lpRh_s, n_taken - 1);
+      mark(kSync);
+      if (rejects >> (n_taken - 1) & 1u) {
+        if (cand < old) Lb = cand;
+        else Rb = cand;
+        if (degenerate(Lb, Rb) || n_shr >= max_iter) next_coordinate(false);
+        else phase = SHRINK;
+      } else if (ends) {
+        next_coordinate(true);
+      }
+    }
+    it += (uint32_t)n_taken;
+    n_evals += (float)n_taken;
+  }
+  return {lp_cur, acc_sum, acc_n, n_evals};
+}
 
 template <Density K, bool kDelta, int G>
 __global__ void __launch_bounds__(kThreads, (kMinBlocks<K, G>))
@@ -811,238 +1086,252 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
     const VariationalLane var{variational && in.isvar[b] > 0.0f && in.active[0] > 0.0f,
                               var_arrays, var_arrays + d, var_arrays + 2 * d};
 
-    // kept for the lane's current state, recomputed for a query of a coordinate
-    // that prepare reads
-    const auto prepared = [&](int c, float q) {
-      return prepare<K>(LaneView{xs, stride, c, q}, d, params, in.prior);
-    };
-    Prepared pr_cur = prepared(-1, 0.0f);
-    const auto prepared_from_cur = [&](int c, float q) {
-      return prepare_query<K>(pr_cur, LaneView{xs, stride, c, q}, d, params, in.prior);
-    };
-    [[maybe_unused]] auto many = [&] {
-      if constexpr (kManyTerms<K, G>) {
-        return ManyTerms<K, G>(xs, terms, d, n_terms, g, mask, params, var);
-      } else if constexpr (kKeptSums<K, G>) {
-        return KeptSums<K, G>{xs, terms, d, g, mask,
-                              RefTerms{terms + 3 * d, terms + 4 * d, d, var.use, var,
-                                       params.v[0]}};
-      } else {
-        return 0;
-      }
-    }();
-    // the other densities' reference terms under a variational reference
-    [[maybe_unused]] RefTerms ref{terms + n_terms, terms + n_terms + d, d, true, var, 0.0f};
-
 #ifdef PIGEONS_K2_CLOCKS
     long long clk_acc[kClockParts] = {};
-    long long clk_last = 0;
+    long long clk_last = 0, clk0 = 0, clk_passes = 0;
+    unsigned long long ns0 = 0;
+    // mark(part): the cycles since the last mark go to part (a pass of the
+    // loop starts, and the loop ends, with kMachine); mark(kClockParts): the
+    // loop starts, and what came before is not counted
     const auto mark = [&](int part) {
       const long long now = clock64();
-      clk_acc[part] += now - clk_last;
+      if (part == kClockParts) {
+        for (int k = 0; k < kClockParts; ++k) clk_acc[k] = 0;
+        ns0 = global_ns();
+        clk0 = now;
+        clk_passes = -1;  // the mark after the loop is no pass
+      } else {
+        clk_acc[part] += now - clk_last;
+        clk_passes += part == kMachine;
+      }
       clk_last = now;
     };
 #else
     const auto mark = [](int) {};
 #endif
 
-    // The density of the lane's state with coordinate c (if any) holding q;
-    // slot 1 for the shrink candidate (ManyTerms, KeptSums and RefTerms keep
-    // its terms). Every thread of the group calls it at the same point and
-    // gets the same bits: thread g computes the terms g, g + G, ..., and all
-    // of them run the in-order sums over the group's buffer, or ManyTerms
-    // shares them out, or KeptSums and RefTerms resume their sums at c.
-    auto evaluate = [&](int c, float q, const Prepared& pr, [[maybe_unused]] int slot) {
-      const LaneView s{xs, stride, c, q};
-      if constexpr (kManyTerms<K, G>) {
-        return many.evaluate(c, q, pr, slot, beta, in, var);
-      } else if constexpr (kKeptSums<K, G>) {
-        return c < 0 ? many.init(pr, beta, params)
-                     : many.evaluate(c, q, pr, slot, beta, params, mark);
-      } else if constexpr (G == 1) {
-        return log_density<K>(s, d, beta, pr, params, in.arrays, in.prior, var);
-      } else {
-        for (int t = first_term<K> + g; t < n_terms; t += G)
-          terms[t] = target_term<K>(s, t, pr, params, in.arrays);
-        if (var.use && c < 0) ref.terms<G>(xs, g);
-        mark(kTerms);
-        __syncwarp(mask);
-        mark(kSync);
-        const float lp = finish<K>(s, [&](int t) { return terms[t]; }, d, beta, pr, params,
-                                   in.prior, var, [&] {
-                                     if (c < 0) ref.resume(0);
-                                     return c < 0 ? ref.total() : ref.query(c, q, slot);
-                                   });
-        mark(kSums);
-        __syncwarp(mask);  // all have read the terms before the next query overwrites them
-        return lp;
-      }
-    };
-    float lp_cur = evaluate(-1, 0.0f, pr_cur, 0);
-    float old = 0.f, z = 0.f, L = 0.f, R = 0.f, lpL = 0.f, lpR = 0.f, Lb = 0.f, Rb = 0.f;
-    float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f, base = 0.f;
-    float acc_sum = 0.f, acc_n = 0.f, n_evals = 0.f;
-    const int n_steps = n_passes * d;
-    int phase = n_steps > 0 ? ENTER : DONE;
-    int j = 0, c = 0, K_dbl = 0, n_shr = 0;  // j: coordinate steps done, c = j % d
-#ifdef PIGEONS_K2_CLOCKS
-    for (int k = 0; k < kClockParts; ++k) clk_acc[k] = 0;  // the loop's alone
-    const unsigned long long ns0 = global_ns();
-    const long long clk0 = clock64();
-    clk_last = clk0;
-#endif
-
-    for (uint32_t it = 0; phase != DONE; ++it) {
-      mark(kMachine);
-      // draws 4 it + (0: u_init, 1: u_z, 2: u_side, 3: u_shr). ENTER uses the
-      // first two and the log, DOUBLE the third, SHRINK the fourth, INIT_R and
-      // CHECK none: one hash outside ENTER serves whichever phase the lane is in
-      const uint32_t ctr = 4u * it;
-      const bool is_enter = phase == ENTER;
-      const bool ph_dbl = phase == DOUBLE;
-      const bool ph_shr = phase == SHRINK;
-      const float xc = xs[c * stride];
-      if (is_enter) {
-        if constexpr (kManyTerms<K, G>) many.enter(c, in);
-        old = xc;
-        z = lp_cur - (-cephes_logf(draw(hash_base, ctr + 1u)));
-        L = __fmaf_rn(draw(hash_base, ctr), -W, old);
-        R = L + W;
-      }
-      const float u = draw(hash_base, ctr + (ph_dbl ? 2u : 3u));
-      const bool grow_left = u <= 0.5f;
-      const float span = R - L;
-      const float dbl_q = grow_left ? L - span : R + span;
-      const float cand_draw = __fmaf_rn(u, Rb - Lb, Lb);
-      const float M = (Lh + Rh) * 0.5f;
-      const float query = is_enter           ? L
-                          : phase == INIT_R  ? R
-                          : ph_dbl           ? dbl_q
-                          : ph_shr           ? cand_draw
-                          : phase == CHECK   ? M
-                                             : old;
-
-      mark(kDraw);
-
-      float lp_q;
-      if constexpr (kDelta) {
-        static_assert(!kDelta || K == kToyMvn, "no coordinate term for this density");
-        const float a = toy_coord_factor(beta, params.v[0], params.v[1]);
-        if (is_enter) base = lp_cur - quadratic_term(a, xc);
-        lp_q = base + quadratic_term(a, query);
-      } else {
-        const Prepared pr_q = prepare_reads<K>(c, d) ? prepared_from_cur(c, query) : pr_cur;
-        mark(kPrepare);
-        lp_q = evaluate(c, query, pr_q, ph_shr ? 1 : 0);
-        mark(kTerms);
-      }
-      n_evals += 1.0f;
-
-      if (is_enter) lpL = lp_q;
-      const bool ph_initr = phase == INIT_R;
-      if (ph_initr) {
-        lpR = lp_q;
-        K_dbl = p;
-      }
-      if (ph_dbl) {
-        if (grow_left) {
-          L = dbl_q;
-          lpL = lp_q;
+    float lp_cur, acc_sum, acc_n, n_evals;
+    if constexpr (kSpeculate<K, G>) {
+      const LaneResult r = speculated_sweep<K, G>(xs, g, mask, d, beta, in, var, hash_base, W,
+                                                  narrow_w, p, n_passes * d, max_iter, mark);
+      lp_cur = r.lp, acc_sum = r.acc_sum, acc_n = r.acc_n, n_evals = r.n_evals;
+    } else {
+      // kept for the lane's current state, recomputed for a query of a coordinate
+      // that prepare reads
+      const auto prepared = [&](int c, float q) {
+        return prepare<K>(LaneView{xs, stride, c, q}, d, params, in.prior);
+      };
+      Prepared pr_cur = prepared(-1, 0.0f);
+      const auto prepared_from_cur = [&](int c, float q) {
+        return prepare_query<K>(pr_cur, LaneView{xs, stride, c, q}, d, params, in.prior);
+      };
+      [[maybe_unused]] auto many = [&] {
+        if constexpr (kManyTerms<K, G>) {
+          return ManyTerms<K, G>(xs, terms, d, n_terms, g, mask, params, var);
+        } else if constexpr (kKeptSums<K, G>) {
+          return KeptSums<K, G>{xs, terms, d, g, mask,
+                                RefTerms{terms + 3 * d, terms + 4 * d, d, var.use, var,
+                                         params.v[0]}};
         } else {
-          R = dbl_q;
+          return 0;
+        }
+      }();
+      // the other densities' reference terms under a variational reference
+      [[maybe_unused]] RefTerms ref{terms + n_terms, terms + n_terms + d, d, true, var, 0.0f};
+
+      // The density of the lane's state with coordinate c (if any) holding q;
+      // slot 1 for the shrink candidate (ManyTerms, KeptSums and RefTerms keep
+      // its terms). Every thread of the group calls it at the same point and
+      // gets the same bits: thread g computes the terms g, g + G, ..., and all
+      // of them run the in-order sums over the group's buffer, or ManyTerms
+      // shares them out, or KeptSums and RefTerms resume their sums at c.
+      auto evaluate = [&](int c, float q, const Prepared& pr, [[maybe_unused]] int slot) {
+        const LaneView s{xs, stride, c, q};
+        if constexpr (kManyTerms<K, G>) {
+          return many.evaluate(c, q, pr, slot, beta, in, var);
+        } else if constexpr (kKeptSums<K, G>) {
+          return c < 0 ? many.init(pr, beta, params)
+                       : many.evaluate(c, q, pr, slot, beta, params, mark);
+        } else if constexpr (G == 1) {
+          return log_density<K>(s, d, beta, pr, params, in.arrays, in.prior, var);
+        } else {
+          for (int t = first_term<K> + g; t < n_terms; t += G)
+            terms[t] = target_term<K>(s, t, pr, params, in.arrays);
+          if (var.use && c < 0) ref.terms<G>(xs, g);
+          mark(kTerms);
+          __syncwarp(mask);
+          mark(kSync);
+          const float lp = finish<K>(s, [&](int t) { return terms[t]; }, d, beta, pr, params,
+                                     in.prior, var, [&] {
+                                       if (c < 0) ref.resume(0);
+                                       return c < 0 ? ref.total() : ref.query(c, q, slot);
+                                     });
+          mark(kSums);
+          __syncwarp(mask);  // all have read the terms before the next query overwrites them
+          return lp;
+        }
+      };
+      lp_cur = evaluate(-1, 0.0f, pr_cur, 0);
+      float old = 0.f, z = 0.f, L = 0.f, R = 0.f, lpL = 0.f, lpR = 0.f, Lb = 0.f, Rb = 0.f;
+      float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f, base = 0.f;
+      acc_sum = 0.f, acc_n = 0.f, n_evals = 0.f;
+      const int n_steps = n_passes * d;
+      int phase = n_steps > 0 ? ENTER : DONE;
+      int j = 0, c = 0, K_dbl = 0, n_shr = 0;  // j: coordinate steps done, c = j % d
+      mark(kClockParts);  // the loop's clocks alone
+
+      for (uint32_t it = 0; phase != DONE; ++it) {
+        mark(kMachine);
+        // draws 4 it + (0: u_init, 1: u_z, 2: u_side, 3: u_shr). ENTER uses the
+        // first two and the log, DOUBLE the third, SHRINK the fourth, INIT_R and
+        // CHECK none: one hash outside ENTER serves whichever phase the lane is in
+        const uint32_t ctr = 4u * it;
+        const bool is_enter = phase == ENTER;
+        const bool ph_dbl = phase == DOUBLE;
+        const bool ph_shr = phase == SHRINK;
+        const float xc = xs[c * stride];
+        if (is_enter) {
+          if constexpr (kManyTerms<K, G>) many.enter(c, in);
+          old = xc;
+          z = lp_cur - (-cephes_logf(draw(hash_base, ctr + 1u)));
+          L = __fmaf_rn(draw(hash_base, ctr), -W, old);
+          R = L + W;
+        }
+        const float u = draw(hash_base, ctr + (ph_dbl ? 2u : 3u));
+        const bool grow_left = u <= 0.5f;
+        const float span = R - L;
+        const float dbl_q = grow_left ? L - span : R + span;
+        const float cand_draw = __fmaf_rn(u, Rb - Lb, Lb);
+        const float M = (Lh + Rh) * 0.5f;
+        const float query = is_enter           ? L
+                            : phase == INIT_R  ? R
+                            : ph_dbl           ? dbl_q
+                            : ph_shr           ? cand_draw
+                            : phase == CHECK   ? M
+                                               : old;
+
+        mark(kDraw);
+
+        float lp_q;
+        if constexpr (kDelta) {
+          static_assert(!kDelta || K == kToyMvn, "no coordinate term for this density");
+          const float a = toy_coord_factor(beta, params.v[0], params.v[1]);
+          if (is_enter) base = lp_cur - quadratic_term(a, xc);
+          lp_q = base + quadratic_term(a, query);
+        } else {
+          const Prepared pr_q = prepare_reads<K>(c, d) ? prepared_from_cur(c, query) : pr_cur;
+          mark(kPrepare);
+          lp_q = evaluate(c, query, pr_q, ph_shr ? 1 : 0);
+          mark(kTerms);
+        }
+        n_evals += 1.0f;
+
+        if (is_enter) lpL = lp_q;
+        const bool ph_initr = phase == INIT_R;
+        if (ph_initr) {
           lpR = lp_q;
+          K_dbl = p;
         }
-        K_dbl -= 1;
-      }
-      const bool more_dbl = (K_dbl > 0) && ((z < lpL) || (z < lpR));
-      const bool start_shrink = (ph_initr || ph_dbl) && !more_dbl;
-      if (start_shrink) {
-        Lb = L;
-        Rb = R;
-        n_shr = 0;
-      }
-
-      if (ph_shr) {
-        cand = cand_draw;
-        lp_cand = lp_q;
-        n_shr += 1;
-      }
-      const bool consider = ph_shr && (z < lp_q);
-      acc_n += consider ? 1.0f : 0.0f;
-      const bool narrow = (R - L) <= narrow_w;
-      const bool accept_shr = consider && narrow;
-      const bool to_check = consider && !narrow;
-      if (to_check) {
-        Lh = L;
-        Rh = R;
-        lpLh = lpL;
-        lpRh = lpR;
-      }
-
-      const bool ph_chk = phase == CHECK;
-      const bool take_left = cand < M;
-      const bool crossed = (old < M) != take_left;
-      if (ph_chk) {
-        if (take_left) {
-          Rh = M;
-          lpRh = lp_q;
-        } else {
-          Lh = M;
-          lpLh = lp_q;
+        if (ph_dbl) {
+          if (grow_left) {
+            L = dbl_q;
+            lpL = lp_q;
+          } else {
+            R = dbl_q;
+            lpR = lp_q;
+          }
+          K_dbl -= 1;
         }
-      }
-      const bool chk_rej = ph_chk && crossed && (z >= lpLh) && (z >= lpRh);
-      const bool chk_more = ph_chk && !chk_rej && ((Rh - Lh) > narrow_w);
-      const bool accept_chk = ph_chk && !chk_rej && !chk_more;
+        const bool more_dbl = (K_dbl > 0) && ((z < lpL) || (z < lpR));
+        const bool start_shrink = (ph_initr || ph_dbl) && !more_dbl;
+        if (start_shrink) {
+          Lb = L;
+          Rb = R;
+          n_shr = 0;
+        }
 
-      const bool rejected = (ph_shr && !consider) || chk_rej;
-      if (rejected) {
-        if (cand < old) Lb = cand;
-        else Rb = cand;
-      }
-      const float aL = fabsf(Lb), aR = fabsf(Rb);
-      const float mx = (isnan(aL) || isnan(aR)) ? NAN : fmaxf(aL, aR);
-      const bool degenerate = fabsf(Rb - Lb) <= mx * 3.5e-4f;
-      const bool bail = rejected && (degenerate || n_shr >= max_iter);
+        if (ph_shr) {
+          cand = cand_draw;
+          lp_cand = lp_q;
+          n_shr += 1;
+        }
+        const bool consider = ph_shr && (z < lp_q);
+        acc_n += consider ? 1.0f : 0.0f;
+        const bool narrow = (R - L) <= narrow_w;
+        const bool accept_shr = consider && narrow;
+        const bool to_check = consider && !narrow;
+        if (to_check) {
+          Lh = L;
+          Rh = R;
+          lpLh = lpL;
+          lpRh = lpR;
+        }
 
-      const bool accepted = accept_shr || accept_chk;
-      if (accepted) {
-        // every thread of the group stores the same value, and reads it back
-        // in its own program order
-        lp_cur = lp_cand;
-        if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared_from_cur(c, cand);
-        if constexpr (kKeptSums<K, G>) {
-          many.commit(c, cand, pr_cur, params);  // stores x_c once no thread reads it
-        } else {
-          xs[c * stride] = cand;
-          if constexpr (kManyTerms<K, G>) {
-            many.commit(c, pr_cur, beta, in, var);
-          } else if constexpr (G > 1) {
-            // evaluate's last __syncwarp: no thread still reads the kept terms
-            if (var.use) ref.commit(c);
+        const bool ph_chk = phase == CHECK;
+        const bool take_left = cand < M;
+        const bool crossed = (old < M) != take_left;
+        if (ph_chk) {
+          if (take_left) {
+            Rh = M;
+            lpRh = lp_q;
+          } else {
+            Lh = M;
+            lpLh = lp_q;
           }
         }
-      }
-      acc_sum += accepted ? 1.0f : 0.0f;
+        const bool chk_rej = ph_chk && crossed && (z >= lpLh) && (z >= lpRh);
+        const bool chk_more = ph_chk && !chk_rej && ((Rh - Lh) > narrow_w);
+        const bool accept_chk = ph_chk && !chk_rej && !chk_more;
 
-      if (accepted || bail) {
-        j += 1;
-        c = c + 1 == d ? 0 : c + 1;
-        phase = j >= n_steps ? DONE : ENTER;
-      } else if (is_enter) {
-        phase = INIT_R;
-      } else if (more_dbl && (ph_initr || ph_dbl)) {
-        phase = DOUBLE;
-      } else if (start_shrink || (rejected && !bail)) {
-        phase = SHRINK;
-      } else if (to_check || chk_more) {
-        phase = CHECK;
+        const bool rejected = (ph_shr && !consider) || chk_rej;
+        if (rejected) {
+          if (cand < old) Lb = cand;
+          else Rb = cand;
+        }
+        const float aL = fabsf(Lb), aR = fabsf(Rb);
+        const float mx = (isnan(aL) || isnan(aR)) ? NAN : fmaxf(aL, aR);
+        const bool degenerate = fabsf(Rb - Lb) <= mx * 3.5e-4f;
+        const bool bail = rejected && (degenerate || n_shr >= max_iter);
+
+        const bool accepted = accept_shr || accept_chk;
+        if (accepted) {
+          // every thread of the group stores the same value, and reads it back
+          // in its own program order
+          lp_cur = lp_cand;
+          if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared_from_cur(c, cand);
+          if constexpr (kKeptSums<K, G>) {
+            many.commit(c, cand, pr_cur, params);  // stores x_c once no thread reads it
+          } else {
+            xs[c * stride] = cand;
+            if constexpr (kManyTerms<K, G>) {
+              many.commit(c, pr_cur, beta, in, var);
+            } else if constexpr (G > 1) {
+              // evaluate's last __syncwarp: no thread still reads the kept terms
+              if (var.use) ref.commit(c);
+            }
+          }
+        }
+        acc_sum += accepted ? 1.0f : 0.0f;
+
+        if (accepted || bail) {
+          j += 1;
+          c = c + 1 == d ? 0 : c + 1;
+          phase = j >= n_steps ? DONE : ENTER;
+        } else if (is_enter) {
+          phase = INIT_R;
+        } else if (more_dbl && (ph_initr || ph_dbl)) {
+          phase = DOUBLE;
+        } else if (start_shrink || (rejected && !bail)) {
+          phase = SHRINK;
+        } else if (to_check || chk_more) {
+          phase = CHECK;
+        }
       }
+
+      // the deltas drift by float32 rounding over the sweep: hand back the
+      // exactly recomputed density of the final state, as the TPU kernel does
+      if constexpr (kDelta) lp_cur = evaluate(-1, 0.0f, prepared(-1, 0.0f), 0);
     }
-
-    // the deltas drift by float32 rounding over the sweep: hand back the
-    // exactly recomputed density of the final state, as the TPU kernel does
-    if constexpr (kDelta) lp_cur = evaluate(-1, 0.0f, prepared(-1, 0.0f), 0);
     if (g == 0) {
       lp_out[b] = lp_cur;
       stats[b] = acc_sum;
@@ -1055,6 +1344,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
       for (int k = 0; k < kClockParts; ++k) k2_clocks[b][k] = clk_acc[k];
       k2_clocks[b][kClockParts] = clock64() - clk0;
       k2_clocks[b][kClockParts + 1] = global_ns() - ns0;
+      k2_clocks[b][kClockParts + 2] = clk_passes;
     }
 #endif
   }
@@ -1144,11 +1434,21 @@ constexpr bool cheap_terms = K != kLogisticRegression;
 // and 10 reference terms: 1 / 8 / 16 / 32 threads 0.479 / 0.189 / 0.174 /
 // 0.153 ms at its B = 768 (the rule's 32), 0.815 / 0.336 / 0.329 / 0.366 ms
 // at 6,144 (the rule's 8). (NVIDIA H100 80GB HBM3, 700.00 W.) One thread also
-// where the group's buffers do not fit.
+// where the group's buffers do not fit. Eight schools and unid speculate a
+// query a thread: the most threads while the batch's groups fill at most a
+// quarter of the card, as above (device times, eight schools and unid at B =
+// 640: 1 / 8 / 16 / 32 threads 0.30 / 0.108 / 0.087 / 0.089 and 0.154 / 0.037 /
+// 0.026 / 0.023 ms; at 8,192, 8 threads 0.151 and 0.033 ms, 32 threads
+// 0.49 and 0.036).
 template <Density K>
 int pick_group(int B, int d, const DensityParams& params, bool variational) {
   const int n_all_terms = end_term<K>(d, params);
   const int n_target = n_all_terms - first_term<K>;
+  if (kSpeculated<K>) {  // slots of speculated queries
+    int group = 32;
+    while (group > 8 && (int64_t)B * group > kResidentThreads / 4) group /= 2;
+    return (int64_t)B * group > kResidentThreads ? 1 : group;
+  }
   if (K == kToyMvn || K == kMvn || n_target <= 1) return 1;
   // a lane under a variational reference has its d terms besides
   const int n_terms = n_target + (variational ? d : 0);
@@ -1164,17 +1464,14 @@ int pick_group(int B, int d, const DensityParams& params, bool variational) {
   return group;
 }
 
-// kUnid has one term: it is built for one thread per lane only.
 template <Density K>
 int launch_full(const SweepArgs& a, int group) {
   if (!group) group = pick_group<K>(a.B, a.d, a.in.params, a.in.isvar != nullptr);
-  if (group == 1) return launch<K, false, 1>(a);
-  if constexpr (K != kUnid) {
-    switch (group) {
-      case 8: return launch<K, false, 8>(a);
-      case 16: return launch<K, false, 16>(a);
-      case 32: return launch<K, false, 32>(a);
-    }
+  switch (group) {
+    case 1: return launch<K, false, 1>(a);
+    case 8: return launch<K, false, 8>(a);
+    case 16: return launch<K, false, 16>(a);
+    case 32: return launch<K, false, 32>(a);
   }
   return -1;
 }
@@ -1236,12 +1533,12 @@ bool consistent(int density, int d, const DensityInputs& in) {
 
 #ifdef PIGEONS_K2_CLOCKS
 // The last launch's clock64() split of lanes 0 .. n_lanes - 1 (at most
-// kClockLanes), copied to the host array out [n_lanes][kClockParts + 2]:
-// cycles by ClockPart, then the loop's cycles and its nanoseconds.
+// kClockLanes), copied to the host array out [n_lanes][kClockColumns]:
+// cycles by ClockPart, then the loop's cycles, its nanoseconds and its passes.
 extern "C" int k2_clock_split(unsigned long long* out, int n_lanes) {
   if (n_lanes > kClockLanes) return -1;
   return (int)cudaMemcpyFromSymbol(out, k2_clocks,
-                                   sizeof(unsigned long long) * (kClockParts + 2) * n_lanes);
+                                   sizeof(unsigned long long) * kClockColumns * n_lanes);
 }
 #endif
 
@@ -1257,7 +1554,7 @@ extern "C" int k2_clock_split(unsigned long long* out, int n_lanes) {
 // n_prior rows of 8 floats (offset, size, distribution, bijector, p[0..3]).
 // isvar [B], mean [d], std [d] and active [1] are device pointers of a
 // variational run's lanes and reference, all null otherwise. group is the
-// number of threads per lane in full mode (1, 8, 16 or 32; 1 only for kUnid),
+// number of threads per lane in full mode (1, 8, 16 or 32),
 // or 0 for the launcher's choice from the density, B and d; delta mode always
 // runs one.
 // Launches on `stream`. Returns cudaGetLastError(), or -1 for

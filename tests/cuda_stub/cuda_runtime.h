@@ -60,6 +60,7 @@ template <class Kernel>
 cudaError_t cudaFuncSetAttribute(Kernel, int, int) { return cudaSuccess; }
 
 template <class T> inline T min(T a, T b) { return b < a ? b : a; }
+template <class T> inline T max(T a, T b) { return a < b ? b : a; }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 template <class To, class From> inline To stub_bit_cast(From v) {
   To out;
@@ -71,6 +72,7 @@ inline float __int_as_float(int32_t v) { return stub_bit_cast<float>(v); }
 inline int32_t __float_as_int(float v) { return stub_bit_cast<int32_t>(v); }
 inline double __longlong_as_double(long long v) { return stub_bit_cast<double>(v); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
 
 namespace cuda_stub {
 

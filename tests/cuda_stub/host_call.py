@@ -59,3 +59,12 @@ def slice_sweep(lib_path, x, betas, seeds, kind, params, coord_deltas, w, p, n_p
                           B, d, kind, int(coord_deltas), c_params, c_arrays, c_lens, c_prior,
                           len(prior), *var, w, p, n_passes, max_iter, group, None)
     out.put((err, x_out, lp, stats))
+
+
+def slice_sweep_child(*args):
+    """``slice_sweep`` with the queue last, as ``_in_child`` of
+    ``tests/test_torch_csrc_host.py`` calls a child's function: ``(lib_path,
+    x, betas, seeds, kind, params, coord_deltas, w, p, n_passes, max_iter,
+    group, arrays, prior, variational, out)``."""
+    *head, arrays, prior, variational, out = args
+    slice_sweep(*head, out, arrays, prior, variational)

@@ -8,6 +8,8 @@ ones the wrappers of ``ops/cuda_slice.py`` call on the card, on CPU tensors.
 This exercises what the torch twins cannot: the mapping of work to threads.
 Kernel K1's warps refill finished lanes from a cursor in shared memory; kernel
 K2 runs full mode with 1, 8, 16 or 32 threads per lane and delta mode with one.
+A child that calls K2 imports numpy and ctypes only (``host_call``), and a
+case's twin is computed once for all its groups.
 
 Tolerance: everything bitwise (states, returned densities, stats), as on the
 card: the sources' arithmetic is the twins'. A kernel whose threads disagree
@@ -15,6 +17,7 @@ about a mask deadlocks here as it would on the card, so every call runs in a
 child process under a time limit. Skipped only where ``g++`` is missing.
 """
 
+import functools
 import multiprocessing
 import shutil
 import subprocess
@@ -193,22 +196,18 @@ def _unknown_term(lib_path, x, a, seeds, out):
 
 
 def _k2(lib_path, x, betas, seeds, path, coord_deltas, n_passes, group, isvar=None,
-        ref_params=None, max_iter=MAX_ITER):
+        ref_params=None, max_iter=MAX_ITER, sampler=SAMPLER):
+    """Kernel K2's entry point in a child process that imports numpy and
+    ctypes only (``host_call``), so that it starts in well under a second."""
     density = path.device_density()
     variational = None
     if ref_params is not None:
         variational = tuple(t.numpy() for t in (isvar, ref_params["mean"], ref_params["std"],
                                                 ref_params["active"].reshape(1)))
-    return _in_child(_slice_sweep, lib_path, x, betas, seeds, density.kind, density.params,
-                     coord_deltas, *SAMPLER, n_passes, max_iter, group,
-                     tuple(a.numpy() for a in density.arrays), density.prior, variational)
-
-
-def _slice_sweep(*args):
-    """``host_call.slice_sweep`` with the queue, the child's last argument, in
-    its place."""
-    *head, arrays, prior, variational, out = args
-    host_call.slice_sweep(*head, out, arrays, prior, variational)
+    return _in_child(host_call.slice_sweep_child, lib_path, x, betas, seeds, density.kind,
+                     tuple(float(v) for v in density.params), coord_deltas, *sampler, n_passes,
+                     max_iter, group, tuple(a.numpy() for a in density.arrays),
+                     tuple(tuple(float(v) for v in row) for row in density.prior), variational)
 
 
 def _full_path(name, d):
@@ -226,13 +225,21 @@ def _full_path(name, d):
                                                ("banana", 7, 4, 2), ("mvn", 3, 40, 1),
                                                ("toy", 6, 17, 1), ("funnel", 4, 3, 0)])
 def test_k2_full_host_build_matches_twin(host_libraries, name, B, d, n_passes, group):
+    path, x, betas, seeds, want = _full_case(name, B, d, n_passes)
+    got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, False, n_passes, group)
+    _assert_bitwise(got, want, ("x", "lp", "stats"))
+
+
+@functools.lru_cache(maxsize=None)
+def _full_case(name, B, d, n_passes):
+    """The path, inputs and the twin's sweep of a full-mode case (shared by
+    the tests of each group)."""
     path = _full_path(name, d)
     x, betas, seeds = _inputs(B, d, d + n_passes)
     if name == "funnel" and B > 5:
         x[3, 0], x[4, 0], x[5, d - 1] = 95.0, -95.0, float("nan")
-    got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, False, n_passes, group)
     want = cuda_slice.sweep_reference(x, betas, seeds, path, False, n_passes=n_passes)
-    _assert_bitwise(got, want, ("x", "lp", "stats"))
+    return path, x, betas, seeds, want
 
 
 def test_k2_chooses_its_group_from_the_shape(host_libraries):

@@ -3,7 +3,8 @@ rest of ``tests/test_torch_csrc_host.py``, which has the helpers and says how
 the sources are built and what is compared (everything bitwise). Here: the
 terms a lane keeps from query to query under a variational reference
 (``RefTerms``: its reference's; ``KeptSums``: the funnel's and banana's
-target terms, under the fixed reference too), for every group size and the
+target terms, under the fixed reference too), and eight schools' and
+unid's speculated queries under it, for every group size and the
 launcher's choice.
 """
 
@@ -50,21 +51,20 @@ def _twin_case(name, active):
     return path, x, betas, seeds, isvar, params, want, counts
 
 
-# every group and the launcher's choice (0); unid, one target term, is built
-# for one thread a lane only, whatever the reference's terms add
+# every group and the launcher's choice (0)
 @pytest.mark.parametrize("active", [0.0, 1.0])
-@pytest.mark.parametrize("name,group", [(name, group) for name in sorted(KEPT) if name != "unid"
-                                        for group in (0, 1, 8, 16, 32)]
-                         + [("unid", 0), ("unid", 1)])
+@pytest.mark.parametrize("name,group", [(name, group) for name in sorted(KEPT)
+                                        for group in (0, 1, 8, 16, 32)])
 def test_k2_kept_terms_match_twin(host_libraries, name, active, group):
     """The terms a lane keeps from query to query: the reference's under a
     variational reference (RefTerms: on the funnel and banana paths with their
-    target's, KeptSums; on eight schools' terms; on centred eight schools'
-    and mRNA's ManyTerms), and the funnel's and banana's fixed reference and
-    target terms. Lanes of both legs, the reference active or not yet, two
-    passes: queries of coordinate 0 (which prepare reads) and of the others,
-    shrink candidates accepted and rejected; bitwise the twin, which
-    recomputes every term for every query."""
+    target's, KeptSums; on centred eight schools' and mRNA's ManyTerms), and
+    the funnel's and banana's fixed reference and target terms; eight schools
+    and unid, whose groups speculate their queries, under the reference too.
+    Lanes of both legs, the reference active or not yet, two passes: queries
+    of coordinate 0 (which prepare reads) and of the others, shrink
+    candidates accepted and rejected; bitwise the twin, which recomputes
+    every term for every query."""
     path, x, betas, seeds, isvar, params, want, counts = _twin_case(name, active)
     got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, False, 2, group, isvar, params)
     _assert_bitwise(got, want, ("x", "lp", "stats"))

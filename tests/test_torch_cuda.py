@@ -328,12 +328,6 @@ def test_bayesian_kernel_matches_twin_for_each_group(cuda_device, name, n, varia
     choice: bitwise the twin."""
     path, x, betas, seeds, extra, want = _bayesian_case(name, n, variational)
     before = SliceSamplerCUDA.launches["slice_sweep"]
-    if name == "unid" and group > 1:  # one term: built for one thread per lane only
-        with pytest.raises(RuntimeError, match="does not take"):
-            cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group,
-                                  **extra)
-        assert SliceSamplerCUDA.launches["slice_sweep"] == before
-        return
     got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, max_iter=64, group=group,
                                 **extra)
     assert SliceSamplerCUDA.launches["slice_sweep"] == before + 1

@@ -1,6 +1,6 @@
 """Times variants of the port's CUDA kernels side by side on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py [--k2-only | --variational] [--parent-csrc DIR ... [--parent-abi N]]
+    python3 tools/torch_kernel_variants.py [--k2-only | --variational | --speculate] [--parent-csrc DIR ... [--parent-abi N]]
 
 Run from the repository root. Builds ``pigeons_tpu_torch/csrc`` once for each
 setting of kernel K1's tile size and refill threshold (``-DPIGEONS_K1_CHUNK=
@@ -49,6 +49,16 @@ each against the parent (``--parent-csrc``):
   the SASS length of both instances (``cuobjdump``) and the iterations per
   element of both terms.
 
+``--speculate`` times only K2's eight schools and unid rows, whose groups of
+8, 16 or 32 threads speculate the machine's next queries, a query a thread,
+at their paths' 640 lanes and at 8,192 (d = 10 and 2, 1 pass): every group,
+the launcher's choice and the parent (``--parent-csrc``, at its launcher's
+choice); at 640 lanes the ``clock64()`` split of the slowest lane in each
+parent's ``PIGEONS_K2_CLOCKS`` build (its launcher's group) and in this
+tree's at 8, 16 and 32 threads, with the loop's passes (iterations, or
+rounds of speculated queries). The builds run at once; it writes
+``chiprun_out/kernel_variants_speculate.json``.
+
 Every variant's output must equal the first variant's bit for bit (what a
 kernel computes does not depend on how its work is mapped to threads). The
 variants of one kernel are timed in turns, forwards then backwards, twice
@@ -69,6 +79,7 @@ import os
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -283,35 +294,43 @@ def two_leg_funnel(B):
     return path, (x, betas, seeds), var
 
 
-def clock_split(lib, call, iterations, device_ms_):
+def clock_split(lib, call, iterations, device_ms_, passes=True):
     """Run ``call`` (a launch of a ``PIGEONS_K2_CLOCKS`` build) and print the
     split of the slowest lane's loop (most iterations by the twin) by part,
     its nanoseconds and microseconds an iteration, beside the launch's
-    device time; and the same split summed over all lanes, as shares."""
+    device time; and the same split summed over all lanes, as shares.
+    ``passes``: whether the build counts its loop's passes (the machine's
+    iterations, or the speculated machine's rounds), as this tree's does;
+    the split then gives microseconds a pass too."""
     call()
     torch.cuda.synchronize()
     B = len(iterations)
-    buf = np.zeros((B, len(CLOCK_PARTS) + 2), np.uint64)
+    n_extra = 3 if passes else 2  # loop cycles, nanoseconds[, passes]
+    buf = np.zeros((B, len(CLOCK_PARTS) + n_extra), np.uint64)
     err = lib.k2_clock_split(buf.ctypes.data_as(ctypes.c_void_p), B)
     if err:
         raise RuntimeError(f"k2_clock_split: error {err}")
+    parts_of, loop_cycles, loop_ns = (buf[:, :len(CLOCK_PARTS)].astype(np.float64),
+                                      buf[:, len(CLOCK_PARTS)].astype(np.float64),
+                                      buf[:, len(CLOCK_PARTS) + 1].astype(np.float64))
     its = np.asarray(iterations.cpu(), np.int64)
     slow = int(np.argmax(its))
-    cyc, ns = buf[slow, :-2].astype(np.float64), float(buf[slow, -1])
-    total = float(buf[slow, -2])
+    cyc, ns, total = parts_of[slow], float(loop_ns[slow]), float(loop_cycles[slow])
+    n_passes = int(buf[slow, -1]) if passes else int(its[slow])
     parts = {name: float(c) for name, c in zip(CLOCK_PARTS, cyc)}
-    row = {"slowest_lane": slow, "iterations": int(its[slow]), "loop_cycles": total,
-           "loop_ns": ns, "us_per_iteration": ns / 1e3 / its[slow],
-           "cycles_per_iteration": total / its[slow], "device_ms": device_ms_,
-           "cycles_by_part": parts,
+    row = {"slowest_lane": slow, "iterations": int(its[slow]), "passes": n_passes,
+           "loop_cycles": total, "loop_ns": ns, "us_per_iteration": ns / 1e3 / its[slow],
+           "us_per_pass": ns / 1e3 / n_passes, "cycles_per_iteration": total / its[slow],
+           "cycles_per_pass": total / n_passes, "device_ms": device_ms_, "cycles_by_part": parts,
            "share_by_part_all_lanes": {name: float(v) for name, v in zip(
-               CLOCK_PARTS, buf[:, :-2].astype(np.float64).sum(0) / buf[:, -2].astype(
-                   np.float64).sum())},
-           "slowest_lane_by_ns": int(np.argmax(buf[:, -1])), "max_loop_ns": float(buf[:, -1].max())}
-    print(f"   slowest lane {slow}: {its[slow]} iterations, {total:.0f} cycles, {ns / 1e3:.2f} us "
-          f"({ns / 1e3 / its[slow]:.3f} us, {total / its[slow]:.0f} cycles an iteration; launch "
-          f"device time {device_ms_ * 1e3:.2f} us; longest lane loop {buf[:, -1].max() / 1e3:.2f} "
-          f"us); cycles by part: "
+               CLOCK_PARTS, parts_of.sum(0) / loop_cycles.sum())},
+           "slowest_lane_by_ns": int(np.argmax(loop_ns)), "max_loop_ns": float(loop_ns.max())}
+    if passes:
+        row["passes_slowest_lane_by_ns"] = int(buf[int(np.argmax(loop_ns)), -1])
+    print(f"   slowest lane {slow}: {its[slow]} iterations in {n_passes} passes, {total:.0f} cycles, "
+          f"{ns / 1e3:.2f} us ({ns / 1e3 / its[slow]:.3f} us an iteration, {ns / 1e3 / n_passes:.3f} "
+          f"us and {total / n_passes:.0f} cycles a pass; launch device time {device_ms_ * 1e3:.2f} "
+          f"us; longest lane loop {loop_ns.max() / 1e3:.2f} us); cycles by part: "
           + ", ".join(f"{n} {c:.0f} ({c / total:.1%})" for n, c in parts.items()), flush=True)
     return row
 
@@ -446,6 +465,61 @@ def variational_main(args, parents):
     return results
 
 
+SPECULATED = (("eight schools", eight_schools), ("unid", unid_target))
+
+
+def speculate_main(args, parents):
+    """``--speculate``: K2's eight schools and unid rows, whose groups
+    speculate the machine's next queries, against the parent."""
+    results = {}
+    src = ("sweep_slice.cu",)
+    builds = {"this tree": ((), _build.CSRC), "this tree, clocks": (("PIGEONS_K2_CLOCKS",),
+                                                                    _build.CSRC)}
+    builds.update({f"{name}, clocks": (("PIGEONS_K2_CLOCKS",), csrc.resolve())
+                   for name, csrc in zip(parents, args.parent_csrc)})
+    with ThreadPoolExecutor(len(builds)) as pool:  # every build at once, one nvcc each
+        futures = {name: pool.submit(load, defines, csrc, name == "this tree", src)
+                   for name, (defines, csrc) in builds.items()}
+        libs = {name: f.result() for name, f in futures.items()}
+    small = chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES
+    for name, make in SPECULATED:
+        model = make().to(torch.device("cuda"))
+        path = model.create_path(model.default_reference())
+        for B in (small, 8192):
+            x, betas, seeds = chip_smoke.lane_inputs(B, model.dim, 1.0, 11)
+            counts = torch.zeros(6, dtype=torch.int64, device=x.device)
+            want = cuda_slice.sweep_reference(x, betas, seeds, path, False,
+                                              n_passes=chip_smoke.F_PASSES, phase_counts=counts)
+            iterations = want[2][2]
+            title = f"K2 full, {name} B={B} d={model.dim} 1 pass"
+            print(f"-- {title}: twin's iterations: slowest lane {int(iterations.max())}, mean "
+                  f"{float(iterations.double().mean()):.1f}; phases {counts.tolist()}", flush=True)
+            variants = {f"group {g}": k2_call(libs["this tree"], x, betas, seeds, path, False, g,
+                                              True) for g in GROUPS}
+            variants["launcher's choice"] = k2_call(libs["this tree"], x, betas, seeds, path,
+                                                    False, 0, True)
+            for pname, parent in parents.items():
+                variants[pname] = k2_call(parent, x, betas, seeds, path, False, 0, True)
+            got = variants["group 1"]()
+            for t, w in zip(got, want):
+                if not torch.equal(t.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(f"{title}: this tree differs from the twin")
+            results[title] = race(title, variants)
+            if B != small:
+                continue
+            splits = [(f"{pname}, the launcher's group", libs[f"{pname}, clocks"], 0, False)
+                      for pname in parents]
+            splits += [(f"this tree, group {g}", libs["this tree, clocks"], g, True)
+                       for g in (8, 16, 32)]
+            for label, lib, group, passes in splits:
+                call = k2_call(lib, x, betas, seeds, path, False, group, True)
+                print(f"-- clock64 split, {title}, {label}", flush=True)
+                results[f"clock split, {title}, {label}"] = clock_split(
+                    lib, call, iterations, device_ms(call), passes)
+    results["K2 SASS"] = sass_lengths(libs["this tree"].path)
+    return results
+
+
 def k1_variational_inputs(B, d):
     """``chip_smoke.py`` phase 2c's inputs at ``B`` lanes."""
     x, betas, seeds = chip_smoke.lane_inputs(B, d, 0.5, 13)
@@ -466,14 +540,19 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--k2-only", action="store_true")
     ap.add_argument("--variational", action="store_true")
+    ap.add_argument("--speculate", action="store_true")
     ap.add_argument("--parent-csrc", type=Path, action="append", default=[])
     ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4, 5))
     args = ap.parse_args()
     chip_smoke.device_phase()
-    if args.variational:
+    if args.variational or args.speculate:
         parents = {("parent" if i == 0 else f"parent {i + 1}"): load(csrc=csrc.resolve())
                    for i, csrc in enumerate(args.parent_csrc)}
-        write_results(variational_main(args, parents), None, "kernel_variants_variational.json")
+        if args.speculate:
+            write_results(speculate_main(args, parents), None, "kernel_variants_speculate.json")
+        else:
+            write_results(variational_main(args, parents), None,
+                          "kernel_variants_variational.json")
         return
 
     default = load(verbose=True)
@@ -541,9 +620,7 @@ def main():
         for many in sizes:
             mx, mb, ms = chip_smoke.lane_inputs(many, model.dim, 1.0, 11)
             title = f"K2 full, {name} B={many} d={model.dim} 1 pass"
-            # unid has one term: it is built for one thread per lane only
-            results[title] = race(title, k2_variants(mx, mb, ms, mpath,
-                                                     (1,) if name == "unid" else GROUPS))
+            results[title] = race(title, k2_variants(mx, mb, ms, mpath))
     delta = {"this tree": k2_call(default, x, betas, seeds, toy, True, 0, arrays=True)}
     for name, parent in parents.items():
         delta[name] = k2_call(parent, x, betas, seeds, toy, True, parent_group,
