@@ -37,7 +37,7 @@
 // (pick_group): groups only for densities whose terms cost something, the
 // smallest group with one term per thread, fewer threads per lane once the
 // batch's groups would no longer all be resident. Delta mode keeps one thread
-// per lane (a delta query is O(1)).
+// per lane (a delta query is O(1)), in rounds of iterations (below).
 //
 // The likelihoods of many terms (kHierarchicalNormal, kLogisticRegression:
 // 200 observations each; kMrna: 150; and kEightSchoolsCentered's
@@ -119,6 +119,39 @@
 // for the current state (slower on both rows: the slowest lane's queries of
 // mu and log tau recompute every term), each slot hashing the draws of the
 // slots before it (a round 2x as long).
+//
+// The Bernoulli row (kBernoulli, 640 lanes, d = 1) is bound the same way:
+// its slowest lane's 35 iterations of 1.86 us (the Beta block's log terms,
+// the 10 adds and the blend in one thread, 63% of them; a sigmoid, log and
+// log1p for every query) were 65 of a 69-us launch. On the speculated
+// machine it takes 6 / 4 / 3 rounds of 2.5-2.9 us at G = 8 / 16 / 32: 18.8 /
+// 14.4 / 13.2 us of device time against 68.1, and at phase 10's 10,000
+// lanes 28.1 us at G = 8 against 106.0 (tools/torch_kernel_variants.py
+// --speculate --rows bernoulli, NVIDIA H100 80GB HBM3, 700.00 W, the
+// sources before in turns).
+//
+// Delta mode (lookahead_delta_sweep). Its one path, the invariance test,
+// launches 10,000 lanes of d = 100 for 3 passes: 79 blocks of 128 threads,
+// one warp to a scheduler on 79 of the 132 SMs, and the launch lasts as long
+// as the slowest lane's 2,373 iterations, each some 740 cycles of one
+// thread's dependent chain (a hash, ENTER's two draws and log whenever any
+// lane of the warp enters a coordinate, the selects of every phase, a
+// two-operation query). The speculated machine lost here at every G (1.34 /
+// 1.55 / 3.41 / 7.24 ms at G = 4 / 8 / 16 / 32 against 0.77): its rounds
+// were as few as counted, but with 4 or 8 lanes to a warp the groups'
+// phases diverge and the warp runs every branch with its shuffles, and
+// above 8 the batch's groups no longer fit at once. So delta mode keeps one
+// thread a lane, which takes the lane's run in rounds of kDeltaSlots
+// iterations: ENTER's draws and log and the iterations' draws hashed at
+// once, then the iterations in turn by selects alone (no hash, no branch: a
+// warp of lanes in different phases runs one instruction stream). 0.449 ms
+// of device time at 2 iterations a round against 0.864 for the sources
+// before (3 / 4 / 1 / 8: 0.450 / 0.511 / 0.561 / 0.631; the same round with
+// branches on the phase 1.00-1.27 ms: a warp ran every branch; chains that
+// read none of the recorded state, no gain; the same tool, --rows delta
+// --delta-slots, in turns); its clock64() split: the slowest lane's 2,373
+// iterations in 1,288 rounds of 806 cycles, 44% of them the iterations, 28%
+// the hashes and ENTER. NVIDIA H100 80GB HBM3, 700.00 W.
 //
 // Layout. Input and output are the row-major [B, d] states. With one thread
 // per lane a block of 128 lanes loads its contiguous [128, d] tile with
@@ -776,9 +809,10 @@ struct ManyTerms {
 };
 
 // Whether density K with G threads a lane runs the speculated machine
-// (speculated_sweep): eight schools and unid, whose queries are a few terms.
+// (speculated_sweep): eight schools, unid and Bernoulli, whose queries are a
+// few terms.
 template <Density K>
-constexpr bool kSpeculated = K == kEightSchools || K == kUnid;
+constexpr bool kSpeculated = K == kEightSchools || K == kUnid || K == kBernoulli;
 template <Density K, int G>
 constexpr bool kSpeculate = G > 1 && kSpeculated<K>;
 
@@ -1038,6 +1072,153 @@ __device__ LaneResult speculated_sweep(float* xs, int g, unsigned mask, int d, f
   return {lp_cur, acc_sum, acc_n, n_evals};
 }
 
+// Iterations of a run whose draws the delta machine of one thread hashes at
+// once (lookahead_delta_sweep; 1, 3, 4 and 8 were slower on the H100).
+constexpr int kDeltaSlots = 2;
+
+// The slice machine of one lane in delta mode, by one thread, in rounds of
+// up to S iterations of one run (speculated_sweep's runs). A round hashes
+// ENTER's two draws, its log and the S draws of the run's next iterations
+// at once, whatever the lane's phase, then takes the iterations in turn, up
+// to the first that ends the run, with no hash and no branch on the phase in
+// the chain: each computes its query and the machine's step of each kind
+// (a doubling, a shrink candidate, a halving) and keeps the one of the run.
+// An iteration's query is delta_base + (a q) q. The same bits as the machine
+// iteration by iteration; the draws of iterations past the run's end are
+// discarded. After the sweep the final state's density is recomputed whole.
+// Its clock64() parts (PIGEONS_K2_CLOCKS) stand for other work than the
+// generic machine's: kDraw is a round's hashes and ENTER's selects, kTerms
+// its iterations, kMachine the run's end.
+template <int S, class Mark>
+__device__ LaneResult lookahead_delta_sweep(float* xs, int stride, int d, float beta,
+                                            const DensityInputs& in, const VariationalLane& var,
+                                            uint32_t hash_base, float W, float narrow_w, int p,
+                                            int n_steps, int max_iter, const Mark& mark) {
+  const DensityParams& params = in.params;
+  const float a = toy_coord_factor(beta, params.v[0], params.v[1]);
+  const auto full_density = [&] {
+    const LaneView v{xs, stride, -1, 0.0f};
+    return log_density<kToyMvn>(v, d, beta, prepare<kToyMvn>(v, d, params, in.prior), params,
+                                in.arrays, in.prior, var);
+  };
+  const auto degenerate = [](float lb, float rb) {
+    const float aL = fabsf(lb), aR = fabsf(rb);
+    const float mx = isnan(aL) | isnan(aR) ? NAN : fmaxf(aL, aR);
+    return fabsf(rb - lb) <= mx * 3.5e-4f;
+  };
+
+  float lp_cur = full_density();
+  mark(kClockParts);  // the loop's clocks alone
+  float old = 0.f, z = 0.f, L = 0.f, R = 0.f, lpL = 0.f, lpR = 0.f, Lb = 0.f, Rb = 0.f;
+  float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f, base = 0.f;
+  float acc_sum = 0.f, acc_n = 0.f, n_evals = 0.f;
+  int phase = n_steps > 0 ? ENTER : DONE;
+  int j = 0, c = 0, K_dbl = 0, n_shr = 0;  // j: coordinate steps done, c = j % d
+  uint32_t it = 0;
+
+  while (phase != DONE) {
+    mark(kMachine);  // the run's end
+    const int first = phase;  // the run's kind: ENTER, INIT_R or DOUBLE, SHRINK, CHECK
+    const bool dbl_run = first <= DOUBLE, shr_run = first == SHRINK, chk_run = first == CHECK;
+    const uint32_t ctr = 4u * it;
+    // ENTER's u_init, u_z and -log u_z, and slot s's doubling side (draw 2)
+    // or shrink candidate (draw 3) of iteration it + s
+    const float u_init = draw(hash_base, ctr), e_z = -cephes_logf(draw(hash_base, ctr + 1u));
+    const uint32_t kind_draw = shr_run ? 3u : 2u;
+    float u[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) u[s] = draw(hash_base, ctr + 4u * s + kind_draw);
+    const bool is_enter = first == ENTER;
+    const float xc = xs[c * stride];
+    old = is_enter ? xc : old;
+    z = is_enter ? lp_cur - e_z : z;
+    L = is_enter ? __fmaf_rn(u_init, -W, old) : L;
+    R = is_enter ? L + W : R;
+    base = is_enter ? lp_cur - quadratic_term(a, old) : base;
+    mark(kDraw);  // the hashes and ENTER
+    // iteration it + s is the machine's while no iteration before it ended the
+    // run; every step below is a select, every test evaluates all its terms
+    bool ended = false, considered = false, chk_rejected = false;
+    int n_taken = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const bool take = !ended;
+      n_taken = take ? s + 1 : n_taken;
+      // a doubling run: ENTER (query L, sets lpL), INIT_R (R, lpR), DOUBLE
+      const int kind = min(first + s, DOUBLE);
+      const bool left = (kind == ENTER) | ((kind == DOUBLE) & (u[s] <= 0.5f));
+      const float span = R - L;
+      const float q_dbl = kind == DOUBLE ? (left ? L - span : R + span) : kind == ENTER ? L : R;
+      // a shrink run: the candidate; a CHECK run: the halving towards cand
+      const float q_shr = __fmaf_rn(u[s], Rb - Lb, Lb);
+      const float M = (Lh + Rh) * 0.5f;
+      const bool to_left = cand < M;
+      const float lp = base + quadratic_term(a, dbl_run ? q_dbl : shr_run ? q_shr : M);
+
+      const bool dbl = take & dbl_run;
+      L = dbl & (kind == DOUBLE) & left ? q_dbl : L;
+      R = dbl & (kind == DOUBLE) & !left ? q_dbl : R;
+      lpL = dbl & left ? lp : lpL;
+      lpR = dbl & !left ? lp : lpR;
+      K_dbl = !dbl ? K_dbl : kind == INIT_R ? p : kind == DOUBLE ? K_dbl - 1 : K_dbl;
+      const bool end_dbl = (kind != ENTER) & !((K_dbl > 0) & ((z < lpL) | (z < lpR)));
+
+      const bool shr = take & shr_run;
+      const bool in_slice = z < lp;
+      cand = shr ? q_shr : cand;
+      lp_cand = shr ? lp : lp_cand;
+      considered = shr ? in_slice : considered;
+      Lb = shr & !in_slice & (q_shr < old) ? q_shr : Lb;
+      Rb = shr & !in_slice & !(q_shr < old) ? q_shr : Rb;
+      const bool end_shr = in_slice | degenerate(Lb, Rb) | (n_shr + s + 1 >= max_iter);
+
+      const bool chk = take & chk_run;
+      Rh = chk & to_left ? M : Rh;
+      Lh = chk & !to_left ? M : Lh;
+      lpRh = chk & to_left ? lp : lpRh;
+      lpLh = chk & !to_left ? lp : lpLh;
+      const bool rej = ((old < M) != to_left) & (z >= lpLh) & (z >= lpRh);
+      chk_rejected = chk ? rej : chk_rejected;
+      const bool end_chk = rej | !((Rh - Lh) > narrow_w);
+
+      ended = ended | (dbl_run ? end_dbl : shr_run ? end_shr : end_chk);
+    }
+    mark(kTerms);  // the iterations
+    it += (uint32_t)n_taken;
+    n_evals += (float)n_taken;
+    // the run's end, by selects: a doubling run starts the shrink; a shrink
+    // candidate in the slice is accepted or checked; CHECK accepts or rejects
+    const bool start_shrink = dbl_run & ended;
+    const bool narrow = (R - L) <= narrow_w;
+    const bool to_check = shr_run & considered & !narrow;
+    const bool rejected = chk_run & chk_rejected;
+    const bool accepted = (shr_run & considered & narrow) | (chk_run & ended & !rejected);
+    Lb = start_shrink ? L : rejected & (cand < old) ? cand : Lb;
+    Rb = start_shrink ? R : rejected & !(cand < old) ? cand : Rb;
+    n_shr = start_shrink ? 0 : shr_run ? n_shr + n_taken : n_shr;
+    const bool bail = (shr_run & ended & !considered) |
+                      (rejected & (degenerate(Lb, Rb) | (n_shr >= max_iter)));
+    Lh = to_check ? L : Lh;
+    Rh = to_check ? R : Rh;
+    lpLh = to_check ? lpL : lpLh;
+    lpRh = to_check ? lpR : lpRh;
+    acc_n += shr_run & considered ? 1.0f : 0.0f;
+    if (accepted) xs[c * stride] = cand;
+    lp_cur = accepted ? lp_cand : lp_cur;
+    acc_sum += accepted ? 1.0f : 0.0f;
+    const bool finish = accepted | bail;
+    j += finish ? 1 : 0;
+    c = !finish ? c : c + 1 == d ? 0 : c + 1;
+    phase = finish    ? (j >= n_steps ? DONE : ENTER)
+            : dbl_run ? (ended ? SHRINK : first + n_taken - 1 == ENTER ? INIT_R : DOUBLE)
+            : (shr_run & !to_check) | rejected ? SHRINK
+                                               : CHECK;
+  }
+  // the deltas drift by float32 rounding over the sweep: the exactly
+  // recomputed density of the final state, as the TPU kernel hands back
+  return {full_density(), acc_sum, acc_n, n_evals};
+}
+
 template <Density K, bool kDelta, int G>
 __global__ void __launch_bounds__(kThreads, (kMinBlocks<K, G>))
 slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
@@ -1045,7 +1226,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                    float* __restrict__ lp_out, float* __restrict__ stats, int B, int d,
                    DensityInputs in, float W, float narrow_w, int p, int n_passes,
                    int max_iter) {
-  static_assert(G == 1 || !kDelta, "a delta query is O(1): nothing to share out");
+  static_assert(G == 1 || !kDelta, "delta mode runs one thread a lane");
   // G == 1: the states [d][T], coordinate-major. G > 1: the states [T / G][d],
   // then each group's buffers [T / G][lane_floats] (buffer_floats). Then the
   // variational reference's mean, std and log norms [3][d].
@@ -1111,17 +1292,20 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
 #endif
 
     float lp_cur, acc_sum, acc_n, n_evals;
-    if constexpr (kSpeculate<K, G>) {
+    if constexpr (kDelta) {
+      static_assert(K == kToyMvn, "no coordinate term for this density");
+      const LaneResult r = lookahead_delta_sweep<kDeltaSlots>(xs, stride, d, beta, in, var,
+                                                              hash_base, W, narrow_w, p,
+                                                              n_passes * d, max_iter, mark);
+      lp_cur = r.lp, acc_sum = r.acc_sum, acc_n = r.acc_n, n_evals = r.n_evals;
+    } else if constexpr (kSpeculate<K, G>) {
       const LaneResult r = speculated_sweep<K, G>(xs, g, mask, d, beta, in, var, hash_base, W,
                                                   narrow_w, p, n_passes * d, max_iter, mark);
       lp_cur = r.lp, acc_sum = r.acc_sum, acc_n = r.acc_n, n_evals = r.n_evals;
     } else {
       // kept for the lane's current state, recomputed for a query of a coordinate
       // that prepare reads
-      const auto prepared = [&](int c, float q) {
-        return prepare<K>(LaneView{xs, stride, c, q}, d, params, in.prior);
-      };
-      Prepared pr_cur = prepared(-1, 0.0f);
+      Prepared pr_cur = prepare<K>(LaneView{xs, stride, -1, 0.0f}, d, params, in.prior);
       const auto prepared_from_cur = [&](int c, float q) {
         return prepare_query<K>(pr_cur, LaneView{xs, stride, c, q}, d, params, in.prior);
       };
@@ -1173,7 +1357,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
       };
       lp_cur = evaluate(-1, 0.0f, pr_cur, 0);
       float old = 0.f, z = 0.f, L = 0.f, R = 0.f, lpL = 0.f, lpR = 0.f, Lb = 0.f, Rb = 0.f;
-      float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f, base = 0.f;
+      float cand = 0.f, lp_cand = 0.f, Lh = 0.f, Rh = 0.f, lpLh = 0.f, lpRh = 0.f;
       acc_sum = 0.f, acc_n = 0.f, n_evals = 0.f;
       const int n_steps = n_passes * d;
       int phase = n_steps > 0 ? ENTER : DONE;
@@ -1212,18 +1396,10 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
 
         mark(kDraw);
 
-        float lp_q;
-        if constexpr (kDelta) {
-          static_assert(!kDelta || K == kToyMvn, "no coordinate term for this density");
-          const float a = toy_coord_factor(beta, params.v[0], params.v[1]);
-          if (is_enter) base = lp_cur - quadratic_term(a, xc);
-          lp_q = base + quadratic_term(a, query);
-        } else {
-          const Prepared pr_q = prepare_reads<K>(c, d) ? prepared_from_cur(c, query) : pr_cur;
-          mark(kPrepare);
-          lp_q = evaluate(c, query, pr_q, ph_shr ? 1 : 0);
-          mark(kTerms);
-        }
+        const Prepared pr_q = prepare_reads<K>(c, d) ? prepared_from_cur(c, query) : pr_cur;
+        mark(kPrepare);
+        const float lp_q = evaluate(c, query, pr_q, ph_shr ? 1 : 0);
+        mark(kTerms);
         n_evals += 1.0f;
 
         if (is_enter) lpL = lp_q;
@@ -1298,7 +1474,7 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
           // every thread of the group stores the same value, and reads it back
           // in its own program order
           lp_cur = lp_cand;
-          if (!kDelta && prepare_reads<K>(c, d)) pr_cur = prepared_from_cur(c, cand);
+          if (prepare_reads<K>(c, d)) pr_cur = prepared_from_cur(c, cand);
           if constexpr (kKeptSums<K, G>) {
             many.commit(c, cand, pr_cur, params);  // stores x_c once no thread reads it
           } else {
@@ -1327,10 +1503,6 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
           phase = CHECK;
         }
       }
-
-      // the deltas drift by float32 rounding over the sweep: hand back the
-      // exactly recomputed density of the final state, as the TPU kernel does
-      if constexpr (kDelta) lp_cur = evaluate(-1, 0.0f, prepared(-1, 0.0f), 0);
     }
     if (g == 0) {
       lp_out[b] = lp_cur;
@@ -1428,18 +1600,19 @@ constexpr bool cheap_terms = K != kLogisticRegression;
 // two divisions) are cheap by this measure: at its path's B = 8,192, 1 / 8 /
 // 16 / 32 threads take 11.55 / 1.87 / 2.05 / 2.20 ms (before its ManyTerms
 // form 18.17 / 2.75 / 2.87 / 3.19), so the rule's 8 stands; centred eight
-// schools at its B = 640 0.861 / 0.424 / 0.379 / 0.340 ms (the rule's 32),
-// Bernoulli 0.088 / 0.089 / 0.087 / 0.087 ms (one term a thread at most:
-// the group does not matter; the rule's 16). The two-leg funnel, 9 target
+// schools at its B = 640 0.861 / 0.424 / 0.379 / 0.340 ms (the rule's 32).
+// The two-leg funnel, 9 target
 // and 10 reference terms: 1 / 8 / 16 / 32 threads 0.479 / 0.189 / 0.174 /
 // 0.153 ms at its B = 768 (the rule's 32), 0.815 / 0.336 / 0.329 / 0.366 ms
 // at 6,144 (the rule's 8). (NVIDIA H100 80GB HBM3, 700.00 W.) One thread also
-// where the group's buffers do not fit. Eight schools and unid speculate a
-// query a thread: the most threads while the batch's groups fill at most a
-// quarter of the card, as above (device times, eight schools and unid at B =
-// 640: 1 / 8 / 16 / 32 threads 0.30 / 0.108 / 0.087 / 0.089 and 0.154 / 0.037 /
-// 0.026 / 0.023 ms; at 8,192, 8 threads 0.151 and 0.033 ms, 32 threads
-// 0.49 and 0.036).
+// where the group's buffers do not fit. Eight schools, unid and Bernoulli
+// speculate a query a thread: the most threads while the batch's groups fill
+// at most a quarter of the card, as above (device times, eight schools, unid
+// and Bernoulli at B = 640: 1 / 8 / 16 / 32 threads 0.30 / 0.108 / 0.087 /
+// 0.089, 0.154 / 0.037 / 0.026 / 0.023 and 0.0665 / 0.0188 / 0.0144 / 0.0132
+// ms; at 8,192, 8 threads 0.151 and 0.033 ms, 32 threads 0.49 and 0.036;
+// Bernoulli at 10,000 0.0940 / 0.0281 / 0.0364 / 0.0948 ms). Before it
+// speculated, Bernoulli took 0.088 / 0.089 / 0.087 / 0.087 ms at 640.
 template <Density K>
 int pick_group(int B, int d, const DensityParams& params, bool variational) {
   const int n_all_terms = end_term<K>(d, params);

@@ -31,17 +31,18 @@ nothing is broadcast; for the two likelihoods of many terms (hierarchical
 normal, logistic regression) each partial sum of XLA's order has a thread of
 its own, the partials meet by warp shuffles, and a lane keeps its current
 terms, row partials and prior blocks, so that a query recomputes what its
-coordinate changes. For eight schools and unid, whose queries are a few
-terms, each thread of the group evaluates one of the machine's next
-queries (the draws are counter-based, so a run's queries are known before
-its densities), and the group takes the iterations up to the first that
-ends the run. What the Pallas kernel receives as hoisted array
+coordinate changes. For eight schools, unid and the Bernoulli model,
+whose queries are a few terms, each thread of the group evaluates one of
+the machine's next queries (the draws are counter-based, so a run's queries
+are known before its densities), and the group takes the iterations up to
+the first that ends the run. What the Pallas kernel receives as hoisted array
 constants the CUDA kernel reads from device arrays: a model's data and prior
 table (``DeviceDensity.arrays`` / ``.prior``) and, under a
 :class:`~..paths.VariationalPath`, the lanes' ``isvar`` and the reference's
 ``mean`` / ``std`` / ``active``. In delta mode a
-separable path's query is answered as ``base + f_c(query)`` by one thread per
-lane, and the final density is recomputed. :func:`sweep_reference` is the
+separable path's query is answered as ``base + f_c(query)`` by one thread
+per lane, which hashes the draws of a run's next iterations at once and
+takes them in turn, and the final density is recomputed. :func:`sweep_reference` is the
 same machine as torch ops over ``[B]`` rows.
 
 CPU tensors run the twins; a CUDA tensor reaches the kernel or raises. Each
@@ -717,10 +718,11 @@ def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.
     whose arrays (model data) and, under a :class:`~..paths.VariationalPath`,
     ``isvar`` and ``ref_params`` the kernel reads from device memory: nothing
     comes back to the host. ``group`` is the number of threads that share a
-    lane's density evaluation in full mode (1, 8, 16 or 32; for eight schools
-    and unid the group evaluates the machine's next queries at once; the
-    result does not depend on it); 0 leaves the choice to the launcher, which
-    makes it from the density, ``B`` and ``d``."""
+    lane's density evaluation in full mode (1, 8, 16 or 32; for eight
+    schools, unid and the Bernoulli model the group evaluates the machine's
+    next queries at once; the result does not depend on it); 0 leaves the
+    choice to the launcher, which makes it from the density, ``B`` and
+    ``d``. Delta mode runs one thread a lane and refuses a larger group."""
     if x.device.type != "cuda":
         raise ValueError(f"sweep_cuda needs CUDA tensors, got {x.device}")
     B, d = x.shape

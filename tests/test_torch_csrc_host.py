@@ -71,9 +71,10 @@ def _inputs(B, d, seed, scale=1.5):
     return x, betas, seeds
 
 
-def _in_child(fn, *args):
+def _in_child(fn, *args, err_wanted=0):
     """``fn(*args, queue)`` in a child process under the time limit, tensors
-    handed over as numpy arrays; what it put on the queue, as tensors."""
+    handed over as numpy arrays; what it put on the queue, as tensors, once
+    the launcher returned ``err_wanted``."""
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     args = [a.numpy() if isinstance(a, torch.Tensor) else a for a in args]
@@ -86,7 +87,7 @@ def _in_child(fn, *args):
         if child.is_alive():
             child.kill()
             child.join()
-    assert err == 0, f"the launcher returned {err}"
+    assert err == err_wanted, f"the launcher returned {err}"
     return [torch.from_numpy(a) for a in arrays]
 
 
@@ -196,9 +197,10 @@ def _unknown_term(lib_path, x, a, seeds, out):
 
 
 def _k2(lib_path, x, betas, seeds, path, coord_deltas, n_passes, group, isvar=None,
-        ref_params=None, max_iter=MAX_ITER, sampler=SAMPLER):
+        ref_params=None, max_iter=MAX_ITER, sampler=SAMPLER, err_wanted=0):
     """Kernel K2's entry point in a child process that imports numpy and
-    ctypes only (``host_call``), so that it starts in well under a second."""
+    ctypes only (``host_call``), so that it starts in well under a second;
+    it must return ``err_wanted``."""
     density = path.device_density()
     variational = None
     if ref_params is not None:
@@ -207,7 +209,8 @@ def _k2(lib_path, x, betas, seeds, path, coord_deltas, n_passes, group, isvar=No
     return _in_child(host_call.slice_sweep_child, lib_path, x, betas, seeds, density.kind,
                      tuple(float(v) for v in density.params), coord_deltas, *sampler, n_passes,
                      max_iter, group, tuple(a.numpy() for a in density.arrays),
-                     tuple(tuple(float(v) for v in row) for row in density.prior), variational)
+                     tuple(tuple(float(v) for v in row) for row in density.prior), variational,
+                     err_wanted=err_wanted)
 
 
 def _full_path(name, d):
@@ -251,12 +254,27 @@ def test_k2_chooses_its_group_from_the_shape(host_libraries):
                     ("x", "lp", "stats"))
 
 
-@pytest.mark.parametrize("B,d,n_passes", [(8, 4, 2), (5, 1, 1), (130, 6, 1), (3, 100, 0)])
-def test_k2_delta_host_build_matches_twin(host_libraries, B, d, n_passes):
+@functools.lru_cache(maxsize=None)
+def _delta_case(B, d, n_passes):
+    """The toy path, inputs and the twin's delta-mode sweep (shared by the
+    tests of each group)."""
     path = toy_mvn_path(d)
     x, betas, seeds = _inputs(B, d, B)
-    got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, True, n_passes, 0)
-    want = cuda_slice.sweep_reference(x, betas, seeds, path, True, n_passes=n_passes)
+    return path, x, betas, seeds, cuda_slice.sweep_reference(x, betas, seeds, path, True,
+                                                             n_passes=n_passes)
+
+
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
+@pytest.mark.parametrize("B,d,n_passes", [(8, 4, 2), (5, 1, 1), (130, 6, 1), (3, 100, 0)])
+def test_k2_delta_host_build_matches_twin(host_libraries, B, d, n_passes, group):
+    """Delta mode at the launcher's choice and one thread a lane: bitwise the
+    twin. The entry point refuses a group of more threads (-1)."""
+    path, x, betas, seeds, want = _delta_case(B, d, n_passes)
+    if group > 1:
+        _k2(host_libraries["sweep_slice"], x, betas, seeds, path, True, n_passes, group,
+            err_wanted=-1)
+        return
+    got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, True, n_passes, group)
     _assert_bitwise(got, want, ("x", "lp", "stats"))
 
 

@@ -5,9 +5,11 @@ bitwise). Here: each model's density for 1, 8, 16 and 32 threads per lane
 (the hierarchical normal also at shapes whose rows do not fill the four
 partial sums of its likelihood; the Bernoulli model with its Beta prior
 block, centred eight schools and mRNA with ``expm1`` and glibc's ``powf``
-of base 10; eight schools and unid, whose groups speculate the machine's
-next queries, also at sampler settings that end its runs inside a round),
-and the launcher's own choice of group.
+of base 10; eight schools, unid and Bernoulli, whose groups speculate the
+machine's next queries, also at sampler settings that end its runs inside a
+round, as does delta mode's machine of one thread on the toy MVN, which
+takes a run's iterations in rounds too), and the launcher's own choice of
+group.
 """
 
 import functools
@@ -17,11 +19,13 @@ import torch
 
 import pigeons_tpu_torch as T
 from pigeons_tpu_torch.ops import cuda_slice
+from pigeons_tpu_torch.paths import toy_mvn_path
 from test_torch_csrc_host import (  # noqa: F401  (host_libraries is a fixture)
     BAYESIAN,
     SHORT,
     _assert_bitwise,
     _bayesian_inputs,
+    _inputs,
     _k2,
     host_libraries,
 )
@@ -127,17 +131,27 @@ ENDS = {
 }
 
 
+# delta mode on the toy MVN path (d = 4)
+DELTA = "toy_mvn_delta"
+
+
 @functools.lru_cache(maxsize=None)
 def _ends_case(name, case):
     """The path, inputs and the twin's sweep under ``ENDS[case]``, and its
-    phase counts; shared by the tests of each group."""
+    phase counts; shared by the tests of each group. ``DELTA``: the toy
+    MVN's states with the same far-out and NaN lanes, in delta mode."""
     w, p, max_iter = ENDS[case]
-    model = BAYESIAN[name]()
-    path = model.create_path(model.default_reference())
-    x, betas, seeds = _bayesian_inputs(model, 6, 3)
+    if name == DELTA:
+        path = toy_mvn_path(4)
+        x, betas, seeds = _inputs(6, 4, 3)
+        x[1, 3], x[2, 3], x[3, 0] = 95.0, -95.0, float("nan")
+    else:
+        model = BAYESIAN[name]()
+        path = model.create_path(model.default_reference())
+        x, betas, seeds = _bayesian_inputs(model, 6, 3)
     counts = torch.zeros(6, dtype=torch.int64)
-    want = cuda_slice.sweep_reference(x, betas, seeds, path, False, w=w, p=p, n_passes=1,
-                                      max_iter=max_iter, phase_counts=counts)
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, name == DELTA, w=w, p=p,
+                                      n_passes=1, max_iter=max_iter, phase_counts=counts)
     return path, x, betas, seeds, want, counts
 
 
@@ -147,7 +161,7 @@ def _twin_end(name, case, want, counts):
     w, p, max_iter = ENDS[case]
     d = x.shape[1]
     if case == "doublings run out":  # one doubling more moves some lane
-        more = cuda_slice.sweep_reference(x, betas, seeds, path, False, w=w, p=p + 1,
+        more = cuda_slice.sweep_reference(x, betas, seeds, path, name == DELTA, w=w, p=p + 1,
                                           n_passes=1, max_iter=max_iter)
         return not torch.equal(more[2], want[2])
     if case == "bail at max_iter":  # the NaN lane: d coordinates of ENTER, INIT_R, 3 shrinks
@@ -162,14 +176,15 @@ def _twin_end(name, case, want, counts):
 
 @pytest.mark.parametrize("group", [8, 16, 32])
 @pytest.mark.parametrize("case", sorted(ENDS))
-@pytest.mark.parametrize("name", ["eight_schools", "unid"])
+@pytest.mark.parametrize("name", ["eight_schools", "unid", "bernoulli"])
 def test_k2_speculated_runs_end_inside_a_round(host_libraries, name, case, group):
-    """The speculated machine (eight schools, unid) takes the first slot of a
-    round whose iteration ends the run, by each of the machine's conditions:
-    the doublings' count p, max_iter rejections, a degenerate bracket, a
-    candidate accepted in a narrow interval, a CHECK that accepts or
-    rejects; and the far-out and NaN lanes. States, densities and the three
-    stats rows bitwise the twin's."""
+    """The speculated machine (eight schools, unid, Bernoulli) takes the first
+    slot of a round whose iteration ends the run, by each of the machine's
+    conditions: the doublings' count p, max_iter rejections, a degenerate
+    bracket, a candidate accepted in a narrow interval, a CHECK that accepts
+    or rejects; and the far-out and NaN lanes. States, densities and the
+    three stats rows bitwise the twin's. Every case ends some run on every
+    model, Bernoulli's one coordinate included."""
     path, x, betas, seeds, want, counts = _ends_case(name, case)
     w, p, max_iter = ENDS[case]
     got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, False, 1, group,
@@ -177,3 +192,16 @@ def test_k2_speculated_runs_end_inside_a_round(host_libraries, name, case, group
     _assert_bitwise(got, want, ("x", "lp", "stats"))
     assert _twin_end(name, case, want, counts), f"{case}: no run of the sweep ended so"
 
+
+@pytest.mark.parametrize("case", sorted(ENDS))
+def test_k2_delta_rounds_end_inside_a_round(host_libraries, case):
+    """Delta mode's machine of one thread, which hashes the draws of a run's
+    next iterations at once and takes them in turn, takes them up to the
+    first that ends the run, by each of the machine's conditions, with the
+    far-out and NaN lanes: states, densities and stats bitwise the twin's."""
+    path, x, betas, seeds, want, counts = _ends_case(DELTA, case)
+    w, p, max_iter = ENDS[case]
+    got = _k2(host_libraries["sweep_slice"], x, betas, seeds, path, True, 1, 1,
+              max_iter=max_iter, sampler=(w, p))
+    _assert_bitwise(got, want, ("x", "lp", "stats"))
+    assert _twin_end(DELTA, case, want, counts), f"{case}: no run of the sweep ended so"

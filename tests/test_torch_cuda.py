@@ -185,6 +185,46 @@ def _k2_cases():
     }
 
 
+def _k2_card_inputs(case, n_passes, device):
+    """The path, mode and card inputs of a ``_k2_cases`` case; the funnel
+    cases with states far out in the tails and a NaN."""
+    path, coord_deltas, n, d = _k2_cases()[case]
+    rs = np.random.RandomState(n_passes)
+    x = torch.tensor((rs.normal(size=(n, d)) * 2.0).astype(np.float32), device=device)
+    if case.startswith("funnel"):
+        x[3, 0], x[4, 0], x[5, 1] = 95.0, -95.0, float("nan")
+    betas = torch.tensor(rs.uniform(size=n).astype(np.float32), device=device)
+    betas[0], betas[-1] = 0.0, 1.0
+    seeds = cuda_slice.lane_seeds(rng.keys_for(rng.key(2, device), torch.arange(n, device=device)))
+    return path, coord_deltas, x, betas, seeds
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_delta_case(case, n_passes):
+    """A delta-mode case's inputs on the card and the twin's sweep of them,
+    made once for all group sizes."""
+    path, _, x, betas, seeds = _k2_card_inputs(case, n_passes, torch.device("cuda"))
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, True, n_passes=n_passes)
+    return path, x, betas, seeds, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
+@pytest.mark.parametrize("n_passes", [1, 2])
+@pytest.mark.parametrize("case", ["toy-delta", "toy-delta-wide"])
+def test_delta_kernel_matches_twin_for_each_group(cuda_device, case, n_passes, group):
+    """Delta mode with the launcher's choice and one thread a lane (at d =
+    600 too): bitwise the twin. A group of more threads is refused."""
+    path, x, betas, seeds, want = _k2_delta_case(case, n_passes)
+    if group > 1:
+        with pytest.raises(RuntimeError, match="error -1"):
+            cuda_slice.sweep_cuda(x, betas, seeds, path, True, n_passes=n_passes, group=group)
+        return
+    got = cuda_slice.sweep_cuda(x, betas, seeds, path, True, n_passes=n_passes, group=group)
+    for name, g, w in zip(("x", "lp", "stats"), got, want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_passes", [1, 2])
 @pytest.mark.parametrize("case", ["funnel", "funnel-scaled", "banana", "mvn", "toy-full",
@@ -192,14 +232,7 @@ def _k2_cases():
 def test_general_kernel_matches_twin_on_card(cuda_device, case, n_passes):
     """Bitwise in both modes: states, returned densities and stats. The
     funnel cases include states far out in the tails and a NaN."""
-    path, coord_deltas, n, d = _k2_cases()[case]
-    rs = np.random.RandomState(n_passes)
-    x = torch.tensor((rs.normal(size=(n, d)) * 2.0).astype(np.float32), device=cuda_device)
-    if case.startswith("funnel"):
-        x[3, 0], x[4, 0], x[5, 1] = 95.0, -95.0, float("nan")
-    betas = torch.tensor(rs.uniform(size=n).astype(np.float32), device=cuda_device)
-    betas[0], betas[-1] = 0.0, 1.0
-    seeds = cuda_slice.lane_seeds(rng.keys_for(rng.key(2, cuda_device), torch.arange(n, device=cuda_device)))
+    path, coord_deltas, x, betas, seeds = _k2_card_inputs(case, n_passes, cuda_device)
     before = SliceSamplerCUDA.launches["slice_sweep"]
     got = cuda_slice.sweep(x, betas, seeds, path, coord_deltas, n_passes=n_passes)
     assert SliceSamplerCUDA.launches["slice_sweep"] == before + 1

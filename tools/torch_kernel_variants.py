@@ -1,6 +1,6 @@
 """Times variants of the port's CUDA kernels side by side on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py [--k2-only | --variational | --speculate] [--parent-csrc DIR ... [--parent-abi N]]
+    python3 tools/torch_kernel_variants.py [--k2-only | --variational | --speculate [--rows R,...] [--splits-only] [--delta-slots S,...]] [--parent-csrc DIR ... [--parent-abi N]]
 
 Run from the repository root. Builds ``pigeons_tpu_torch/csrc`` once for each
 setting of kernel K1's tile size and refill threshold (``-DPIGEONS_K1_CHUNK=
@@ -49,14 +49,21 @@ each against the parent (``--parent-csrc``):
   the SASS length of both instances (``cuobjdump``) and the iterations per
   element of both terms.
 
-``--speculate`` times only K2's eight schools and unid rows, whose groups of
-8, 16 or 32 threads speculate the machine's next queries, a query a thread,
-at their paths' 640 lanes and at 8,192 (d = 10 and 2, 1 pass): every group,
-the launcher's choice and the parent (``--parent-csrc``, at its launcher's
-choice); at 640 lanes the ``clock64()`` split of the slowest lane in each
-parent's ``PIGEONS_K2_CLOCKS`` build (its launcher's group) and in this
-tree's at 8, 16 and 32 threads, with the loop's passes (iterations, or
-rounds of speculated queries). The builds run at once; it writes
+``--speculate`` times only K2's rows whose groups of threads speculate the
+machine's next queries, a query a thread (``--rows``, a comma list, all by
+default): eight schools and unid (d = 10 and 2, 1 pass) at their paths' 640
+lanes and at 8,192, Bernoulli (d = 1, 1 pass) at its path's 640 and phase
+10's 10,000, and delta mode (toy MVN, d = 100, 3 passes, one thread a lane)
+at phase 10's inputs: every group, the launcher's choice and the parent
+(``--parent-csrc``, at its launcher's choice); at the path's batch the
+``clock64()`` split of the slowest lane in each parent's
+``PIGEONS_K2_CLOCKS`` build (its launcher's group) and in this tree's at
+every group, with the loop's passes (iterations, or rounds; delta mode's
+parts under their own names). ``--delta-slots 1,3,4,8`` also times delta
+mode with that many iterations a round (``kDeltaSlots``, set in a copy of
+the sources under the build directory). ``--splits-only``
+checks each row's groups against the twin and prints the parents' splits,
+and times nothing. The builds run at once; it writes
 ``chiprun_out/kernel_variants_speculate.json``.
 
 Every variant's output must equal the first variant's bit for bit (what a
@@ -166,7 +173,8 @@ def race_terms(lib, B, d):
     return times
 
 
-def k2_call(lib, x, betas, seeds, path, coord_deltas, group, arrays=False, variational=None):
+def k2_call(lib, x, betas, seeds, path, coord_deltas, group, arrays=False, variational=None,
+            n_passes=chip_smoke.F_PASSES):
     """``group=None``: an entry point of before the ``group`` argument.
     ``arrays``: this tree's entry point, which takes the density's arrays,
     the prior table and the variational reference (``variational``: the
@@ -194,7 +202,7 @@ def k2_call(lib, x, betas, seeds, path, coord_deltas, group, arrays=False, varia
         stats = torch.empty((3, B), dtype=torch.float32, device=x.device)
         err = lib.slice_sweep(x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(),
                               lp.data_ptr(), stats.data_ptr(), B, d, density.kind,
-                              int(coord_deltas), *middle, W, P, chip_smoke.F_PASSES, MAX_ITER,
+                              int(coord_deltas), *middle, W, P, n_passes, MAX_ITER,
                               *tail, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"slice_sweep: error {err}")
@@ -267,7 +275,11 @@ def k1_iterations(x, a, seeds, variational=None):
             "warp_iterations_thread_per_element": per_warp, "warp_iterations_full_lanes": packed}
 
 
+K2_CLOCK_LANES = 8192  # csrc/sweep_slice.cu: kClockLanes
 CLOCK_PARTS = ("draw", "prepare", "target terms", "__syncwarp", "sums", "reference", "machine")
+# the same columns in delta mode's rounds (csrc/sweep_slice.cu: lookahead_delta_sweep)
+DELTA_CLOCK_PARTS = ("hashes and ENTER", "prepare", "iterations", "__syncwarp", "sums",
+                     "reference", "run's end")
 
 
 def two_leg_funnel(B):
@@ -294,17 +306,20 @@ def two_leg_funnel(B):
     return path, (x, betas, seeds), var
 
 
-def clock_split(lib, call, iterations, device_ms_, passes=True):
+def clock_split(lib, call, iterations, device_ms_, passes=True, names=CLOCK_PARTS):
     """Run ``call`` (a launch of a ``PIGEONS_K2_CLOCKS`` build) and print the
     split of the slowest lane's loop (most iterations by the twin) by part,
     its nanoseconds and microseconds an iteration, beside the launch's
     device time; and the same split summed over all lanes, as shares.
     ``passes``: whether the build counts its loop's passes (the machine's
     iterations, or the speculated machine's rounds), as this tree's does;
-    the split then gives microseconds a pass too."""
+    the split then gives microseconds a pass too. A build records the first
+    ``K2_CLOCK_LANES`` lanes only: of a larger batch, the slowest of those.
+    ``names``: the parts' names (``DELTA_CLOCK_PARTS`` for delta mode)."""
     call()
     torch.cuda.synchronize()
-    B = len(iterations)
+    B = min(len(iterations), K2_CLOCK_LANES)
+    iterations = iterations[:B]
     n_extra = 3 if passes else 2  # loop cycles, nanoseconds[, passes]
     buf = np.zeros((B, len(CLOCK_PARTS) + n_extra), np.uint64)
     err = lib.k2_clock_split(buf.ctypes.data_as(ctypes.c_void_p), B)
@@ -317,13 +332,13 @@ def clock_split(lib, call, iterations, device_ms_, passes=True):
     slow = int(np.argmax(its))
     cyc, ns, total = parts_of[slow], float(loop_ns[slow]), float(loop_cycles[slow])
     n_passes = int(buf[slow, -1]) if passes else int(its[slow])
-    parts = {name: float(c) for name, c in zip(CLOCK_PARTS, cyc)}
+    parts = {name: float(c) for name, c in zip(names, cyc)}
     row = {"slowest_lane": slow, "iterations": int(its[slow]), "passes": n_passes,
            "loop_cycles": total, "loop_ns": ns, "us_per_iteration": ns / 1e3 / its[slow],
            "us_per_pass": ns / 1e3 / n_passes, "cycles_per_iteration": total / its[slow],
            "cycles_per_pass": total / n_passes, "device_ms": device_ms_, "cycles_by_part": parts,
            "share_by_part_all_lanes": {name: float(v) for name, v in zip(
-               CLOCK_PARTS, parts_of.sum(0) / loop_cycles.sum())},
+               names, parts_of.sum(0) / loop_cycles.sum())},
            "slowest_lane_by_ns": int(np.argmax(loop_ns)), "max_loop_ns": float(loop_ns.max())}
     if passes:
         row["passes_slowest_lane_by_ns"] = int(buf[int(np.argmax(loop_ns)), -1])
@@ -465,58 +480,110 @@ def variational_main(args, parents):
     return results
 
 
-SPECULATED = (("eight schools", eight_schools), ("unid", unid_target))
+def speculated_rows():
+    """K2's rows whose groups speculate the machine's next queries, by key:
+    ``(title, path, coord_deltas, n_passes, groups, [(B, inputs), ...])``,
+    the path's batch first (the one of the clock splits)."""
+    dev = torch.device("cuda")
+    small = chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES
+    rows = {}
+    for key, name, make, other in (("eight_schools", "eight schools", eight_schools, 8192),
+                                   ("unid", "unid", unid_target, 8192),
+                                   ("bernoulli", "Bernoulli", bernoulli_target,
+                                    chip_smoke.I_SAMPLES)):
+        model = make().to(dev)
+        batches = [(B, lambda B=B, d=model.dim: chip_smoke.lane_inputs(B, d, 1.0, 11))
+                   for B in (small, other)]
+        rows[key] = (f"K2 full, {name} d={model.dim} 1 pass",
+                     model.create_path(model.default_reference()), False, chip_smoke.F_PASSES,
+                     GROUPS, batches)
+    rows["delta"] = (f"K2 delta, toy MVN d={chip_smoke.D} {chip_smoke.I_DELTA_PASSES} passes",
+                     toy_mvn_path(chip_smoke.D), True, chip_smoke.I_DELTA_PASSES,
+                     (1,), [(chip_smoke.I_SAMPLES, chip_smoke.delta_inputs)])
+    return rows
+
+
+def delta_slots_csrc(slots):
+    """A copy of ``csrc`` under the build directory whose delta machine takes
+    ``slots`` iterations a round."""
+    out = _build.BUILD_DIR / f"csrc-delta-slots-{slots}"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC, out)
+    src = out / "sweep_slice.cu"
+    text = src.read_text()
+    line = "constexpr int kDeltaSlots = 2;"
+    if text.count(line) != 1:
+        raise RuntimeError(f"sweep_slice.cu: no line {line!r}")
+    src.write_text(text.replace(line, f"constexpr int kDeltaSlots = {slots};"))
+    return out
 
 
 def speculate_main(args, parents):
-    """``--speculate``: K2's eight schools and unid rows, whose groups
-    speculate the machine's next queries, against the parent."""
+    """``--speculate``: K2's rows whose groups speculate the machine's next
+    queries (``--rows``, all by default), against the parent. With
+    ``--splits-only`` only each row's bits against the twin at every group
+    and the parents' clock splits."""
     results = {}
     src = ("sweep_slice.cu",)
     builds = {"this tree": ((), _build.CSRC), "this tree, clocks": (("PIGEONS_K2_CLOCKS",),
                                                                     _build.CSRC)}
     builds.update({f"{name}, clocks": (("PIGEONS_K2_CLOCKS",), csrc.resolve())
                    for name, csrc in zip(parents, args.parent_csrc)})
+    rows = args.rows.split(",")
+    if "delta" in rows:  # the delta machine of one thread with other numbers of slots
+        builds.update({f"{s} slots": ((), delta_slots_csrc(int(s)))
+                       for s in filter(None, args.delta_slots.split(","))})
     with ThreadPoolExecutor(len(builds)) as pool:  # every build at once, one nvcc each
         futures = {name: pool.submit(load, defines, csrc, name == "this tree", src)
                    for name, (defines, csrc) in builds.items()}
         libs = {name: f.result() for name, f in futures.items()}
-    small = chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES
-    for name, make in SPECULATED:
-        model = make().to(torch.device("cuda"))
-        path = model.create_path(model.default_reference())
-        for B in (small, 8192):
-            x, betas, seeds = chip_smoke.lane_inputs(B, model.dim, 1.0, 11)
+    slot_libs = {name: lib for name, lib in libs.items() if name.endswith(" slots")}
+    table = speculated_rows()
+    for key in rows:
+        row_title, path, deltas, n_passes, groups, batches = table[key]
+        for i, (B, make_inputs) in enumerate(batches):
+            x, betas, seeds = make_inputs()
             counts = torch.zeros(6, dtype=torch.int64, device=x.device)
-            want = cuda_slice.sweep_reference(x, betas, seeds, path, False,
-                                              n_passes=chip_smoke.F_PASSES, phase_counts=counts)
+            want = cuda_slice.sweep_reference(x, betas, seeds, path, deltas, n_passes=n_passes,
+                                              phase_counts=counts)
             iterations = want[2][2]
-            title = f"K2 full, {name} B={B} d={model.dim} 1 pass"
+            title = f"{row_title}, B={B}"
             print(f"-- {title}: twin's iterations: slowest lane {int(iterations.max())}, mean "
                   f"{float(iterations.double().mean()):.1f}; phases {counts.tolist()}", flush=True)
-            variants = {f"group {g}": k2_call(libs["this tree"], x, betas, seeds, path, False, g,
-                                              True) for g in GROUPS}
-            variants["launcher's choice"] = k2_call(libs["this tree"], x, betas, seeds, path,
-                                                    False, 0, True)
-            for pname, parent in parents.items():
-                variants[pname] = k2_call(parent, x, betas, seeds, path, False, 0, True)
-            got = variants["group 1"]()
-            for t, w in zip(got, want):
-                if not torch.equal(t.view(torch.int32), w.view(torch.int32)):
-                    raise AssertionError(f"{title}: this tree differs from the twin")
-            results[title] = race(title, variants)
-            if B != small:
+
+            def call(lib, group):
+                return k2_call(lib, x, betas, seeds, path, deltas, group, True, n_passes=n_passes)
+
+            variants = {f"group {g}": call(libs["this tree"], g) for g in groups}
+            variants["launcher's choice"] = call(libs["this tree"], 0)
+            if deltas:
+                variants.update({f"group 1, {name}": call(lib, 1)
+                                 for name, lib in slot_libs.items()})
+            for name, variant in variants.items():
+                for t, w in zip(variant(), want):
+                    if not torch.equal(t.view(torch.int32), w.view(torch.int32)):
+                        raise AssertionError(f"{title}: this tree's {name} differs from the twin")
+            print(f"-- {title}: every group and the launcher's choice bitwise the twin")
+            if not args.splits_only:
+                for pname, parent in parents.items():
+                    variants[pname] = call(parent, 0)
+                results[title] = race(title, variants)
+            if i:
                 continue
-            splits = [(f"{pname}, the launcher's group", libs[f"{pname}, clocks"], 0, False)
+            splits = [(f"{pname}, the launcher's group", libs[f"{pname}, clocks"], 0)
                       for pname in parents]
-            splits += [(f"this tree, group {g}", libs["this tree, clocks"], g, True)
-                       for g in (8, 16, 32)]
-            for label, lib, group, passes in splits:
-                call = k2_call(lib, x, betas, seeds, path, False, group, True)
+            if not args.splits_only:
+                splits += [(f"this tree, group {g}", libs["this tree, clocks"], g)
+                           for g in groups if g > 1 or deltas]
+            for label, lib, group in splits:
+                c = call(lib, group)
                 print(f"-- clock64 split, {title}, {label}", flush=True)
                 results[f"clock split, {title}, {label}"] = clock_split(
-                    lib, call, iterations, device_ms(call), passes)
-    results["K2 SASS"] = sass_lengths(libs["this tree"].path)
+                    lib, c, iterations, device_ms(c),
+                    names=DELTA_CLOCK_PARTS if deltas and label.startswith("this tree")
+                    else CLOCK_PARTS)
+    if not args.splits_only:
+        results["K2 SASS"] = sass_lengths(libs["this tree"].path)
     return results
 
 
@@ -541,6 +608,9 @@ def main():
     ap.add_argument("--k2-only", action="store_true")
     ap.add_argument("--variational", action="store_true")
     ap.add_argument("--speculate", action="store_true")
+    ap.add_argument("--rows", default="eight_schools,unid,bernoulli,delta")
+    ap.add_argument("--splits-only", action="store_true")
+    ap.add_argument("--delta-slots", default="")
     ap.add_argument("--parent-csrc", type=Path, action="append", default=[])
     ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4, 5))
     args = ap.parse_args()
