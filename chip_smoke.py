@@ -508,9 +508,10 @@ def k1_phase():
     a = toy_mvn_path(D).coord_factor(betas)
     got = cuda_slice.banded_sweep_cuda(x, a, seeds)
     counts = torch.zeros(6, dtype=torch.int64, device=x.device)
-    want = cuda_slice.banded_sweep_reference(x, a, seeds, phase_counts=counts)
+    # the twin runs once a call: timed while it counts the phases
+    want, plain_ms = timed_once(
+        lambda: cuda_slice.banded_sweep_reference(x, a, seeds, phase_counts=counts))
     max_abs = compare("K1", got, want)
-    _, plain_ms = timed_once(lambda: cuda_slice.banded_sweep_reference(x, a, seeds))
     ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), 20)
     parent = parent_ms("K1", lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), got, ms)
     n = [float(v) for v in counts[:5]]
@@ -521,7 +522,8 @@ def k1_phase():
         raise AssertionError(f"K1: phase counts {n} do not add up to the kernel's n_evals")
     need = k1_need(B * D, n, considered, COORD_TERM)
     bound_ms, bound_by = bound(2 * 4 * B * D + (4 + 8 + 12) * B, need)
-    print(f"kernel {ms:.4f} ms (median of 20), twin {plain_ms:.4f} ms (one warm run), B={B}, "
+    print(f"kernel {ms:.4f} ms (median of 20), twin {plain_ms:.4f} ms (one run, counting "
+          f"phases), B={B}, "
           f"d={D}, 3 passes; "
           f"{iterations:.0f} iterations: ENTER {n[ENTER]:.0f}, DOUBLE {n[DOUBLE]:.0f}, SHRINK "
           f"{n[SHRINK]:.0f} ({considered:.0f} considered), CHECK {n[CHECK]:.0f}; needs "
@@ -581,12 +583,15 @@ def k1_variational_phase():
     # iterations are counted by phase for the bound
     want_x, want_stats = torch.empty_like(x), torch.empty((3, B), device=dev)
     counts = {}
-    for leg, lanes in (("variational", is_var), ("fixed", ~is_var)):
-        counts[leg] = torch.zeros(6, dtype=torch.int64, device=dev)
-        want_x[lanes], want_stats[:, lanes] = cuda_slice.banded_sweep_reference(
-            x[lanes], a[lanes], seeds[lanes], phase_counts=counts[leg],
-            variational=term(1.0, lanes))
-    torch.cuda.synchronize()
+
+    def twin():  # runs once a call: timed while it counts the phases
+        for leg, lanes in (("variational", is_var), ("fixed", ~is_var)):
+            counts[leg] = torch.zeros(6, dtype=torch.int64, device=dev)
+            want_x[lanes], want_stats[:, lanes] = cuda_slice.banded_sweep_reference(
+                x[lanes], a[lanes], seeds[lanes], phase_counts=counts[leg],
+                variational=term(1.0, lanes))
+
+    _, plain_ms = timed_once(twin)
     max_abs = compare("K1 variational", got, (want_x, want_stats))
     toy = cuda_slice.banded_sweep_cuda(x, a, seeds)
     compare("K1 variational, reference not active, vs the toy term's launch",
@@ -598,8 +603,6 @@ def k1_variational_phase():
                        lambda: cuda_slice.banded_sweep_cuda(x, a, seeds, variational=term_on), got,
                        ms)
     toy_ms = cuda_ms(lambda: cuda_slice.banded_sweep_cuda(x, a, seeds), 20)
-    _, plain_ms = timed_once(lambda: cuda_slice.banded_sweep_reference(x, a, seeds,
-                                                                       variational=term_on))
     need, iterations = ops(0), 0.0
     for leg, lanes, term_ops in (("variational", is_var, VARIATIONAL_TERM),
                                  ("fixed", ~is_var, COORD_TERM)):
@@ -618,7 +621,8 @@ def k1_variational_phase():
     need = need + D * (LOG + ops(3)) + B * ops(1, 2)
     bound_ms, bound_by = bound(2 * 4 * B * D + (4 + 8 + 12 + 4 + 4) * B + 8 * D + 4, need)
     print(f"kernel {ms:.4f} ms, the toy term on the same inputs {toy_ms:.4f} ms (medians of 20), "
-          f"twin {plain_ms:.4f} ms (one run), B={B}, d={D}, 3 passes; {iterations:.0f} iterations; "
+          f"twin {plain_ms:.4f} ms (one run leg by leg, counting phases), B={B}, d={D}, 3 "
+          f"passes; {iterations:.0f} iterations; "
           f"needs {need[0]:.4g} float32 and {need[1]:.4g} int32 operations, "
           f"bound {bound_ms:.6f} ms by {bound_by}")
     # config 1's width, timed only (tests/test_torch_cuda.py holds it to the twin)
@@ -1017,14 +1021,14 @@ def eval_rate(pt):
 
 
 def config1_phase():
-    """Bench config 1 end to end; returns the kernel launches it made."""
+    """Bench config 1 end to end; returns the kernel launches it made and the
+    run (phase 11 holds its one-rank mesh run to it)."""
     phase("3 config 1")
-    from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA, toy_mvn_target
+    from pigeons_tpu_torch import PT, SliceSamplerCUDA
 
     SliceSamplerCUDA.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    pt = PT(Inputs(target=toy_mvn_target(D), n_chains=N_CHAINS, n_replicates=N_REPLICATES,
-                   seed=SEED, explorer=SliceSamplerCUDA(), show_report=False, device="cuda"))
+    pt = PT(config1_inputs())
     for _ in range(WARMUP_ROUNDS):
         pt.run_round(n_scans=WARMUP_SCANS)
     pt.run_round(n_scans=MEASURE_SCANS)
@@ -1051,7 +1055,7 @@ def config1_phase():
         raise AssertionError("global barrier off")
     if not math.isfinite(rep.log_z_estimate):
         raise AssertionError("logZ not finite")
-    return launches["banded_slice_sweep"]
+    return launches["banded_slice_sweep"], pt
 
 
 def funnel_inputs(**kw):
@@ -1220,18 +1224,20 @@ def hierarchical_phase():
     3 x 1.231 / 4, sigma 3 x 0.0255 / 4), the barrier within 1 and logZ
     within 3 (after 126 scans both still move by that much from round to
     round: the run is inside its initial transient, mu's pooled deviation is
-    1.26 where the posterior's is about 0.2)."""
+    1.26 where the posterior's is about 0.2). Also returns the full-width
+    run: phase 11 holds its two-rank run to it."""
     phase("3d hierarchical normal")
     from pigeons_tpu_torch import hierarchical_normal
 
     wide = {"mu": 0.95, "tau": 0.92, "sigma": 0.019, "barrier": 1.0, "logZ": 3.0}
-    launches = None
+    launches = full_width = None
     for ladders in (H_REPLICATES, H_JAX_LADDERS):
         tolerance = wide if ladders != H_JAX_LADDERS else {k: 1e-3 * abs(v) for k, v in H_JAX.items()}
         print(f"{H_CHAINS} chains x {ladders} ladders, rounds of {H_ROUNDS} scans")
         target = hierarchical_normal()
         pt, n_launches = bayesian_run(target, H_CHAINS, ladders, H_ROUNDS)
         launches = launches or n_launches
+        full_width = full_width or pt
         print_round(pt, H_CHAINS * ladders)
         q = target.constrained_samples(pt)
         got = {name: float(np.mean(q[name])) for name in ("mu", "tau", "sigma")}
@@ -1245,7 +1251,7 @@ def hierarchical_phase():
             if not abs(v - H_JAX[k]) <= tolerance[k]:
                 raise AssertionError(f"hierarchical normal, {ladders} ladders: {k} {v} is off the "
                                      f"JAX package's {H_JAX[k]}")
-    return launches
+    return launches, full_width
 
 
 def unid_phase():
@@ -2531,16 +2537,154 @@ def invariance_phase(ref_params, delta_twin):
     return delta_launches
 
 
+def config1_inputs(**kw):
+    from pigeons_tpu_torch import Inputs, SliceSamplerCUDA, toy_mvn_target
+
+    return Inputs(target=toy_mvn_target(D), n_chains=N_CHAINS, n_replicates=N_REPLICATES,
+                  seed=SEED, explorer=SliceSamplerCUDA(), show_report=False, device="cuda", **kw)
+
+
+def same_run(name, got, want):
+    """Raise unless two runs' samples, ``chain_of``, states and every
+    round's logZ are the same bits; ``got`` and ``want`` are dicts of host
+    arrays."""
+    differ = [k for k in want if not np.array_equal(got[k], want[k], equal_nan=True)
+              or np.asarray(got[k]).dtype != np.asarray(want[k]).dtype]
+    print(f"{name}: samples {got['samples'].shape}, states {got['states'].shape}, last logZ "
+          f"{float(got['logz'][-1]):.6f} (one process {float(want['logz'][-1]):.6f}); "
+          f"differing: {differ or 'none'}")
+    if differ:
+        raise AssertionError(f"{name}: {differ} differ from the one-process run")
+
+
+def rounds_seconds(pt):
+    """The wall time of a run's rounds, each ended by a synchronize."""
+    return sum(r.wall_time_s for r in pt.reports)
+
+
+def run_arrays(pt):
+    """The arrays phase 11 compares (``pt.states`` gathers under a mesh)."""
+    return {"samples": pt.sample_array(), "chain_of": pt.chain_of.cpu().numpy(),
+            "states": pt.states.cpu().numpy(),
+            "logz": np.array([r.log_z_estimate for r in pt.reports])}
+
+
+def mesh_child(rank, folder):
+    """One of phase 11b's two ranks: config 5's hierarchical normal, chain-
+    sharded on 32 chains x 1 ladder, then replicate-sharded on 32 x 256, over
+    a gloo group of two processes on the one card (NCCL refuses two ranks on
+    one device); writes its results and K2's launches to ``folder``."""
+    from pigeons_tpu_torch import MultiHostLauncher, hierarchical_normal
+    from pigeons_tpu_torch.ops import cuda_slice
+    from pigeons_tpu_torch.parallel import replica_mesh
+
+    torch.set_num_threads(1)  # two ranks share the host's cores
+    MultiHostLauncher(coordinator_address=f"file://{folder}/pg", num_processes=2,
+                      process_id=rank, timeout_s=300.0).init("cuda")
+    mesh = replica_mesh()
+    for name, ladders in (("chains", 1), ("ladders", H_REPLICATES)):
+        pt, launches = bayesian_run(hierarchical_normal(), H_CHAINS, ladders, H_ROUNDS, mesh=mesh)
+        lanes = pt._states.shape[0]
+        groups = [cuda_slice.launcher_group(pt._density_path, b, pt.dim)
+                  for b in (lanes, H_CHAINS * ladders)]
+        np.savez(f"{folder}/{name}.rank{rank}.npz", **run_arrays(pt), launches=launches,
+                 lanes=lanes, groups=groups, seconds=rounds_seconds(pt), backend=mesh.backend)
+
+
+def mesh_phase(config1, hierarchical):
+    """Phase 11, the replica mesh on the card. (a) Bench's mesh stand-in
+    (bench.py:298-328): config 1 at full width on a one-rank NCCL group,
+    replicate-sharded, the same rounds as phase 3 and held to phase 3's run
+    bit for bit. (b) Config 5 (BASELINE.json: chains sharded over processes,
+    a hierarchical model) as two processes on the card: 32 chains x 1
+    ladder chain-sharded (every swap crosses the ranks, K2 on 16 lanes a
+    rank) and 32 x 256 replicate-sharded (phase 3d's width, K2 on 4,096 lanes
+    a rank), each rank's results the one-process run's bits (phase 3d's run
+    for the second), K2 launched once a scan on each rank. Returns K1's
+    launches in (a) and K2's on each rank in (b)."""
+    phase("11 mesh")
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pigeons_tpu_torch import PT, MultiHostLauncher, SliceSamplerCUDA, hierarchical_normal
+    from pigeons_tpu_torch.parallel import replica_mesh
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        print("(a) config 1 on a one-rank mesh")
+        MultiHostLauncher(coordinator_address=f"file://{tmp}/pg_one", num_processes=1,
+                          process_id=0, timeout_s=300.0).init("cuda")
+        mesh = replica_mesh()
+        if mesh.backend != "nccl":
+            raise AssertionError(f"a one-rank mesh on the card took {mesh.backend}, not NCCL")
+        SliceSamplerCUDA.reset_launches()
+        pt = PT(config1_inputs(mesh=mesh))
+        for _ in range(WARMUP_ROUNDS):
+            pt.run_round(n_scans=WARMUP_SCANS)
+        pt.run_round(n_scans=MEASURE_SCANS)
+        launches_a = SliceSamplerCUDA.launches["banded_slice_sweep"]
+        scans = WARMUP_ROUNDS * WARMUP_SCANS + MEASURE_SCANS
+        print(f"K1 launches {launches_a} for {scans} scans; timed round "
+              f"{pt.reports[-1].wall_time_s / MEASURE_SCANS * 1e3:.3f} ms a scan (phase 3's "
+              f"{config1.reports[-1].wall_time_s / MEASURE_SCANS * 1e3:.3f}), "
+              f"{eval_rate(pt):.6g} evals/s on the mesh, phase 3's {eval_rate(config1):.6g} "
+              f"({smi})")
+        same_run("config 1, one-rank NCCL mesh", run_arrays(pt), run_arrays(config1))
+        if launches_a != scans:
+            raise AssertionError(f"K1 launched {launches_a} times for {scans} scans")
+        dist.destroy_process_group()
+        del pt
+
+        print("(b) config 5: the one-process 32 x 1 run, then two ranks on the card")
+        one, _ = bayesian_run(hierarchical_normal(), H_CHAINS, 1, H_ROUNDS)
+        want = {"chains": run_arrays(one), "ladders": run_arrays(hierarchical)}
+        alone = {"chains": rounds_seconds(one), "ladders": rounds_seconds(hierarchical)}
+        children = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                      "--mesh-child", str(rank), tmp],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for rank in range(2)]
+        try:
+            outs = [c.communicate(timeout=600)[0] for c in children]
+        finally:
+            for c in children:
+                c.kill()
+        for rank, (c, out) in enumerate(zip(children, outs)):
+            print(f"--- rank {rank} (exit {c.returncode}):\n{out[-3000:]}")
+            if c.returncode != 0:
+                raise AssertionError(f"phase 11b: rank {rank} failed")
+        launches_b = {}
+        for name, ladders in (("chains", 1), ("ladders", H_REPLICATES)):
+            for rank in range(2):
+                got = dict(np.load(f"{tmp}/{name}.rank{rank}.npz"))
+                small, whole = (int(g) for g in got["groups"])
+                print(f"{name}, rank {rank}: {int(got['lanes'])} lanes over {got['backend']}, "
+                      f"rounds {float(got['seconds']):.3f} s (one process "
+                      f"{alone[name]:.3f} s), K2 launches {int(got['launches'])} for "
+                      f"{sum(H_ROUNDS)} scans, K2's group {small} threads a lane on the rank's "
+                      f"lanes ({whole} on the whole batch's {H_CHAINS * ladders})")
+                same_run(f"config 5, {H_CHAINS} chains x {ladders} ladder(s), rank {rank} of 2",
+                         got, want[name])
+                if int(got["launches"]) != sum(H_ROUNDS):
+                    raise AssertionError(f"phase 11b: rank {rank} launched K2 "
+                                         f"{int(got['launches'])} times")
+                launches_b.setdefault(name, []).append(int(got["launches"]))
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return launches_a, launches_b
+
+
 def main():
     device_phase()
     build_phase()
     parent_phase()
     k1, (k2, delta_twin), k1v = k1_phase(), k2_phase(), k1_variational_phase()
     bayesian, k2v = k2_bayesian_phase(), k2_variational_phase()
-    k1["launches"] = config1_phase()
+    k1["launches"], config1_run = config1_phase()
     k2["launches"] = funnel_phase()
     k1v["launches"] = config4_phase()
-    bayesian["hierarchical_normal"]["launches"] = hierarchical_phase()
+    bayesian["hierarchical_normal"]["launches"], hierarchical_run = hierarchical_phase()
     bayesian["unid"]["launches"] = unid_phase()
     bayesian["eight_schools"]["launches"], mu_noncentred, log_z_noncentred = eight_schools_phase()
     bayesian["logistic_regression"]["launches"] = logistic_regression_phase()
@@ -2572,6 +2716,9 @@ def main():
         card_to_cpu_phase(folder)
         serial_check_phase(folder)
     k2["delta_mode"]["launches"] = invariance_phase(ref_params, delta_twin)
+    k1["mesh_launches"], bayesian["hierarchical_normal"]["mesh_launches_per_rank"] = mesh_phase(
+        config1_run, hierarchical_run)
+    del config1_run, hierarchical_run
     if "--profile" in sys.argv[1:]:
         profile_phase()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
@@ -2586,4 +2733,8 @@ def main():
 T0 = time.perf_counter()
 
 if __name__ == "__main__":
-    main()
+    if "--mesh-child" in sys.argv[1:]:
+        at = sys.argv.index("--mesh-child")
+        mesh_child(int(sys.argv[at + 1]), sys.argv[at + 2])
+    else:
+        main()

@@ -66,7 +66,7 @@ from .paths import InterpolatingPath, ScaledPrecisionNormalPath, VariationalPath
 SliceSamplerPallas = SliceSamplerCUDA
 from .pt import PT, RoundReport, pigeons
 from .schedule import Schedule, equally_spaced_schedule
-from .submission import ChildProcess, Result
+from .submission import ChildProcess, MultiHostLauncher, Result, ThisProcess
 from .variational import GaussianReference
 
 __all__ = [
@@ -88,6 +88,7 @@ __all__ = [
     "MALA",
     "Mix",
     "MixDiagonalPreconditioner",
+    "MultiHostLauncher",
     "NUTS",
     "NoOpExplorer",
     "PT",
@@ -103,6 +104,7 @@ __all__ = [
     "SliceSamplerPallas",
     "StandardNormalReference",
     "TestSwapper",
+    "ThisProcess",
     "ToyExplorer",
     "VariationalPath",
     "banana",

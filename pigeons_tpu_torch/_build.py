@@ -104,4 +104,7 @@ def open_library(path: Path) -> ctypes.CDLL:
                                 ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(f), i,
                                 p, p, p, p, f, i, i, i, i, p]
     lib.slice_sweep.restype = i
+    if hasattr(lib, "slice_sweep_group"):  # B, d, density, params, variational
+        lib.slice_sweep_group.argtypes = [i, i, i, ctypes.POINTER(f), i]
+        lib.slice_sweep_group.restype = i
     return lib

@@ -10,9 +10,13 @@ reference's parameters, the recorded traces) and
 reports, reduced recorders, barriers, the adapted state's tree structure); a
 ``.finished`` marker is written last. :func:`load_pt` rebuilds the run, on
 the device it is given (by default the ``Inputs.device`` that was written):
-the device is a load-time parameter, not part of the checkpoint. Keys derive
-from (seed, round, scan) and each round recomputes its densities from the
-states, so a resumed run is the uninterrupted run bit for bit.
+the device is a load-time parameter, not part of the checkpoint, and so is
+the replica mesh: a run sharded over the ranks of a process group writes the
+whole run state (every rank joins the gathers, rank 0 writes), and
+``load_pt(..., mesh=...)`` gives each rank its block, whatever layout wrote
+the checkpoint (reference ``checkpoint.jl:10-13``). Keys derive from (seed,
+round, scan) and each round recomputes its densities from the states, so a
+resumed run is the uninterrupted run bit for bit.
 
 Serialization uses cloudpickle where it is installed (closures then pickle
 by value) and plain ``pickle`` otherwise. Every ``torch.Tensor`` is written
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from . import tree
+from .parallel.sharding import to_host
 
 THRESHOLD_BYTES = 1 << 14
 
@@ -177,17 +182,16 @@ def latest_checkpoint_round(exec_folder: str) -> Optional[int]:
     return max(done) if done else None
 
 
-def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-
-
 def write_checkpoint(pt) -> str:
-    """Write the run state of ``pt``'s current round. Returns the folder."""
+    """Write the run state of ``pt``'s current round. Returns the folder.
+    Under a mesh every rank calls it (the sharded state is gathered: a
+    collective) and rank 0 writes; the ``Inputs`` are written without the
+    mesh."""
     folder = round_folder(pt.exec_folder, pt.round_idx)
     arrays = {
-        "states": _host(pt.states),
-        "chain_of": _host(pt.chain_of),
-        "replica_of": _host(pt.replica_of),
+        "states": to_host(pt.states),
+        "chain_of": to_host(pt.chain_of),
+        "replica_of": to_host(pt.replica_of),
         "schedule": np.asarray(pt.schedule.grids),
     }
     if pt.schedule_var is not None:
@@ -198,11 +202,13 @@ def write_checkpoint(pt) -> str:
     # the adapted state (a dict, or a combinator's tuple of them) as its leaves
     # and its structure, as the JAX package writes it
     for i, v in enumerate(tree.leaves(pt.exp_state)):
-        arrays[f"exp_state_{i}"] = _host(v)
+        arrays[f"exp_state_{i}"] = to_host(v)
     for k, v in (pt._ref_params or {}).items():
-        arrays[f"ref_params_{k}"] = _host(v)
+        arrays[f"ref_params_{k}"] = to_host(v)
+    if pt.rank != 0:
+        return folder
     meta = {
-        "inputs": pt.inputs,
+        "inputs": dataclasses.replace(pt.inputs, mesh=None),
         "round_idx": pt.round_idx,
         "reports": pt.reports,
         "reduced": pt.reduced,
@@ -224,10 +230,14 @@ def write_checkpoint(pt) -> str:
     return folder
 
 
-def load_pt(exec_folder: str, device: Optional[str] = None, round_idx: Optional[int] = None):
+def load_pt(exec_folder: str, device: Optional[str] = None, round_idx: Optional[int] = None,
+            mesh=None):
     """Rebuild a run from its checkpoint at ``round_idx`` (default: the last
     complete one) on ``device`` (default: the ``Inputs.device`` it was
-    written with). Its further checkpoints go to the same folder."""
+    written with), sharded over ``mesh`` (a
+    :class:`~.parallel.ReplicaMesh`; every rank reads the folder and keeps
+    its block) or in this process alone. Its further checkpoints go to the
+    same folder."""
     from .pt import PT
     from .schedule import Schedule
 
@@ -239,7 +249,7 @@ def load_pt(exec_folder: str, device: Optional[str] = None, round_idx: Optional[
     meta = load_object(os.path.join(folder, "meta.pkl"), immutables_dir(exec_folder))
     arrays = np.load(os.path.join(folder, "checkpoint.npz"))
 
-    inputs = dataclasses.replace(meta["inputs"], checkpoint_folder=exec_folder)
+    inputs = dataclasses.replace(meta["inputs"], checkpoint_folder=exec_folder, mesh=mesh)
     if device is not None:
         inputs.device = device
     pt = PT(inputs)
@@ -249,10 +259,7 @@ def load_pt(exec_folder: str, device: Optional[str] = None, round_idx: Optional[
     pt.reduced = meta["reduced"]
     pt.barriers = meta["barriers"]
     pt.barriers_var = meta["barriers_var"]
-    R, n = pt.n_replicates, pt.n_chains
-    pt._states = torch.from_numpy(arrays["states"]).reshape(R * n, pt.dim).to(dev)
-    pt._chain_of = torch.from_numpy(arrays["chain_of"]).reshape(R, n).to(dev)
-    pt._replica_of = torch.from_numpy(arrays["replica_of"]).reshape(R, n).to(dev)
+    pt.set_run_state(arrays["states"], arrays["chain_of"], arrays["replica_of"])
     pt.schedule = Schedule(arrays["schedule"])
     if "schedule_var" in arrays:
         pt.schedule_var = Schedule(arrays["schedule_var"])

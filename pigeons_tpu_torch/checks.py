@@ -30,7 +30,6 @@ from .inputs import KNOWN_RECORDERS
 
 # option -> (is it set?, ROADMAP item that ports it)
 _NOT_YET = (
-    ("mesh", lambda i: i.mesh is not None, "queue 1, item 15 (multi-GPU)"),
     ("dtype=float64", lambda i: i.dtype is not None and str(i.dtype).endswith("float64"),
      "queue 1, item 6c (float64 runs)"),
 )
@@ -209,25 +208,42 @@ def check_checkpoint_folders(folder_a: str, folder_b: str, immutables_a: str,
 
 def check_against_serial(pt):
     """Re-run ``pt``'s Inputs serially in a fresh OS process
-    (:class:`~.submission.ChildProcess`, on the same ``Inputs.device``) up to
-    ``pt``'s round, into ``<exec_folder>/serial_check``, and require every
-    checkpoint artifact of that round to agree (reference ``checks.jl:36-78``).
-    Returns the child's :class:`~.submission.Result`."""
+    (:class:`~.submission.ChildProcess`, on the same ``Inputs.device``, with
+    no mesh) up to ``pt``'s round, into ``<exec_folder>/serial_check``, and
+    require every checkpoint artifact of that round to agree (reference
+    ``checks.jl:36-78``). Returns the child's :class:`~.submission.Result`.
+    Under a mesh every rank calls this: rank 0 runs the child and compares
+    (the checkpoint it wrote holds every rank's state), and every rank
+    returns its result or raises its error."""
     from .checkpoint import immutables_dir, round_folder
     from .submission import ChildProcess
 
-    inputs = dataclasses.replace(
-        pt.inputs,
-        n_rounds=pt.round_idx,
-        checkpoint=True,
-        checked_round=0,  # otherwise the child checks itself (checks.jl:69)
-        profile_round=0,
-        show_report=False,
-    )
-    child = os.path.join(pt.exec_folder, "serial_check")
-    result = ChildProcess(exec_folder=child).submit(inputs)
-    check_checkpoint_folders(
-        round_folder(pt.exec_folder, pt.round_idx), round_folder(child, pt.round_idx),
-        immutables_dir(pt.exec_folder), immutables_dir(child),
-    )
+    outcome = None
+    if pt.rank == 0:
+        inputs = dataclasses.replace(
+            pt.inputs,
+            mesh=None,
+            n_rounds=pt.round_idx,
+            checkpoint=True,
+            checked_round=0,  # otherwise the child checks itself (checks.jl:69)
+            profile_round=0,
+            show_report=False,
+        )
+        child = os.path.join(pt.exec_folder, "serial_check")
+        try:
+            result = ChildProcess(exec_folder=child).submit(inputs)
+            check_checkpoint_folders(
+                round_folder(pt.exec_folder, pt.round_idx), round_folder(child, pt.round_idx),
+                immutables_dir(pt.exec_folder), immutables_dir(child),
+            )
+            outcome = (result, None)
+        except Exception as e:  # every rank raises it, not rank 0 alone
+            if pt.mesh is None:
+                raise
+            outcome = (None, e)
+    if pt.mesh is not None:
+        outcome = pt.mesh.broadcast_object(outcome)
+    result, error = outcome
+    if error is not None:
+        raise error
     return result

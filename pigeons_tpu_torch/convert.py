@@ -71,9 +71,7 @@ def state_from_numpy(pt, arrays, round_idx: int):
             f"{states.shape}, {chain_of.shape}, {replica_of.shape}"
         )
     dev = pt.device
-    pt._states = torch.tensor(states.reshape(R * n, d), device=dev)
-    pt._chain_of = torch.tensor(chain_of.reshape(R, n), dtype=torch.int64, device=dev)
-    pt._replica_of = torch.tensor(replica_of.reshape(R, n), dtype=torch.int64, device=dev)
+    pt.set_run_state(states, chain_of, replica_of)
     pt.schedule = Schedule(np.asarray(arrays["schedule"], dtype=np.float64))
     if pt.two_leg:
         pt.schedule_var = Schedule(np.asarray(arrays["schedule_var"], dtype=np.float64))

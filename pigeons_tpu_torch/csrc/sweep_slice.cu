@@ -1781,3 +1781,29 @@ extern "C" int slice_sweep(const float* x, const float* betas, const int64_t* se
     default: return -1;
   }
 }
+
+// The number of threads a lane that slice_sweep's launcher picks in full mode
+// (group = 0) for B lanes of width d of density kind `density` with params
+// (host memory), with or without a variational reference; -1 for a kind the
+// kernel does not have. A sharded run launches the kernel on its own block of
+// lanes, so its launches may run another group than the whole batch's.
+extern "C" int slice_sweep_group(int B, int d, int density, const float* params,
+                                 int variational) {
+  DensityParams v{};
+  for (int i = 0; i < kMaxDensityParams; ++i) v.v[i] = params[i];
+  const bool var = variational != 0;
+  switch (density) {
+    case kToyMvn: return pick_group<kToyMvn>(B, d, v, var);
+    case kFunnel: return pick_group<kFunnel>(B, d, v, var);
+    case kBanana: return pick_group<kBanana>(B, d, v, var);
+    case kMvn: return pick_group<kMvn>(B, d, v, var);
+    case kHierarchicalNormal: return pick_group<kHierarchicalNormal>(B, d, v, var);
+    case kEightSchools: return pick_group<kEightSchools>(B, d, v, var);
+    case kUnid: return pick_group<kUnid>(B, d, v, var);
+    case kLogisticRegression: return pick_group<kLogisticRegression>(B, d, v, var);
+    case kBernoulli: return pick_group<kBernoulli>(B, d, v, var);
+    case kEightSchoolsCentered: return pick_group<kEightSchoolsCentered>(B, d, v, var);
+    case kMrna: return pick_group<kMrna>(B, d, v, var);
+    default: return -1;
+  }
+}

@@ -710,6 +710,18 @@ def kernel_inputs(density, B: int, d: int, device, isvar=None, ref_params=None) 
         (ctypes.c_float * max(len(rows), 1))(*rows), len(density.prior), variational, keep)
 
 
+def launcher_group(path, B: int, d: int) -> int:
+    """The threads a lane kernel K2's launcher picks in full mode for ``B``
+    lanes of ``path`` (``sweep_cuda(..., group=0)``); needs the card's
+    library."""
+    from .._build import load_library
+
+    density = path.device_density()
+    params = (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params)
+    return load_library().slice_sweep_group(B, d, density.kind, params,
+                                            int(isinstance(path, VariationalPath)))
+
+
 def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0,
                p: int = 20, n_passes: int = 3, max_iter: int = 1024, group: int = 0,
                isvar=None, ref_params=None):

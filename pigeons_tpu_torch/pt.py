@@ -19,6 +19,15 @@ target at ``n_var-1``, chains ``n_var..N-1`` are the fixed leg reversed
 iid, the two middle chains are both targets, and each leg adapts its own
 schedule. The blend of the two references is :class:`~.paths.VariationalPath`.
 
+With ``Inputs.mesh`` (a :class:`~.parallel.ReplicaMesh`) the replicas are
+sharded over the ranks of a ``torch.distributed`` group, one device a rank,
+each rank running this same loop on its block (``parallel/sharding.py``):
+one ladder's chains (chain sharding: each scan gathers its lanes' values
+once, then every rank swaps and records the whole ladder), or whole ladders
+(replicate sharding: the recorders and outputs are gathered at the round's
+end). Either way every rank holds the one-process run's results bit for
+bit.
+
 Between rounds, numpy on the host estimates barriers and regrids the
 schedule. Where the JAX package traces the round into one ``lax.scan`` and
 vmaps the per-ladder work, the port runs a Python loop of scans over
@@ -31,6 +40,7 @@ reference, so one scan body serves both (the reference's ``scan_body`` and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -48,8 +58,10 @@ from .adaptation import (
 )
 from .checks import check_against_serial, check_device, preflight_checks, unsupported_options
 from .inputs import KNOWN_RECORDERS, Inputs
+from .parallel.sharding import ReplicaMesh, put_global
 from .paths import VariationalPath, lane_log_density
 from .recorders import (
+    Recorders,
     ReducedRecorders,
     init_recorders,
     kadd,
@@ -99,6 +111,17 @@ class PT:
             )
         unsupported_options(inputs)
         self.device = check_device(inputs.device)
+        self.mesh = inputs.mesh
+        if self.mesh is not None:
+            if not isinstance(self.mesh, ReplicaMesh):
+                raise TypeError(f"Inputs.mesh must be a ReplicaMesh (replica_mesh()), got "
+                                f"{type(self.mesh).__name__}")
+            # one device a rank: this rank's card, or the CPU when asked for
+            self.device = self.mesh.device_for(self.device)
+            if self.mesh.backend == "nccl" and self.device.type != "cuda":
+                raise ValueError("a mesh over an NCCL group runs on the card: pass device='cuda'")
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
         # a model's data lives on the run's device, where the densities and
         # the slice kernel read it
         target = target.to(self.device) if hasattr(target, "to") else target
@@ -121,6 +144,24 @@ class PT:
         self.n_chains = n = self.n_chains_fixed + self.n_chains_var
         self.n_replicates = R = inputs.n_replicates
         self.dim = target.dim
+        # this rank's block: R_run whole ladders (replicate sharding) or
+        # n_local chains of the one ladder (chain sharding), whose global
+        # replica indices are gidx; without a mesh, everything
+        mesh = self.mesh
+        self._shard_replicates = mesh is not None and R > 1
+        self._shard_chains = mesh is not None and R == 1
+        if self._shard_replicates:
+            mesh.validate(R, "n_replicates")
+        elif self._shard_chains:
+            mesh.validate(n)
+        self._R_run = R // mesh.n_devices if self._shard_replicates else R
+        self._n_local = n // mesh.n_devices if self._shard_chains else n
+        lo = mesh.block(n)[0] if self._shard_chains else 0
+        self._gidx = torch.arange(lo, lo + self._n_local, device=self.device)
+        if mesh is not None and inputs.show_report and mesh.rank == 0:
+            mode = "ladders" if self._shard_replicates else "chains"
+            print(f"replica mesh: {mesh.n_devices} ranks over {mesh.backend} on "
+                  f"{self.device.type}, {mode} sharded", flush=True)
 
         self.reference = inputs.reference or target.default_reference()
         self.path = target.create_path(self.reference)
@@ -152,18 +193,23 @@ class PT:
         self.barriers_var: Optional[CommunicationBarriers] = None
 
         # R independent ladders: ladder r's streams derive from
-        # fold_in(master, r); a single ladder uses the master key itself
+        # fold_in(master, r); a single ladder uses the master key itself.
+        # Every key is derived by global ladder and replica index, so a
+        # rank's block draws what the one-process run draws there.
         master = rng.master_key(inputs.seed, self.device)
         if R > 1:
             self._key = rng.keys_for(master, torch.arange(R, device=self.device))
+            if self._shard_replicates:
+                self._key = self._key[slice(*mesh.block(R))]
             init_keys = rng.replica_keys(rng.fold_in(self._key, rng.INIT), n)
         else:
             self._key = master[None]
-            init_keys = rng.replica_keys(rng.fold_in(master, rng.INIT), n)[None]
-        self._states = target.initialization(init_keys).reshape(R * n, self.dim)
+            init_keys = rng.keys_for(rng.fold_in(master, rng.INIT), self._gidx)[None]
+        self._states = target.initialization(init_keys).reshape(self._R_run * self._n_local,
+                                                                 self.dim)
         idx = torch.arange(n, dtype=torch.int64, device=self.device)
-        self._chain_of = idx.repeat(R, 1)
-        self._replica_of = idx.repeat(R, 1)
+        self._chain_of = idx.repeat(self._R_run, 1)
+        self._replica_of = idx.repeat(self._R_run, 1)
 
         rec_set = set(inputs.record)
         unknown = rec_set - KNOWN_RECORDERS
@@ -217,26 +263,58 @@ class PT:
         if inputs.checkpoint:
             from .checkpoint import dumps, next_exec_folder
 
-            dumps(inputs, "the run's Inputs")  # an Inputs that cannot be written fails now
-            self.exec_folder = inputs.checkpoint_folder or next_exec_folder()
+            # an Inputs that cannot be written fails now; the mesh is not written
+            dumps(dataclasses.replace(inputs, mesh=None), "the run's Inputs")
+            self.exec_folder = inputs.checkpoint_folder
+            if self.exec_folder is None:
+                # one folder for all ranks: rank 0's
+                self.exec_folder = next_exec_folder() if self.rank == 0 else None
+                if mesh is not None:
+                    self.exec_folder = mesh.broadcast_object(self.exec_folder)
 
     # ------------------------------------------------------------------
     # run state in the JAX package's shapes: [(R,) N, d] and [(R,) N]
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the mesh (0 without one)."""
+        return self.mesh.rank if self.mesh is not None else 0
 
     def _ladder_shape(self, t):
         return t[0] if self.n_replicates == 1 else t
 
     @property
     def states(self) -> torch.Tensor:
-        return self._ladder_shape(self._states.reshape(self.n_replicates, self.n_chains, self.dim))
+        """Every replica's state; under a mesh gathered from every rank's
+        block, a collective that every rank must call."""
+        states = self._states if self.mesh is None else self.mesh.gather(self._states)
+        return self._ladder_shape(states.reshape(self.n_replicates, self.n_chains, self.dim))
+
+    def _ladders(self, t):
+        """``[R, ...]`` from this rank's ``[R_run, ...]``: gathered under
+        replicate sharding (a collective), else ``t`` itself."""
+        return self.mesh.gather(t) if self._shard_replicates else t
 
     @property
     def chain_of(self) -> torch.Tensor:
-        return self._ladder_shape(self._chain_of)
+        return self._ladder_shape(self._ladders(self._chain_of))
 
     @property
     def replica_of(self) -> torch.Tensor:
-        return self._ladder_shape(self._replica_of)
+        return self._ladder_shape(self._ladders(self._replica_of))
+
+    def set_run_state(self, states, chain_of, replica_of) -> None:
+        """Set the run state from the whole run's host arrays (``[(R,) N,
+        d]``, ``[(R,) N]``, as :attr:`states` gives them); under a mesh each
+        rank keeps its block."""
+        R, n = self.n_replicates, self.n_chains
+        states = np.asarray(states).reshape(R * n, self.dim)
+        chain_of = np.asarray(chain_of).reshape(R, n)
+        replica_of = np.asarray(replica_of).reshape(R, n)
+        self._states = put_global(states, self.mesh, self.device)
+        ladders = self.mesh if self._shard_replicates else None
+        self._chain_of = put_global(chain_of, ladders, self.device).to(torch.int64)
+        self._replica_of = put_global(replica_of, ladders, self.device).to(torch.int64)
 
     @property
     def betas(self) -> torch.Tensor:
@@ -260,18 +338,26 @@ class PT:
         the fixed and the variational sample from that same key and keeps one
         by the lane's ``is_var`` and the ``active`` flag; both are known on
         the host (``ref_active`` is the flag for this round), so only the one
-        that is kept is drawn."""
+        that is kept is drawn. Under chain sharding the replica may lie on
+        another rank: each rank draws it and keeps it only where it is its
+        own lane (no read of the device decides)."""
         R, n = replica_of.shape
         x = x_after.clone()
         for pos in self.ref_positions:
             ridx = replica_of[:, pos]  # [R]
             keys = rng.fold_in(k_iid, ridx)
-            lanes = torch.arange(R, device=x.device) * n + ridx
             if ref_active and self._is_var_host[pos] > 0:
                 draws = self.variational.sample(keys, self._ref_params)
             else:
                 draws = self.path.sample_reference(keys)
-            x[lanes] = draws.to(x.dtype)
+            draws = draws.to(x.dtype)
+            if self._shard_chains:  # R = 1
+                local = ridx - self._gidx[0]
+                mine = (local >= 0) & (local < self._n_local)
+                lane = local.clamp(0, self._n_local - 1)
+                x[lane] = torch.where(mine[:, None], draws, x[lane])
+            else:
+                x[torch.arange(R, device=x.device) * n + ridx] = draws
         return x
 
     def _fused_post_densities(self, x_after, chain_flat, partner_map, betas):
@@ -295,16 +381,18 @@ class PT:
         """One scan of all ``R`` ladders: explore the flat batch of lanes (each
         lane keyed by ``fold_in(scan key of its ladder, replica)``, the
         reference's ``_explore``), regenerate the reference chains, evaluate
-        own- and partner-beta densities, then :meth:`_post_one`."""
-        R, n = self.n_replicates, self.n_chains
-        chain_flat = chain_of.reshape(-1)
+        own- and partner-beta densities, then :meth:`_post_one` (under chain
+        sharding :meth:`_post_gathered`). The explorer moves this rank's
+        lanes only; a lane's key is that of its global replica index."""
+        R, n = self._R_run, self._n_local
+        chain_loc = self._local_chains(chain_of)
         k_explore = rng.scan_key(self._key, self.round_idx, scan_idx, rng.EXPLORE)
-        lane_keys = rng.keys_for(k_explore, torch.arange(n, device=self.device)).reshape(R * n, 2)
+        lane_keys = rng.keys_for(k_explore, self._gidx).reshape(R * n, 2)
         chain_params = (
-            tree_map(lambda v: v[chain_flat], self.exp_state) if self.exp_state else None
+            tree_map(lambda v: v[chain_loc], self.exp_state) if self.exp_state else None
         )
-        out = self.explorer.step_batched(lane_keys, states, betas[chain_flat], self._density_path,
-                                         isvar=self._is_var[chain_flat],
+        out = self.explorer.step_batched(lane_keys, states, betas[chain_loc], self._density_path,
+                                         isvar=self._is_var[chain_loc],
                                          ref_params=self._ref_params, lp=lp_cur,
                                          chain_params=chain_params, scan_idx=scan_idx)
         x_after = out.x.to(states.dtype)
@@ -312,9 +400,37 @@ class PT:
             k_iid = rng.scan_key(self._key, self.round_idx, scan_idx, rng.IID)
             x_after = self._blend_iid_x(x_after, replica_of, k_iid, ref_active)
         partner_map = self._partner_map(scan_idx)
-        lp_after, lp_partner = self._fused_post_densities(x_after, chain_flat, partner_map, betas)
-        return self._post_one(scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of,
-                              replica_of, rec, partner_map, masks)
+        lp_after, lp_partner = self._fused_post_densities(x_after, chain_loc, partner_map, betas)
+        post = self._post_gathered if self._shard_chains else self._post_one
+        return post(scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of, replica_of,
+                    rec, partner_map, masks)
+
+    def _local_chains(self, chain_of):
+        """The chain of each of this rank's lanes, flat."""
+        chain_flat = chain_of.reshape(-1)
+        return chain_flat[self._gidx] if self._shard_chains else chain_flat
+
+    def _post_gathered(self, scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of,
+                       replica_of, rec, partner_map, masks):
+        """Chain sharding's one collective a scan: each lane's state, its
+        densities and its explorer statistics packed into one float32 row
+        and gathered in global replica order, then :meth:`_post_one` on the
+        whole ladder on every rank, as the one process runs it on the same
+        values (so for any extractor: the state is gathered, not its
+        extract). Every rank keeps its own lanes' carried density."""
+        cols = [x_after, lp_after, lp_partner, lp_cur, out.accept_sum, out.accept_n, out.n_steps]
+        if out.extras_sum is not None:
+            cols += [out.extras_sum, out.extras_n]
+        cols = [c.reshape(c.shape[0], -1).to(torch.float32) for c in cols]
+        gathered = self.mesh.gather(torch.cat(cols, 1))
+        parts = torch.split(gathered, [c.shape[1] for c in cols], 1)
+        x, la, lpp, lc, a_sum, a_n, steps = (parts[0], *(p[:, 0] for p in parts[1:7]))
+        whole = out._replace(x=x, lp=None, accept_sum=a_sum, accept_n=a_n, n_steps=steps)
+        if out.extras_sum is not None:
+            whole = whole._replace(extras_sum=parts[7], extras_n=parts[8])
+        _, chain_of, replica_of, lp_next, rec, outputs = self._post_one(
+            scan_idx, x, la, lpp, lc, whole, chain_of, replica_of, rec, partner_map, masks)
+        return x_after, chain_of, replica_of, lp_next[self._gidx], rec, outputs
 
     def _post_one(self, scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of,
                   replica_of, rec, partner_map, masks):
@@ -324,7 +440,7 @@ class PT:
         extract_dim]``, and where recorded all chains' extracts in chain order
         ``extended_trace [R, N, extract_dim]`` and the pre-swap
         ``index_process [R, N]`` (the chain of each replica)."""
-        R, n, d = self.n_replicates, self.n_chains, self.dim
+        R, n, d = chain_of.shape[0], self.n_chains, self.dim
         ref_mask, target_mask = masks
 
         # per-chain recorder rows: reorder each ladder's replica rows into
@@ -397,16 +513,17 @@ class PT:
     def _run_scans(self, n_scans: int):
         """One round of ``n_scans`` scans on the device. Returns the new run
         state, the recorders and each recorded output's per-scan values."""
-        R, n = self.n_replicates, self.n_chains
+        n = self.n_chains
         betas = self.betas
         ref_mask = torch.zeros(n, dtype=torch.bool, device=self.device)
         target_mask = torch.zeros(n, dtype=torch.bool, device=self.device)
         ref_mask[list(self.ref_positions)] = True
         target_mask[list(self.target_positions)] = True
-        rec = init_recorders(n, self._extract_dim, len(self.explorer.extra_names), R, self.device)
+        rec = init_recorders(n, self._extract_dim, len(self.explorer.extra_names), self._R_run,
+                             self.device)
         states, chain_of, replica_of = self._states, self._chain_of, self._replica_of
-        chain_flat = chain_of.reshape(-1)
-        lp = self._log_density(states, betas[chain_flat], self._is_var[chain_flat])
+        chain_loc = self._local_chains(chain_of)
+        lp = self._log_density(states, betas[chain_loc], self._is_var[chain_loc])
         # the reference's flag, read once a round (fit() sets it on the host)
         ref_active = self._ref_params is not None and float(self._ref_params["active"]) > 0
         recorded = {}
@@ -433,7 +550,8 @@ class PT:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        trace = os.path.join(folder, "trace.json")
+        name = "trace.json" if self.rank == 0 else f"trace_rank{self.rank}.json"
+        trace = os.path.join(folder, name)
         return profile(activities=activities,
                        on_trace_ready=lambda prof: prof.export_chrome_trace(trace))
 
@@ -444,6 +562,13 @@ class PT:
         with self._profile():
             t0 = time.perf_counter()
             states, chain_of, replica_of, rec, recorded = self._run_scans(n_scans)
+            recorded = {k: torch.stack(v) for k, v in recorded.items()}  # [n_scans, R_run, ...]
+            if self._shard_replicates:
+                # the round's one collective, inside its wall time: every
+                # ladder's recorders and outputs in ladder order, which is
+                # rank order
+                rec = Recorders(*(self.mesh.gather(t) for t in rec))
+                recorded = {k: self.mesh.gather(v, 1) for k, v in recorded.items()}
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             wall = time.perf_counter() - t0
@@ -453,15 +578,15 @@ class PT:
             """On the host, in the JAX runtime's shape ``[n_scans, (R,)? ...]``."""
             if name not in recorded:
                 return None
-            v = torch.stack(recorded[name]).cpu().numpy()
+            v = recorded[name].cpu().numpy()
             return v[:, 0] if self.n_replicates == 1 else v
 
         # [n_scans, R, T, extract_dim] -> pooled [iterations, extract_dim]
-        self.traces = (torch.stack(recorded["trace"]).reshape(-1, self._extract_dim).cpu().numpy()
+        self.traces = (recorded["trace"].reshape(-1, self._extract_dim).cpu().numpy()
                        if "trace" in recorded else None)
         self.extended_traces = per_scan("extended_trace")
         self.index_process = per_scan("index_process")
-        if "disk" in self.inputs.record:
+        if "disk" in self.inputs.record and self.rank == 0:
             from .checkpoint import write_samples
 
             write_samples(self)
@@ -548,7 +673,7 @@ class PT:
             mean_explorer_accept=mean_eacc,
         )
         self.reports.append(report)
-        if self.inputs.show_report:
+        if self.inputs.show_report and self.rank == 0:
             var_col = f" {'Λ_var':>7}" if self.two_leg else ""
             if self.round_idx == 1:
                 print(
@@ -647,21 +772,24 @@ class PT:
 def pigeons(target=None, on=None, **kwargs):
     """Main entry point (reference ``src/submission/api.jl``): a target plus
     ``Inputs`` keywords, an ``Inputs``, or a checkpoint folder to resume
-    (``pigeons("results/latest")``, optionally with ``device=``). With
-    ``on=ChildProcess(...)`` the run goes to a fresh process and a
-    :class:`~.submission.Result` comes back."""
+    (``pigeons("results/latest")``, optionally with ``device=`` and ``mesh=``).
+    With ``on=ChildProcess(...)`` the run goes to a fresh process and a
+    :class:`~.submission.Result` comes back; with ``on=MultiHostLauncher()``
+    it is sharded over the ranks of a process group (every rank calls this),
+    with ``on=ThisProcess()`` it runs here."""
     if isinstance(target, str):
         from .checkpoint import load_pt
 
-        return load_pt(target, device=kwargs.pop("device", None)).run()
+        return load_pt(target, device=kwargs.pop("device", None),
+                       mesh=kwargs.pop("mesh", None)).run()
     inputs = target if isinstance(target, Inputs) else Inputs(target=target, **kwargs)
     if on is None:
         return PT(inputs).run()
-    from .submission import ChildProcess
+    from .submission import ChildProcess, MultiHostLauncher, ThisProcess
 
-    if not isinstance(on, ChildProcess):
+    if not isinstance(on, (ChildProcess, MultiHostLauncher, ThisProcess)):
         raise NotImplementedError(
-            f"submission backend {type(on).__name__} is not ported yet; ChildProcess is "
-            "(ROADMAP queue 1, item 16)"
+            f"submission backend {type(on).__name__} is not ported yet; ChildProcess, "
+            "ThisProcess and MultiHostLauncher are (ROADMAP queue 1, item 16)"
         )
     return on.submit(inputs)

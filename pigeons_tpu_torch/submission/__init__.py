@@ -1,10 +1,11 @@
-"""Submission backends: ``pigeons(inputs, on=ChildProcess(...))``.
+"""Submission backends: ``pigeons(inputs, on=...)``.
 
-Counterpart of ``pigeons_tpu/submission`` for one backend, the child
-process; the cluster and multi-host backends are ROADMAP queue 1, items 15
-and 16."""
+Counterpart of ``pigeons_tpu/submission``: this process, a child process
+and the multi-process launcher; the cluster back ends are ROADMAP queue 1,
+item 16."""
 
 from .child_process import ChildProcess
+from .multihost import MultiHostLauncher, ThisProcess
 from .result import Result
 
-__all__ = ["ChildProcess", "Result"]
+__all__ = ["ChildProcess", "MultiHostLauncher", "Result", "ThisProcess"]

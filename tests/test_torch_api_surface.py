@@ -31,15 +31,18 @@ NOT_PORTED = {
     "StreamTarget": "item 16", "BlangTarget": "item 16", "TreePPLTarget": "item 16",
     "StanTarget": "item 16", "stan_target": "item 16",
 }
-# the submission module's names: the multi-host launcher is item 15, the
-# cluster back ends item 16
+# the submission module's names: the port has the child process and the
+# multi-process launcher; the cluster back ends are item 16
+SUBMISSION_PORTED = ["ChildProcess", "MultiHostLauncher", "ThisProcess", "Result"]
 SUBMISSION_NOT_PORTED = {
-    "MultiHostLauncher": "item 15", "ClusterSubmission": "item 16", "MPISettings": "item 16",
+    "ClusterSubmission": "item 16", "MPISettings": "item 16",
     "setup_mpi": "item 16", "queue_status": "item 16", "queue_ncpus_free": "item 16",
     "kill_job": "item 16", "watch": "item 16",
 }
 # Inputs options the port has but refuses, with their items (checks.py)
-REFUSED_OPTIONS = {"mesh": "item 15", "dtype=float64": "item 6c"}
+REFUSED_OPTIONS = {"dtype=float64": "item 6c"}
+# the launcher's parameter after the JAX ones: the group's timeout
+LAUNCHER_EXTENSIONS = {"timeout_s"}
 # parameters the port adds after the JAX ones, all with a default: Inputs
 # its device, the model factories take their data (the JAX factories close over theirs),
 # the path its device description and endpoint forms, ToyExplorer the path
@@ -70,7 +73,7 @@ def test_every_jax_name_is_exported_or_listed():
     assert not [n for n in NOT_PORTED if hasattr(T, n)], "a listed name is exported: unlist it"
     assert set(NOT_PORTED) <= set(J.__all__)
     assert set(T.__all__) >= {n for n in J.__all__ if n not in NOT_PORTED}
-    for name in ["ChildProcess", *SUBMISSION_NOT_PORTED]:
+    for name in [*SUBMISSION_PORTED, *SUBMISSION_NOT_PORTED]:
         assert hasattr(JS, name), name
         assert hasattr(TS, name) != (name in SUBMISSION_NOT_PORTED), name
 
@@ -132,3 +135,14 @@ def test_reference_parity_defaults():
     assert sig.parameters["exponent_n_refresh"].default == 0.35
     i = T.Inputs(target=None)
     assert (i.seed, i.n_rounds, i.n_chains) == (1, 10, 10)
+
+
+@pytest.mark.parametrize("name", ["ThisProcess", "MultiHostLauncher"])
+def test_launchers_take_the_jax_parameters(name):
+    """The multi-process launcher and ThisProcess take the JAX parameters in
+    the JAX order with the JAX defaults, the port's own after them."""
+    jp, tp = _params(getattr(JS, name)), _params(getattr(TS, name))
+    assert [(p.name, p.default) for p in tp[:len(jp)]] == [(p.name, p.default) for p in jp]
+    extra = {p.name for p in tp[len(jp):]}
+    assert extra == (LAUNCHER_EXTENSIONS if name == "MultiHostLauncher" else set())
+    assert getattr(T, name) is getattr(TS, name)

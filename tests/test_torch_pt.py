@@ -165,7 +165,7 @@ def test_cuda_slice_sampler_on_non_separable_path_raises():
         T.PT(T.Inputs(target=Quartic(), explorer=T.SliceSamplerCUDA(), device="cpu"))
 
 
-@pytest.mark.parametrize("option", [{"mesh": object()}, {"dtype": "float64"}])
+@pytest.mark.parametrize("option", [{"dtype": "float64"}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", **option))
@@ -203,7 +203,9 @@ def test_ported_options_work(name, tmp_path, monkeypatch):
 
 
 def test_import_pulls_no_jax():
-    code = "import sys, pigeons_tpu_torch; print('jax' in sys.modules, any(m == 'pigeons_tpu' or m.startswith('pigeons_tpu.') for m in sys.modules))"
+    code = ("import sys, pigeons_tpu_torch, pigeons_tpu_torch.parallel, "
+            "pigeons_tpu_torch.submission.host_main; print('jax' in sys.modules, any(m == "
+            "'pigeons_tpu' or m.startswith('pigeons_tpu.') for m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.stdout.split() == ["False", "False"]
