@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile] [--parent-csrc DIR]
+    python3 chip_smoke.py --side-phases   # phases 3n-7b alone (the script starts it)
 
 Run from the repository root. It builds the port's CUDA kernels from
-``pigeons_tpu_torch/csrc`` (one ``nvcc`` call, the sources in parallel),
+``pigeons_tpu_torch/csrc`` (``nvcc`` processes started together: K1, and K2
+in ``_build.K2_PARTS`` parts),
 holds each against its plain torch twin at the main paths' shapes (no bit
 may differ; K1 with each of its two coordinate terms, K2 in both modes, with
 each ``BayesianModel`` density for 1, 8, 16 and 32 threads per lane, and under
@@ -51,7 +53,19 @@ drives these paths end to end through
   ``ScanMix`` on the toy MVN, card against CPU (phase 6c: the slice
   sampler inside them is the torch ``SliceSampler``, which the JAX
   package's combinators run for ``SliceSamplerPallas``; no kernel
-  launches).
+  launches);
+* densities a user supplies as CUDA source beside their torch form (phase
+  12, ``pigeons_tpu_torch/models/source_examples.py``), each compiled at
+  first use into a library of its own (one ``nvcc`` a source, started
+  together): config 5's hierarchical normal with its likelihood as a source
+  at phase 3d's width (K2's user instance, held bit for bit to its twin at
+  B = 8,192, launched once a scan, its posterior means within three
+  standard errors of phase 3d's); a product of 100 normals as coordinate
+  terms at config 1's width (K1's user term, bit for bit at B = 20,480, its
+  moments and logZ = 0); ``unid_target()`` under N(0, 2^2 I) (the library's
+  K2 with the reference's 1 / sigma), model U with Cauchy, LogNormal and
+  Exponential priors and a ``CustomPath`` with a source at 10 chains x 64
+  ladders.
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU (and one
@@ -71,10 +85,17 @@ AutoMALA, AAPS, NUTS, ``Mix`` and ``ScanMix`` (the last four on the toy MVN
 at d = 3, the JAX test's cases) pass, each kernel launched once, the
 variational term at beta = 0.3, where the reference weighs in, K2 with the Bernoulli density on
 its posterior Beta(3, 9); a kernel that drifts and a step that reads a
-wrong reference fail (10). Every phase raises on failure. Without a CUDA device, or without the repository beside
+wrong reference fail (10). Phases 3n, 4, 5, 6, 6c, 7 and 7b read nothing of
+the other runs: a second process (``--side-phases``), started once phases
+2-2e have timed the kernel rows, runs them beside phases 3-11, and its
+output is printed after phase 11; so the wall times of phases 3-11 and of
+the side phases are taken with the card and the host shared, while the
+kernel rows (phases 2-2e, and 12 after the side process has ended) are
+not. Every phase raises on failure. Without a CUDA device, or without the repository beside
 it, it exits non-zero and prints no result. The line before the last is a
 JSON object describing every kernel (time, twin's time, launches on its main
-path, bound); the last line is a JSON object naming the device.
+path, bound; K2's user instance and K1's user term last); the last line is a
+JSON object naming the device.
 
 A kernel's bound is the least time the card could take for the same work:
 the larger of the bytes it must move (inputs read once, outputs written
@@ -193,10 +214,15 @@ LR_CHAINS, LR_REPLICATES, LR_ROUNDS = 10, 1024, (2, 4, 8, 16, 32)
 
 # bench config 2a (bench.py:330-355): logistic regression 200 x 10 (d=11) with
 # AutoMALA(), 10 chains x 1,024 ladders, seed 1, 4 warm-up rounds of 4 scans.
-# bench.py times the best of 3 rounds of 32 scans; the port times one round of
-# 32 (a scan is a second or two of eager launches on the card; with 8 the run
-# has made no tempered restart yet)
-A_CHAINS, A_REPLICATES, A_WARMUP_ROUNDS, A_WARMUP_SCANS, A_MEASURE_SCANS = 10, 1024, 4, 4, 32
+# bench.py times the best of 3 rounds of 32 scans; phase 3i warms up for
+# A_AUTOMALA_WARMUP_ROUNDS of the rounds and times one round of 16 (a scan is
+# a second or two of eager launches on the card, and the script has 1,200 s;
+# with 8 the run has made no tempered restart yet, and a restart needs
+# N_CHAINS - 1 = 9 scans inside one round). Phase 3n's NUTS and AAPS keep the
+# 4 warm-up rounds: after 2, NUTS's pooled weights were 1.17 from the weights
+# that made the data (PERF.md §6)
+A_CHAINS, A_REPLICATES, A_WARMUP_ROUNDS, A_WARMUP_SCANS, A_MEASURE_SCANS = 10, 1024, 4, 4, 16
+A_AUTOMALA_WARMUP_ROUNDS = 2
 A_DENSE_ITERS, A_COMPARE_LADDERS, A_PROFILE_SCANS = 16, 64, 2
 # phase 3n: config 2a's cell with NUTS() at its defaults and with AAPS at a
 # fixed step, its warm-up, then a timed round of N_MEASURE_SCANS scans: 16,
@@ -210,17 +236,20 @@ A_DENSE_ITERS, A_COMPARE_LADDERS, A_PROFILE_SCANS = 16, 64, 2
 N_MEASURE_SCANS, N_AAPS_STEP = 16, 0.8
 # phase 6c: the combinators on the toy MVN, 4 chains, 3 rounds, card and CPU
 C_DIM, C_CHAINS, C_ROUNDS = 2, 4, 3
+# phase 12: the CustomPath source's dimension (its other cells use the
+# widths above)
+U_CUSTOM_DIM = 4
 
 # bench config 2b (bench.py:421-483): logistic regression 4,096 x 256 (d=257)
 # with the queued AutoMALA (queue 512, window 2), 10 chains x 819 ladders =
 # 8,190 lanes, seed 1; bench.py warms up for 4 rounds of 4 scans, the port for
-# 1 (the script's time: PERF.md §6). bench.py times the best
-# of 3 rounds of 8 scans; the port times one round of 4. Its control (sequential
+# 1 round of 2 (the script's time: PERF.md §6). bench.py times the best
+# of 3 rounds of 8 scans; the port times one round of 2. Its control (sequential
 # AutoMALA(), 2 + 2 scans), dense leapfrog (64 chained steps) and host serial
 # rate (bench.py:363-418) are bench.py's; the column form's leapfrog (the
 # likelihood before the dense form) runs at 1,024 of the lanes.
 B_N, B_D, B_CHAINS, B_REPLICATES = 4096, 256, 10, 819
-B_WARMUP_ROUNDS, B_WARMUP_SCANS, B_MEASURE_SCANS, B_CONTROL_SCANS = 1, 4, 4, 2
+B_WARMUP_ROUNDS, B_WARMUP_SCANS, B_MEASURE_SCANS, B_CONTROL_SCANS = 1, 2, 2, 2
 B_BENCH_SCANS = 8
 B_QUEUE_WIDTH, B_WINDOW, B_DENSE_ITERS, B_COLUMN_LANES, B_COLUMN_ITERS = 512, 2, 64, 1024, 4
 B_CHECK_LANES, B_COMPARE_LANES, B_PROFILE_SCANS, B_HOST_SECONDS = 256, 64, 2, 3.0
@@ -406,7 +435,8 @@ def build_phase():
     from pigeons_tpu_torch import _build
 
     path, seconds = _build.build(verbose=True)
-    print(f"built {path.name} in {seconds:.3f} s (0 = already built), one nvcc over both sources")
+    print(f"built {path.name} in {seconds:.3f} s (0 = already built), {len(_build.units())} "
+          f"nvcc processes at once (K1, and K2 in {_build.K2_PARTS} parts), then one link")
     _build.load_library()
 
 
@@ -740,7 +770,8 @@ def prior_ops(prior):
     log-Jacobian (positive: the sum of its coordinates; interval: two
     softplus, a negation each and two adds a coordinate), its density (normal:
     six operations a coordinate; half-Cauchy: exp, a multiply, a square,
-    log1p and a subtract; uniform: a constant) and their adds."""
+    log1p and a subtract; uniform: a constant; Beta, Cauchy, Exponential and
+    LogNormal as noted) and their adds."""
     from pigeons_tpu_torch.models import distributions as D_
 
     total = ops(0)
@@ -755,6 +786,12 @@ def prior_ops(prior):
             total = total + size * (EXP + LOG1P + ops(4)) + ops(1)
         elif dist == D_.BETA:  # sigmoid, log, log1p of the negation, fma, multiply, add
             total = total + size * (SIGMOID + LOG + LOG1P + ops(5)) + ops(1)
+        elif dist == D_.CAUCHY:  # a subtract, a multiply, a square, log1p, a subtract
+            total = total + size * (LOG1P + ops(4)) + ops(1)
+        elif dist == D_.EXPONENTIAL:  # exp and an fma
+            total = total + size * (EXP + ops(2)) + ops(1)
+        elif dist == D_.LOG_NORMAL:  # exp, log, a subtract, a multiply, two fma, a subtract
+            total = total + size * (EXP + LOG + ops(7)) + ops(1)
     return total
 
 
@@ -1011,6 +1048,12 @@ def k2_phase():
             "delta_mode": delta}, delta_twin
 
 
+def launched_only(launches, name, n):
+    """Whether the launch counts show ``n`` launches of ``name`` and none of
+    any other kernel."""
+    return launches == {k: n if k == name else 0 for k in launches}
+
+
 def eval_rate(pt):
     """Density evaluations per second of the last round, counted as
     ``bench.py:_eval_rate`` counts them: explorer queries plus the runtime's
@@ -1046,8 +1089,7 @@ def config1_phase():
     print(f"logZ {rep.log_z_estimate:.4f} (analytic {pt.path.analytic_lognormalization():.4f})")
     print(f"round trips {pt.n_round_trips}, restarts {pt.n_tempered_restarts}, "
           f"swap accept mean {rep.mean_swap_accept:.4f}")
-    if launches != {"banded_slice_sweep": scans, "banded_slice_sweep_variational": 0,
-                    "slice_sweep": 0}:
+    if not launched_only(launches, "banded_slice_sweep", scans):
         raise AssertionError(f"kernel launches {launches} for {scans} scans of K1")
     if not (np.abs(mean).max() < 0.02 and np.abs(var / 0.1 - 1).max() < 0.05):
         raise AssertionError("target moments off")
@@ -1097,8 +1139,7 @@ def funnel_phase():
           f"{exact_log_z:.4f})")
     print(f"round trips {pt.n_round_trips}, restarts {pt.n_tempered_restarts}, "
           f"swap accept mean {rep.mean_swap_accept:.4f}")
-    if launches != {"banded_slice_sweep": 0, "banded_slice_sweep_variational": 0,
-                    "slice_sweep": scans}:
+    if not launched_only(launches, "slice_sweep", scans):
         raise AssertionError(f"kernel launches {launches} for {scans} scans of K2")
     if not abs(rep.log_z_estimate - exact_log_z) < 0.1:
         raise AssertionError("logZ off")
@@ -1157,8 +1198,7 @@ def config4_phase():
     print(f"variational barrier {pt.global_barrier_variational:.4f}, fixed-leg barrier "
           f"{pt.global_barrier:.4f} (config 1: {JAX_BARRIER})")
     print(f"logZ {rep.log_z_estimate:.4f} (exact {V_LOG_Z:.4f})")
-    if launches != {"banded_slice_sweep": 0, "banded_slice_sweep_variational": scans,
-                    "slice_sweep": 0}:
+    if not launched_only(launches, "banded_slice_sweep_variational", scans):
         raise AssertionError(f"kernel launches {launches} for {scans} scans of K1's variational term")
     if active != 1.0 or pt.round_idx != V_WARMUP_ROUNDS + 1:
         raise AssertionError("the timed round did not run under the fitted reference")
@@ -1175,11 +1215,13 @@ def config4_phase():
     return launches["banded_slice_sweep_variational"]
 
 
-def bayesian_run(target, n_chains, n_replicates, rounds, on_round=None, **kw):
+def bayesian_run(target, n_chains, n_replicates, rounds, on_round=None, kernel="slice_sweep",
+                 **kw):
     """NRPT from a ``BayesianModel``'s prior to its posterior on the card with
     kernel K2, one slice pass per scan, rounds of the given lengths, calling
     ``on_round(pt)`` after each if given; returns the run and the launches it
-    made (K2's must equal the scans, K1's be 0)."""
+    made (``kernel``'s, K2 or a user's instance of it, must equal the scans,
+    every other kernel's be 0)."""
     from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA
 
     SliceSamplerCUDA.reset_launches()
@@ -1194,10 +1236,9 @@ def bayesian_run(target, n_chains, n_replicates, rounds, on_round=None, **kw):
     launches = dict(SliceSamplerCUDA.launches)
     scans = sum(rounds)
     print(f"kernel launches {launches} for {scans} scans")
-    if launches["slice_sweep"] != scans or launches["banded_slice_sweep"] or \
-            launches["banded_slice_sweep_variational"]:
-        raise AssertionError(f"kernel launches {launches} for {scans} scans of K2")
-    return pt, launches["slice_sweep"]
+    if not launched_only(launches, kernel, scans):
+        raise AssertionError(f"kernel launches {launches} for {scans} scans of {kernel}")
+    return pt, launches[kernel]
 
 
 def print_round(pt, n_lanes):
@@ -1489,7 +1530,7 @@ def config2a_phase():
     target = logistic_regression(200, 10, seed=0)
     pt = PT(Inputs(target=target, n_chains=A_CHAINS, n_replicates=A_REPLICATES, seed=SEED,
                    explorer=AutoMALA(), show_report=False, device="cuda"))
-    for _ in range(A_WARMUP_ROUNDS):
+    for _ in range(A_AUTOMALA_WARMUP_ROUNDS):
         pt.run_round(n_scans=A_WARMUP_SCANS)
     pt.run_round(n_scans=A_MEASURE_SCANS)
     launches = dict(SliceSamplerCUDA.launches)
@@ -2675,12 +2716,203 @@ def mesh_phase(config1, hierarchical):
     return launches_a, launches_b
 
 
+def user_density_phase(library_hierarchical):
+    """Phase 12: densities a user supplies as CUDA source
+    (``pigeons_tpu_torch/models/source_examples.py``), each source compiled
+    into a library of its own (one ``nvcc`` each, all started together; the
+    hierarchical normal and model U share one text, hence one library).
+    (a) Config 5's hierarchical normal with its likelihood as a source, at
+    phase 3d's width, seed and rounds: K2's user instance against its twin
+    at B = 8,192 (no bit may differ), launched once a scan and the library's
+    K1 and K2 never, the pooled mu, tau, sigma within three standard errors
+    of phase 3d's library run (``library_hierarchical``: 0.95 / 0.92 / 0.019,
+    those of phase 3d's full-width gate). (b) The product of 100 normals,
+    means linspace(-1, 1.5), scales linspace(0.5, 2), from N(0, 3^2) per
+    coordinate, as a coordinate source on K1's user term at config 1's width
+    and rounds: the kernel against its twin at B = 20,480, launched once a
+    scan, per coordinate |mean - mu_c| < 0.02 scale_c and |var / scale_c^2 - 1|
+    < 0.05, |logZ| < 0.1 (both ends normalized). (c) At 10 chains x 64
+    ladders: ``unid_target()`` under N(0, 2^2 I) (the library's K2 with
+    params[0] = 1 / sigma), logZ plus the normal reference's log
+    normalization, log(2 pi 4), within 0.1 of the exact -4.974552; model U
+    (Cauchy, LogNormal and Exponential priors) and a ``CustomPath`` with a
+    source, each on its user instance bit for bit the twin at the path's
+    640 lanes, launched once a scan, finite logZ, model U with restarts.
+    Returns the kernels line's entries of K2's user instance and K1's user
+    term."""
+    phase("12 user densities as CUDA source")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA, StandardNormalReference, unid_target
+    from pigeons_tpu_torch import _build
+    from pigeons_tpu_torch.models import source_examples as SE
+    from pigeons_tpu_torch.models import unid_analytic_log_z
+    from pigeons_tpu_torch.ops import cuda_slice
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    hier, coord = SE.hierarchical_normal_source().to(dev), SE.normal_product_source(D).to(dev)
+    model_u, custom = SE.model_u().to(dev), SE.custom_path_source(U_CUSTOM_DIM).to(dev)
+    sources = {"likelihood (hierarchical normal, model U)": hier.log_likelihood_fn.source,
+               "coordinate terms (product of normals)": coord.source,
+               "CustomPath": custom.path.source}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_build.build_user, sources.values()))
+    for name, (lib, seconds) in zip(sources, built, strict=True):
+        print(f"nvcc for the {name} source: {seconds:.3f} s ({lib.name}; 0 = already built)")
+    print(f"the builds, at once: {time.perf_counter() - t_phase:.1f} s")
+
+    print("(a) the hierarchical normal, its likelihood as a source")
+    path = hier.create_path(hier.default_reference())
+    density = path.device_density()
+    n_obs = density.arrays[0].numel()
+    d = hier.dim
+    # a query: the prior table, the constrained values (two exp, a select
+    # chain a coordinate), each observation's term with its group's index
+    # (a conversion), the in-order sum, prior + likelihood, the interpolation
+    query = (prior_ops(density.prior) + 2 * EXP + ops(2 * d) + n_obs * (OBSERVATION + ops(1))
+             + ops(n_obs) + INTERPOLATE)
+    k2u = k2_mode("K2 user instance (hierarchical normal's likelihood as a source)", path, False,
+                  H_CHAINS * H_REPLICATES, d, 1.0, query, ops(0), query,
+                  extra_bytes=4 * sum(a.numel() for a in density.arrays))
+    pt, k2u["launches"] = bayesian_run(hier, H_CHAINS, H_REPLICATES, H_ROUNDS,
+                                       kernel="slice_sweep_user")
+    print_round(pt, H_CHAINS * H_REPLICATES)
+    q, q_lib = hier.constrained_samples(pt), hier.constrained_samples(library_hierarchical)
+    tolerance = {"mu": 0.95, "tau": 0.92, "sigma": 0.019}
+    for k, tol in tolerance.items():
+        got, want = float(np.mean(q[k])), float(np.mean(q_lib[k]))
+        print(f"{k}: pooled {got:.6f}, phase 3d's library run {want:.6f}, tolerance {tol}")
+        if not abs(got - want) <= tol:
+            raise AssertionError(f"user hierarchical normal: {k} {got} is off phase 3d's {want}")
+    if not np.isfinite(pt.sample_array()).all():
+        raise AssertionError("user hierarchical normal: non-finite samples")
+    del pt
+
+    print("(b) a product of normals as coordinate terms, K1's user term at config 1's width")
+    cpath = coord.create_path(coord.default_reference())
+    B = N_CHAINS * N_REPLICATES
+    x, betas, seeds = lane_inputs(B, D, 2.0, 11)
+    term = cuda_slice.UserTerm(betas, cpath.coord_source)
+    got = cuda_slice.banded_sweep_user_cuda(x, seeds, term)
+    counts = torch.zeros(6, dtype=torch.int64, device=dev)
+    want, plain_ms = timed_once(
+        lambda: cuda_slice.banded_sweep_reference(x, betas, seeds, phase_counts=counts, user=term))
+    max_abs = compare("K1 user term (product of normals)", got, want)
+    ms = cuda_ms(lambda: cuda_slice.banded_sweep_user_cuda(x, seeds, term), 20)
+    n = [float(v) for v in counts[:5]]
+    considered = float(got[1][1].double().sum())
+    # the user's two terms (the reference's: a multiply, a square, a
+    # multiply, an add; the target's: a subtract, a division, a square, a
+    # multiply, an add) and interpolate() with its guarded products
+    need = k1_need(B * D, n, considered, ops(9) + INTERPOLATE)
+    bound_ms, bound_by = bound(2 * 4 * B * D + (4 + 8 + 12) * B + 3 * 4 * D, need)
+    print(f"kernel {ms:.4f} ms (median of 20), twin {plain_ms:.4f} ms, B={B}, d={D}, 3 passes; "
+          f"{sum(n):.0f} iterations; bound {bound_ms:.6f} ms by {bound_by}, "
+          f"{bound_ms / ms:.2%} of the kernel's time")
+    k1u = {"name": "banded_slice_sweep_user (product of normals)", "route": "cuda",
+           "source": "pigeons_tpu_torch/csrc/banded_slice.cu",
+           "replaces": "pigeons_tpu/ops/pallas_slice.py:305", "max_abs_err": max_abs, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    SliceSamplerCUDA.reset_launches()
+    pt = PT(Inputs(target=coord, n_chains=N_CHAINS, n_replicates=N_REPLICATES, seed=SEED,
+                   explorer=SliceSamplerCUDA(), show_report=False, device="cuda"))
+    for _ in range(WARMUP_ROUNDS):
+        pt.run_round(n_scans=WARMUP_SCANS)
+    pt.run_round(n_scans=MEASURE_SCANS)
+    launches = dict(SliceSamplerCUDA.launches)
+    scans = WARMUP_ROUNDS * WARMUP_SCANS + MEASURE_SCANS
+    print(f"kernel launches {launches} for {scans} scans")
+    if not launched_only(launches, "banded_slice_sweep_user", scans):
+        raise AssertionError(f"kernel launches {launches} for {scans} scans of K1's user term")
+    k1u["launches"] = launches["banded_slice_sweep_user"]
+    mu, scale = (a.double().cpu().numpy() for a in coord.source.arrays[:2])
+    mean_off = float(np.max(np.abs(pt.mean() - mu) / scale))
+    var_off = float(np.max(np.abs(pt.var() / scale**2 - 1.0)))
+    log_z = pt.reports[-1].log_z_estimate
+    print(f"timed round: {MEASURE_SCANS} scans in {pt.reports[-1].wall_time_s:.4f} s, "
+          f"{eval_rate(pt):.6g} evals/s; max |mean - mu_c| / scale_c {mean_off:.5f}, "
+          f"max |var / scale_c^2 - 1| {var_off:.5f}, logZ {log_z:.5f} (exact 0), barrier "
+          f"{pt.global_barrier:.4f}, restarts {pt.n_tempered_restarts}")
+    if not (mean_off < 0.02 and var_off < 0.05 and abs(log_z) < 0.1):
+        raise AssertionError("product of normals on K1's user term: moments or logZ off")
+    del pt
+
+    print("(c) unid under N(0, 2^2 I); model U; a CustomPath with a source")
+    ref = StandardNormalReference(2, 2.0).as_reference()
+    pt, _ = bayesian_run(unid_target(), S_CHAINS, S_REPLICATES, S_ROUNDS, reference=ref)
+    if pt.path.device_density().params[0] != 0.5:
+        raise AssertionError("unid under N(0, 2^2 I): the kernel did not get 1 / sigma")
+    # the stepping stone estimates log(Z / Z_ref) with the reference's own
+    # unnormalized density: Z_ref = 2 pi sigma^2 in two coordinates
+    evidence = pt.reports[-1].log_z_estimate + math.log(2.0 * math.pi * 4.0)
+    print(f"logZ {pt.reports[-1].log_z_estimate:.6f}, + log(2 pi 4) = {evidence:.6f}, exact "
+          f"{unid_analytic_log_z():.6f}, restarts {pt.n_tempered_restarts}")
+    if not abs(evidence - unid_analytic_log_z()) < 0.1:
+        raise AssertionError("unid under a normal reference: logZ off its exact value")
+    lanes = S_CHAINS * S_REPLICATES
+    for name, target in (("model U", model_u), ("CustomPath", custom)):
+        upath = target.create_path(target.default_reference())
+        x, betas, seeds = lane_inputs(lanes, target.dim, 1.0, 11)
+        got = cuda_slice.sweep_cuda(x, betas, seeds, upath, n_passes=1)
+        compare(f"K2 user instance ({name}), B={lanes}", got,
+                cuda_slice.sweep_reference(x, betas, seeds, upath, n_passes=1),
+                lp_fresh=cuda_slice.sweep_density(upath)(got[0], betas))
+        pt, _ = bayesian_run(target, S_CHAINS, S_REPLICATES, S_ROUNDS, kernel="slice_sweep_user")
+        rep = pt.reports[-1]
+        print(f"{name}: logZ {rep.log_z_estimate:.6f}, barrier {pt.global_barrier:.4f}, "
+              f"restarts {pt.n_tempered_restarts}")
+        if not math.isfinite(rep.log_z_estimate):
+            raise AssertionError(f"{name}: logZ not finite")
+        if name == "model U":
+            q = target.constrained_samples(pt)
+            print("model U pooled: " + ", ".join(f"{k} {float(np.mean(q[k])):.4f}"
+                                                 for k in ("mu", "sigma", "tau")))
+            if not pt.n_tempered_restarts > 0:
+                raise AssertionError("model U: no tempered restart")
+        else:
+            m = custom.path.source.arrays[0].double().cpu().numpy()
+            s2 = (1.0 / custom.path.source.params[0]) ** 2
+            exact = float(np.sum(0.5 * np.log(s2 / (1.0 + s2)) - m**2 / (2.0 * (1.0 + s2))))
+            print(f"CustomPath: exact log(Z_1 / Z_0) {exact:.6f}")
+        del pt
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    k2u.update(name="slice_sweep_user (hierarchical normal's likelihood as a source)",
+               route="cuda", source="pigeons_tpu_torch/csrc/sweep_slice.cu",
+               replaces="pigeons_tpu/ops/pallas_slice.py:94")
+    return k2u, k1u
+
+
 def main():
     device_phase()
     build_phase()
     parent_phase()
     k1, (k2, delta_twin), k1v = k1_phase(), k2_phase(), k1_variational_phase()
     bayesian, k2v = k2_bayesian_phase(), k2_variational_phase()
+    side = start_side_phases()
+    try:
+        config1_run, hierarchical_run = main_phases(k1, k2, k1v, bayesian, k2v, delta_twin)
+        join_side_phases(side)
+    finally:
+        side[0].kill()
+    k2u, k1u = user_density_phase(hierarchical_run)
+    del config1_run, hierarchical_run
+    if "--profile" in sys.argv[1:]:
+        profile_phase()
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    print(json.dumps({"kernels": [k1, k2, k1v, *bayesian.values(), k2v, k2u, k1u]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+def main_phases(k1, k2, k1v, bayesian, k2v, delta_twin):
+    """The main process's paths from phase 3 to phase 11, beside the side
+    process; fills in the kernel rows' launches. Returns the runs of phases
+    3 and 3d (config 1, the hierarchical normal), which phases 11 and 12 are
+    held to."""
     k1["launches"], config1_run = config1_phase()
     k2["launches"] = funnel_phase()
     k1v["launches"] = config4_phase()
@@ -2695,19 +2927,11 @@ def main():
     k2v["launches"] = variational_funnel_phase()
     run2a, target2a = config2a_phase()
     run2b, target2b = config2b_phase()
-    nuts_aaps_runs, target2a_n = nuts_aaps_phase()
-    nuts_aaps_card_vs_cpu_phase(nuts_aaps_runs, target2a_n)
-    del nuts_aaps_runs
-    determinism_phase()
-    quickstart_phase()
-    small_reference_phase()
     automala_card_vs_cpu_phase(run2a, target2a)
-    combinators_phase()
     automala_card_vs_cpu_phase(run2b, target2b, "6d queued AutoMALA at config 2b, card vs CPU",
                                lanes=B_COMPARE_LANES, max_differ=2, queued=True,
                                queue_width=B_QUEUE_WIDTH, window=B_WINDOW)
-    torch_sampler_phase()
-    discrete_phase()
+    del run2a, run2b
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2718,16 +2942,68 @@ def main():
     k2["delta_mode"]["launches"] = invariance_phase(ref_params, delta_twin)
     k1["mesh_launches"], bayesian["hierarchical_normal"]["mesh_launches_per_rank"] = mesh_phase(
         config1_run, hierarchical_run)
-    del config1_run, hierarchical_run
-    if "--profile" in sys.argv[1:]:
-        profile_phase()
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    print(json.dumps({"kernels": [k1, k2, k1v, *bayesian.values(), k2v]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    return config1_run, hierarchical_run
+
+
+def side_phases():
+    """The phases that read nothing of the other phases' runs and are
+    timed by no kernel row: NUTS and AAPS at config 2a's width (3n), the
+    determinism runs (4), the quick start (5), the small runs card against
+    CPU (6), the combinators (6c), the torch ``SliceSampler`` (7) and the
+    ordinal and Bool targets (7b). ``chip_smoke.py --side-phases`` runs them
+    in a process of its own beside phases 3-11 (``start_side_phases``)."""
+    nuts_aaps_runs, target2a_n = nuts_aaps_phase()
+    nuts_aaps_card_vs_cpu_phase(nuts_aaps_runs, target2a_n)
+    del nuts_aaps_runs
+    determinism_phase()
+    quickstart_phase()
+    small_reference_phase()
+    combinators_phase()
+    torch_sampler_phase()
+    discrete_phase()
+    print(f"side phases: all passed in {time.perf_counter() - T0:.1f} s")
+
+
+def start_side_phases():
+    """Starts ``chip_smoke.py --side-phases`` once the kernel rows are timed
+    (phases 2-2e), its output into a temporary file: the gradient path's
+    eager scans and the CPU runs take about a third of the script, most of
+    it on the host. Returns the process, the file and its start."""
+    import tempfile
+
+    phase("side: phases 3n, 4, 5, 6, 6c, 7 and 7b start in a process of their own; its "
+          "output follows phase 11")
+    log = tempfile.TemporaryFile(mode="w+")
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--side-phases"],
+                             stdout=log, stderr=subprocess.STDOUT, text=True)
+    return child, log, time.perf_counter()
+
+
+def join_side_phases(side):
+    """Waits for the side process, prints its output and raises if it
+    failed."""
+    child, log, t0 = side
+    phase("side: phases 3n, 4, 5, 6, 6c, 7 and 7b (their times from the side process's start)")
+    t_wait = time.perf_counter()
+    rc = child.wait(timeout=1200)
+    log.seek(0)
+    print(log.read(), end="")
+    log.close()
+    print(f"side process: exit {rc}, {time.perf_counter() - t0:.1f} s from its start, "
+          f"{time.perf_counter() - t_wait:.1f} s waited for")
+    if rc != 0:
+        raise AssertionError(f"the side phases failed (exit {rc})")
+
+
+def side_main():
+    """``chip_smoke.py --side-phases``: the card, the built library, then
+    ``side_phases``."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device")
+    from pigeons_tpu_torch import _build
+
+    _build.load_library()
+    side_phases()
 
 
 T0 = time.perf_counter()
@@ -2736,5 +3012,7 @@ if __name__ == "__main__":
     if "--mesh-child" in sys.argv[1:]:
         at = sys.argv.index("--mesh-child")
         mesh_child(int(sys.argv[at + 1]), sys.argv[at + 2])
+    elif "--side-phases" in sys.argv[1:]:
+        side_main()
     else:
         main()

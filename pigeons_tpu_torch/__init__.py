@@ -12,6 +12,7 @@ from .adaptation import communication_barriers, optimal_schedule
 from .checkpoint import increment_n_rounds, load_pt, process_sample
 from .checks import ParallelismInvarianceError, check_against_serial
 from .diagnostics import ess, reports_dataframe, split_rhat, summary, swap_prs_dataframe
+from .device_source import DeviceSource, SourceCoordTarget, SourceLikelihood, SourceTarget
 from .evidence import stepping_stone, stepping_stone_pair
 from .inputs import Inputs
 from .invariance_test import InvarianceTestResult, invariance_test
@@ -70,6 +71,10 @@ from .submission import ChildProcess, MultiHostLauncher, Result, ThisProcess
 from .variational import GaussianReference
 
 __all__ = [
+    "DeviceSource",
+    "SourceCoordTarget",
+    "SourceLikelihood",
+    "SourceTarget",
     "AAPS",
     "AutoMALA",
     "BayesianModel",

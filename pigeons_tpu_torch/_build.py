@@ -2,12 +2,23 @@
 
 ``nvcc`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, never at import, into ``pigeons_tpu_torch/_build/``: one ``nvcc``
-call over all sources, which it compiles in parallel (``--threads``). The
-library's name is keyed by a hash of the sources, the shared headers and the
-flags, so a changed source or header rebuilds and an unchanged tree is reused.
+first use, never at import, into ``pigeons_tpu_torch/_build/``: ``nvcc``
+processes started together, one for ``banded_slice.cu`` and ``K2_PARTS`` for
+``sweep_slice.cu``, each compiling the kernel instances of its share of K2's
+density kinds (``-DPIGEONS_K2_PART``), then one call that links the objects.
+The library's name is keyed by a hash of the sources, the shared headers and
+the flags, so a changed source or header rebuilds and an unchanged tree is
+reused.
 ``build`` also takes preprocessor definitions and another source directory,
 for ``tools/torch_kernel_variants.py``, which times variants side by side.
+
+A user's density as CUDA source (``device_source.DeviceSource``) has a
+library of its own (``build_user``): one ``nvcc`` call over ``sweep_slice.cu``
+(or ``banded_slice.cu`` for coordinate terms) with the user's text included
+(``-DPIGEONS_USER_SOURCE``), which compiles the one kernel instance that runs
+it and none of the library's. It is keyed by a hash of the text, the hook,
+the sources, the headers and the flags, built at first use and loaded with
+``open_user``, which declares only the user entry point.
 """
 
 from __future__ import annotations
@@ -18,18 +29,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("banded_slice.cu", "sweep_slice.cu")  # kernels K1, K2
-HEADERS = ("common.cuh", "densities.cuh")
+HEADERS = ("common.cuh", "densities.cuh", "user_density.cuh")
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "--threads", str(len(SOURCES)),
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
+NVCC_FLAGS = (*COMPILE_FLAGS, "-shared")
+# the translation units of sweep_slice.cu in the library's build: its kinds'
+# seven slots (sweep_slice.cu: PIGEONS_K2_SLOT), one a unit
+K2_PARTS = 7
 
 
 def nvcc() -> str:
@@ -44,29 +60,86 @@ def nvcc() -> str:
     return found
 
 
+def units(defines: tuple = (), csrc: Path = CSRC, sources: tuple = SOURCES) -> list:
+    """The translation units of a build: ``(source, extra defines)`` each.
+    ``sweep_slice.cu`` is split in ``K2_PARTS`` where its text has the parts
+    (an earlier tree's may not) and no clock split is asked for (its clocks
+    are one unit's device array)."""
+    out = []
+    for name in sources:
+        if (name == "sweep_slice.cu" and "PIGEONS_K2_CLOCKS" not in defines
+                and "PIGEONS_K2_PART" in (csrc / name).read_text()):
+            out += [(name, (f"PIGEONS_K2_PARTS={K2_PARTS}", f"PIGEONS_K2_PART={i}"))
+                    for i in range(K2_PARTS)]
+        else:
+            out.append((name, ()))
+    return out
+
+
 def library_path(defines: tuple = (), csrc: Path = CSRC, sources: tuple = SOURCES) -> Path:
     h = hashlib.sha256()
     for name in (*sources, *HEADERS):
-        h.update((csrc / name).read_bytes())
+        if (csrc / name).exists():  # an earlier tree's csrc/ may lack a header
+            h.update((csrc / name).read_bytes())
     h.update(" ".join((*NVCC_FLAGS, *defines, *sources)).encode())
+    h.update(repr(units(defines, csrc, sources)).encode())
     return BUILD_DIR / f"libpigeons_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False, defines: tuple = (), csrc: Path = CSRC,
           sources: tuple = SOURCES) -> tuple[Path, float]:
     """Compile the kernels of ``sources`` in ``csrc`` with ``-D`` for each of
-    ``defines``, unless the keyed library exists. Returns its path and the
-    seconds spent compiling (0.0 when it was already built). ``verbose``
-    prints what ``ptxas -v`` says of each kernel: registers, shared memory,
-    spills. A library of fewer sources than ``SOURCES`` lacks the others'
-    entry points: ``open_library`` does not take it."""
+    ``defines``, unless the keyed library exists: the translation units
+    (``units``) in ``nvcc`` processes started together, then their objects
+    linked. Returns its path and the seconds spent compiling (0.0 when it was
+    already built). ``verbose`` prints what ``ptxas -v`` says of each kernel:
+    registers, shared memory, spills. A library of fewer sources than
+    ``SOURCES`` lacks the others' entry points: ``open_library`` does not
+    take it."""
     out = library_path(defines, csrc, sources)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
-           *(str(csrc / name) for name in sources)]
+    objects = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.objects")
+    objects.mkdir()
+    t0 = time.perf_counter()
+    try:
+        jobs = []
+        for k, (name, extra) in enumerate(units(defines, csrc, sources)):
+            obj = objects / f"{k}.o"
+            cmd = [nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj),
+                   *(f"-D{d}" for d in (*defines, *extra)), str(csrc / name)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for obj, proc in jobs:
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(proc.args)}\n{text}")
+            elif verbose:
+                print(text, end="")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        _compile(out, [str(obj) for obj, _ in jobs], False,
+                 flags=(*COMPILE_FLAGS[:2], "-shared"))  # the architecture
+    finally:
+        shutil.rmtree(objects, ignore_errors=True)
+    return out, time.perf_counter() - t0
+
+
+def _tmp(path: Path) -> Path:
+    """A name beside ``path`` of this process and thread alone."""
+    return path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+
+
+def _compile(out: Path, args: list, verbose: bool, flags: tuple = NVCC_FLAGS) -> float:
+    """One ``nvcc`` call with ``flags`` and ``args`` into ``out``; its
+    seconds."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _tmp(out)
+    cmd = [nvcc(), *flags, "-o", str(tmp), *args]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     t0 = time.perf_counter()
@@ -77,7 +150,7 @@ def build(verbose: bool = False, defines: tuple = (), csrc: Path = CSRC,
     if verbose:
         print(res.stdout + res.stderr, end="")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, seconds
+    return seconds
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,4 +180,79 @@ def open_library(path: Path) -> ctypes.CDLL:
     if hasattr(lib, "slice_sweep_group"):  # B, d, density, params, variational
         lib.slice_sweep_group.argtypes = [i, i, i, ctypes.POINTER(f), i]
         lib.slice_sweep_group.restype = i
+    return lib
+
+
+# the kernel a user's hook runs in, and its entry point
+USER_KERNELS = {"target": "sweep_slice.cu", "path": "sweep_slice.cu",
+                "likelihood": "sweep_slice.cu", "coord": "banded_slice.cu"}
+USER_ENTRY = {"sweep_slice.cu": "slice_sweep_user", "banded_slice.cu": "banded_slice_sweep_user"}
+
+
+def user_library_path(source) -> Path:
+    """The keyed library of a ``DeviceSource``: a hash of its text and hook
+    (``source.key``), the kernel's source, the headers and the flags."""
+    kernel = USER_KERNELS[source.hook]
+    h = hashlib.sha256()
+    for name in (kernel, *HEADERS):
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join((*NVCC_FLAGS, kernel, source.key)).encode())
+    return BUILD_DIR / f"libpigeons_user-{h.hexdigest()[:16]}.so"
+
+
+def build_user(source, verbose: bool = False) -> tuple[Path, float]:
+    """Compile a ``DeviceSource`` into its library unless it exists: one
+    ``nvcc`` over its kernel's source with the user's text included. Returns
+    the path and the seconds spent (0.0 when it was built). A source that
+    does not compile raises with ``nvcc``'s output."""
+    from .device_source import HOOKS
+
+    out = user_library_path(source)
+    if out.exists():
+        return out, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    text = out.with_suffix(".cuh")
+    if not text.exists():
+        tmp = _tmp(text)
+        tmp.write_text(source.code)
+        os.replace(tmp, text)
+    args = [f'-DPIGEONS_USER_SOURCE="{text}"', f"-DPIGEONS_USER_HOOK={HOOKS[source.hook]}",
+            str(CSRC / USER_KERNELS[source.hook])]
+    return out, _compile(out, args, verbose)
+
+
+@functools.lru_cache(maxsize=None)
+def _open_user(path: str, kernel: str) -> ctypes.CDLL:
+    return open_user(Path(path), kernel)
+
+
+def load_user(source) -> ctypes.CDLL:
+    """Build a ``DeviceSource``'s library if needed and load it (once a
+    process)."""
+    path, _ = build_user(source)
+    return _open_user(str(path), USER_KERNELS[source.hook])
+
+
+def open_user(path: Path, kernel: str) -> ctypes.CDLL:
+    """Load a user's library and declare its one entry point: K2's
+    ``slice_sweep_user`` (``kernel`` ``"sweep_slice.cu"``) or K1's
+    ``banded_slice_sweep_user``."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if USER_ENTRY[kernel] == "slice_sweep_user":
+        # x, betas, seeds, x_out, lp, stats, B, d, then in host memory params,
+        # the arrays' device pointers, their lengths and the prior table with
+        # its number of rows, then isvar, mean, std, active (null but in a
+        # variational run), w, p, n_passes, max_iter, stream
+        lib.slice_sweep_user.argtypes = [p, p, p, p, p, p, i, i, ctypes.POINTER(f),
+                                         ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(f),
+                                         i, p, p, p, p, f, i, i, i, p]
+        lib.slice_sweep_user.restype = i
+    else:
+        # x, betas, seeds, x_out, stats, B, d, w, p, n_passes, max_iter, then
+        # in host memory params, the arrays' device pointers and lengths, stream
+        lib.banded_slice_sweep_user.argtypes = [p, p, p, p, p, i, i, f, i, i, i,
+                                                ctypes.POINTER(f), ctypes.POINTER(p),
+                                                ctypes.POINTER(i), p]
+        lib.banded_slice_sweep_user.restype = i
     return lib

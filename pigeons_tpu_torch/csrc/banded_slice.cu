@@ -38,7 +38,10 @@
 // and the coordinates the reference's mean and std: the lane's are staged with
 // the tile's lanes, the coordinate's (with log_norm, computed once for each)
 // in a table of min(d, tile) entries, and a thread reads both when it takes an
-// element, so the loop itself reads registers only. The toy term's kernel is
+// element, so the loop itself reads registers only. With kUserCoord, a
+// user's two terms compiled from CUDA source into a library of its own
+// (user_density.cuh, -DPIGEONS_USER_SOURCE), the lanes bring their beta and a
+// thread the coordinate of the element it takes. The toy term's kernel is
 // the same instructions as before (47 registers; 63 with the variational
 // term, no spills). Side by side (tools/torch_kernel_variants.py, NVIDIA H100
 // 80GB HBM3, 700.00 W, d = 100, 3 passes, half the lanes variational): toy
@@ -72,7 +75,7 @@
 // (pigeons_tpu_torch/ops/cuda_slice.py:banded_sweep_reference) then gives the
 // same bits.
 
-#include "densities.cuh"
+#include "user_density.cuh"
 
 // Two compile-time constants, so that variants can be built and timed side by
 // side (tools/torch_kernel_variants.py): the most elements a block holds in
@@ -107,16 +110,18 @@ inline __host__ __device__ int coord_table_entries(int d) { return d <= kChunk ?
 // state and the place of its lane b among the tile's lanes; for each of those
 // lanes the three sums, the factor a and the seed. The variational term adds
 // each lane's beta and use_var and the table of coordinate parameters (mean,
-// std, log_norm).
+// std, log_norm); a user's term each lane's beta (and an unused slot).
 inline size_t shared_bytes(int max_lanes, CoordTerm term, int d) {
   const size_t toy = (size_t)kChunk * 10 + (size_t)max_lanes * 20;
   if (term == kToyQuadratic) return toy;
+  if (term == kUserCoord) return toy + (size_t)max_lanes * 8;
   return toy + (size_t)max_lanes * 8 + (size_t)coord_table_entries(d) * 12;
 }
 
 // What the variational term reads besides x, a and seeds: [B] beta and isvar,
 // the reference's one-element active flag, its [d] mean and std, and the
-// path's factor at beta = 1. Unused (null) with kToyQuadratic.
+// path's factor at beta = 1. Unused (null) with kToyQuadratic; kUserCoord
+// reads beta alone.
 struct VariationalArgs {
   const float* beta;
   const float* isvar;
@@ -126,13 +131,22 @@ struct VariationalArgs {
   float a_target;
 };
 
+// What a user's term reads besides the state: its parameters and arrays.
+struct UserTermArgs {
+  DensityParams params;
+  DensityArrays arrays;
+};
+
 template <CoordTerm kTerm>
 __global__ void __launch_bounds__(kThreads)
 banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
                     const int64_t* __restrict__ seeds, float* __restrict__ x_out,
                     float* __restrict__ stats, int B, int d, float W, float narrow_w, int p,
-                    int n_passes, int max_iter, int share, int max_lanes, VariationalArgs va) {
+                    int n_passes, int max_iter, int share, int max_lanes, VariationalArgs va,
+                    UserTermArgs ua) {
   constexpr bool kVariational = kTerm == kVariationalQuadratic;
+  constexpr bool kUserTerm = kTerm == kUserCoord;
+  constexpr bool kLaneBeta = kVariational || kUserTerm;
   float* tile = dynamic_shared();                                      // [kChunk]
   uint32_t* hash = reinterpret_cast<uint32_t*>(tile + kChunk);          // [kChunk]
   int* sums = reinterpret_cast<int*>(hash + kChunk);                    // [3][max_lanes]
@@ -140,9 +154,9 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
   uint32_t* lane_seed = reinterpret_cast<uint32_t*>(lane_a + max_lanes);  // [max_lanes]
   // the variational term's: [max_lanes] beta and use_var, then the table
   float* lane_beta = reinterpret_cast<float*>(lane_seed + max_lanes);
-  int* lane_use = reinterpret_cast<int*>(lane_beta + (kVariational ? max_lanes : 0));
+  int* lane_use = reinterpret_cast<int*>(lane_beta + (kLaneBeta ? max_lanes : 0));
   const int n_table = kVariational ? coord_table_entries(d) : 0;
-  float* c_mean = reinterpret_cast<float*>(lane_use + (kVariational ? max_lanes : 0));
+  float* c_mean = reinterpret_cast<float*>(lane_use + (kLaneBeta ? max_lanes : 0));
   float* c_std = c_mean + n_table;
   float* c_log_norm = c_std + n_table;
   uint16_t* lane_of = reinterpret_cast<uint16_t*>(c_log_norm + n_table);  // [kChunk]
@@ -176,8 +190,9 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
     const int c0 = (int)(start % d);   // and the coordinate it starts at
     const int n_lanes = (c0 + len - 1) / d + 1;
     for (int i = tid; i < n_lanes; i += blockDim.x) {
-      lane_a[i] = a[b0 + i];
+      if constexpr (!kUserTerm) lane_a[i] = a[b0 + i];
       lane_seed[i] = (uint32_t)seeds[b0 + i];
+      if constexpr (kUserTerm) lane_beta[i] = va.beta[b0 + i];
       if constexpr (kVariational) {
         lane_beta[i] = va.beta[b0 + i];
         lane_use[i] = (ref_active && va.isvar[b0 + i] > 0.0f) ? 1 : 0;
@@ -212,7 +227,11 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
     int next = min(tid / 32 * run, len);
     const int run_end = min(next + run, len);
     int taken = -1, bl = 0;
-    CoordParams cp{0.f, 0.f, 0.f, false, va.a_target, 0.f, 1.f, 0.f};
+    CoordParams cp{0.f, 0.f, 0.f, false, va.a_target, 0.f, 1.f, 0.f, 0};
+    const auto term = [&](float v) {
+      if constexpr (kUserTerm) return user_coord_term(cp, ua.params.v, ua.arrays, v);
+      else return coord_term<kTerm>(cp, v);
+    };
     float xv = 0.f;
     uint32_t base = 0u, it = 0u;
     float z = 0.f, L = 0.f, R = 0.f, lcL = 0.f, lcR = 0.f, Lb = 0.f, Rb = 0.f, cand = 0.f;
@@ -238,7 +257,12 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
         if (phase == DONE && mine < run_end) {
           taken = mine;
           bl = lane_of[mine];
-          cp.a = lane_a[bl];
+          if constexpr (kUserTerm) {
+            cp.beta = lane_beta[bl];
+            cp.c = (c0 + mine) % d;
+          } else {
+            cp.a = lane_a[bl];
+          }
           if constexpr (kVariational) {
             cp.beta = lane_beta[bl];
             cp.w0 = 1.0f - cp.beta;
@@ -279,11 +303,11 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
                           : phase == SHRINK ? cand_draw
                           : ph_chk          ? M
                                             : old;
-      const float lp_q = coord_term<kTerm>(cp, query);
+      const float lp_q = term(query);
       n_evals += is_enter ? 2 : 1;
       if (is_enter) {
-        z = coord_term<kTerm>(cp, old) - (-cephes_logf(draw(base, 2u * it + 1u)));
-        lcL = coord_term<kTerm>(cp, L);
+        z = term(old) - (-cephes_logf(draw(base, 2u * it + 1u)));
+        lcL = term(L);
         lcR = lp_q;
         K = p;
       }
@@ -400,7 +424,7 @@ cudaError_t resident_blocks(Kernel kernel, size_t shared, int* blocks) {
 template <CoordTerm kTerm>
 int launch_banded(const float* x, const float* a, const int64_t* seeds, float* x_out,
                   float* stats, int B, int d, float w, int p, int n_passes, int max_iter,
-                  const VariationalArgs& va, void* stream) {
+                  const VariationalArgs& va, const UserTermArgs& ua, void* stream) {
   const int64_t n = (int64_t)B * d;
   auto kernel = banded_slice_kernel<kTerm>;
   const int max_lanes = max_tile_lanes(d);
@@ -416,12 +440,40 @@ int launch_banded(const float* x, const float* a, const int64_t* seeds, float* x
   if (share > INT32_MAX) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + share - 1) / share);
   PIGEONS_LAUNCH(kernel, blocks, kThreads, shared, (cudaStream_t)stream, x, a, seeds, x_out,
-                 stats, B, d, w, 1.1f * w, p, n_passes, max_iter, (int)share, max_lanes, va);
+                 stats, B, d, w, 1.1f * w, p, n_passes, max_iter, (int)share, max_lanes, va, ua);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#ifdef PIGEONS_USER_SOURCE
+// The library of a user's coordinate terms (_build.py: build_user): x, betas,
+// seeds, x_out, stats as banded_slice_sweep's, with the lanes' [B] float32
+// betas in place of the factors; params (host memory) the user's
+// kMaxDensityParams float32 parameters, arrays and array_lens (host memory)
+// the kMaxDensityArrays device pointers of the user's float32 arrays and
+// their lengths (null and 0 where there are fewer). Launches on `stream`;
+// returns cudaGetLastError(), the error of the runtime query that failed, or
+// cudaErrorInvalidValue for arrays that do not match their lengths.
+extern "C" int banded_slice_sweep_user(const float* x, const float* betas, const int64_t* seeds,
+                                       float* x_out, float* stats, int B, int d, float w, int p,
+                                       int n_passes, int max_iter, const float* params,
+                                       const float* const* arrays, const int* array_lens,
+                                       void* stream) {
+  if ((int64_t)B * d == 0) return (int)cudaSuccess;
+  UserTermArgs ua{};
+  for (int i = 0; i < kMaxDensityParams; ++i) ua.params.v[i] = params[i];
+  for (int i = 0; i < kMaxDensityArrays; ++i) {
+    ua.arrays.ptr[i] = arrays ? arrays[i] : nullptr;
+    ua.arrays.n[i] = arrays ? array_lens[i] : 0;
+    if (ua.arrays.n[i] < 0 || (ua.arrays.n[i] > 0) != (ua.arrays.ptr[i] != nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  const VariationalArgs va{betas, nullptr, nullptr, nullptr, nullptr, 0.0f};
+  return launch_banded<kUserCoord>(x, nullptr, seeds, x_out, stats, B, d, w, p, n_passes,
+                                   max_iter, va, ua, stream);
+}
+#else
 // x, a, seeds, x_out, stats: device pointers of the [B, d] float32 states, the
 // [B] float32 coordinate-term factors, the [B] int64 lane seeds (uint32 values),
 // the [B, d] float32 output and the zeroed [3, B] float32 stats (accept_sum,
@@ -437,11 +489,13 @@ extern "C" int banded_slice_sweep(const float* x, const float* a, const int64_t*
                                   const float* std, float a_target, void* stream) {
   if ((int64_t)B * d == 0) return (int)cudaSuccess;
   const VariationalArgs va{beta, isvar, active, mean, std, a_target};
+  const UserTermArgs ua{};
   if (term == kToyQuadratic)
     return launch_banded<kToyQuadratic>(x, a, seeds, x_out, stats, B, d, w, p, n_passes,
-                                        max_iter, va, stream);
+                                        max_iter, va, ua, stream);
   if (term != kVariationalQuadratic || !beta || !isvar || !active || !mean || !std)
     return (int)cudaErrorInvalidValue;
   return launch_banded<kVariationalQuadratic>(x, a, seeds, x_out, stats, B, d, w, p, n_passes,
-                                              max_iter, va, stream);
+                                              max_iter, va, ua, stream);
 }
+#endif

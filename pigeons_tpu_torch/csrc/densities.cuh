@@ -45,10 +45,16 @@ namespace pigeons {
 // kMrna                state the logits of lt0, lkm0, lbeta, ldelta, lsigma
 //                      (their Uniform blocks of the prior table map them),
 //                      arrays ts [n], ys [n], params[1] = n.
+// A BayesianModel kind takes params[0] = 0 under its own prior; params[0] =
+// 1 / sigma makes the reference N(0, sigma^2 I), blended as kMvn's is.
+//
+// kUser is a density the user supplies as CUDA source (user_density.cuh):
+// it is compiled into a library of its own, never into the library's, and
+// its params[1..7] are the user's.
 enum Density {
   kToyMvn = 0, kFunnel = 1, kBanana = 2, kMvn = 3,
   kHierarchicalNormal = 4, kEightSchools = 5, kUnid = 6, kLogisticRegression = 7,
-  kBernoulli = 8, kEightSchoolsCentered = 9, kMrna = 10
+  kBernoulli = 8, kEightSchoolsCentered = 9, kMrna = 10, kUser = 11
 };
 
 template <Density K>
@@ -75,8 +81,13 @@ struct DensityArrays {
 // (1 / scale, log 2 - log(pi scale)); kUniform (lo, hi - lo, the block's
 // constant log density, log(hi - lo)); kBeta (a - 1, b - 1, -log B(a, b) as
 // XLA folds it), on (0, 1). A row of the launcher's table is (offset, size,
-// dist, bijector, p[0..3]) as eight floats.
-enum PriorKind { kNormal = 0, kHalfCauchy = 1, kUniform = 2, kBeta = 3 };
+// dist, bijector, p[0..3]) as eight floats. kCauchy (loc, 1 / scale,
+// -log(pi scale)) on the real line; kExponential (-rate, log rate) and
+// kLogNormal (loc, 1 / scale, -log scale) on exp(u).
+enum PriorKind {
+  kNormal = 0, kHalfCauchy = 1, kUniform = 2, kBeta = 3, kCauchy = 4, kExponential = 5,
+  kLogNormal = 6
+};
 enum BijectorKind { kIdentity = 0, kPositive = 1, kInterval = 2 };
 constexpr int kMaxPriorBlocks = 8;
 struct PriorBlock {
@@ -231,10 +242,32 @@ __device__ inline float block_log_jacobian(const View& s, const PriorBlock& b) {
 }
 
 // A block's log density of its constrained values (models/distributions.py:
-// Normal.log_prob, HalfCauchy.log_prob, Beta.log_prob), the bijector applied
-// here.
+// Normal.log_prob, HalfCauchy.log_prob, Beta.log_prob, Cauchy.log_prob,
+// Exponential.log_prob, LogNormal.log_prob), the bijector applied here.
 template <class View>
 __device__ inline float block_log_prob(const View& s, const PriorBlock& b) {
+  if (b.dist == kCauchy) {
+    return sum_in_order(
+        [&](int i) {
+          const float z = (s(b.offset + i) - b.p[0]) * b.p[1];
+          return b.p[2] - cephes_log1pf(z * z);
+        },
+        0, b.size);
+  }
+  if (b.dist == kExponential) {
+    return sum_in_order(
+        [&](int i) { return __fmaf_rn(cephes_expf(s(b.offset + i)), b.p[0], b.p[1]); }, 0,
+        b.size);
+  }
+  if (b.dist == kLogNormal) {  // log(exp(u)) as the torch form takes it: not folded
+    return sum_in_order(
+        [&](int i) {
+          const float lx = cephes_logf(cephes_expf(s(b.offset + i)));
+          const float z = (lx - b.p[0]) * b.p[1];
+          return __fmaf_rn(__fmaf_rn(z, z, f32(kLog2Pi)), -0.5f, b.p[2]) - lx;
+        },
+        0, b.size);
+  }
   if (b.dist == kBeta) {  // x = sigmoid(u), the unit interval's
     return sum_in_order(
         [&](int i) {
@@ -339,6 +372,31 @@ __device__ inline float combine_prior(const PriorTable& table, const float* lj, 
   bool any;
   const float c = prior_constant(table, &any);
   return any ? acc + c : acc;
+}
+
+// The constrained values of a state, block by block (models/bayesian.py:
+// BayesianModel.constrain): u itself, exp(u), or on an interval lo + (hi -
+// lo) sigmoid(u) (a Uniform block's p[0], p[1]; a Beta block's (0, 1), where
+// the torch form keeps sigmoid(u), which the fused map with 1 and 0 is).
+template <class View>
+__device__ inline void constrain(const View& s, const PriorTable& table, float* theta) {
+  for (int k = 0; k < table.n; ++k) {
+    const PriorBlock& b = table.block[k];
+    for (int i = b.offset; i < b.offset + b.size; ++i) {
+      const float u = s(i);
+      theta[i] = b.bijector == kIdentity ? u
+                 : b.bijector == kPositive ? cephes_expf(u)
+                 : b.dist == kUniform ? __fmaf_rn(sigmoid(u), b.p[1], b.p[0])
+                                      : sigmoid(u);
+    }
+  }
+}
+
+// The normal reference N(0, sigma^2 I), inv_sigma = 1 / sigma: -0.5 times the
+// sum of squares of x / sigma (models/target.py: StandardNormalReference).
+template <class View>
+__device__ __forceinline__ float normal_reference(const View& s, int d, float inv_sigma) {
+  return sum_squares([&](int i) { return s(i) * inv_sigma; }, d) * -0.5f;
 }
 
 // The variational reference's term of coordinate i at value u, and its log
@@ -575,7 +633,9 @@ __device__ inline float finish(const LaneView& s, const Term& term, int d, float
     ltgt = toy_coord_factor(1.0f, p.v[0], p.v[1]) * sq;
     lref = 0.0f;
   } else if constexpr (is_bayesian<K>) {
-    lref = log_prior(s, prior);
+    const float lprior = log_prior(s, prior);
+    // the model's own prior, or (params[0] = 1 / sigma) a normal reference
+    lref = p.v[0] == 0.0f || var.use ? lprior : normal_reference(s, d, p.v[0]);
     float lik;
     if constexpr (K == kHierarchicalNormal) {
       lik = sum_by_rows(term, d - 3, (int)p.v[1]);
@@ -588,10 +648,9 @@ __device__ inline float finish(const LaneView& s, const Term& term, int d, float
     } else {
       lik = sum_in_order(term, 0, end_term<K>(d, p));
     }
-    ltgt = lref + lik;
+    ltgt = lprior + lik;
   } else {
-    const float inv_sigma = p.v[0];
-    lref = var.use ? 0.0f : sum_squares([&](int i) { return s(i) * inv_sigma; }, d) * -0.5f;
+    lref = var.use ? 0.0f : normal_reference(s, d, p.v[0]);
     if constexpr (K == kFunnel || K == kBanana) {
       ltgt = pr.c + sum_in_order(term, 1, d);
     } else {
@@ -632,7 +691,11 @@ __device__ inline float log_density(const LaneView& s, int d, float beta, const 
 // XLA's CPU backend evaluates it: a true division, the Cephes log, no fused
 // multiply-add (both products by 0.5 are exact). log_norm, the first summand
 // of l_ref, depends on the coordinate alone and is computed once for it.
-enum CoordTerm { kToyQuadratic = 0, kVariationalQuadratic = 1 };
+//
+// kUserCoord: a user's two coordinate terms, compiled from CUDA source into a
+// library of its own (user_density.cuh: user_coord_term), blended at the
+// lane's beta as interpolate() blends them.
+enum CoordTerm { kToyQuadratic = 0, kVariationalQuadratic = 1, kUserCoord = 2 };
 
 struct CoordParams {
   float a;                    // the lane's factor
@@ -640,6 +703,7 @@ struct CoordParams {
   bool use_var;               // the lane follows the variational reference
   float a_target;             // the path's factor at beta = 1
   float mean, std, log_norm;  // the coordinate's
+  int c;                      // the coordinate (kUserCoord)
 };
 
 __device__ __forceinline__ float quadratic_term(float a, float v) {

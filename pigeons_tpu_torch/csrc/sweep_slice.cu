@@ -205,7 +205,7 @@
 // (pigeons_tpu_torch/ops/cuda_slice.py:sweep_reference) then gives the same
 // bits.
 
-#include "densities.cuh"
+#include "user_density.cuh"
 
 namespace {
 
@@ -550,9 +550,12 @@ struct ManyTerms {
       }
       if (slot == 1) cand = bq;
     }
-    // finish's blend, with log_prior's sum from the blocks
-    float lref = combine_prior(prior, blk, blk + kMaxPriorBlocks, kq, bq);
-    float ltgt = lref + lik;
+    // finish's blend, with log_prior's sum from the blocks; under a normal
+    // reference (params[0] = 1 / sigma) every thread sums its squares
+    const float lprior = combine_prior(prior, blk, blk + kMaxPriorBlocks, kq, bq);
+    float ltgt = lprior + lik;
+    float lref = lprior;
+    if (in.params.v[0] != 0.0f && !var.use) lref = normal_reference(s, d, in.params.v[0]);
     if (var.use) {
       if (c < 0) ref.resume(0);
       lref = c < 0 ? ref.total() : ref.query(c, q, slot);
@@ -822,6 +825,7 @@ constexpr bool kSpeculate = G > 1 && kSpeculated<K>;
 template <Density K, int G>
 __device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityParams& p,
                                              bool variational) {
+  if constexpr (K == kUser) return user_scratch_floats(d);
   if constexpr (kSpeculate<K, G>) return 0;
   if constexpr (kManyTerms<K, G>) return ManyTerms<K, G>::lane_floats(d, n_terms, p, variational);
   if constexpr (kKeptSums<K, G>) return KeptSums<K, G>::kFloatsPerCoord * d;
@@ -1227,9 +1231,12 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                    DensityInputs in, float W, float narrow_w, int p, int n_passes,
                    int max_iter) {
   static_assert(G == 1 || !kDelta, "delta mode runs one thread a lane");
-  // G == 1: the states [d][T], coordinate-major. G > 1: the states [T / G][d],
-  // then each group's buffers [T / G][lane_floats] (buffer_floats). Then the
+  static_assert(K != kUser || (G == 1 && !kDelta), "a user's density runs one thread a lane");
+  // G == 1: the states [d][T], coordinate-major. G > 1, and a user's density:
+  // the states [T / G][d], then each group's buffers [T / G][lane_floats]
+  // (buffer_floats; a user's likelihood: its constrained values). Then the
   // variational reference's mean, std and log norms [3][d].
+  constexpr bool kRowMajor = G > 1 || K == kUser;
   float* shared = dynamic_shared();
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -1242,8 +1249,8 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
   const bool variational = in.isvar != nullptr;
   const int lane_floats = buffer_floats<K, G>(d, n_terms, params, variational);
   for (int i = tid; i < n_tile; i += T)
-    shared[G == 1 ? (i % d) * T + i / d : i] = x[lane0 * d + i];
-  float* var_arrays = shared + (G == 1 ? T * d : lanes_per_block * (d + lane_floats));
+    shared[kRowMajor ? i : (i % d) * T + i / d] = x[lane0 * d + i];
+  float* var_arrays = shared + (kRowMajor ? lanes_per_block * (d + lane_floats) : T * d);
   if (variational) {
     for (int i = tid; i < d; i += T) {
       const float sd = in.std[i];
@@ -1258,8 +1265,8 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
   const int g = tid % G;      // its place in the group
   if (group < n_here) {
     const int64_t b = lane0 + group;
-    float* xs = G == 1 ? shared + tid : shared + group * d;
-    const int stride = G == 1 ? T : 1;  // coordinate c of this lane is xs[c * stride]
+    float* xs = kRowMajor ? shared + group * d : shared + tid;
+    const int stride = kRowMajor ? 1 : T;  // coordinate c of this lane is xs[c * stride]
     [[maybe_unused]] float* terms = shared + lanes_per_block * d + group * lane_floats;
     [[maybe_unused]] const unsigned mask = group_mask<G>(tid);
     const float beta = betas[b];
@@ -1336,6 +1343,14 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
         } else if constexpr (kKeptSums<K, G>) {
           return c < 0 ? many.init(pr, beta, params)
                        : many.evaluate(c, q, pr, slot, beta, params, mark);
+        } else if constexpr (K == kUser) {
+          // the user's function reads the lane's row: the query goes in place
+          // and the state comes back after it (one thread a lane)
+          const float kept = c >= 0 ? xs[c] : 0.0f;
+          if (c >= 0) xs[c] = q;
+          const float lp = user_log_density(xs, terms, d, beta, params, in.arrays, in.prior, var);
+          if (c >= 0) xs[c] = kept;
+          return lp;
         } else if constexpr (G == 1) {
           return log_density<K>(s, d, beta, pr, params, in.arrays, in.prior, var);
         } else {
@@ -1523,22 +1538,23 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
 
   __syncthreads();
   for (int i = tid; i < n_tile; i += T)
-    x_out[lane0 * d + i] = shared[G == 1 ? (i % d) * T + i / d : i];
+    x_out[lane0 * d + i] = shared[kRowMajor ? i : (i % d) * T + i / d];
 }
 
 // Shared memory of one block, with `extra` floats past the lanes' states (the
 // variational reference's 3 d). With one thread per
-// lane a state per thread, and the block shrinks to 64 or 32 lanes where 128
+// lane a state (and a user's likelihood its scratch) per thread, and the block shrinks to 64 or 32 lanes where 128
 // states would not fit (d up to 1,816); with a group per lane a state and its
 // lane_floats of buffers (buffer_floats) for each group of a 128-thread
 // block. 0: too large.
 size_t shared_bytes(int group, int d, int lane_floats, size_t extra, int* threads) {
   *threads = kThreads;
-  size_t floats = (size_t)(kThreads / group) * ((size_t)d + lane_floats);
+  const size_t per_lane = (size_t)d + lane_floats;
+  size_t floats = (size_t)(kThreads / group) * per_lane;
   if (group == 1) {
-    while (*threads > 32 && ((size_t)d * *threads + extra) * sizeof(float) > kMaxSharedBytes)
+    while (*threads > 32 && (per_lane * *threads + extra) * sizeof(float) > kMaxSharedBytes)
       *threads /= 2;
-    floats = (size_t)d * *threads;
+    floats = per_lane * *threads;
   }
   const size_t bytes = (floats + extra) * sizeof(float);
   return bytes > kMaxSharedBytes ? 0 : bytes;
@@ -1651,15 +1667,18 @@ int launch_full(const SweepArgs& a, int group) {
 
 // Whether the state's width, the arrays' lengths and the prior table are what
 // density kind `density` reads: the kernel checks no index.
+// A user's density reads its arrays as it likes; its likelihood has a prior
+// table, its other hooks none.
 bool consistent(int density, int d, const DensityInputs& in) {
   const int* n = in.arrays.n;
-  const bool bayesian = density >= kHierarchicalNormal;
-  if (!bayesian) return in.prior.n == 0 && n[0] + n[1] + n[2] + n[3] == 0;
+  const bool user = density == kUser;
+  const bool bayesian = user ? kUserHook == kUserLikelihood : density >= kHierarchicalNormal;
+  if (!bayesian) return in.prior.n == 0 && (user || n[0] + n[1] + n[2] + n[3] == 0);
   if (in.prior.n < 1) return false;
   int covered = 0;
   for (int k = 0; k < in.prior.n; ++k) {
     const PriorBlock& b = in.prior.block[k];
-    if (b.offset != covered || b.size < 1 || b.dist < kNormal || b.dist > kBeta ||
+    if (b.offset != covered || b.size < 1 || b.dist < kNormal || b.dist > kLogNormal ||
         (b.dist == kBeta && b.bijector != kInterval) ||
         b.bijector < kIdentity || b.bijector > kInterval)
       return false;
@@ -1667,6 +1686,7 @@ bool consistent(int density, int d, const DensityInputs& in) {
   }
   if (covered != d) return false;
   switch (density) {
+    case kUser: return true;
     case kHierarchicalNormal: {
       const int per = (int)in.params.v[1];
       return d > 3 && per >= 1 && n[0] == (d - 3) * per && n[1] + n[2] + n[3] == 0;
@@ -1702,6 +1722,33 @@ bool consistent(int density, int d, const DensityInputs& in) {
   }
 }
 
+// Reads the entry points' arguments into a; false for a set the kernel does
+// not take.
+bool read_args(SweepArgs* a, int density, const float* params, const float* const* arrays,
+               const int* array_lens, const float* prior, int n_prior, const float* isvar,
+               const float* mean, const float* std, const float* active) {
+  if (a->d < 1 || n_prior < 0 || n_prior > kMaxPriorBlocks) return false;
+  const bool variational = isvar != nullptr;
+  if (variational != (mean != nullptr) || variational != (std != nullptr) ||
+      variational != (active != nullptr))
+    return false;
+  for (int i = 0; i < kMaxDensityParams; ++i) a->in.params.v[i] = params[i];
+  for (int i = 0; i < kMaxDensityArrays; ++i) {
+    a->in.arrays.ptr[i] = arrays ? arrays[i] : nullptr;
+    a->in.arrays.n[i] = arrays ? array_lens[i] : 0;
+    if (a->in.arrays.n[i] < 0 || (a->in.arrays.n[i] > 0) != (a->in.arrays.ptr[i] != nullptr))
+      return false;
+  }
+  a->in.prior.n = n_prior;
+  for (int k = 0; k < n_prior; ++k) {
+    const float* row = prior + 8 * k;
+    a->in.prior.block[k] = {(int)row[0], (int)row[1], (int)row[2], (int)row[3],
+                            {row[4], row[5], row[6], row[7]}};
+  }
+  a->in.isvar = isvar, a->in.mean = mean, a->in.std = std, a->in.active = active;
+  return consistent(density, a->d, a->in);
+}
+
 }  // namespace
 
 #ifdef PIGEONS_K2_CLOCKS
@@ -1714,6 +1761,89 @@ extern "C" int k2_clock_split(unsigned long long* out, int n_lanes) {
                                    sizeof(unsigned long long) * kClockColumns * n_lanes);
 }
 #endif
+
+#ifdef PIGEONS_USER_SOURCE
+// The library of a user's density (_build.py: build_user): one instance,
+// kUser in full mode with one thread a lane, and nothing of the library's
+// kinds. The arguments are slice_sweep's without density, coord_deltas and
+// group; params[0] is the reference's 1 / sigma (0 for a BayesianModel under
+// its prior, unused by a CustomPath), params[1..7] the user's.
+extern "C" int slice_sweep_user(const float* x, const float* betas, const int64_t* seeds,
+                                float* x_out, float* lp_out, float* stats, int B, int d,
+                                const float* params, const float* const* arrays,
+                                const int* array_lens, const float* prior, int n_prior,
+                                const float* isvar, const float* mean, const float* std,
+                                const float* active, float w, int p, int n_passes, int max_iter,
+                                void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  SweepArgs a{x, betas, seeds, x_out, lp_out, stats, B, d, {}, w, p, n_passes, max_iter,
+              (cudaStream_t)stream};
+  if (!read_args(&a, kUser, params, arrays, array_lens, prior, n_prior, isvar, mean, std, active))
+    return -1;
+  return launch<kUser, false, 1>(a);
+}
+#else
+// The library's build (_build.py: build) compiles this file in
+// PIGEONS_K2_PARTS translation units at once, -DPIGEONS_K2_PART=i in the
+// i-th: the kernel instances take nearly all of nvcc's time, and a unit
+// compiles those of its kinds alone. Each kind has a launcher with C linkage,
+// defined in the unit of its slot (0 .. 6, slots balanced by the instances'
+// compile times) and called by the entry points, which part 0 holds. Without
+// the defines one unit holds everything.
+#ifndef PIGEONS_K2_PARTS
+#define PIGEONS_K2_PARTS 1
+#define PIGEONS_K2_PART 0
+#endif
+#define PIGEONS_K2_SLOT(s) ((s) % PIGEONS_K2_PARTS == PIGEONS_K2_PART)
+#define PIGEONS_K2_FULL_NAME(K) pigeons_k2_full_##K
+#define PIGEONS_K2_FULL(K)                                                 \
+  extern "C" int PIGEONS_K2_FULL_NAME(K)(const void* args, int group) {   \
+    return launch_full<K>(*static_cast<const SweepArgs*>(args), group); \
+  }
+
+#if PIGEONS_K2_SLOT(0)
+PIGEONS_K2_FULL(kHierarchicalNormal)
+#endif
+#if PIGEONS_K2_SLOT(1)
+PIGEONS_K2_FULL(kEightSchoolsCentered)
+#endif
+#if PIGEONS_K2_SLOT(2)
+PIGEONS_K2_FULL(kLogisticRegression)
+PIGEONS_K2_FULL(kToyMvn)
+extern "C" int pigeons_k2_delta(const void* args) {
+  return launch<kToyMvn, true, 1>(*static_cast<const SweepArgs*>(args));
+}
+#endif
+#if PIGEONS_K2_SLOT(3)
+PIGEONS_K2_FULL(kMrna)
+PIGEONS_K2_FULL(kFunnel)
+#endif
+#if PIGEONS_K2_SLOT(4)
+PIGEONS_K2_FULL(kEightSchools)
+PIGEONS_K2_FULL(kBanana)
+#endif
+#if PIGEONS_K2_SLOT(5)
+PIGEONS_K2_FULL(kBernoulli)
+PIGEONS_K2_FULL(kMvn)
+#endif
+#if PIGEONS_K2_SLOT(6)
+PIGEONS_K2_FULL(kUnid)
+#endif
+
+#if PIGEONS_K2_PART == 0
+#define PIGEONS_K2_DECLARE(K) extern "C" int PIGEONS_K2_FULL_NAME(K)(const void* args, int group);
+PIGEONS_K2_DECLARE(kToyMvn)
+PIGEONS_K2_DECLARE(kFunnel)
+PIGEONS_K2_DECLARE(kBanana)
+PIGEONS_K2_DECLARE(kMvn)
+PIGEONS_K2_DECLARE(kHierarchicalNormal)
+PIGEONS_K2_DECLARE(kEightSchools)
+PIGEONS_K2_DECLARE(kUnid)
+PIGEONS_K2_DECLARE(kLogisticRegression)
+PIGEONS_K2_DECLARE(kBernoulli)
+PIGEONS_K2_DECLARE(kEightSchoolsCentered)
+PIGEONS_K2_DECLARE(kMrna)
+extern "C" int pigeons_k2_delta(const void* args);
 
 // x, betas, seeds, x_out, lp_out, stats: device pointers of the [B, d] float32
 // states, the [B] float32 annealing parameters, the [B] int64 lane seeds
@@ -1741,52 +1871,40 @@ extern "C" int slice_sweep(const float* x, const float* betas, const int64_t* se
                            const float* active, float w, int p, int n_passes, int max_iter,
                            int group, void* stream) {
   if (B == 0) return (int)cudaSuccess;
-  if (d < 1 || n_prior < 0 || n_prior > kMaxPriorBlocks) return -1;
-  const bool variational = isvar != nullptr;
-  if (variational != (mean != nullptr) || variational != (std != nullptr) ||
-      variational != (active != nullptr))
-    return -1;
   SweepArgs a{x, betas, seeds, x_out, lp_out, stats, B, d, {}, w, p, n_passes, max_iter,
               (cudaStream_t)stream};
-  for (int i = 0; i < kMaxDensityParams; ++i) a.in.params.v[i] = params[i];
-  for (int i = 0; i < kMaxDensityArrays; ++i) {
-    a.in.arrays.ptr[i] = arrays ? arrays[i] : nullptr;
-    a.in.arrays.n[i] = arrays ? array_lens[i] : 0;
-    if (a.in.arrays.n[i] < 0 || (a.in.arrays.n[i] > 0) != (a.in.arrays.ptr[i] != nullptr)) return -1;
-  }
-  a.in.prior.n = n_prior;
-  for (int k = 0; k < n_prior; ++k) {
-    const float* row = prior + 8 * k;
-    a.in.prior.block[k] = {(int)row[0], (int)row[1], (int)row[2], (int)row[3],
-                           {row[4], row[5], row[6], row[7]}};
-  }
-  a.in.isvar = isvar, a.in.mean = mean, a.in.std = std, a.in.active = active;
-  if (!consistent(density, d, a.in)) return -1;
+  if (density == kUser ||
+      !read_args(&a, density, params, arrays, array_lens, prior, n_prior, isvar, mean, std, active))
+    return -1;
+  const bool variational = isvar != nullptr;
   if (coord_deltas) {
     if (density != kToyMvn || group > 1 || variational) return -1;
-    return launch<kToyMvn, true, 1>(a);
+    return pigeons_k2_delta(&a);
   }
+#define PIGEONS_K2_CASE(K) \
+  case K: return PIGEONS_K2_FULL_NAME(K)(&a, group);
   switch (density) {
-    case kToyMvn: return launch_full<kToyMvn>(a, group);
-    case kFunnel: return launch_full<kFunnel>(a, group);
-    case kBanana: return launch_full<kBanana>(a, group);
-    case kMvn: return launch_full<kMvn>(a, group);
-    case kHierarchicalNormal: return launch_full<kHierarchicalNormal>(a, group);
-    case kEightSchools: return launch_full<kEightSchools>(a, group);
-    case kUnid: return launch_full<kUnid>(a, group);
-    case kLogisticRegression: return launch_full<kLogisticRegression>(a, group);
-    case kBernoulli: return launch_full<kBernoulli>(a, group);
-    case kEightSchoolsCentered: return launch_full<kEightSchoolsCentered>(a, group);
-    case kMrna: return launch_full<kMrna>(a, group);
+    PIGEONS_K2_CASE(kToyMvn)
+    PIGEONS_K2_CASE(kFunnel)
+    PIGEONS_K2_CASE(kBanana)
+    PIGEONS_K2_CASE(kMvn)
+    PIGEONS_K2_CASE(kHierarchicalNormal)
+    PIGEONS_K2_CASE(kEightSchools)
+    PIGEONS_K2_CASE(kUnid)
+    PIGEONS_K2_CASE(kLogisticRegression)
+    PIGEONS_K2_CASE(kBernoulli)
+    PIGEONS_K2_CASE(kEightSchoolsCentered)
+    PIGEONS_K2_CASE(kMrna)
     default: return -1;
   }
 }
 
 // The number of threads a lane that slice_sweep's launcher picks in full mode
 // (group = 0) for B lanes of width d of density kind `density` with params
-// (host memory), with or without a variational reference; -1 for a kind the
-// kernel does not have. A sharded run launches the kernel on its own block of
-// lanes, so its launches may run another group than the whole batch's.
+// (host memory), with or without a variational reference; 1 for a user's
+// density (slice_sweep_user runs one thread a lane), -1 for a kind the kernel
+// does not have. A sharded run launches the kernel on its own block of lanes,
+// so its launches may run another group than the whole batch's.
 extern "C" int slice_sweep_group(int B, int d, int density, const float* params,
                                  int variational) {
   DensityParams v{};
@@ -1804,6 +1922,9 @@ extern "C" int slice_sweep_group(int B, int d, int density, const float* params,
     case kBernoulli: return pick_group<kBernoulli>(B, d, v, var);
     case kEightSchoolsCentered: return pick_group<kEightSchoolsCentered>(B, d, v, var);
     case kMrna: return pick_group<kMrna>(B, d, v, var);
+    case kUser: return 1;
     default: return -1;
   }
 }
+#endif  // PIGEONS_K2_PART == 0
+#endif

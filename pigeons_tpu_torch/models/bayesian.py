@@ -11,9 +11,13 @@ initialization draws from the prior and maps to unconstrained space, and
 The likelihood is a batched function of the dict of constrained tensors. One
 that can also run inside the general slice kernel (``csrc/densities.cuh``) is
 an object with ``device() -> (kind, params, arrays)`` and ``to(device)``; the
-library's models are such (``models/library.py``). The prior reaches the
-kernel as a table of blocks, one per prior, so a new prior needs no kernel
-code as long as its distribution has a ``device_block``.
+library's models are such (``models/library.py``). A user's likelihood
+reaches the kernel as CUDA source: an object with ``source``, a
+``DeviceSource`` of hook ``"likelihood"`` (``device_source.SourceLikelihood``).
+The prior reaches the kernel as a table of blocks, one per prior, so a new
+prior needs no kernel code as long as its distribution has a ``device_block``
+(all seven have one). The kernel evaluates the path from the model's own
+prior or from ``N(0, sigma^2 I)`` (a ``Reference`` with ``normal_sigma``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..paths import DeviceDensity, InterpolatingPath
+from ..paths import USER, DeviceDensity, InterpolatingPath
 from .distributions import IDENTITY, INTERVAL, POSITIVE, Interval
 from .target import Reference, Target
 
@@ -44,6 +48,11 @@ class BayesianModel(Target):
             self._slices[name] = (off, dist.size, dist.shape)
             off += dist.size
         self.dim = off
+        if getattr(log_likelihood, "source", None) is not None and self.prior_table() is None:
+            raise ValueError(
+                f"BayesianModel: a likelihood with a CUDA source runs inside kernel K2, whose "
+                f"prior table takes at most {MAX_PRIOR_BLOCKS} priors; this model has "
+                f"{len(self.priors)}")
 
     def to(self, device) -> "BayesianModel":
         """The model with its likelihood's data on ``device``."""
@@ -188,13 +197,19 @@ class BayesianModel(Target):
 
     def device_target(self):
         """``(kind, params, arrays, prior table)`` when the slice kernel has
-        this model's likelihood and every prior, else ``None``."""
+        this model's likelihood (a library kind, or ``USER`` for a likelihood
+        with a CUDA source) and every prior, else ``None``."""
         describe = getattr(self.log_likelihood_fn, "device", None)
+        source = getattr(self.log_likelihood_fn, "source", None)
         table = self.prior_table()
-        if describe is None or table is None:
+        if table is None:
             return None
-        kind, params, arrays = describe()
-        return kind, tuple(params), tuple(arrays), table
+        if describe is not None:
+            kind, params, arrays = describe()
+            return kind, tuple(params), tuple(arrays), table
+        if source is not None:
+            return USER, source.params, source.arrays, table
+        return None
 
     def _is_own_prior(self, reference: Reference) -> bool:
         """Whether ``reference`` is the ``default_reference()`` of this model
@@ -206,22 +221,30 @@ class BayesianModel(Target):
                 and all(other.priors[name] is dist for name, dist in self.priors.items()))
 
     def create_path(self, reference: Reference):
-        """Prior to posterior. The kernel evaluates the path only from this
-        model's own prior: with any other reference ``device`` stays
-        ``None``."""
-        device = None
+        """Prior to posterior. The kernel evaluates the path from this
+        model's own prior (``params[0] = 0``) or from ``N(0, sigma^2 I)``
+        (``params[0] = 1 / sigma``); with any other reference ``device``
+        stays ``None``."""
+        device = sweep = None
         target = self.device_target()
         own_prior = self._is_own_prior(reference)
-        if target is not None and own_prior:
+        if target is not None and (own_prior or reference.normal_sigma is not None):
             kind, params, arrays, table = target
-            device = DeviceDensity(kind, (0.0, *params), arrays, table)
+            ref0 = 0.0 if own_prior else float(np.float32(1.0) / np.float32(reference.normal_sigma))
+            device = DeviceDensity(kind, (ref0, *params), arrays, table,
+                                   getattr(self.log_likelihood_fn, "source", None))
+            if own_prior:
+                sweep = self.sweep_prior_and_posterior
+            else:
+                def sweep(x):
+                    return reference.log_density(x), self.sweep_prior_and_posterior(x)[1]
         return InterpolatingPath(
             ref_log_density=reference.log_density,
             target_log_density=self.log_density,
             sample_reference=reference.sample_iid,
             device=device,
             endpoints=self.prior_and_posterior if own_prior else None,
-            sweep_endpoints=self.sweep_prior_and_posterior if device is not None else None,
+            sweep_endpoints=sweep,
         )
 
     def constrained_samples(self, pt) -> Dict[str, np.ndarray]:

@@ -16,7 +16,10 @@ with their bijectors are bit for bit the JAX ones, in the densities and inside
 the slice kernel (whose prior table names them, ``csrc/densities.cuh``), and
 so is ``Beta`` wherever its constant (three ``gammaln``s that XLA folds) is
 XLA's (``tests/test_torch_library_models.py``); the others are held to a
-float32 tolerance (``tests/test_torch_bayesian.py``).
+float32 tolerance (``tests/test_torch_bayesian.py``). Every one has a
+``device_block``, a row of the slice kernel's prior table, which the kernel
+evaluates with the torch form's operations
+(``tests/test_torch_user_density.py``).
 """
 
 from __future__ import annotations
@@ -244,7 +247,7 @@ class Interval:
 # ---------------------------------------------------------------------------
 
 # distribution kinds of csrc/densities.cuh (the kernel's prior table)
-NORMAL, HALF_CAUCHY, UNIFORM, BETA = 0, 1, 2, 3
+NORMAL, HALF_CAUCHY, UNIFORM, BETA, CAUCHY, EXPONENTIAL, LOG_NORMAL = range(7)
 
 
 @dataclass(frozen=True)
@@ -420,9 +423,14 @@ class Cauchy(Distribution):
     loc: float = 0.0
     scale: float = 1.0
 
+    @property
+    def device_block(self):
+        return CAUCHY, (_f32(self.loc), _recip(self.scale), -_const_log(math.pi * self.scale))
+
     def log_prob(self, x):
-        z = (_event(x, self.shape) - _f32(self.loc)) * _recip(self.scale)
-        return sum_in_order(-_const_log(math.pi * self.scale) - f32math.log1p(z * z))
+        _, (loc, inv_scale, log_norm) = self.device_block
+        z = (_event(x, self.shape) - loc) * inv_scale
+        return sum_in_order(log_norm - f32math.log1p(z * z))
 
     def sample(self, keys, fused: bool = True):
         return f32math.fma(cauchy(keys, self.shape), _f32(self.scale), _f32(self.loc))
@@ -457,8 +465,13 @@ class Exponential(Distribution):
 
     bijector = Positive()
 
+    @property
+    def device_block(self):
+        return EXPONENTIAL, (-_f32(self.rate), _const_log(self.rate), 0.0)
+
     def log_prob(self, x):
-        return sum_in_order(f32math.fma(_event(x, self.shape), -_f32(self.rate), _const_log(self.rate)))
+        _, (neg_rate, log_rate, _) = self.device_block
+        return sum_in_order(f32math.fma(_event(x, self.shape), neg_rate, log_rate))
 
     def sample(self, keys, fused: bool = True):
         u = rng.uniform(keys, self.shape)
@@ -472,11 +485,16 @@ class LogNormal(Distribution):
 
     bijector = Positive()
 
+    @property
+    def device_block(self):
+        return LOG_NORMAL, (_f32(self.loc), _recip(self.scale), -_const_log(self.scale))
+
     def log_prob(self, x):
+        _, (loc, inv_scale, neg_log_scale) = self.device_block
         lx = f32math.log(_event(x, self.shape))
-        z = (lx - _f32(self.loc)) * _recip(self.scale)
+        z = (lx - loc) * inv_scale
         t = f32math.fma(z, z, _LOG_2PI_F32)
-        return sum_in_order(f32math.fma(t, -0.5, -_const_log(self.scale)) - lx)
+        return sum_in_order(f32math.fma(t, -0.5, neg_log_scale) - lx)
 
     def sample(self, keys, fused: bool = True):
         return f32math.exp(f32math.fma(rng.normal(keys, self.shape), _f32(self.scale), _f32(self.loc)))

@@ -8,14 +8,15 @@ and ``create_path(reference)``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import KW_ONLY, dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from .. import rng
-from ..paths import DeviceDensity, InterpolatingPath, sum_squares
+from ..paths import USER, DeviceDensity, InterpolatingPath, sum_squares
 
 
 @dataclass(frozen=True)
@@ -34,6 +35,9 @@ class Reference:
 
 class Target:
     dim: int
+    # a DeviceSource of hook "target": the target's log density as CUDA
+    # source, which kernel K2 runs under a normal reference
+    source = None
 
     def log_density(self, x):
         raise NotImplementedError
@@ -61,17 +65,28 @@ class Target:
         return None
 
     def create_path(self, reference: Reference):
-        device = None
-        target = self.device_target()
-        if target is not None and reference.normal_sigma is not None:
-            kind, params = target
-            inv_sigma = np.float32(1.0) / np.float32(reference.normal_sigma)
-            device = DeviceDensity(kind, (float(inv_sigma), *params))
+        """The linear path from ``reference``. Under ``N(0, sigma^2 I)`` the
+        slice kernel K2 evaluates it from a library kind (``device_target``)
+        or from the target's ``source``; the kernel's twin then evaluates
+        the source's torch form (``sweep_endpoints``)."""
+        device = sweep = None
+        target, source = self.device_target(), self.source
+        if reference.normal_sigma is not None and (target is not None or source is not None):
+            inv_sigma = float(np.float32(1.0) / np.float32(reference.normal_sigma))
+            if target is not None:
+                kind, params = target
+                device = DeviceDensity(kind, (inv_sigma, *params))
+            else:
+                device = DeviceDensity(USER, (inv_sigma, *source.params), source.arrays, (), source)
+
+                def sweep(x):
+                    return reference.log_density(x), source.target(x)
         return InterpolatingPath(
             ref_log_density=reference.log_density,
             target_log_density=self.log_density,
             sample_reference=reference.sample_iid,
             device=device,
+            sweep_endpoints=sweep,
         )
 
     def initialization(self, keys):
@@ -92,15 +107,27 @@ class CustomPath:
     ``sample_reference``: optional ``keys [..., 2] -> x [..., d]``, iid draws
     at beta = 0 (reference-chain regeneration); ``sample_at``: optional
     ``(keys, betas) -> x``, iid draws at every beta (the ``ToyExplorer``).
-    The torch explorers take it as it is; the CUDA slice kernels do not
-    (``SliceSamplerCUDA.check_path`` raises)."""
+    The torch explorers take it as it is; the CUDA slice kernel K2 takes it
+    where it has ``source``, the path's density as CUDA source (a
+    ``DeviceSource`` of hook ``"path"``), whose torch form the kernel's twin
+    evaluates (``SliceSamplerCUDA.check_path`` raises without one)."""
 
     log_density_fn: Callable  # (x [..., d], beta) -> [...]
     sample_reference: Optional[Callable] = None
     sample_at: Optional[Callable] = None
+    _: KW_ONLY
+    source: Optional[object] = None
 
     def log_density(self, x, beta):
         return self.log_density_fn(x, beta)
+
+    def sweep_log_density(self, x, beta):
+        """The density as kernel K2 evaluates it: the source's torch form."""
+        return self.log_density(x, beta) if self.source is None else self.source.path(x, beta)
+
+    def device_density(self) -> Optional[DeviceDensity]:
+        src = self.source
+        return None if src is None else DeviceDensity(USER, (0.0, *src.params), src.arrays, (), src)
 
     @property
     def has_iid_reference(self) -> bool:
@@ -114,6 +141,17 @@ class CustomPathTarget(Target):
     def __init__(self, path: CustomPath, dim: int):
         self.path = path
         self.dim = dim
+
+    def to(self, device) -> "CustomPathTarget":
+        """The target with its path's source arrays on ``device`` (a
+        ``log_density_fn`` that is the source's own torch form follows it)."""
+        src = self.path.source
+        if src is None:
+            return self
+        moved = src.to(device)
+        fn = moved.path if self.path.log_density_fn == src.path else self.path.log_density_fn
+        return CustomPathTarget(
+            dataclasses.replace(self.path, log_density_fn=fn, source=moved), self.dim)
 
     def log_density(self, x):
         return self.path.log_density(x, 1.0)

@@ -45,6 +45,14 @@ per lane, which hashes the draws of a run's next iterations at once and
 takes them in turn, and the final density is recomputed. :func:`sweep_reference` is the
 same machine as torch ops over ``[B]`` rows.
 
+**A user's density** (``device_source.DeviceSource``, CUDA source beside its
+torch form) has a library of its own, built at first use
+(``_build.build_user``): K2's instance for it (``slice_sweep_user``, full mode,
+one thread a lane) for a target, a ``CustomPath`` or a ``BayesianModel``
+likelihood (``DeviceDensity`` of kind ``USER``), K1's user term
+(``banded_slice_sweep_user``) for a path with ``coord_source``. The twins
+evaluate the source's torch form.
+
 CPU tensors run the twins; a CUDA tensor reaches the kernel or raises. Each
 kernel agrees with its twin bit for bit on the card.
 
@@ -73,7 +81,7 @@ import numpy as np
 import torch
 
 from .. import f32math, rng
-from ..paths import VariationalPath, _guarded_mul, lane_log_density
+from ..paths import USER, VariationalPath, _guarded_mul, lane_log_density
 from ..variational import GaussianReference
 from .base import Explorer, StepOut
 
@@ -144,11 +152,28 @@ class VariationalTerm(NamedTuple):
     std: torch.Tensor  # [d] float32
 
 
-def coord_term(v, a, variational: VariationalTerm = None, log_norm=None):
+class UserTerm(NamedTuple):
+    """Kernel K1's user term: the lanes' betas and the ``"coord"``
+    :class:`~..device_source.DeviceSource` whose two terms it blends,
+    ``gm(1 - beta, ref(v, c)) + gm(beta, target(v, c))`` with ``gm`` the
+    guarded multiply (the JAX runtime's ``ld_coord``,
+    ``pigeons_tpu/pt.py:693-696``)."""
+
+    beta: torch.Tensor  # [B] float32
+    source: object
+
+
+def coord_term(v, a, variational: VariationalTerm = None, log_norm=None, user: UserTerm = None):
     """K1's coordinate term of ``v [B, d]`` for factors ``a [B]``: ``(a v) v``,
     or with ``variational`` the term of :class:`VariationalTerm`
-    (``pigeons_tpu/pt.py:703-712``); NaN reads as -inf. ``log_norm [d]`` is
+    (``pigeons_tpu/pt.py:703-712``), or with ``user`` the
+    :class:`UserTerm` (``a`` unused); NaN reads as -inf. ``log_norm [d]`` is
     the reference's ``coord_log_norm(std)``, where the caller keeps it."""
+    if user is not None:
+        c = torch.arange(v.shape[-1], device=v.device)
+        beta = user.beta[:, None]
+        return nan_to_neg_inf(_guarded_mul(1.0 - beta, user.source.ref_coord(v, c))
+                              + _guarded_mul(beta, user.source.target_coord(v, c)))
     f = (a[:, None] * v) * v
     if variational is not None:
         vt = variational
@@ -162,12 +187,14 @@ def coord_term(v, a, variational: VariationalTerm = None, log_norm=None):
 
 def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
                            n_passes: int = 3, max_iter: int = 1024, phase_counts=None,
-                           element_iterations=None, variational: VariationalTerm = None):
+                           element_iterations=None, variational: VariationalTerm = None,
+                           user: UserTerm = None):
     """Plain torch twin of kernel K1.
 
     ``x [B, d]`` float32 states, ``a [B]`` float32 coordinate-term factors
     (the term is ``f(v) = (a v) v``, NaN read as -inf; with ``variational``
-    the term of :class:`VariationalTerm`), ``lane_seeds [B]``
+    the term of :class:`VariationalTerm`, with ``user`` that of
+    :class:`UserTerm`, and ``a`` unused), ``lane_seeds [B]``
     uint32 seeds as int64. Returns ``(x_new [B, d], stats [3, B])`` with the
     rows accept_sum, accept_n and n_evals summed over coordinates. To
     ``phase_counts``, an int64 ``[6]`` tensor on the states' device, every
@@ -184,7 +211,7 @@ def banded_sweep_reference(x, a, lane_seeds, w: float = 10.0, p: int = 20,
     log_norm = None if variational is None else GaussianReference.coord_log_norm(variational.std)
 
     def ceval(v):
-        return coord_term(v, a, variational, log_norm)
+        return coord_term(v, a, variational, log_norm, user)
 
     base = element_hash_base(lane_seeds, d)
     x = x.clone()
@@ -478,12 +505,16 @@ class SliceSamplerCUDA(Explorer):
     (``coord_factor``) runs the banded kernel K1 when ``coord_deltas`` and
     ``parallel_coords`` are both true; every other case runs the general
     kernel K2, in delta mode when ``coord_deltas`` is true and the path has a
-    coordinate term. ``launches`` counts the launches of each CUDA kernel
-    (K1 with the toy term, K1 with the variational term, K2), for every
-    instance.
+    coordinate term. A path with a user's CUDA source runs that source's
+    library: K1's user term for ``coord_source`` (with ``coord_deltas`` and
+    ``parallel_coords``), K2's user instance for a ``DeviceDensity`` of kind
+    ``USER``. ``launches`` counts the launches of each CUDA kernel (K1 with
+    the toy term, the variational term and a user's term, K2 for the
+    library's densities and for a user's), for every instance.
     """
 
-    launches = {"banded_slice_sweep": 0, "banded_slice_sweep_variational": 0, "slice_sweep": 0}
+    launches = {"banded_slice_sweep": 0, "banded_slice_sweep_variational": 0, "slice_sweep": 0,
+                "slice_sweep_user": 0, "banded_slice_sweep_user": 0}
 
     def __init__(self, w: float = 10.0, p: int = 20, n_passes: int = 3,
                  max_iter: int = 1024, coord_deltas: bool = True,
@@ -501,10 +532,12 @@ class SliceSamplerCUDA(Explorer):
             cls.launches[name] = 0
 
     def _banded(self, path) -> bool:
-        if isinstance(path, VariationalPath):
+        if isinstance(path, VariationalPath):  # K1's variational term, on the toy term's path
             if not hasattr(path.variational, "coord_param_arrays"):
                 return False
             path = path.fixed
+        elif getattr(path, "coord_source", None) is not None:
+            return self.coord_deltas and self.parallel_coords
         return self.coord_deltas and self.parallel_coords and hasattr(path, "coord_factor")
 
     def check_target(self, target) -> None:
@@ -534,22 +567,33 @@ class SliceSamplerCUDA(Explorer):
                 "explorer=SliceSampler() for this run."
             )
         fixed = path.fixed if isinstance(path, VariationalPath) else path
+        if getattr(fixed, "coord_source", None) is not None:
+            raise NotImplementedError(
+                f"SliceSamplerCUDA: {type(fixed).__name__}'s coordinate terms as CUDA source "
+                "(coord_source) run on kernel K1's user term, which takes neither a variational "
+                "reference nor coord_deltas=False or parallel_coords=False; this run has "
+                f"{'a variational reference' if fixed is not path else 'one of those settings'}."
+                " Give the path a device density for K2 (a DeviceSource of hook 'target'), or "
+                "pass explorer=SliceSampler() for this run.")
         if getattr(fixed, "has_coordwise", False):
             raise NotImplementedError(
                 f"SliceSamplerCUDA: {type(fixed).__name__} has coordinate-wise densities but "
                 "no device density. They are torch callables, which the CUDA kernels cannot "
-                "run: K1's coordinate terms and K2's densities are compiled into the kernels "
-                "(csrc/densities.cuh), and a route for a user's own is ROADMAP queue 1, item "
-                "11b-user. Pass explorer=SliceSampler() for this run.")
+                "run: give the path its two terms as CUDA source beside them "
+                "(InterpolatingPath(..., coord_source=DeviceSource(hook='coord', ...)), "
+                "pigeons_tpu_torch/device_source.py: SourceCoordTarget), which kernel K1 runs, "
+                "or pass explorer=SliceSampler() for this run.")
         raise NotImplementedError(
             f"SliceSamplerCUDA: {type(fixed).__name__} has no device density for the general "
-            "slice kernel K2, which evaluates the density inside the kernel "
-            "(csrc/densities.cuh). It has the toy MVN, the funnel, the banana, the "
-            "flat-prior MVN and the BayesianModel targets hierarchical_normal, "
-            "eight_schools (centred and not), unid_target, logistic_regression, "
-            "bernoulli_target and mrna_target under their own prior; a BayesianModel under "
-            "another reference, user-supplied densities and CustomPath are ROADMAP queue 1, "
-            "item 11b-user. Pass explorer=SliceSampler() for this run."
+            "slice kernel K2, which evaluates the density inside the kernel. It has compiled "
+            "in the toy MVN, the funnel, the banana, the flat-prior MVN and the BayesianModel "
+            "targets hierarchical_normal, eight_schools (centred and not), unid_target, "
+            "logistic_regression, bernoulli_target and mrna_target, under their own prior or "
+            "N(0, sigma^2 I). Give a user's density as CUDA source beside its torch form "
+            "(pigeons_tpu_torch/device_source.py: DeviceSource, as SourceTarget, "
+            "CustomPath(..., source=...) or a BayesianModel with SourceLikelihood), which K2 "
+            "compiles into a library of its own, or pass explorer=SliceSampler() for this "
+            "run."
         )
 
     def step_batched(self, keys, xs, betas, path, isvar=None, ref_params=None, lp=None,
@@ -563,7 +607,11 @@ class SliceSamplerCUDA(Explorer):
         ``isvar [B]`` and the reference's ``ref_params``."""
         self.check_path(path)
         seeds = lane_seeds(keys)
-        if self._banded(path):
+        if self._banded(path) and getattr(path, "coord_source", None) is not None:
+            x_new, stats = banded_sweep(xs, betas, seeds, self.w, self.p, self.n_passes,
+                                        self.max_iter, user=UserTerm(betas, path.coord_source))
+            lp = None
+        elif self._banded(path):
             term = None
             if isinstance(path, VariationalPath):
                 mean, std = path.variational.coord_param_arrays(ref_params)
@@ -584,22 +632,29 @@ class SliceSamplerCUDA(Explorer):
 
 
 def banded_sweep(x, a, seeds, w: float = 10.0, p: int = 20, n_passes: int = 3,
-                 max_iter: int = 1024, variational: VariationalTerm = None):
-    """Run one sweep: the twin for CPU tensors, kernel K1 for CUDA tensors,
-    inside a profiler range named as its launch counter."""
-    name = "banded_slice_sweep" if variational is None else "banded_slice_sweep_variational"
+                 max_iter: int = 1024, variational: VariationalTerm = None, user: UserTerm = None):
+    """Run one sweep: the twin for CPU tensors, kernel K1 for CUDA tensors
+    (with ``user``, the user's library; ``a`` is then the lanes' betas and
+    unused), inside a profiler range named as its launch counter."""
+    name = ("banded_slice_sweep_user" if user is not None else "banded_slice_sweep"
+            if variational is None else "banded_slice_sweep_variational")
     with torch.profiler.record_function(name):
         if x.device.type == "cpu":
             return banded_sweep_reference(x, a, seeds, w, p, n_passes, max_iter,
-                                          variational=variational)
+                                          variational=variational, user=user)
+        if user is not None:
+            return banded_sweep_user_cuda(x, seeds, user, w, p, n_passes, max_iter)
         return banded_sweep_cuda(x, a, seeds, w, p, n_passes, max_iter, variational)
 
 
 def sweep(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0, p: int = 20,
           n_passes: int = 3, max_iter: int = 1024, isvar=None, ref_params=None):
-    """Run one sweep: the twin for CPU tensors, kernel K2 for CUDA tensors,
-    inside a profiler range named as its launch counter."""
-    with torch.profiler.record_function("slice_sweep"):
+    """Run one sweep: the twin for CPU tensors, kernel K2 for CUDA tensors
+    (a user's density: its library's instance), inside a profiler range named
+    as its launch counter."""
+    density = path.device_density() if hasattr(path, "device_density") else None
+    user = density is not None and density.kind == USER
+    with torch.profiler.record_function("slice_sweep_user" if user else "slice_sweep"):
         if x.device.type == "cpu":
             return sweep_reference(x, betas, seeds, path, coord_deltas, w, p, n_passes,
                                    max_iter, isvar=isvar, ref_params=ref_params)
@@ -665,6 +720,47 @@ MAX_DENSITY_ARRAYS = 4  # csrc/densities.cuh: DensityArrays
 PRIOR_ROW = 8  # floats in a row of the prior table
 
 
+def _array_args(arrays, device, what):
+    """The ctypes pointers and lengths of up to ``MAX_DENSITY_ARRAYS`` 1-D
+    float32 tensors on ``device``, which a kernel reads in place."""
+    if len(arrays) > MAX_DENSITY_ARRAYS:
+        raise ValueError(f"{what}: more than {MAX_DENSITY_ARRAYS} arrays")
+    for i, t in enumerate(arrays):
+        _check(t, f"{what} array {i}", torch.float32, (t.numel(),), device)
+    pad = MAX_DENSITY_ARRAYS - len(arrays)
+    return ((ctypes.c_void_p * MAX_DENSITY_ARRAYS)(*[t.data_ptr() for t in arrays], *[None] * pad),
+            (ctypes.c_int * MAX_DENSITY_ARRAYS)(*[t.numel() for t in arrays], *[0] * pad))
+
+
+def banded_sweep_user_cuda(x, seeds, user: UserTerm, w: float = 10.0, p: int = 20,
+                           n_passes: int = 3, max_iter: int = 1024):
+    """Launch kernel K1 with a user's term (``UserTerm``: the lanes' betas
+    and the ``"coord"`` source, whose library is built at first use) on the
+    current stream. Same contract as :func:`banded_sweep_reference` with
+    ``user``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"banded_sweep_user_cuda needs CUDA tensors, got {x.device}")
+    B, d = x.shape
+    _check(x, "x", torch.float32, (B, d), x.device)
+    _check(user.beta, "beta", torch.float32, (B,), x.device)
+    _check(seeds, "lane_seeds", torch.int64, (B,), x.device)
+    src = user.source
+    arrays, lens = _array_args(src.arrays, x.device, "the coordinate source's")
+    from .._build import load_user
+
+    lib = load_user(src)
+    x_out = torch.empty_like(x)
+    stats = torch.zeros((3, B), dtype=torch.float32, device=x.device)
+    err = lib.banded_slice_sweep_user(
+        x.data_ptr(), user.beta.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), stats.data_ptr(),
+        B, d, w, p, n_passes, max_iter, (ctypes.c_float * MAX_DENSITY_PARAMS)(*src.params),
+        arrays, lens, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"banded_slice_sweep_user launch failed: CUDA error {err}")
+    SliceSamplerCUDA.launches["banded_slice_sweep_user"] += 1
+    return x_out, stats
+
+
 class KernelInputs(NamedTuple):
     """What :func:`sweep_cuda` hands kernel K2 besides the states, as ctypes
     values; ``keep`` holds the tensors whose pointers they are."""
@@ -683,16 +779,13 @@ def kernel_inputs(density, B: int, d: int, device, isvar=None, ref_params=None) 
     run's ``isvar [B]`` and ``ref_params`` (``mean [d]``, ``std [d]``,
     ``active``: float32 tensors on ``device``, which the kernel reads in
     place) and lay them out for ``slice_sweep``."""
-    if len(density.params) > MAX_DENSITY_PARAMS or len(density.arrays) > MAX_DENSITY_ARRAYS:
-        raise ValueError(f"density kind {density.kind}: too many parameters or arrays for kernel K2")
-    for i, t in enumerate(density.arrays):
-        _check(t, f"density array {i}", torch.float32, (t.numel(),), device)
+    if len(density.params) > MAX_DENSITY_PARAMS:
+        raise ValueError(f"density kind {density.kind}: too many parameters for kernel K2")
+    arrays, lens = _array_args(density.arrays, device, f"density kind {density.kind}:")
     rows = [float(v) for row in density.prior for v in row]
     if len(rows) != PRIOR_ROW * len(density.prior):
         raise ValueError(f"a row of the prior table has {PRIOR_ROW} entries")
     keep = tuple(density.arrays)
-    pointers = [t.data_ptr() for t in keep] + [None] * (MAX_DENSITY_ARRAYS - len(keep))
-    lens = [t.numel() for t in keep] + [0] * (MAX_DENSITY_ARRAYS - len(keep))
     variational = (None, None, None, None)
     if ref_params is not None:
         active = ref_params["active"].reshape(1)
@@ -704,19 +797,19 @@ def kernel_inputs(density, B: int, d: int, device, isvar=None, ref_params=None) 
         variational = tuple(t.data_ptr() for t in tensors)
         keep += tensors
     return KernelInputs(
-        (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params),
-        (ctypes.c_void_p * MAX_DENSITY_ARRAYS)(*pointers),
-        (ctypes.c_int * MAX_DENSITY_ARRAYS)(*lens),
+        (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params), arrays, lens,
         (ctypes.c_float * max(len(rows), 1))(*rows), len(density.prior), variational, keep)
 
 
 def launcher_group(path, B: int, d: int) -> int:
     """The threads a lane kernel K2's launcher picks in full mode for ``B``
     lanes of ``path`` (``sweep_cuda(..., group=0)``); needs the card's
-    library."""
+    library, but for a user's density, whose instance runs one."""
     from .._build import load_library
 
     density = path.device_density()
+    if density.kind == USER:
+        return 1
     params = (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params)
     return load_library().slice_sweep_group(B, d, density.kind, params,
                                             int(isinstance(path, VariationalPath)))
@@ -734,7 +827,9 @@ def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.
     schools, unid and the Bernoulli model the group evaluates the machine's
     next queries at once; the result does not depend on it); 0 leaves the
     choice to the launcher, which makes it from the density, ``B`` and
-    ``d``. Delta mode runs one thread a lane and refuses a larger group."""
+    ``d``. Delta mode runs one thread a lane and refuses a larger group. A
+    density of kind ``USER`` runs its source's library (built at first use)
+    in full mode with one thread a lane: ``slice_sweep_user``."""
     if x.device.type != "cuda":
         raise ValueError(f"sweep_cuda needs CUDA tensors, got {x.device}")
     B, d = x.shape
@@ -747,17 +842,35 @@ def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.
     if not isinstance(path, VariationalPath):
         isvar = ref_params = None
     inputs = kernel_inputs(density, B, d, x.device, isvar, ref_params)
-    from .._build import load_library
-
-    lib = load_library()
     x_out = torch.empty_like(x)
     lp = torch.empty(B, dtype=torch.float32, device=x.device)
     stats = torch.empty((3, B), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if density.kind == USER:
+        if coord_deltas or group not in (0, 1):
+            raise ValueError("a user's density runs kernel K2 in full mode with one thread a "
+                             f"lane, not coord_deltas={coord_deltas}, group={group}")
+        from .._build import load_user
+
+        err = load_user(density.source).slice_sweep_user(
+            x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), lp.data_ptr(),
+            stats.data_ptr(), B, d, inputs.params, inputs.arrays, inputs.array_lens,
+            inputs.prior, inputs.n_prior, *inputs.variational, w, p, n_passes, max_iter, stream)
+        if err != 0:
+            raise RuntimeError(f"slice_sweep_user failed for a {density.source.hook!r} source, "
+                               f"d={d}: error {err} (-1: arrays or prior table it does not take, "
+                               "-2: a lane's state too large for shared memory; positive: CUDA "
+                               "error code)")
+        SliceSamplerCUDA.launches["slice_sweep_user"] += 1
+        return x_out, lp, stats
+    from .._build import load_library
+
+    lib = load_library()
     err = lib.slice_sweep(
         x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), lp.data_ptr(),
         stats.data_ptr(), B, d, density.kind, int(coord_deltas), inputs.params, inputs.arrays,
         inputs.array_lens, inputs.prior, inputs.n_prior, *inputs.variational, w, p, n_passes,
-        max_iter, group, torch.cuda.current_stream(x.device).cuda_stream,
+        max_iter, group, stream,
     )
     if err != 0:
         raise RuntimeError(

@@ -17,9 +17,10 @@ import torch
 from . import f32math, rng
 
 
-# density kinds of csrc/densities.cuh (enum Density)
+# density kinds of csrc/densities.cuh (enum Density); USER is a density the
+# user supplies as CUDA source (device_source.py), compiled apart
 (TOY_MVN, FUNNEL, BANANA, MVN, HIERARCHICAL_NORMAL, EIGHT_SCHOOLS, UNID,
- LOGISTIC_REGRESSION, BERNOULLI, EIGHT_SCHOOLS_CENTERED, MRNA) = range(11)
+ LOGISTIC_REGRESSION, BERNOULLI, EIGHT_SCHOOLS_CENTERED, MRNA, USER) = range(12)
 
 
 class DeviceDensity(NamedTuple):
@@ -30,12 +31,16 @@ class DeviceDensity(NamedTuple):
     has ``arrays``, the likelihood's data as float32 tensors on the run's
     device (the kernel reads them in place), and ``prior``, the rows
     ``(offset, size, distribution kind, bijector kind, p0, p1, p2)`` of its
-    prior table: the reference is then the prior, not a normal."""
+    prior table: the reference is then the prior when ``params[0]`` is 0,
+    else the normal of ``params[0] = 1 / sigma``. Kind ``USER`` has
+    ``source``, the :class:`~.device_source.DeviceSource` whose library the
+    kernel runs, with ``params[1:]`` and ``arrays`` the source's."""
 
     kind: int
     params: tuple
     arrays: tuple = ()
     prior: tuple = ()
+    source: object = None
 
 
 def sum_squares(m):
@@ -68,9 +73,11 @@ class InterpolatingPath:
     Pallas sampler answers single-coordinate queries from them; here the
     runtime and the torch explorers evaluate the path through
     ``log_density`` and ignore them, as the JAX XLA ``SliceSampler`` does,
-    and ``SliceSamplerCUDA`` takes such a path only where it also has a
-    device density. The fields after them are the port's own, keyword only,
-    so that a positional call means what it means to the JAX class."""
+    and ``SliceSamplerCUDA`` takes such a path where it has a device density
+    (kernel K2) or a ``coord_source``, the two terms as a user's CUDA source
+    (:class:`~.device_source.DeviceSource`, hook ``"coord"``), which kernel
+    K1 runs. The fields after them are the port's own, keyword only, so that
+    a positional call means what it means to the JAX class."""
 
     ref_log_density: Callable
     target_log_density: Callable
@@ -84,6 +91,8 @@ class InterpolatingPath:
     endpoints: Optional[Callable] = None
     # the same as the general slice kernel evaluates them, where that differs
     sweep_endpoints: Optional[Callable] = None
+    # the coordinate terms as CUDA source for kernel K1 (a DeviceSource)
+    coord_source: Optional[object] = None
 
     def log_density(self, x, beta):
         if self.endpoints is not None:

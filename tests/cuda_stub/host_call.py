@@ -68,3 +68,52 @@ def slice_sweep_child(*args):
     group, arrays, prior, variational, out)``."""
     *head, arrays, prior, variational, out = args
     slice_sweep(*head, out, arrays, prior, variational)
+
+
+def _user_arrays(arrays):
+    pad = MAX_DENSITY_ARRAYS - len(arrays)
+    return ((VP * MAX_DENSITY_ARRAYS)(*[a.ctypes.data for a in arrays], *[None] * pad),
+            (CI * MAX_DENSITY_ARRAYS)(*[a.size for a in arrays], *[0] * pad))
+
+
+def slice_sweep_user(lib_path, x, betas, seeds, params, w, p, n_passes, max_iter, arrays, prior,
+                     variational, out):
+    """Kernel K2's entry point in a user's library (``slice_sweep_user``):
+    ``params`` the ``MAX_DENSITY_PARAMS`` floats (the reference's slot, then
+    the user's), ``arrays`` the source's float32 arrays, ``prior`` the rows of
+    a likelihood's prior table, ``variational`` as :func:`slice_sweep`'s. Puts
+    ``(err, x_out, lp, stats)`` on ``out``."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.slice_sweep_user.argtypes = ([VP] * 6 + [CI] * 2 + [ctypes.POINTER(CF), ctypes.POINTER(VP),
+                                     ctypes.POINTER(CI), ctypes.POINTER(CF), CI] + [VP] * 4
+                                     + [CF, CI, CI, CI, VP])
+    B, d = x.shape
+    x_out, lp, stats = np.empty_like(x), np.empty(B, np.float32), np.empty((3, B), np.float32)
+    c_arrays, c_lens = _user_arrays(arrays)
+    rows = [float(v) for row in prior for v in row]
+    var = (None,) * 4 if variational is None else tuple(_ptr(a) for a in variational)
+    err = lib.slice_sweep_user(_ptr(x), _ptr(betas), _ptr(seeds), _ptr(x_out), _ptr(lp),
+                               _ptr(stats), B, d, (CF * MAX_DENSITY_PARAMS)(*params), c_arrays,
+                               c_lens, (CF * max(len(rows), 1))(*rows), len(prior), *var, w, p,
+                               n_passes, max_iter, None)
+    out.put((err, x_out, lp, stats))
+
+
+def banded_slice_sweep_user(lib_path, x, betas, seeds, params, w, p, n_passes, max_iter, arrays,
+                            out):
+    """Kernel K1's entry point in a user's library (``banded_slice_sweep_user``)
+    on ``x [B, d]``, the lanes' ``betas [B]`` and ``seeds [B]``; ``params``
+    the user's floats, ``arrays`` its float32 arrays. Puts ``(err, x_out,
+    stats)`` on ``out``."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.banded_slice_sweep_user.argtypes = ([VP] * 5 + [CI, CI, CF, CI, CI, CI]
+                                            + [ctypes.POINTER(CF), ctypes.POINTER(VP),
+                                               ctypes.POINTER(CI), VP])
+    B, d = x.shape
+    x_out, stats = np.empty_like(x), np.zeros((3, B), np.float32)
+    c_arrays, c_lens = _user_arrays(arrays)
+    padded = tuple(params) + (0.0,) * (MAX_DENSITY_PARAMS - len(params))
+    err = lib.banded_slice_sweep_user(_ptr(x), _ptr(betas), _ptr(seeds), _ptr(x_out), _ptr(stats),
+                                      B, d, w, p, n_passes, max_iter,
+                                      (CF * MAX_DENSITY_PARAMS)(*padded), c_arrays, c_lens, None)
+    out.put((err, x_out, stats))

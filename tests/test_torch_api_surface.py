@@ -45,11 +45,14 @@ REFUSED_OPTIONS = {"dtype=float64": "item 6c"}
 LAUNCHER_EXTENSIONS = {"timeout_s"}
 # parameters the port adds after the JAX ones, all with a default: Inputs
 # its device, the model factories take their data (the JAX factories close over theirs),
-# the path its device description and endpoint forms, ToyExplorer the path
+# the path its device description, endpoint forms and coordinate terms as
+# CUDA source, CustomPath its density as CUDA source, ToyExplorer the path
 # it may take from the run (the port's explorers are batched over the
 # run's path)
 EXTENSIONS = {
-    "Inputs": {"device"}, "InterpolatingPath": {"device", "endpoints", "sweep_endpoints"},
+    "Inputs": {"device"},
+    "InterpolatingPath": {"device", "endpoints", "sweep_endpoints", "coord_source"},
+    "CustomPath": {"source"},
     "eight_schools": {"y", "sigma"}, "hierarchical_normal": {"data"},
     "logistic_regression": {"X", "y"}, "mrna_target": {"ts", "ys"},
 }

@@ -320,10 +320,14 @@ def test_path_describes_itself_to_the_kernel(name):
     assert sum(row[1] for row in density.prior) == tm.dim
     assert all(a.dtype == torch.float32 and a.dim() == 1 and a.is_contiguous() for a in density.arrays)
     T.SliceSamplerCUDA().check_path(path)
-    # from any other reference the kernel cannot evaluate the path
-    other = T.StandardNormalReference(tm.dim, 3.0).as_reference()
+    # from N(0, sigma^2 I) the kernel evaluates the path with params[0] = 1 / sigma
+    normal = tm.create_path(T.StandardNormalReference(tm.dim, 3.0).as_reference())
+    assert normal.device_density().params == (np.float32(1.0) / np.float32(3.0), *density.params[1:])
+    T.SliceSamplerCUDA().check_path(normal)
+    # from any other reference it cannot evaluate the path
+    other = T.models.Reference(log_density=lambda x: -(x**4).sum(-1))
     assert tm.create_path(other).device_density() is None
-    with pytest.raises(NotImplementedError, match="11b"):
+    with pytest.raises(NotImplementedError, match="DeviceSource"):
         T.SliceSamplerCUDA().check_path(tm.create_path(other))
     # nor from the prior of another instance of the model
     assert tm.create_path(_models(name)[1].default_reference()).device_density() is None
@@ -354,14 +358,16 @@ def test_reference_passed_explicitly_keeps_the_kernel_path(name):
 
 
 def test_a_model_without_device_blocks_runs_with_the_torch_sampler():
-    """A user's model: torch likelihood, a prior the kernel has no block for."""
+    """A user's model: a torch likelihood, which the kernel cannot run (its
+    priors have blocks since the Exponential has one; the likelihood has no
+    CUDA source)."""
     model = T.BayesianModel({"rate": TD.Exponential(2.0), "w": TD.Normal(shape=(2,))},
                             lambda q: -(q["w"] ** 2).sum(-1) * q["rate"])
     assert model.dim == 3 and model.sample_names() == ["rate", "w[0]", "w[1]", "log_density"]
-    assert model.prior_table() is None and model.device_target() is None
+    assert model.prior_table() is not None and model.device_target() is None
     path = model.create_path(model.default_reference())
     assert path.device_density() is None
-    with pytest.raises(NotImplementedError, match="11b"):
+    with pytest.raises(NotImplementedError, match="DeviceSource"):
         T.SliceSamplerCUDA().check_path(path)
     pt = T.pigeons(target=model, n_chains=3, n_rounds=2, seed=1, device="cpu", show_report=False)
     assert np.isfinite(pt.sample_array()).all() and pt.sample_names()[0] == "rate"

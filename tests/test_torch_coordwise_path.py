@@ -17,9 +17,11 @@ beside the full densities. Held:
   round trips equal, permutations and explorer step counts exact, barrier
   and logZ within 1e-3, states within 1e-5 relative (the tolerances of
   ``tests/test_torch_slice_sampler.py``);
-* ``SliceSamplerCUDA`` refuses such a path without a device density, naming
-  ``SliceSampler()`` and ROADMAP item 11b-user, and runs one that has a
-  device density on kernel K2 (its twin here) in full mode, as before.
+* ``SliceSamplerCUDA`` refuses such a path without a device density or a
+  ``coord_source``, naming ``SliceSampler()`` and the ``coord_source`` route
+  (a user's terms as CUDA source, ``tests/test_torch_user_coord.py``), and
+  runs one that has a device density on kernel K2 (its twin here) in full
+  mode, as before.
 """
 
 import dataclasses
@@ -116,7 +118,8 @@ def test_fields_follow_the_jax_dataclass():
     tf = [f for f in dataclasses.fields(TP.InterpolatingPath)]
     assert [f.name for f in tf[:len(jf)]] == jf
     assert all(not f.kw_only for f in tf[:len(jf)])
-    assert [f.name for f in tf[len(jf):]] == ["device", "endpoints", "sweep_endpoints"]
+    assert [f.name for f in tf[len(jf):]] == ["device", "endpoints", "sweep_endpoints",
+                                              "coord_source"]
     assert all(f.kw_only for f in tf[len(jf):])
     assert list(inspect.signature(TP.InterpolatingPath.coord_log_density).parameters) == \
         list(inspect.signature(JP.InterpolatingPath.coord_log_density).parameters)
@@ -170,8 +173,8 @@ def test_cuda_sampler_refuses_coordinate_densities_without_a_device_density():
     path = t.create_path(t.default_reference())
     with pytest.raises(NotImplementedError, match=r"SliceSampler\(\)") as err:
         SliceSamplerCUDA().check_path(path)
-    assert "11b-user" in str(err.value) and "coordinate-wise" in str(err.value)
-    with pytest.raises(NotImplementedError, match="11b-user"):
+    assert "coord_source" in str(err.value) and "coordinate-wise" in str(err.value)
+    with pytest.raises(NotImplementedError, match="coord_source"):
         T.PT(T.Inputs(target=t, explorer=SliceSamplerCUDA(), device="cpu", show_report=False))
 
 

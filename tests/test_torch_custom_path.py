@@ -7,7 +7,8 @@ the torch ``SliceSampler`` (the last round pools 512 target-chain samples,
 as the JAX run's does; a scan of that sampler costs half a second on a CPU)
 and to 6 rounds of 32 ladders with ``AutoMALA``. The torch
 ``SliceSampler`` and the gradient explorers take the path as it is;
-``SliceSamplerCUDA`` has no device density for it and raises.
+``SliceSamplerCUDA`` has no device density for it and raises, naming the
+route of a ``CustomPath`` with a CUDA source (``tests/test_torch_user_density.py``).
 """
 
 import numpy as np
@@ -74,5 +75,5 @@ def test_custom_path_without_sampler_starts_at_zero():
 
 def test_slice_sampler_cuda_refuses_a_custom_path():
     t = _bugs_style_target(2)
-    with pytest.raises(NotImplementedError, match="11b-user"):
+    with pytest.raises(NotImplementedError, match="DeviceSource"):
         T.SliceSamplerCUDA().check_path(t.create_path(t.default_reference()))

@@ -294,7 +294,12 @@ def test_path_describes_itself_to_the_kernel(name):
     assert sum(row[1] for row in density.prior) == tm.dim
     assert all(a.dtype == torch.float32 and a.dim() == 1 for a in density.arrays)
     SliceSamplerCUDA().check_path(path)
-    other = T.StandardNormalReference(tm.dim, 3.0).as_reference()
+    # N(0, 3^2 I): the same kind with the reference's 1 / sigma in params[0]
+    normal = tm.create_path(T.StandardNormalReference(tm.dim, 3.0).as_reference())
+    assert normal.device_density().params == (np.float32(1.0) / np.float32(3.0),
+                                              *density.params[1:])
+    # any other reference: no device density
+    other = T.models.Reference(log_density=lambda x: -(x**4).sum(-1))
     assert tm.create_path(other).device_density() is None
 
 

@@ -141,6 +141,10 @@ def main():
                 np.savez(f"{outdir}/{name}.rank{rank}.npz", error=str(e))
                 continue
         np.savez(f"{outdir}/{name}.rank{rank}.npz", **results(pt))
+    # every rank leaves the group together: a rank that exits while gloo's
+    # threads still serve the group may abort at interpreter exit
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
     print(f"rank {rank}: done", flush=True)
 
 
