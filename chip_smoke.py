@@ -59,13 +59,15 @@ drives these paths end to end through
   first use into a library of its own (one ``nvcc`` a source, started
   together): config 5's hierarchical normal with its likelihood as a source
   at phase 3d's width (K2's user instance, held bit for bit to its twin at
-  B = 8,192, launched once a scan, its posterior means within three
+  B = 8,192 at the launcher's group and at 1, 8, 16 and 32 threads a lane,
+  each timed, launched once a scan, its posterior means within three
   standard errors of phase 3d's); a product of 100 normals as coordinate
-  terms at config 1's width (K1's user term, bit for bit at B = 20,480, its
-  moments and logZ = 0); ``unid_target()`` under N(0, 2^2 I) (the library's
-  K2 with the reference's 1 / sigma), model U with Cauchy, LogNormal and
-  Exponential priors and a ``CustomPath`` with a source at 10 chains x 64
-  ladders.
+  terms at config 1's width (K1's user term, bit for bit at B = 20,480, with
+  the ``clock64()`` split of a ``-DPIGEONS_K1_CLOCKS`` build, its moments and
+  logZ = 0); ``unid_target()`` under N(0, 2^2 I) (the library's K2 with the
+  reference's 1 / sigma), model U with Cauchy, LogNormal and Exponential
+  priors and a ``CustomPath`` with a source at 10 chains x 64 ladders (each
+  group bit for bit at 640 lanes).
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU (and one
@@ -115,9 +117,9 @@ path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt``,
 round's device ops, busy share, host syncs and explorer evaluations per
 scan. ``--parent-csrc
 DIR`` builds an earlier version of the CUDA sources (with this tree's entry
-points) from ``DIR`` and times its K2 beside this tree's on the same inputs,
-as ``parent_ms`` in the kernels line; its outputs must be this tree's, bit
-for bit.
+points) from ``DIR``, and phase 12's user sources from it, and times its
+kernels beside this tree's on the same inputs, as ``parent_ms`` in the
+kernels line; its outputs must be this tree's, bit for bit.
 """
 
 from __future__ import annotations
@@ -236,9 +238,10 @@ A_DENSE_ITERS, A_COMPARE_LADDERS, A_PROFILE_SCANS = 16, 64, 2
 N_MEASURE_SCANS, N_AAPS_STEP = 16, 0.8
 # phase 6c: the combinators on the toy MVN, 4 chains, 3 rounds, card and CPU
 C_DIM, C_CHAINS, C_ROUNDS = 2, 4, 3
-# phase 12: the CustomPath source's dimension (its other cells use the
+# phase 12: the CustomPath source's dimension, and the funnel source's,
+# which (d) holds under a variational reference (its other cells use the
 # widths above)
-U_CUSTOM_DIM = 4
+U_CUSTOM_DIM, U_FUNNEL_DIM = 4, 10
 
 # bench config 2b (bench.py:421-483): logistic regression 4,096 x 256 (d=257)
 # with the queued AutoMALA (queue 512, window 2), 10 chains x 819 ladders =
@@ -498,18 +501,20 @@ def lane_inputs(B, d, scale, key_seed):
     return x, betas, seeds
 
 
-def parent_ms(name, fn, got, ms, same=True):
-    """With --parent-csrc: ``fn`` on the parent's library must give ``got``
-    (unless not ``same``: the parent computes another function, and the
-    differing bits are only counted); its time, the mean of its two turns in
-    parent, this tree, this tree, parent (each the median of 20), beside this
-    tree's ``ms`` (None without a parent)."""
+def parent_ms(name, fn, got, ms, same=True, parent=None):
+    """With --parent-csrc: ``fn`` on the parent's library (or ``parent()``,
+    the parent's own call, where given) must give ``got`` (unless not
+    ``same``: the parent computes another function, and the differing bits
+    are only counted); its time, the mean of its two turns in parent, this
+    tree, this tree, parent (each the median of 20), beside this tree's
+    ``ms`` (None without a parent)."""
     if not PARENT:
         return None
 
-    def parent():
-        with parent_library():
-            return fn()
+    if parent is None:
+        def parent():
+            with parent_library():
+                return fn()
 
     if same:
         compare(f"{name}, the parent's sources", parent(), got)
@@ -681,7 +686,7 @@ def k1_variational_phase():
 def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_ops,
             prepare_ops=ops(0), prepare_coords=(), variational=None, variational_ops=ops(0),
             extra_bytes=0, groups=(), inputs=None, n_passes=F_PASSES, keep=None, coord_ops=None,
-            full_query_ops=None, parent_same=True):
+            full_query_ops=None, parent_same=True, parent_call=None):
     """Kernel K2 against its twin for one path and mode, ``n_passes`` passes
     over ``inputs`` (states, betas, lane seeds; by default
     :func:`lane_inputs`), and ``keep`` (a dict) given the inputs and the
@@ -698,7 +703,9 @@ def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_op
     only what they change), the bound with one full evaluation of the
     density a query instead, as the other rows count it, is printed
     beside. ``parent_same``: whether ``--parent-csrc``'s sources compute the
-    same function (held bit for bit) or another one (timed only)."""
+    same function (held bit for bit) or another one (timed only);
+    ``parent_call(x, betas, seeds)``: the parent's launch, where the
+    library's wrapper cannot make it (a user's library)."""
     from pigeons_tpu_torch.ops import cuda_slice
 
     kw = variational or {}
@@ -721,7 +728,8 @@ def k2_mode(name, path, coord_deltas, B, d, scale, query_ops, enter_ops, lane_op
                                                n_passes=n_passes, **kw), 20)
     parent = parent_ms(name, lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, coord_deltas,
                                                            n_passes=n_passes, **kw), got, ms,
-                       same=parent_same)
+                       same=parent_same,
+                       parent=parent_call and (lambda: parent_call(x, betas, seeds)))
     n = [float(v) for v in counts[:5]]
     iterations, considered = sum(n), float(got[2][1].double().sum())
     n_evals = float(got[2][2].double().sum())
@@ -2716,34 +2724,83 @@ def mesh_phase(config1, hierarchical):
     return launches_a, launches_b
 
 
+# csrc/banded_slice.cu: K1ClockPart
+K1_CLOCK_PARTS = ("hand-out", "draw and query", "term", "step", "idle")
+
+
+def k1_clock_split(lib, call):
+    """Runs ``call`` (a launch of kernel K1 in ``lib``, a build with
+    ``PIGEONS_K1_CLOCKS``) and returns its ``clock64()`` split: each part's
+    share of the threads' loop cycles, the cycles a thread spends on an
+    iteration of an element's machine, in all and by part, and the threads'
+    iterations. The clock reads themselves cost cycles: compare splits of
+    such builds with each other, not with an uninstrumented time."""
+    import ctypes
+
+    call()
+    torch.cuda.synchronize()
+    buf = np.zeros((132 * 8 * 256, len(K1_CLOCK_PARTS) + 2), np.uint64)
+    lib.k1_clock_split.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    n = lib.k1_clock_split(buf.ctypes.data_as(ctypes.c_void_p), len(buf))
+    if n <= 0:
+        raise RuntimeError(f"k1_clock_split: {n}")
+    rows = buf[:n].astype(np.float64)
+    loop, iterations = rows[:, -2].sum(), rows[:, -1].sum()
+    parts = rows[:, :len(K1_CLOCK_PARTS)].sum(0)
+    return {"threads": int(n), "iterations": float(iterations),
+            "cycles_per_iteration": float(loop / iterations),
+            "share_by_part": {k: float(v / loop) for k, v in zip(K1_CLOCK_PARTS, parts)},
+            "cycles_per_iteration_by_part": {k: float(v / iterations)
+                                             for k, v in zip(K1_CLOCK_PARTS, parts)}}
+
+
+def print_k1_clock_split(label, split):
+    print(f"{label}: clock64 split over {split['threads']} threads, {split['iterations']:.0f} "
+          f"iterations, {split['cycles_per_iteration']:.1f} cycles a thread's iteration: "
+          + ", ".join(f"{k} {split['cycles_per_iteration_by_part'][k]:.1f} "
+                      f"({split['share_by_part'][k]:.1%})" for k in K1_CLOCK_PARTS), flush=True)
+
+
 def user_density_phase(library_hierarchical):
     """Phase 12: densities a user supplies as CUDA source
     (``pigeons_tpu_torch/models/source_examples.py``), each source compiled
-    into a library of its own (one ``nvcc`` each, all started together; the
-    hierarchical normal and model U share one text, hence one library).
-    (a) Config 5's hierarchical normal with its likelihood as a source, at
-    phase 3d's width, seed and rounds: K2's user instance against its twin
-    at B = 8,192 (no bit may differ), launched once a scan and the library's
+    into a library of its own (one ``nvcc`` each, all started together, with
+    K1's user term's ``-DPIGEONS_K1_CLOCKS`` build and, with
+    ``--parent-csrc``, the parent's libraries; the hierarchical normal and
+    model U share one text, hence one library). (a) Config 5's hierarchical
+    normal with its likelihood as a source, at phase 3d's width, seed and
+    rounds: K2's user instance against its twin at B = 8,192 at the
+    launcher's group and at 1, 8, 16 and 32 threads a lane (no bit may
+    differ; each group timed, and the parent's one thread a lane as
+    ``parent_ms``), launched once a scan and the library's
     K1 and K2 never, the pooled mu, tau, sigma within three standard errors
     of phase 3d's library run (``library_hierarchical``: 0.95 / 0.92 / 0.019,
     those of phase 3d's full-width gate). (b) The product of 100 normals,
     means linspace(-1, 1.5), scales linspace(0.5, 2), from N(0, 3^2) per
     coordinate, as a coordinate source on K1's user term at config 1's width
-    and rounds: the kernel against its twin at B = 20,480, launched once a
-    scan, per coordinate |mean - mu_c| < 0.02 scale_c and |var / scale_c^2 - 1|
+    and rounds: the kernel against its twin at B = 20,480 (beside the
+    parent's, and its clock split by part), launched once a scan, per
+    coordinate |mean - mu_c| < 0.02 scale_c and |var / scale_c^2 - 1|
     < 0.05, |logZ| < 0.1 (both ends normalized). (c) At 10 chains x 64
     ladders: ``unid_target()`` under N(0, 2^2 I) (the library's K2 with
     params[0] = 1 / sigma), logZ plus the normal reference's log
     normalization, log(2 pi 4), within 0.1 of the exact -4.974552; model U
     (Cauchy, LogNormal and Exponential priors) and a ``CustomPath`` with a
     source, each on its user instance bit for bit the twin at the path's
-    640 lanes, launched once a scan, finite logZ, model U with restarts.
+    640 lanes at every group, launched once a scan, finite logZ, model U
+    with restarts. (d) Model U and a funnel's target source under a
+    ``VariationalPath`` with a ``GaussianReference`` (two of three lanes on
+    the variational leg, the reference active): the user instance at the
+    launcher's group and at 1, 8, 16 and 32 threads a lane against the twin,
+    no bit may differ.
     Returns the kernels line's entries of K2's user instance and K1's user
     term."""
     phase("12 user densities as CUDA source")
+    import functools
     from concurrent.futures import ThreadPoolExecutor
 
-    from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA, StandardNormalReference, unid_target
+    from pigeons_tpu_torch import (PT, GaussianReference, Inputs, SliceSamplerCUDA,
+                                   StandardNormalReference, VariationalPath, unid_target)
     from pigeons_tpu_torch import _build
     from pigeons_tpu_torch.models import source_examples as SE
     from pigeons_tpu_torch.models import unid_analytic_log_z
@@ -2753,14 +2810,43 @@ def user_density_phase(library_hierarchical):
     dev = torch.device("cuda")
     hier, coord = SE.hierarchical_normal_source().to(dev), SE.normal_product_source(D).to(dev)
     model_u, custom = SE.model_u().to(dev), SE.custom_path_source(U_CUSTOM_DIM).to(dev)
+    funnel = SE.funnel_source(U_FUNNEL_DIM).to(dev)
     sources = {"likelihood (hierarchical normal, model U)": hier.log_likelihood_fn.source,
                "coordinate terms (product of normals)": coord.source,
                "CustomPath": custom.path.source}
-    with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(_build.build_user, sources.values()))
-    for name, (lib, seconds) in zip(sources, built, strict=True):
-        print(f"nvcc for the {name} source: {seconds:.3f} s ({lib.name}; 0 = already built)")
+    # this tree's libraries (and the funnel's target, which (d) holds under a
+    # variational reference), K1's user term with its clock split, and with
+    # --parent-csrc the parent's libraries of the timed sources: every nvcc at
+    # once
+    builds = {f"the {name} source": (src, (), _build.CSRC) for name, src in sources.items()}
+    builds["the funnel's target source"] = (funnel.source, (), _build.CSRC)
+    builds["the coordinate source, PIGEONS_K1_CLOCKS"] = (coord.source, ("PIGEONS_K1_CLOCKS",),
+                                                          _build.CSRC)
+    if PARENT:
+        builds.update({f"the {name} source, the parent's sources": (src, (), PARENT[1])
+                       for name, src in sources.items()})
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = dict(zip(builds, pool.map(
+            lambda b: _build.build_user(b[0], defines=b[1], csrc=b[2]), builds.values())))
+    for name, (lib, seconds) in built.items():
+        print(f"nvcc for {name}: {seconds:.3f} s ({lib.name}; 0 = already built)")
     print(f"the builds, at once: {time.perf_counter() - t_phase:.1f} s")
+    libs = {name: _build.open_user(path, _build.USER_KERNELS[builds[name][0].hook])
+            for name, (path, _) in built.items()}
+    parent_lib = {src.key: libs[name] for name, (src, _, csrc) in builds.items()
+                  if csrc != _build.CSRC}
+
+    def user_groups(name, path, inputs, want):
+        """Each group's time (median of 20) beside the launcher's choice,
+        each group already held bit for bit to the twin."""
+        x, betas, seeds = inputs
+        group = cuda_slice.launcher_group(path, x.shape[0], x.shape[1])
+        times = {g: cuda_ms(lambda g=g: cuda_slice.sweep_cuda(x, betas, seeds, path, group=g,
+                                                               n_passes=F_PASSES), 20)
+                 for g in (1, 8, 16, 32)}
+        print(f"{name}: the launcher's group {group}; ms by threads a lane: "
+              + ", ".join(f"{g}: {t:.4f}" for g, t in times.items()), flush=True)
+        return group, times
 
     print("(a) the hierarchical normal, its likelihood as a source")
     path = hier.create_path(hier.default_reference())
@@ -2772,9 +2858,16 @@ def user_density_phase(library_hierarchical):
     # (a conversion), the in-order sum, prior + likelihood, the interpolation
     query = (prior_ops(density.prior) + 2 * EXP + ops(2 * d) + n_obs * (OBSERVATION + ops(1))
              + ops(n_obs) + INTERPOLATE)
+    keep = {}
+    parent_k2 = parent_lib.get(density.source.key)
     k2u = k2_mode("K2 user instance (hierarchical normal's likelihood as a source)", path, False,
                   H_CHAINS * H_REPLICATES, d, 1.0, query, ops(0), query,
-                  extra_bytes=4 * sum(a.numel() for a in density.arrays))
+                  extra_bytes=4 * sum(a.numel() for a in density.arrays), groups=(1, 8, 16, 32),
+                  keep=keep, parent_call=parent_k2 and (
+                      lambda x, b, sd: cuda_slice.sweep_cuda(x, b, sd, path, n_passes=F_PASSES,
+                                                             lib=parent_k2)))
+    k2u["group"], k2u["ms_by_group"] = user_groups("K2 user instance, B=8192", path,
+                                                   keep["inputs"], keep["want"])
     pt, k2u["launches"] = bayesian_run(hier, H_CHAINS, H_REPLICATES, H_ROUNDS,
                                        kernel="slice_sweep_user")
     print_round(pt, H_CHAINS * H_REPLICATES)
@@ -2800,6 +2893,16 @@ def user_density_phase(library_hierarchical):
         lambda: cuda_slice.banded_sweep_reference(x, betas, seeds, phase_counts=counts, user=term))
     max_abs = compare("K1 user term (product of normals)", got, want)
     ms = cuda_ms(lambda: cuda_slice.banded_sweep_user_cuda(x, seeds, term), 20)
+    parent_k1 = parent_lib.get(coord.source.key)
+    parent = parent_ms("K1 user term (product of normals)",
+                       lambda: cuda_slice.banded_sweep_user_cuda(x, seeds, term), got, ms,
+                       parent=parent_k1 and (lambda: cuda_slice.banded_sweep_user_cuda(
+                           x, seeds, term, lib=parent_k1)))
+    clocks = libs["the coordinate source, PIGEONS_K1_CLOCKS"]
+    clocked = functools.partial(cuda_slice.banded_sweep_user_cuda, x, seeds, term, lib=clocks)
+    compare("K1 user term, the PIGEONS_K1_CLOCKS build", clocked(), want)
+    split = k1_clock_split(clocks, clocked)
+    print_k1_clock_split("K1 user term", split)
     n = [float(v) for v in counts[:5]]
     considered = float(got[1][1].double().sum())
     # the user's two terms (the reference's: a multiply, a square, a
@@ -2813,7 +2916,8 @@ def user_density_phase(library_hierarchical):
     k1u = {"name": "banded_slice_sweep_user (product of normals)", "route": "cuda",
            "source": "pigeons_tpu_torch/csrc/banded_slice.cu",
            "replaces": "pigeons_tpu/ops/pallas_slice.py:305", "max_abs_err": max_abs, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "parent_ms": parent, "clock_split": split}
     SliceSamplerCUDA.reset_launches()
     pt = PT(Inputs(target=coord, n_chains=N_CHAINS, n_replicates=N_REPLICATES, seed=SEED,
                    explorer=SliceSamplerCUDA(), show_report=False, device="cuda"))
@@ -2855,9 +2959,21 @@ def user_density_phase(library_hierarchical):
         upath = target.create_path(target.default_reference())
         x, betas, seeds = lane_inputs(lanes, target.dim, 1.0, 11)
         got = cuda_slice.sweep_cuda(x, betas, seeds, upath, n_passes=1)
-        compare(f"K2 user instance ({name}), B={lanes}", got,
-                cuda_slice.sweep_reference(x, betas, seeds, upath, n_passes=1),
+        want = cuda_slice.sweep_reference(x, betas, seeds, upath, n_passes=1)
+        compare(f"K2 user instance ({name}), B={lanes}", got, want,
                 lp_fresh=cuda_slice.sweep_density(upath)(got[0], betas))
+        for g in (1, 8, 16, 32):
+            compare(f"K2 user instance ({name}), B={lanes}, {g} threads per lane",
+                    cuda_slice.sweep_cuda(x, betas, seeds, upath, n_passes=1, group=g), want)
+        user_groups(f"K2 user instance ({name}), B={lanes}", upath, (x, betas, seeds), want)
+        usrc = upath.device_density().source
+        if usrc.key in parent_lib:
+            parent_ms(f"K2 user instance ({name}), B={lanes}",
+                      lambda: cuda_slice.sweep_cuda(x, betas, seeds, upath, n_passes=1), got,
+                      cuda_ms(lambda: cuda_slice.sweep_cuda(x, betas, seeds, upath, n_passes=1),
+                              20),
+                      parent=lambda: cuda_slice.sweep_cuda(x, betas, seeds, upath, n_passes=1,
+                                                           lib=parent_lib[usrc.key]))
         pt, _ = bayesian_run(target, S_CHAINS, S_REPLICATES, S_ROUNDS, kernel="slice_sweep_user")
         rep = pt.reports[-1]
         print(f"{name}: logZ {rep.log_z_estimate:.6f}, barrier {pt.global_barrier:.4f}, "
@@ -2876,6 +2992,30 @@ def user_density_phase(library_hierarchical):
             exact = float(np.sum(0.5 * np.log(s2 / (1.0 + s2)) - m**2 / (2.0 * (1.0 + s2))))
             print(f"CustomPath: exact log(Z_1 / Z_0) {exact:.6f}")
         del pt
+
+    print("(d) the likelihood and target hooks under a variational reference")
+    for name, target in (("model U", model_u), ("the funnel's target", funnel)):
+        fixed = target.create_path(target.default_reference())
+        vpath = VariationalPath(fixed, GaussianReference())
+        x, betas, seeds = lane_inputs(lanes, target.dim, 1.0, 13)
+        # two of three lanes on the variational leg, the reference active
+        isvar = (torch.arange(lanes, device=dev) % 3 != 1).float()
+        rs = np.random.RandomState(5)
+        ref_params = {
+            "mean": torch.tensor((rs.normal(size=target.dim) * 0.3).astype(np.float32), device=dev),
+            "std": torch.tensor(np.exp(rs.normal(size=target.dim) * 0.5).astype(np.float32),
+                                device=dev),
+            "active": torch.tensor(1.0, device=dev)}
+        want = cuda_slice.sweep_reference(x, betas, seeds, vpath, n_passes=1, isvar=isvar,
+                                          ref_params=ref_params)
+        if torch.equal(want[0], cuda_slice.sweep_reference(x, betas, seeds, fixed, n_passes=1)[0]):
+            raise AssertionError(f"{name}: the variational reference moved no lane")
+        group = cuda_slice.launcher_group(vpath, lanes, target.dim)
+        for g in (0, 1, 8, 16, 32):
+            compare(f"K2 user instance ({name}) under a variational reference, B={lanes}, "
+                    + (f"the launcher's {group}" if g == 0 else f"{g}") + " threads per lane",
+                    cuda_slice.sweep_cuda(x, betas, seeds, vpath, n_passes=1, group=g,
+                                          isvar=isvar, ref_params=ref_params), want)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     k2u.update(name="slice_sweep_user (hierarchical normal's likelihood as a source)",
                route="cuda", source="pigeons_tpu_torch/csrc/sweep_slice.cu",

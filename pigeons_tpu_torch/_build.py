@@ -13,12 +13,13 @@ reused.
 for ``tools/torch_kernel_variants.py``, which times variants side by side.
 
 A user's density as CUDA source (``device_source.DeviceSource``) has a
-library of its own (``build_user``): one ``nvcc`` call over ``sweep_slice.cu``
+library of its own (``build_user``): one ``nvcc`` over ``sweep_slice.cu``
 (or ``banded_slice.cu`` for coordinate terms) with the user's text included
-(``-DPIGEONS_USER_SOURCE``), which compiles the one kernel instance that runs
-it and none of the library's. It is keyed by a hash of the text, the hook,
-the sources, the headers and the flags, built at first use and loaded with
-``open_user``, which declares only the user entry point.
+(``-DPIGEONS_USER_SOURCE``), which compiles the kernel instances that run it
+(K2's at 1, 8, 16 and 32 threads a lane) and none of the library's. It is
+keyed by a hash of the text, the hook, the sources, the headers and the
+flags, built at first use and loaded with ``open_user``, which declares only
+the user entry points.
 """
 
 from __future__ import annotations
@@ -189,25 +190,29 @@ USER_KERNELS = {"target": "sweep_slice.cu", "path": "sweep_slice.cu",
 USER_ENTRY = {"sweep_slice.cu": "slice_sweep_user", "banded_slice.cu": "banded_slice_sweep_user"}
 
 
-def user_library_path(source) -> Path:
+def user_library_path(source, defines: tuple = (), csrc: Path = CSRC) -> Path:
     """The keyed library of a ``DeviceSource``: a hash of its text and hook
     (``source.key``), the kernel's source, the headers and the flags."""
     kernel = USER_KERNELS[source.hook]
     h = hashlib.sha256()
     for name in (kernel, *HEADERS):
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join((*NVCC_FLAGS, kernel, source.key)).encode())
+        h.update((csrc / name).read_bytes())
+    h.update(" ".join((*NVCC_FLAGS, *defines, kernel, source.key)).encode())
     return BUILD_DIR / f"libpigeons_user-{h.hexdigest()[:16]}.so"
 
 
-def build_user(source, verbose: bool = False) -> tuple[Path, float]:
+def build_user(source, verbose: bool = False, defines: tuple = (),
+               csrc: Path = CSRC) -> tuple[Path, float]:
     """Compile a ``DeviceSource`` into its library unless it exists: one
-    ``nvcc`` over its kernel's source with the user's text included. Returns
-    the path and the seconds spent (0.0 when it was built). A source that
-    does not compile raises with ``nvcc``'s output."""
+    ``nvcc`` over its kernel's source in ``csrc`` with the user's text
+    included and ``-D`` for each of ``defines``. Returns the path and the
+    seconds spent (0.0 when it was built). A source that does not compile
+    raises with ``nvcc``'s output. ``defines`` and ``csrc`` serve the tools
+    that build variants (a clock split, an earlier version of the
+    sources)."""
     from .device_source import HOOKS
 
-    out = user_library_path(source)
+    out = user_library_path(source, defines, csrc)
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -217,37 +222,50 @@ def build_user(source, verbose: bool = False) -> tuple[Path, float]:
         tmp.write_text(source.code)
         os.replace(tmp, text)
     args = [f'-DPIGEONS_USER_SOURCE="{text}"', f"-DPIGEONS_USER_HOOK={HOOKS[source.hook]}",
-            str(CSRC / USER_KERNELS[source.hook])]
+            *(f"-D{d}" for d in defines), str(csrc / USER_KERNELS[source.hook])]
     return out, _compile(out, args, verbose)
 
 
-@functools.lru_cache(maxsize=None)
-def _open_user(path: str, kernel: str) -> ctypes.CDLL:
-    return open_user(Path(path), kernel)
+_USER_LIBRARIES: dict = {}  # DeviceSource.key -> its loaded library
 
 
 def load_user(source) -> ctypes.CDLL:
-    """Build a ``DeviceSource``'s library if needed and load it (once a
-    process)."""
-    path, _ = build_user(source)
-    return _open_user(str(path), USER_KERNELS[source.hook])
+    """Build a ``DeviceSource``'s library if needed and load it, once a
+    process for each text and hook (``source.key``). A launch then looks up
+    no file: the keyed name hashes the kernel's source and the headers, some
+    0.2-0.3 ms of host time a call, which a launch's CUDA-event time counts
+    while the card waits."""
+    lib = _USER_LIBRARIES.get(source.key)
+    if lib is None:
+        path, _ = build_user(source)
+        lib = _USER_LIBRARIES[source.key] = open_user(path, USER_KERNELS[source.hook])
+    return lib
 
 
 def open_user(path: Path, kernel: str) -> ctypes.CDLL:
-    """Load a user's library and declare its one entry point: K2's
-    ``slice_sweep_user`` (``kernel`` ``"sweep_slice.cu"``) or K1's
-    ``banded_slice_sweep_user``."""
+    """Load a user's library and declare its entry points: K2's
+    ``slice_sweep_user`` and ``slice_sweep_user_group`` (``kernel``
+    ``"sweep_slice.cu"``) or K1's ``banded_slice_sweep_user``. A K2 library
+    built from sources that had no groups (an earlier ``csrc``, which
+    ``chip_smoke.py --parent-csrc`` times) has no ``slice_sweep_user_group``
+    and its ``slice_sweep_user`` takes no group: ``lib.takes_group`` says
+    which."""
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if USER_ENTRY[kernel] == "slice_sweep_user":
+        lib.takes_group = hasattr(lib, "slice_sweep_user_group")
         # x, betas, seeds, x_out, lp, stats, B, d, then in host memory params,
         # the arrays' device pointers, their lengths and the prior table with
         # its number of rows, then isvar, mean, std, active (null but in a
-        # variational run), w, p, n_passes, max_iter, stream
-        lib.slice_sweep_user.argtypes = [p, p, p, p, p, p, i, i, ctypes.POINTER(f),
-                                         ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(f),
-                                         i, p, p, p, p, f, i, i, i, p]
+        # variational run), w, p, n_passes, max_iter, group, stream
+        lib.slice_sweep_user.argtypes = ([p, p, p, p, p, p, i, i, ctypes.POINTER(f),
+                                          ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(f),
+                                          i, p, p, p, p, f, i, i, i] + [i] * lib.takes_group
+                                         + [p])
         lib.slice_sweep_user.restype = i
+        if lib.takes_group:
+            lib.slice_sweep_user_group.argtypes = [i, i, i]  # B, d, variational
+            lib.slice_sweep_user_group.restype = i
     else:
         # x, betas, seeds, x_out, stats, B, d, w, p, n_passes, max_iter, then
         # in host memory params, the arrays' device pointers and lengths, stream

@@ -40,11 +40,21 @@
 // in a table of min(d, tile) entries, and a thread reads both when it takes an
 // element, so the loop itself reads registers only. With kUserCoord, a
 // user's two terms compiled from CUDA source into a library of its own
-// (user_density.cuh, -DPIGEONS_USER_SOURCE), the lanes bring their beta and a
-// thread the coordinate of the element it takes. The toy term's kernel is
-// the same instructions as before (47 registers; 63 with the variational
-// term, no spills). Side by side (tools/torch_kernel_variants.py, NVIDIA H100
-// 80GB HBM3, 700.00 W, d = 100, 3 passes, half the lanes variational): toy
+// (user_density.cuh, -DPIGEONS_USER_SOURCE), the lanes bring their beta and
+// a thread the coordinate of the element it takes; the hooks read the
+// source's arrays where they lie. Staging the arrays of the state's width in
+// shared memory once a block bought nothing: L1 already serves those reads
+// (device time 0.5749 / 0.6014 / 0.5724 ms staged against 0.5758 / 0.5752 /
+// 0.5754 read in place, in turns, B = 20,480, d = 100, 3 passes, NVIDIA H100
+// 80GB HBM3, 700.00 W, tools/torch_kernel_variants.py --user; 57 registers
+// against 52), so it was not kept. The clock64() split (-DPIGEONS_K1_CLOCKS)
+// gives the user's term 1,134 of a thread's 3,324 cycles an iteration
+// against the toy term's 589 of 2,605: an IEEE division, two hooks and the
+// guarded blend, which the twin's bits need, and not the reads. The toy
+// term's kernel is the same instructions as before (47 registers; 63 with
+// the variational term, no spills). Side by side
+// (tools/torch_kernel_variants.py, NVIDIA H100 80GB HBM3, 700.00 W, d = 100,
+// 3 passes, half the lanes variational): toy
 // 0.1727 ms and variational 0.2088 ms at B = 5,120, 0.4560 ms and 0.6259 ms
 // at B = 20,480. Both terms take as many iterations (8.92 and 8.76 million at
 // B = 5,120): the gap is the term, 1,240 SASS instructions in the variational
@@ -137,6 +147,23 @@ struct UserTermArgs {
   DensityArrays arrays;
 };
 
+// The parts of a thread's loop that tools/torch_kernel_variants.py --user and
+// chip_smoke.py phase 12 time with clock64() in a build with
+// -DPIGEONS_K1_CLOCKS (never the product's): the warp's hand-out (its ballot,
+// the stores and sums of finished elements, taking the next), the draw and
+// the query, the term's evaluations (at ENTER with the slice level's draw and
+// log), the rest of the machine's step, and a free thread's wait for its warp.
+enum K1ClockPart { kHandOut, kDrawQuery, kTermEval, kStep, kIdle, kK1ClockParts };
+
+#ifdef PIGEONS_K1_CLOCKS
+constexpr int kK1ClockThreads = 132 * 8 * 256;
+// per thread (blockIdx.x * blockDim.x + threadIdx.x < kK1ClockThreads): cycles
+// by part, then the loop's cycles and the iterations the thread ran
+constexpr int kK1ClockColumns = kK1ClockParts + 2;
+__device__ unsigned long long k1_clocks[kK1ClockThreads][kK1ClockColumns];
+int k1_clock_threads = 0;  // the last launch's grid, in threads
+#endif
+
 template <CoordTerm kTerm>
 __global__ void __launch_bounds__(kThreads)
 banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
@@ -170,6 +197,22 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const int share_len = (int)min((int64_t)share, n - share0);
   const int n_tiles = (share_len + kChunk - 1) / kChunk;
   const int tile_len = ((share_len + n_tiles - 1) / n_tiles + 31) / 32 * 32;
+
+#ifdef PIGEONS_K1_CLOCKS
+  long long clk_acc[kK1ClockParts] = {};
+  long long clk_last = clock64(), clk_iterations = 0;
+  const long long clk0 = clk_last;
+  // mark(part): the cycles since the last mark go to part
+  const auto mark = [&](int part) {
+    const long long now = clock64();
+#pragma unroll
+    for (int k = 0; k < kK1ClockParts; ++k)
+      if (k == part) clk_acc[k] += now - clk_last;
+    clk_last = now;
+  };
+#else
+  const auto mark = [](int) {};
+#endif
 
   bool ref_active = false;
   if constexpr (kVariational) {
@@ -240,9 +283,11 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
     int phase = DONE, pass_i = 0, K = 0, n_shr = 0;
 
     for (;;) {
+      mark(phase == DONE ? kIdle : kStep);
       // the same in all lanes: the warp hands out elements when enough lanes
       // are free, and puts finished ones back at the latest when none is busy
       const unsigned busy = __ballot_sync(kFullWarp, phase != DONE);
+      mark(phase == DONE ? kIdle : kHandOut);
       if (busy == 0u || (next < run_end && 32 - __popc(busy) >= kRefill)) {
         if (taken >= 0 && phase == DONE) {
           tile[taken] = xv;
@@ -280,6 +325,7 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
           phase = n_passes > 0 ? ENTER : DONE;
         }
       }
+      mark(kHandOut);
       if (phase == DONE) continue;
 
       // one iteration of the element's machine. Draw 2 it is uA (the step-out
@@ -303,6 +349,7 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
                           : phase == SHRINK ? cand_draw
                           : ph_chk          ? M
                                             : old;
+      mark(kDrawQuery);
       const float lp_q = term(query);
       n_evals += is_enter ? 2 : 1;
       if (is_enter) {
@@ -311,6 +358,10 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
         lcR = lp_q;
         K = p;
       }
+      mark(kTermEval);
+#ifdef PIGEONS_K1_CLOCKS
+      clk_iterations += 1;
+#endif
       it += 1u;
 
       const bool ph_dbl = phase == DOUBLE;
@@ -397,6 +448,14 @@ banded_slice_kernel(const float* __restrict__ x, const float* __restrict__ a,
       atomicAdd(stats + (int64_t)(i / n_lanes) * B + b0 + i % n_lanes, (float)sums[i]);
     __syncthreads();  // before the next tile overwrites this one
   }
+#ifdef PIGEONS_K1_CLOCKS
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + tid;
+  if (row < kK1ClockThreads) {
+    for (int k = 0; k < kK1ClockParts; ++k) k1_clocks[row][k] = clk_acc[k];
+    k1_clocks[row][kK1ClockParts] = clock64() - clk0;
+    k1_clocks[row][kK1ClockParts + 1] = clk_iterations;
+  }
+#endif
 }
 
 // The grid that fills the device the current context runs on: its SM count
@@ -439,12 +498,29 @@ int launch_banded(const float* x, const float* a, const int64_t* seeds, float* x
   const int64_t share = ((n + resident - 1) / resident + 31) / 32 * 32;
   if (share > INT32_MAX) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + share - 1) / share);
+#ifdef PIGEONS_K1_CLOCKS
+  k1_clock_threads = (int)blocks * kThreads;
+#endif
   PIGEONS_LAUNCH(kernel, blocks, kThreads, shared, (cudaStream_t)stream, x, a, seeds, x_out,
                  stats, B, d, w, 1.1f * w, p, n_passes, max_iter, (int)share, max_lanes, va, ua);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+#ifdef PIGEONS_K1_CLOCKS
+// The last launch's clock64() split, thread by thread (the grid's threads, at
+// most kK1ClockThreads), copied to the host array out [max_threads]
+// [kK1ClockColumns]: cycles by K1ClockPart, then the loop's cycles and the
+// iterations the thread ran. Returns the number of threads copied, or minus a
+// CUDA error.
+extern "C" int k1_clock_split(unsigned long long* out, int max_threads) {
+  const int n = min(min(k1_clock_threads, kK1ClockThreads), max_threads);
+  const cudaError_t err = cudaMemcpyFromSymbol(
+      out, k1_clocks, sizeof(unsigned long long) * kK1ClockColumns * (size_t)n);
+  return err == cudaSuccess ? n : -(int)err;
+}
+#endif
 
 #ifdef PIGEONS_USER_SOURCE
 // The library of a user's coordinate terms (_build.py: build_user): x, betas,

@@ -130,6 +130,25 @@
 // --speculate --rows bernoulli, NVIDIA H100 80GB HBM3, 700.00 W, the
 // sources before in turns).
 //
+// A user's density (kUser, user_density.cuh, in a library of its own) runs
+// the speculated machine too. Its hook is one function of a plain row, so
+// each slot keeps its own copy of the lane's state in shared memory, and
+// behind it the likelihood hook's scratch (G (d + scratch) floats a lane):
+// it writes its query into the copy, runs the hook whole and puts the state
+// back, and an accepted step stores x_c in every copy. With one thread a
+// lane, the hierarchical normal's likelihood as a source (200 in-order terms
+// a query, d = 23) ran 64 blocks at B = 8,192, one warp a scheduler on 64 of
+// the 132 SMs: the slowest lane's 325 iterations of 19.8 us (98% the hook)
+// were the launch, 6.36 ms of device time. At the launcher's 8 slots it
+// takes 77 rounds of 24.9 us, 1.96 ms (16 / 32 slots 3.26 / 5.62 ms: their
+// groups no longer all fit on the card at once); at 640 lanes 4.75 -> 1.32 ms
+// (32 slots). Model U (d = 7) at 640 lanes 0.480 -> 0.140 ms, the CustomPath
+// (d = 4) 0.039 -> 0.017 ms (tools/torch_kernel_variants.py --user, NVIDIA
+// H100 80GB HBM3, 700.00 W, device times, the one-thread sources before in
+// turns). The launcher picks the slots as for eight schools (pick_group),
+// and one thread a lane where a block's copies (some 128 (d + scratch)
+// floats) pass 227 KB.
+//
 // Delta mode (lookahead_delta_sweep). Its one path, the invariance test,
 // launches 10,000 lanes of d = 100 for 3 passes: 79 blocks of 128 threads,
 // one warp to a scheduler on 79 of the 132 SMs, and the launch lasts as long
@@ -813,19 +832,27 @@ struct ManyTerms {
 
 // Whether density K with G threads a lane runs the speculated machine
 // (speculated_sweep): eight schools, unid and Bernoulli, whose queries are a
-// few terms.
+// few terms, and a user's density, whose hook is one function of the state.
 template <Density K>
-constexpr bool kSpeculated = K == kEightSchools || K == kUnid || K == kBernoulli;
+constexpr bool kSpeculated = K == kEightSchools || K == kUnid || K == kBernoulli || K == kUser;
 template <Density K, int G>
 constexpr bool kSpeculate = G > 1 && kSpeculated<K>;
 
+// Floats of a user's lane besides its state with G threads: the scratch of
+// one thread (the likelihood hook's constrained values) or, with G > 1, each
+// slot's copy of the state and its scratch (speculated_sweep).
+__device__ __host__ inline int user_lane_floats(int G, int d) {
+  return G == 1 ? user_scratch_floats(d) : G * (d + user_scratch_floats(d));
+}
+
 // Floats of a lane's buffers past its state with G > 1 threads per lane:
-// ManyTerms' or KeptSums', none for the speculated machine, else the target's
-// terms and, under a variational reference, its RefTerms.
+// ManyTerms' or KeptSums', none for the speculated machine (but a user's
+// copies), else the target's terms and, under a variational reference, its
+// RefTerms.
 template <Density K, int G>
 __device__ __host__ inline int buffer_floats(int d, int n_terms, const DensityParams& p,
                                              bool variational) {
-  if constexpr (K == kUser) return user_scratch_floats(d);
+  if constexpr (K == kUser) return user_lane_floats(G, d);
   if constexpr (kSpeculate<K, G>) return 0;
   if constexpr (kManyTerms<K, G>) return ManyTerms<K, G>::lane_floats(d, n_terms, p, variational);
   if constexpr (kKeptSums<K, G>) return KeptSums<K, G>::kFloatsPerCoord * d;
@@ -868,11 +895,21 @@ struct LaneResult {
 // machine of one thread, iteration for iteration, as every query and step
 // takes the machine's operations. The slots after the first that ends a run
 // are discarded.
+//
+// A user's density (kUser) is one function of a plain row, const float* x
+// (user_density.cuh), which the group cannot view with a query in place as
+// LaneView does. So each slot keeps its own copy of the lane's state, `mine`
+// [d], and past it the likelihood hook's scratch: a query goes into the copy
+// and the state comes back after it, and every accepted step stores x_c in
+// each copy as in the lane's row. The hook runs whole in each slot, in the
+// order and with the operations of one thread alone (user_log_density, the
+// twin's form).
 template <Density K, int G, class Mark>
-__device__ LaneResult speculated_sweep(float* xs, int g, unsigned mask, int d, float beta,
-                                       const DensityInputs& in, const VariationalLane& var,
-                                       uint32_t hash_base, float W, float narrow_w, int p,
-                                       int n_steps, int max_iter, const Mark& mark) {
+__device__ LaneResult speculated_sweep(float* xs, float* mine, int g, unsigned mask, int d,
+                                       float beta, const DensityInputs& in,
+                                       const VariationalLane& var, uint32_t hash_base, float W,
+                                       float narrow_w, int p, int n_steps, int max_iter,
+                                       const Mark& mark) {
   const int s = g;  // this thread's slot: iteration it + s of the round
   const int base = (int)(threadIdx.x & 31) - g;  // the group's first lane in its warp
   const DensityParams& params = in.params;
@@ -886,13 +923,24 @@ __device__ LaneResult speculated_sweep(float* xs, int g, unsigned mask, int d, f
   const auto taken = [](unsigned ends) { return ends ? __ffs((int)ends) - 1 : G - 1; };
 
   Prepared pr_cur = prepare<K>(LaneView{xs, 1, -1, 0.0f}, d, params, in.prior);
+  if constexpr (K == kUser)
+    for (int i = 0; i < d; ++i) mine[i] = xs[i];
   // the density with coordinate c (if any) at q
   const auto density = [&](int c, float q) {
-    const LaneView v{xs, 1, c, q};
-    const Prepared pr = c >= 0 && prepare_reads<K>(c, d)
-                            ? prepare_query<K>(pr_cur, v, d, params, in.prior)
-                            : pr_cur;
-    return log_density<K>(v, d, beta, pr, params, in.arrays, in.prior, var);
+    if constexpr (K == kUser) {
+      const float kept = c >= 0 ? mine[c] : 0.0f;
+      if (c >= 0) mine[c] = q;
+      const float lp =
+          user_log_density(mine, mine + d, d, beta, params, in.arrays, in.prior, var);
+      if (c >= 0) mine[c] = kept;
+      return lp;
+    } else {
+      const LaneView v{xs, 1, c, q};
+      const Prepared pr = c >= 0 && prepare_reads<K>(c, d)
+                              ? prepare_query<K>(pr_cur, v, d, params, in.prior)
+                              : pr_cur;
+      return log_density<K>(v, d, beta, pr, params, in.arrays, in.prior, var);
+    }
   };
   const auto degenerate = [](float lb, float rb) {
     const float aL = fabsf(lb), aR = fabsf(rb);
@@ -915,6 +963,7 @@ __device__ LaneResult speculated_sweep(float* xs, int g, unsigned mask, int d, f
         pr_cur = prepare_query<K>(pr_cur, LaneView{xs, 1, c, cand}, d, params, in.prior);
       __syncwarp(mask);  // no thread of the group still reads x_c
       xs[c] = cand;      // every thread stores the same value
+      if constexpr (K == kUser) mine[c] = cand;
       acc_sum += 1.0f;
     }
     j += 1;
@@ -1231,11 +1280,12 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                    DensityInputs in, float W, float narrow_w, int p, int n_passes,
                    int max_iter) {
   static_assert(G == 1 || !kDelta, "delta mode runs one thread a lane");
-  static_assert(K != kUser || (G == 1 && !kDelta), "a user's density runs one thread a lane");
+  static_assert(K != kUser || !kDelta, "a user's density runs in full mode");
   // G == 1: the states [d][T], coordinate-major. G > 1, and a user's density:
   // the states [T / G][d], then each group's buffers [T / G][lane_floats]
-  // (buffer_floats; a user's likelihood: its constrained values). Then the
-  // variational reference's mean, std and log norms [3][d].
+  // (buffer_floats; a user's density: the scratch of its one thread, or each
+  // slot's copy of the state and its scratch). Then the variational
+  // reference's mean, std and log norms [3][d].
   constexpr bool kRowMajor = G > 1 || K == kUser;
   float* shared = dynamic_shared();
   const int T = blockDim.x;
@@ -1306,8 +1356,9 @@ slice_sweep_kernel(const float* __restrict__ x, const float* __restrict__ betas,
                                                               n_passes * d, max_iter, mark);
       lp_cur = r.lp, acc_sum = r.acc_sum, acc_n = r.acc_n, n_evals = r.n_evals;
     } else if constexpr (kSpeculate<K, G>) {
-      const LaneResult r = speculated_sweep<K, G>(xs, g, mask, d, beta, in, var, hash_base, W,
-                                                  narrow_w, p, n_passes * d, max_iter, mark);
+      float* mine = K == kUser ? terms + g * (d + user_scratch_floats(d)) : nullptr;
+      const LaneResult r = speculated_sweep<K, G>(xs, mine, g, mask, d, beta, in, var, hash_base,
+                                                  W, narrow_w, p, n_passes * d, max_iter, mark);
       lp_cur = r.lp, acc_sum = r.acc_sum, acc_n = r.acc_n, n_evals = r.n_evals;
     } else {
       // kept for the lane's current state, recomputed for a query of a coordinate
@@ -1628,7 +1679,14 @@ constexpr bool cheap_terms = K != kLogisticRegression;
 // 0.089, 0.154 / 0.037 / 0.026 / 0.023 and 0.0665 / 0.0188 / 0.0144 / 0.0132
 // ms; at 8,192, 8 threads 0.151 and 0.033 ms, 32 threads 0.49 and 0.036;
 // Bernoulli at 10,000 0.0940 / 0.0281 / 0.0364 / 0.0948 ms). Before it
-// speculated, Bernoulli took 0.088 / 0.089 / 0.087 / 0.087 ms at 640.
+// speculated, Bernoulli took 0.088 / 0.089 / 0.087 / 0.087 ms at 640. A
+// user's hook takes the same rule: at 640 lanes 16 and 32 slots take about
+// as many rounds (the slowest lane's 67 and 67 for the hierarchical source,
+// 20 and 19 for model U, 12 and 12 for the CustomPath), and 32 slots' device
+// time is 3% and 7% below 16's for the first two and 6% above for the third
+// (1.3847 / 1.3418, 0.1519 / 0.1414 and 0.0163 / 0.0173 ms at 16 / 32
+// slots, each the same to 0.1% in four turns; tools/torch_kernel_variants.py
+// --user, NVIDIA H100 80GB HBM3, 700.00 W).
 template <Density K>
 int pick_group(int B, int d, const DensityParams& params, bool variational) {
   const int n_all_terms = end_term<K>(d, params);
@@ -1636,7 +1694,14 @@ int pick_group(int B, int d, const DensityParams& params, bool variational) {
   if (kSpeculated<K>) {  // slots of speculated queries
     int group = 32;
     while (group > 8 && (int64_t)B * group > kResidentThreads / 4) group /= 2;
-    return (int64_t)B * group > kResidentThreads ? 1 : group;
+    if ((int64_t)B * group > kResidentThreads) return 1;
+    // a user's slots keep a copy of the state each: one thread a lane where a
+    // block's copies (some 128 (d + scratch) floats) pass 227 KB
+    int threads;
+    if (K == kUser && shared_bytes(group, d, user_lane_floats(group, d),
+                                   variational ? (size_t)3 * d : 0, &threads) == 0)
+      return 1;
+    return group;
   }
   if (K == kToyMvn || K == kMvn || n_target <= 1) return 1;
   // a lane under a variational reference has its d terms besides
@@ -1763,24 +1828,38 @@ extern "C" int k2_clock_split(unsigned long long* out, int n_lanes) {
 #endif
 
 #ifdef PIGEONS_USER_SOURCE
-// The library of a user's density (_build.py: build_user): one instance,
-// kUser in full mode with one thread a lane, and nothing of the library's
-// kinds. The arguments are slice_sweep's without density, coord_deltas and
-// group; params[0] is the reference's 1 / sigma (0 for a BayesianModel under
-// its prior, unused by a CustomPath), params[1..7] the user's.
+// The library of a user's density (_build.py: build_user): kUser in full mode
+// at 1, 8, 16 and 32 threads a lane, and nothing of the library's kinds. (One
+// translation unit: the source's hook is a function of external linkage,
+// which units compiled apart would each define.)
+
+// The number of threads a lane that slice_sweep_user picks (group = 0) for B
+// lanes of width d, with or without a variational reference: 32, 16 or 8
+// slots of speculated queries as for eight schools (pick_group), or one
+// thread where the block's copies of the state do not fit.
+extern "C" int slice_sweep_user_group(int B, int d, int variational) {
+  return pick_group<kUser>(B, d, DensityParams{}, variational != 0);
+}
+
+// The arguments are slice_sweep's without density and coord_deltas: params[0]
+// is the reference's 1 / sigma (0 for a BayesianModel under its prior, unused
+// by a CustomPath), params[1..7] the user's; group is 1, 8, 16 or 32 threads
+// a lane, or 0 for slice_sweep_user_group's choice. Returns -1 for arrays, a
+// prior table or a group it does not take, -2 for a d whose state (and
+// copies) do not fit, else cudaGetLastError().
 extern "C" int slice_sweep_user(const float* x, const float* betas, const int64_t* seeds,
                                 float* x_out, float* lp_out, float* stats, int B, int d,
                                 const float* params, const float* const* arrays,
                                 const int* array_lens, const float* prior, int n_prior,
                                 const float* isvar, const float* mean, const float* std,
                                 const float* active, float w, int p, int n_passes, int max_iter,
-                                void* stream) {
+                                int group, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   SweepArgs a{x, betas, seeds, x_out, lp_out, stats, B, d, {}, w, p, n_passes, max_iter,
               (cudaStream_t)stream};
   if (!read_args(&a, kUser, params, arrays, array_lens, prior, n_prior, isvar, mean, std, active))
     return -1;
-  return launch<kUser, false, 1>(a);
+  return launch_full<kUser>(a, group);
 }
 #else
 // The library's build (_build.py: build) compiles this file in
@@ -1901,10 +1980,10 @@ extern "C" int slice_sweep(const float* x, const float* betas, const int64_t* se
 
 // The number of threads a lane that slice_sweep's launcher picks in full mode
 // (group = 0) for B lanes of width d of density kind `density` with params
-// (host memory), with or without a variational reference; 1 for a user's
-// density (slice_sweep_user runs one thread a lane), -1 for a kind the kernel
-// does not have. A sharded run launches the kernel on its own block of lanes,
-// so its launches may run another group than the whole batch's.
+// (host memory), with or without a variational reference; -1 for a kind the
+// kernel does not have (a user's density: slice_sweep_user_group). A sharded
+// run launches the kernel on its own block of lanes, so its launches may run
+// another group than the whole batch's.
 extern "C" int slice_sweep_group(int B, int d, int density, const float* params,
                                  int variational) {
   DensityParams v{};
@@ -1922,7 +2001,6 @@ extern "C" int slice_sweep_group(int B, int d, int density, const float* params,
     case kBernoulli: return pick_group<kBernoulli>(B, d, v, var);
     case kEightSchoolsCentered: return pick_group<kEightSchoolsCentered>(B, d, v, var);
     case kMrna: return pick_group<kMrna>(B, d, v, var);
-    case kUser: return 1;
     default: return -1;
   }
 }

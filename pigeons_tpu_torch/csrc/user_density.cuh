@@ -49,8 +49,10 @@
 // are not the torch form's and break that.
 //
 // The source is compiled into a library of its own (_build.py: build_user,
-// -DPIGEONS_USER_SOURCE and -DPIGEONS_USER_HOOK), with one instance of K2 (one
-// thread a lane) or of K1 (the user's term), never with the library's kinds.
+// -DPIGEONS_USER_SOURCE and -DPIGEONS_USER_HOOK), with K2's instances (one
+// thread a lane, or groups of 8, 16, 32 that speculate the machine's queries,
+// each thread with its own copy of the state) or K1's (the user's term), never
+// with the library's kinds.
 
 #pragma once
 

@@ -47,11 +47,12 @@ same machine as torch ops over ``[B]`` rows.
 
 **A user's density** (``device_source.DeviceSource``, CUDA source beside its
 torch form) has a library of its own, built at first use
-(``_build.build_user``): K2's instance for it (``slice_sweep_user``, full mode,
-one thread a lane) for a target, a ``CustomPath`` or a ``BayesianModel``
-likelihood (``DeviceDensity`` of kind ``USER``), K1's user term
-(``banded_slice_sweep_user``) for a path with ``coord_source``. The twins
-evaluate the source's torch form.
+(``_build.build_user``): K2's instances for it (``slice_sweep_user``, full
+mode; groups of threads speculate the machine's next queries, each with its
+own copy of the lane's state, as for eight schools) for a target, a
+``CustomPath`` or a ``BayesianModel`` likelihood (``DeviceDensity`` of kind
+``USER``), K1's user term (``banded_slice_sweep_user``) for a path with
+``coord_source``. The twins evaluate the source's torch form.
 
 CPU tensors run the twins; a CUDA tensor reaches the kernel or raises. Each
 kernel agrees with its twin bit for bit on the card.
@@ -733,11 +734,12 @@ def _array_args(arrays, device, what):
 
 
 def banded_sweep_user_cuda(x, seeds, user: UserTerm, w: float = 10.0, p: int = 20,
-                           n_passes: int = 3, max_iter: int = 1024):
+                           n_passes: int = 3, max_iter: int = 1024, lib=None):
     """Launch kernel K1 with a user's term (``UserTerm``: the lanes' betas
     and the ``"coord"`` source, whose library is built at first use) on the
     current stream. Same contract as :func:`banded_sweep_reference` with
-    ``user``."""
+    ``user``. ``lib``: another build of the source's library
+    (``_build.open_user``), for the tools that time variants."""
     if x.device.type != "cuda":
         raise ValueError(f"banded_sweep_user_cuda needs CUDA tensors, got {x.device}")
     B, d = x.shape
@@ -748,7 +750,7 @@ def banded_sweep_user_cuda(x, seeds, user: UserTerm, w: float = 10.0, p: int = 2
     arrays, lens = _array_args(src.arrays, x.device, "the coordinate source's")
     from .._build import load_user
 
-    lib = load_user(src)
+    lib = lib or load_user(src)
     x_out = torch.empty_like(x)
     stats = torch.zeros((3, B), dtype=torch.float32, device=x.device)
     err = lib.banded_slice_sweep_user(
@@ -801,35 +803,40 @@ def kernel_inputs(density, B: int, d: int, device, isvar=None, ref_params=None) 
         (ctypes.c_float * max(len(rows), 1))(*rows), len(density.prior), variational, keep)
 
 
-def launcher_group(path, B: int, d: int) -> int:
+def launcher_group(path, B: int, d: int, lib=None) -> int:
     """The threads a lane kernel K2's launcher picks in full mode for ``B``
-    lanes of ``path`` (``sweep_cuda(..., group=0)``); needs the card's
-    library, but for a user's density, whose instance runs one."""
-    from .._build import load_library
+    lanes of ``path`` (``sweep_cuda(..., group=0)``), as the library ``lib``
+    computes it: by default the card's library, or for a user's density its
+    source's (``slice_sweep_user_group``: slots of speculated queries, or one
+    thread where a block's copies of the state do not fit)."""
+    from .._build import load_library, load_user
 
     density = path.device_density()
+    variational = int(isinstance(path, VariationalPath))
     if density.kind == USER:
-        return 1
+        return (lib or load_user(density.source)).slice_sweep_user_group(B, d, variational)
     params = (ctypes.c_float * MAX_DENSITY_PARAMS)(*density.params)
-    return load_library().slice_sweep_group(B, d, density.kind, params,
-                                            int(isinstance(path, VariationalPath)))
+    return (lib or load_library()).slice_sweep_group(B, d, density.kind, params, variational)
 
 
 def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.0,
                p: int = 20, n_passes: int = 3, max_iter: int = 1024, group: int = 0,
-               isvar=None, ref_params=None):
+               isvar=None, ref_params=None, lib=None):
     """Launch kernel K2 on the current stream. Same contract as
     :func:`sweep_reference`; the density is the path's ``device_density()``,
     whose arrays (model data) and, under a :class:`~..paths.VariationalPath`,
     ``isvar`` and ``ref_params`` the kernel reads from device memory: nothing
     comes back to the host. ``group`` is the number of threads that share a
     lane's density evaluation in full mode (1, 8, 16 or 32; for eight
-    schools, unid and the Bernoulli model the group evaluates the machine's
-    next queries at once; the result does not depend on it); 0 leaves the
-    choice to the launcher, which makes it from the density, ``B`` and
-    ``d``. Delta mode runs one thread a lane and refuses a larger group. A
-    density of kind ``USER`` runs its source's library (built at first use)
-    in full mode with one thread a lane: ``slice_sweep_user``."""
+    schools, unid, the Bernoulli model and a user's density the group
+    evaluates the machine's next queries at once; the result does not depend
+    on it); 0 leaves the choice to the launcher, which makes it from the
+    density, ``B`` and ``d``. Delta mode runs one thread a lane and refuses a
+    larger group. A density of kind ``USER`` runs its source's library (built
+    at first use) in full mode: ``slice_sweep_user``; ``lib`` is another
+    build of that library (``_build.open_user``'s; one of sources without
+    groups takes none and runs one thread a lane), for the tools that time
+    variants."""
     if x.device.type != "cuda":
         raise ValueError(f"sweep_cuda needs CUDA tensors, got {x.device}")
     B, d = x.shape
@@ -847,20 +854,23 @@ def sweep_cuda(x, betas, seeds, path, coord_deltas: bool = False, w: float = 10.
     stats = torch.empty((3, B), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if density.kind == USER:
-        if coord_deltas or group not in (0, 1):
-            raise ValueError("a user's density runs kernel K2 in full mode with one thread a "
-                             f"lane, not coord_deltas={coord_deltas}, group={group}")
+        if coord_deltas:
+            raise ValueError("a user's density runs kernel K2 in full mode, not with coord_deltas")
         from .._build import load_user
 
-        err = load_user(density.source).slice_sweep_user(
+        lib = lib or load_user(density.source)
+        if group > 1 and not lib.takes_group:
+            raise ValueError("this build of the source's library runs one thread a lane")
+        err = lib.slice_sweep_user(
             x.data_ptr(), betas.data_ptr(), seeds.data_ptr(), x_out.data_ptr(), lp.data_ptr(),
             stats.data_ptr(), B, d, inputs.params, inputs.arrays, inputs.array_lens,
-            inputs.prior, inputs.n_prior, *inputs.variational, w, p, n_passes, max_iter, stream)
+            inputs.prior, inputs.n_prior, *inputs.variational, w, p, n_passes, max_iter,
+            *[group] * lib.takes_group, stream)
         if err != 0:
             raise RuntimeError(f"slice_sweep_user failed for a {density.source.hook!r} source, "
-                               f"d={d}: error {err} (-1: arrays or prior table it does not take, "
-                               "-2: a lane's state too large for shared memory; positive: CUDA "
-                               "error code)")
+                               f"d={d}, group={group}: error {err} (-1: arrays, prior table or "
+                               "group it does not take, -2: a lane's state and its copies too "
+                               "large for shared memory; positive: CUDA error code)")
         SliceSamplerCUDA.launches["slice_sweep_user"] += 1
         return x_out, lp, stats
     from .._build import load_library

@@ -77,16 +77,17 @@ def _user_arrays(arrays):
 
 
 def slice_sweep_user(lib_path, x, betas, seeds, params, w, p, n_passes, max_iter, arrays, prior,
-                     variational, out):
+                     variational, group, out):
     """Kernel K2's entry point in a user's library (``slice_sweep_user``):
     ``params`` the ``MAX_DENSITY_PARAMS`` floats (the reference's slot, then
     the user's), ``arrays`` the source's float32 arrays, ``prior`` the rows of
-    a likelihood's prior table, ``variational`` as :func:`slice_sweep`'s. Puts
-    ``(err, x_out, lp, stats)`` on ``out``."""
+    a likelihood's prior table, ``variational`` as :func:`slice_sweep`'s,
+    ``group`` the threads a lane (0: the launcher's choice). Puts ``(err,
+    x_out, lp, stats)`` on ``out``."""
     lib = ctypes.CDLL(str(lib_path))
     lib.slice_sweep_user.argtypes = ([VP] * 6 + [CI] * 2 + [ctypes.POINTER(CF), ctypes.POINTER(VP),
                                      ctypes.POINTER(CI), ctypes.POINTER(CF), CI] + [VP] * 4
-                                     + [CF, CI, CI, CI, VP])
+                                     + [CF, CI, CI, CI, CI, VP])
     B, d = x.shape
     x_out, lp, stats = np.empty_like(x), np.empty(B, np.float32), np.empty((3, B), np.float32)
     c_arrays, c_lens = _user_arrays(arrays)
@@ -95,7 +96,7 @@ def slice_sweep_user(lib_path, x, betas, seeds, params, w, p, n_passes, max_iter
     err = lib.slice_sweep_user(_ptr(x), _ptr(betas), _ptr(seeds), _ptr(x_out), _ptr(lp),
                                _ptr(stats), B, d, (CF * MAX_DENSITY_PARAMS)(*params), c_arrays,
                                c_lens, (CF * max(len(rows), 1))(*rows), len(prior), *var, w, p,
-                               n_passes, max_iter, None)
+                               n_passes, max_iter, group, None)
     out.put((err, x_out, lp, stats))
 
 

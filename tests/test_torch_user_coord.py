@@ -171,6 +171,62 @@ def test_user_term_host_build_matches_twin(user_dir, B, d, n_passes):
     assert (n_passes == 0) == torch.equal(got[0], x)
 
 
+# A coordinate source that reads its tables as a source may: the entry of
+# another coordinate than c (c + 1, wrapping), and an array of another length
+# than the state's, which the hooks read where they lie.
+NEIGHBOUR_CUDA = r"""
+using namespace pigeons;
+
+__device__ float pigeons_user_ref_coord(float v, int c, const float* params,
+                                        const DensityArrays& arrays) {
+  const float q = v * params[0];
+  return (q * q) * -0.5f;
+}
+
+// arrays: m [d], s [1]
+__device__ float pigeons_user_target_coord(float v, int c, const float* params,
+                                           const DensityArrays& arrays) {
+  const float* m = arrays.ptr[0];
+  const float q = (v - m[c]) * arrays.ptr[1][0];
+  return (q * q) * -0.5f + m[c + 1 == arrays.n[0] ? 0 : c + 1] * params[1];
+}
+"""
+
+
+def _neighbour_ref(v, c, params, arrays):
+    q = v * params[0]
+    return (q * q) * -0.5
+
+
+def _neighbour_target(v, c, params, arrays):
+    m, s = arrays
+    q = (v - m[c]) * s[0]
+    return (q * q) * -0.5 + m[torch.where(c + 1 == m.numel(), 0, c + 1)] * params[1]
+
+
+def _neighbour_source(d):
+    m = torch.from_numpy(np.linspace(-1.0, 1.5, d).astype(np.float32))
+    return T.DeviceSource(NEIGHBOUR_CUDA, "coord", _neighbour_target, params=(1.0 / 3.0, 0.25),
+                          arrays=(m, torch.tensor([1.5])), torch_ref_fn=_neighbour_ref)
+
+
+# K1's tile is 4,096 elements: d = 13 and 100 within one, 4,100 above it (a
+# block's share of coordinates wraps around)
+@pytest.mark.parametrize("B,d", [(37, 13), (40, 100), (3, 4100)])
+def test_hooks_read_any_entry_of_their_arrays(user_dir, B, d):
+    """A hook that reads a neighbour's entry of a coordinate's table and an
+    array of another length: bit for bit the twin, within a tile and above."""
+    source = _neighbour_source(d)
+    lib = _host_user_library(source, user_dir)
+    x, betas, seeds = _inputs(B, d, d, scale=2.0)
+    want = cuda_slice.banded_sweep_reference(x, betas, seeds, n_passes=1,
+                                             user=cuda_slice.UserTerm(betas, source))
+    got = _in_child(host_call.banded_slice_sweep_user, str(lib), x, betas, seeds, source.params,
+                    10.0, 20, 1, 1024, tuple(a.numpy() for a in source.arrays))
+    _assert_bitwise(got, want, ("x", "stats"))
+    assert not torch.equal(got[0], x)
+
+
 def test_two_round_run_matches_jax():
     """Both packages' runs of the path from the seed: the port's on K1's twin
     with the user term, the JAX package's on its banded kernel."""

@@ -7,6 +7,8 @@ does not compile raising with ``nvcc``'s output. Every test here is marked
     python -m pytest tests/test_torch_user_cuda.py -m cuda --noconftest
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -47,17 +49,80 @@ EXAMPLES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _user_case(name, B):
+    """A source's path, inputs and twin on the card (shared by the groups)."""
+    dev = torch.device("cuda")
+    model = EXAMPLES[name]().to(dev)
+    path = model.create_path(model.default_reference())
+    x, betas, seeds = _inputs(B, model.dim, B, dev)
+    return path, (x, betas, seeds), cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
 @pytest.mark.parametrize("B", [37, 2048])
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
-def test_user_instance_matches_twin_on_card(cuda_device, name, B):
-    model = EXAMPLES[name]().to(cuda_device)
-    path = model.create_path(model.default_reference())
-    x, betas, seeds = _inputs(B, model.dim, B, cuda_device)
+def test_user_instance_matches_twin_on_card(cuda_device, name, B, group):
+    """Each source's K2 instance at the launcher's choice (through the
+    explorer's wrapper, one launch counted), one thread a lane and 8, 16, 32
+    slots of speculated queries, bit for bit the twin."""
+    path, (x, betas, seeds), want = _user_case(name, B)
     before = SliceSamplerCUDA.launches["slice_sweep_user"]
-    got = cuda_slice.sweep(x, betas, seeds, path, n_passes=1)
+    if group == 0:
+        got = cuda_slice.sweep(x, betas, seeds, path, n_passes=1)
+    else:
+        got = cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, group=group)
     assert SliceSamplerCUDA.launches["slice_sweep_user"] == before + 1
-    _bitwise(got, cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1))
+    _bitwise(got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _variational_case(name, B):
+    """A source's two-leg path (a ``GaussianReference``, two of three lanes
+    on its leg, active), inputs and twin on the card, as the host builds'
+    tests make them (shared by the groups)."""
+    dev = torch.device("cuda")
+    model = EXAMPLES[name]().to(dev)
+    fixed = model.create_path(model.default_reference())
+    path = T.VariationalPath(fixed, T.GaussianReference())
+    x, betas, seeds = _inputs(B, model.dim, 3, dev)
+    isvar = (torch.arange(B, device=dev) % 3 != 1).float()
+    rs = np.random.RandomState(5)
+    ref_params = {
+        "mean": torch.tensor((rs.normal(size=model.dim) * 0.3).astype(np.float32), device=dev),
+        "std": torch.tensor(np.exp(rs.normal(size=model.dim) * 0.5).astype(np.float32),
+                            device=dev),
+        "active": torch.tensor(1.0, device=dev)}
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1, isvar=isvar,
+                                      ref_params=ref_params)
+    assert not torch.equal(want[0], cuda_slice.sweep_reference(x, betas, seeds, fixed,
+                                                               n_passes=1)[0])
+    return path, (x, betas, seeds, isvar, ref_params), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 8, 16, 32])
+@pytest.mark.parametrize("name", ["model_u", "funnel_source"])
+def test_user_instance_under_a_variational_reference_on_card(cuda_device, name, group):
+    """The likelihood and target hooks on a two-leg run's 640 lanes at every
+    group: each slot's copy of the state under the reference, bit for bit
+    the twin."""
+    path, (x, betas, seeds, isvar, ref_params), want = _variational_case(name, 640)
+    _bitwise(cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1, group=group, isvar=isvar,
+                                   ref_params=ref_params), want)
+
+
+@pytest.mark.cuda
+def test_user_launcher_group_on_card(cuda_device):
+    """The source's library picks slots of speculated queries at the paths'
+    batches (8 at 8,192 lanes, 32 at 640) and one thread a lane where a
+    block's copies of the state do not fit."""
+    hier = SE.hierarchical_normal_source()
+    path = hier.create_path(hier.default_reference())
+    assert cuda_slice.launcher_group(path, 8192, hier.dim) == 8
+    assert cuda_slice.launcher_group(path, 640, hier.dim) == 32
+    assert cuda_slice.launcher_group(path, 8192, 214) == 1
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ checkpointed run of model U resumed bitwise; the refusals. Kernel K1's user
 term is ``tests/test_torch_user_coord.py``.
 """
 
+import ctypes
 import functools
 import math
 import shutil
@@ -236,7 +237,7 @@ def user_dir(tmp_path_factory):
 
 
 def _k2_user(lib, x, betas, seeds, density, max_iter=1024, isvar=None, ref_params=None,
-             err_wanted=0):
+             err_wanted=0, group=0):
     params = tuple(density.params) + (0.0,) * (8 - len(density.params))
     variational = None
     if ref_params is not None:
@@ -244,7 +245,7 @@ def _k2_user(lib, x, betas, seeds, density, max_iter=1024, isvar=None, ref_param
                                                 ref_params["active"].reshape(1)))
     return _in_child(host_call.slice_sweep_user, str(lib), x, betas, seeds, params, 10.0, 20, 1,
                      max_iter, tuple(a.numpy() for a in density.arrays), density.prior,
-                     variational, err_wanted=err_wanted)
+                     variational, group, err_wanted=err_wanted)
 
 
 EXAMPLES = {
@@ -255,30 +256,42 @@ EXAMPLES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(EXAMPLES))
-def test_user_host_build_matches_twin(user_dir, name):
-    """Each source's K2 instance against the twin, bit for bit, on lanes
-    drawn from the prior (or N(0, I)), three of them far out or NaN."""
+# threads a lane: the launcher's choice (32 slots at these few lanes), one
+# thread, and 8, 16, 32 slots of speculated queries
+USER_GROUPS = (0, 1, 8, 16, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _user_case(name):
+    """A source's path, its inputs (lanes drawn from the prior or N(0, I),
+    three of them far out or NaN) and the twin's sweep (shared by the tests
+    of each group)."""
     model = EXAMPLES[name]()
     path = model.create_path(model.default_reference())
+    x, betas, seeds = _bayesian_inputs(model, 7, len(name))
+    want = cuda_slice.sweep_reference(x, betas, seeds, path, False, n_passes=1, max_iter=SHORT)
+    return path, (x, betas, seeds), want
+
+
+@pytest.mark.parametrize("group", USER_GROUPS)
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_user_host_build_matches_twin(user_dir, name, group):
+    """Each source's K2 instance against the twin, bit for bit, at every
+    group: one thread a lane, or slots of speculated queries each with its
+    own copy of the state."""
+    path, (x, betas, seeds), want = _user_case(name)
     density = path.device_density()
     assert density.kind == T.paths.USER and density.source is not None
     lib = _host_user_library(density.source, user_dir)
-    x, betas, seeds = _bayesian_inputs(model, 7, len(name))
-    want = cuda_slice.sweep_reference(x, betas, seeds, path, False, n_passes=1, max_iter=SHORT)
-    got = _k2_user(lib, x, betas, seeds, density, max_iter=SHORT)
+    got = _k2_user(lib, x, betas, seeds, density, max_iter=SHORT, group=group)
     _assert_bitwise(got, want, ("x", "lp", "stats"))
     assert not torch.equal(got[0][0], x[0])
 
 
-@pytest.mark.parametrize("name", ["model_u", "funnel_source"])
-def test_user_host_build_under_a_variational_reference(user_dir, name):
-    """The likelihood and target hooks on a two-leg run's lanes, the
-    reference active: the kernel reads isvar, mean, std and active."""
+@functools.lru_cache(maxsize=None)
+def _user_variational_case(name):
     model = EXAMPLES[name]()
     path = T.VariationalPath(model.create_path(model.default_reference()), T.GaussianReference())
-    density = path.device_density()
-    lib = _host_user_library(density.source, user_dir)
     x, betas, seeds = _bayesian_inputs(model, 7, 3)
     isvar = torch.from_numpy((np.arange(7) % 3 != 1).astype(np.float32))
     rs = np.random.RandomState(5)
@@ -287,11 +300,23 @@ def test_user_host_build_under_a_variational_reference(user_dir, name):
                   "active": torch.tensor(1.0)}
     want = cuda_slice.sweep_reference(x, betas, seeds, path, False, n_passes=1, max_iter=SHORT,
                                       isvar=isvar, ref_params=ref_params)
-    got = _k2_user(lib, x, betas, seeds, density, SHORT, isvar, ref_params)
-    _assert_bitwise(got, want, ("x", "lp", "stats"))
     fixed = cuda_slice.sweep_reference(x, betas, seeds, path.fixed, False, n_passes=1,
                                        max_iter=SHORT)
     assert not torch.equal(want[0], fixed[0])
+    return path, (x, betas, seeds, isvar, ref_params), want
+
+
+@pytest.mark.parametrize("group", USER_GROUPS)
+@pytest.mark.parametrize("name", ["model_u", "funnel_source"])
+def test_user_host_build_under_a_variational_reference(user_dir, name, group):
+    """The likelihood and target hooks on a two-leg run's lanes, the
+    reference active, at every group: the kernel reads isvar, mean, std and
+    active, and each slot's copy of the state under the reference."""
+    path, (x, betas, seeds, isvar, ref_params), want = _user_variational_case(name)
+    density = path.device_density()
+    lib = _host_user_library(density.source, user_dir)
+    got = _k2_user(lib, x, betas, seeds, density, SHORT, isvar, ref_params, group=group)
+    _assert_bitwise(got, want, ("x", "lp", "stats"))
 
 
 def test_user_library_refuses_a_prior_table_it_cannot_read(user_dir):
@@ -493,9 +518,31 @@ def test_build_key_follows_the_text_and_the_hook():
         SE.hierarchical_normal_source().log_likelihood_fn.source)  # one text, one library
 
 
-def test_cuda_wrappers_take_cuda_tensors_only():
+def test_a_source_is_built_and_loaded_once_a_process(monkeypatch):
+    """``load_user`` builds and opens a source's library at its first launch
+    and keeps it by the source's key: a later launch looks up no file (the
+    keyed name hashes the kernel's source and the headers)."""
+    built = []
+    monkeypatch.setattr(_build, "_USER_LIBRARIES", {})
+    monkeypatch.setattr(_build, "build_user",
+                        lambda src: (built.append(src.key), (Path(f"{src.key}.so"), 0.0))[1])
+    monkeypatch.setattr(_build, "open_user", lambda path, kernel: (path.name, kernel))
+    funnel, path = SE.funnel_source(3).source, SE.custom_path_source(3).path.source
+    for _ in range(3):
+        assert _build.load_user(funnel) == (f"{funnel.key}.so", "sweep_slice.cu")
+        assert _build.load_user(path) == (f"{path.key}.so", "sweep_slice.cu")
+    # the same text and hook is the same library, whatever its arrays
+    assert _build.load_user(SE.funnel_source(5).source) == (f"{funnel.key}.so", "sweep_slice.cu")
+    assert built == [funnel.key, path.key]
+
+
+def test_cuda_wrappers_take_cuda_tensors_only(user_dir):
     """A user's density on CPU tensors runs its twin, never the build; the
-    kernels' wrappers refuse CPU tensors."""
+    kernels' wrappers refuse CPU tensors. The launcher's group (asked of the
+    source's host build): slots of speculated queries, 32 while the batch's
+    groups fill at most a quarter of the card, down to 8, and one thread a
+    lane where a block's copies of the state pass 227 KB (a target of 404
+    coordinates: 16 lanes of 9 rows)."""
     t = SE.funnel_source(3)
     path = t.create_path(t.default_reference())
     x, betas = torch.zeros(2, 3), torch.zeros(2)
@@ -506,7 +553,34 @@ def test_cuda_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_slice.banded_sweep_user_cuda(
             x, seeds, cuda_slice.UserTerm(betas, c.create_path(c.default_reference()).coord_source))
-    assert cuda_slice.launcher_group(path, 8192, 3) == 1
+    lib = ctypes.CDLL(str(_host_user_library(path.device_density().source, user_dir)))
+    assert [cuda_slice.launcher_group(path, B, 3, lib) for B in (640, 2048, 4096, 8192, 40000)] \
+        == [32, 32, 16, 8, 1]
+    assert cuda_slice.launcher_group(path, 8192, 403, lib) == 8
+    assert cuda_slice.launcher_group(path, 8192, 404, lib) == 1
+
+
+# (example, its path's batch in chip_smoke.py phase 12, the launcher's group,
+# the widest state whose copies fit a block at that group)
+USER_PATH_GROUPS = [("hierarchical_normal_source_20x10", 8192, 8, 213), ("model_u", 640, 32, 223),
+                    ("custom_path_source", 640, 32, 440)]
+
+
+@pytest.mark.parametrize("name,B,group,widest", USER_PATH_GROUPS)
+def test_user_launcher_speculates_at_the_paths_batches(user_dir, name, B, group, widest):
+    """At the batches its paths launch, the launcher gives every hook slots
+    of speculated queries, under a variational reference too; one thread a
+    lane from the width whose copies no longer fit a block: a likelihood's
+    slot copies 2 d floats (the state and its constrained values), a path's
+    d, beside the lanes' states, 16 of them at 8 slots and 4 at 32."""
+    model = (SE.hierarchical_normal_source() if name.endswith("20x10") else EXAMPLES[name]())
+    path = model.create_path(model.default_reference())
+    lib = ctypes.CDLL(str(_host_user_library(path.device_density().source, user_dir)))
+    assert cuda_slice.launcher_group(path, B, model.dim, lib) == group
+    two_leg = T.VariationalPath(path, T.GaussianReference())
+    assert cuda_slice.launcher_group(two_leg, B, model.dim, lib) == group
+    assert cuda_slice.launcher_group(path, B, widest, lib) == group
+    assert cuda_slice.launcher_group(path, B, widest + 1, lib) == 1
 
 
 def test_paths_without_a_kind_or_a_source_are_refused():

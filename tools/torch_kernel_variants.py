@@ -86,6 +86,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -99,6 +100,7 @@ import chip_smoke  # noqa: E402
 from pigeons_tpu_torch import (_build, bernoulli_target, eight_schools, funnel,  # noqa: E402
                                hierarchical_normal, logistic_regression, mrna_target,
                                unid_target)
+from pigeons_tpu_torch.models import source_examples as SE  # noqa: E402
 from pigeons_tpu_torch.ops import cuda_slice  # noqa: E402
 from pigeons_tpu_torch.paths import toy_mvn_path  # noqa: E402
 
@@ -587,6 +589,196 @@ def speculate_main(args, parents):
     return results
 
 
+USER_GROUPS = (1, 8, 16, 32)
+
+
+def user_rows(dev):
+    """K2's user rows: ``(title, model, batches)``, the path's batch first
+    (chip_smoke.py phase 12's)."""
+    small, large = (chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES,
+                    chip_smoke.H_CHAINS * chip_smoke.H_REPLICATES)
+    return [("hierarchical normal's likelihood as a source", SE.hierarchical_normal_source().to(dev),
+             (large, small)),
+            ("model U", SE.model_u().to(dev), (small, large)),
+            ("CustomPath", SE.custom_path_source(chip_smoke.U_CUSTOM_DIM).to(dev), (small, large))]
+
+
+def smi_clocks():
+    """The card's SM clock, power draw and temperature now."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+
+
+def user_main(args):
+    """``--user``: K2's user instance at every group, the launcher's choice
+    and the parent's one thread a lane, at 640 and 8,192 lanes, each group's
+    device time read ``--user-turns`` times in turns, with every group's
+    clock split of each row at 640 lanes and of the hierarchical row at its
+    path's 8,192; K1's user term, the toy term and the parent's user term
+    alternately on phase 12's inputs, with the card's clocks, and both
+    terms' clock splits."""
+    dev = torch.device("cuda")
+    rows = user_rows(dev)
+    coord = SE.normal_product_source(chip_smoke.D).to(dev)
+    k2_sources = {title: model.create_path(model.default_reference()).device_density().source
+                  for title, model, _ in rows}
+    hierarchical = rows[0][0]
+    small = chip_smoke.S_CHAINS * chip_smoke.S_REPLICATES
+    builds = {f"{title}, this tree": (src, (), _build.CSRC) for title, src in k2_sources.items()}
+    builds.update({f"{title}, parent": (src, (), csrc.resolve())
+                   for title, src in k2_sources.items() for csrc in args.parent_csrc[:1]})
+    # model U's text is the hierarchical row's: one library serves both
+    builds.update({f"{title}, clocks": (src, ("PIGEONS_K2_CLOCKS",), _build.CSRC)
+                   for title, src in k2_sources.items()})
+    builds.update({"K2 clocks, parent": (k2_sources[hierarchical], ("PIGEONS_K2_CLOCKS",),
+                                         csrc.resolve()) for csrc in args.parent_csrc[:1]})
+    builds["K1 user term, this tree"] = (coord.source, (), _build.CSRC)
+    builds["K1 user term clocks, this tree"] = (coord.source, ("PIGEONS_K1_CLOCKS",), _build.CSRC)
+    builds.update({"K1 user term, parent": (coord.source, (), csrc.resolve())
+                   for csrc in args.parent_csrc[:1]})
+    k1_src = ("banded_slice.cu",)
+    with ThreadPoolExecutor(len(builds) + 2) as pool:  # every build at once
+        futures = {name: pool.submit(_build.build_user, src, True, defines, csrc)
+                   for name, (src, defines, csrc) in builds.items()}
+        toy = pool.submit(load, (), _build.CSRC, False, k1_src)
+        toy_clocks = pool.submit(load, ("PIGEONS_K1_CLOCKS",), _build.CSRC, False, k1_src)
+        paths = {name: f.result()[0] for name, f in futures.items()}
+        libs = {name: _build.open_user(paths[name], _build.USER_KERNELS[src.hook])
+                for name, (src, _, _) in builds.items()}
+        libs["toy term"], libs["toy term clocks"] = toy.result(), toy_clocks.result()
+    for name, f in futures.items():
+        print(f"built {name}: {f.result()[1]:.2f} s, {paths[name].name}")
+    results = {}
+    for title, model, batches in rows:
+        path = model.create_path(model.default_reference())
+        this, parent = libs[f"{title}, this tree"], libs.get(f"{title}, parent")
+        for i, B in enumerate(batches):
+            x, betas, seeds = chip_smoke.lane_inputs(B, model.dim, 1.0, 11)
+            counts = torch.zeros(6, dtype=torch.int64, device=dev)
+            want = cuda_slice.sweep_reference(x, betas, seeds, path, n_passes=1,
+                                              phase_counts=counts)
+            iterations = want[2][2]
+            name = f"K2 user, {title}, B={B} d={model.dim} 1 pass"
+            print(f"-- {name}: twin's iterations: slowest lane {int(iterations.max())}, mean "
+                  f"{float(iterations.double().mean()):.1f}; phases {counts.tolist()}; the "
+                  f"launcher's group {cuda_slice.launcher_group(path, B, model.dim, this)}",
+                  flush=True)
+
+            def call(lib, group):
+                return lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1,
+                                                     group=group, lib=lib)
+
+            variants = {f"group {g}": call(this, g) for g in USER_GROUPS}
+            variants["launcher's choice"] = call(this, 0)
+            # the explorer's wrapper, and the same with a per-call look-up of
+            # the keyed library, as the wrapper made it before it kept it
+            variants["the wrapper"] = lambda: cuda_slice.sweep_cuda(x, betas, seeds, path,
+                                                                     n_passes=1)
+            variants["the wrapper, with a per-call look-up"] = lambda: (
+                _build.build_user(k2_sources[title]),
+                cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1))[1]
+            if parent is not None:
+                variants["parent"] = call(parent, 0)
+            for vname, variant in variants.items():
+                for t, w in zip(variant(), want):
+                    if not torch.equal(t.view(torch.int32), w.view(torch.int32)):
+                        raise AssertionError(f"{name}: {vname} differs from the twin")
+            print(f"-- {name}: every variant bitwise the twin", flush=True)
+            results[name] = race(name, variants)
+            turns = {g: [] for g in USER_GROUPS}
+            for r in range(args.user_turns):
+                for g in (USER_GROUPS if r % 2 == 0 else USER_GROUPS[::-1]):
+                    turns[g].append(device_ms(variants[f"group {g}"]))
+            print(f"-- {name}: device ms by group, {args.user_turns} turns: "
+                  + "; ".join(f"{g}: " + " / ".join(f"{t:.4f}" for t in ts)
+                              for g, ts in turns.items()), flush=True)
+            results[f"{name}, device ms by group in turns"] = turns
+            if B != small and title != hierarchical:
+                continue
+            splits = [(f"this tree, group {g}", libs[f"{title}, clocks"], g)
+                      for g in USER_GROUPS]
+            if "K2 clocks, parent" in libs and title == hierarchical and i == 0:
+                splits.insert(0, ("parent", libs["K2 clocks, parent"], 0))
+            for label, lib, group in splits:
+                c = call(lib, group)
+                print(f"-- clock64 split, {name}, {label}", flush=True)
+                results[f"clock split, {name}, {label}"] = clock_split(lib, c, iterations,
+                                                                       device_ms(c))
+
+    B, D = chip_smoke.N_CHAINS * chip_smoke.N_REPLICATES, chip_smoke.D
+    x, betas, seeds = chip_smoke.lane_inputs(B, D, 2.0, 11)
+    term = cuda_slice.UserTerm(betas, coord.create_path(coord.default_reference()).coord_source)
+    want = cuda_slice.banded_sweep_reference(x, betas, seeds, user=term)
+    a = toy_mvn_path(D).coord_factor(betas)
+    terms = {"user term, this tree": lambda: cuda_slice.banded_sweep_user_cuda(
+                 x, seeds, term, lib=libs["K1 user term, this tree"]),
+             "toy term": k1_call(libs["toy term"], x, a, seeds, 3),
+             "user term, the wrapper": lambda: cuda_slice.banded_sweep_user_cuda(x, seeds, term),
+             "user term, the wrapper with a per-call look-up": lambda: (
+                 _build.build_user(coord.source),
+                 cuda_slice.banded_sweep_user_cuda(x, seeds, term))[1]}
+    if "K1 user term, parent" in libs:
+        terms["user term, parent"] = lambda: cuda_slice.banded_sweep_user_cuda(
+            x, seeds, term, lib=libs["K1 user term, parent"])
+    for tname, fn in terms.items():
+        if tname.startswith("user"):
+            for t, w in zip(fn(), want):
+                if not torch.equal(t.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(f"K1 {tname} differs from the twin")
+    print(f"-- K1's terms alternately, B={B}, d={D}, 3 passes (the user terms bitwise the twin); "
+          "each turn the median of 20, then the card's SM clock, power and temperature",
+          flush=True)
+    turns = {tname: [] for tname in terms}
+    for r in range(args.k1_turns):
+        for tname in (list(terms) if r % 2 == 0 else list(terms)[::-1]):
+            ms = chip_smoke.cuda_ms(terms[tname], 20)
+            turns[tname].append((ms, smi_clocks()))
+            print(f"   turn {r}: {tname:>22} {ms:.4f} ms; {turns[tname][-1][1]}", flush=True)
+    for tname, ts in turns.items():
+        ms = [t for t, _ in ts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):  # the host's time a call: the launches queue up
+            terms[tname]()
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        dev = [device_ms(terms[tname]) for _ in range(3)]
+        print(f"{tname:>44}: median {np.median(ms):.4f} ms, min {min(ms):.4f}, max "
+              f"{max(ms):.4f}; device {' / '.join(f'{t:.4f}' for t in dev)} ms; host "
+              f"{host_ms:.4f} ms a call", flush=True)
+        results[f"K1 {tname}, device ms, host ms a call"] = (dev, host_ms)
+    results[f"K1 terms alternately, B={B}"] = {k: v for k, v in turns.items()}
+    for label, fn in (("K1 user term", lambda: cuda_slice.banded_sweep_user_cuda(
+                          x, seeds, term, lib=libs["K1 user term clocks, this tree"])),
+                      ("K1 toy term", k1_call(libs["toy term clocks"], x, a, seeds, 3))):
+        lib = libs["K1 user term clocks, this tree" if label == "K1 user term" else
+                   "toy term clocks"]
+        split = chip_smoke.k1_clock_split(lib, fn)
+        chip_smoke.print_k1_clock_split(label, split)
+        results[f"clock split, {label}"] = split
+    for name in ("K1 user term, this tree", "K1 user term, parent",
+                 f"{rows[0][0]}, this tree", f"{rows[0][0]}, parent"):
+        if name in paths:
+            print(f"-- SASS of {name}")
+            results[f"SASS, {name}"] = sass_lengths(paths[name])
+            results[f"registers, {name}"] = resource_usage(paths[name])
+    return results
+
+
+def resource_usage(lib_path):
+    """Registers, stack and shared memory of each kernel instance, as
+    ``cuobjdump -res-usage`` prints them (a function's line, then its
+    resources)."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-res-usage", str(lib_path)], capture_output=True, text=True)
+    lines = [line.strip() for line in res.stdout.splitlines()
+             if "Function" in line or "REG:" in line]
+    for line in lines:
+        print(f"   {line}")
+    return lines
+
+
 def k1_variational_inputs(B, d):
     """``chip_smoke.py`` phase 2c's inputs at ``B`` lanes."""
     x, betas, seeds = chip_smoke.lane_inputs(B, d, 0.5, 13)
@@ -608,6 +800,9 @@ def main():
     ap.add_argument("--k2-only", action="store_true")
     ap.add_argument("--variational", action="store_true")
     ap.add_argument("--speculate", action="store_true")
+    ap.add_argument("--user", action="store_true")
+    ap.add_argument("--k1-turns", type=int, default=6)
+    ap.add_argument("--user-turns", type=int, default=4)
     ap.add_argument("--rows", default="eight_schools,unid,bernoulli,delta")
     ap.add_argument("--splits-only", action="store_true")
     ap.add_argument("--delta-slots", default="")
@@ -615,6 +810,9 @@ def main():
     ap.add_argument("--parent-abi", type=int, default=3, choices=(1, 3, 4, 5))
     args = ap.parse_args()
     chip_smoke.device_phase()
+    if args.user:
+        write_results(user_main(args), None, "kernel_variants_user.json")
+        return
     if args.variational or args.speculate:
         parents = {("parent" if i == 0 else f"parent {i + 1}"): load(csrc=csrc.resolve())
                    for i, csrc in enumerate(args.parent_csrc)}
