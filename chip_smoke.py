@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile] [--parent-csrc DIR]
-    python3 chip_smoke.py --side-phases   # phases 3n-7b alone (the script starts it)
+    python3 chip_smoke.py --side-phases   # phases 3n-7b and 13 alone (the script starts it)
 
 Run from the repository root. It builds the port's CUDA kernels from
 ``pigeons_tpu_torch/csrc`` (``nvcc`` processes started together: K1, and K2
@@ -67,7 +67,18 @@ drives these paths end to end through
   logZ = 0); ``unid_target()`` under N(0, 2^2 I) (the library's K2 with the
   reference's 1 / sigma), model U with Cauchy, LogNormal and Exponential
   priors and a ``CustomPath`` with a source at 10 chains x 64 ladders (each
-  group bit for bit at 640 lanes).
+  group bit for bit at 640 lanes);
+* float64 runs (phase 13a) and the host-evaluated targets (13b-d), in the
+  side process, no kernel:
+  ``tests/test_dtype.py``'s three runs in float64 with its thresholds, the
+  funnel cell's target and width with the torch ``SliceSampler`` in float64
+  and float32 in turns (each one's scan time), ``SliceSamplerCUDA`` refusing
+  a float64 run; ``NativeTarget`` (``examples/native/het_normal.cpp``, built
+  with ``g++``) at 10 chains x 256 ladders with its default ``AutoMALA``,
+  held to the JAX slow test's law, with the density's host round trips a
+  scan; ``StreamTarget`` over the compiled C++ worker
+  (``examples/native/stream_worker.cpp``) at 10 chains; ``ExternalTarget``
+  and ``LazyTarget`` as ``tests/test_extensions.py`` runs them.
 
 It checks each run's laws and determinism, runs the README quick start, and
 compares small runs on the card with the same runs on the CPU (and one
@@ -87,7 +98,7 @@ AutoMALA, AAPS, NUTS, ``Mix`` and ``ScanMix`` (the last four on the toy MVN
 at d = 3, the JAX test's cases) pass, each kernel launched once, the
 variational term at beta = 0.3, where the reference weighs in, K2 with the Bernoulli density on
 its posterior Beta(3, 9); a kernel that drifts and a step that reads a
-wrong reference fail (10). Phases 3n, 4, 5, 6, 6c, 7 and 7b read nothing of
+wrong reference fail (10). Phases 3n, 4, 5, 6, 6c, 7, 7b and 13 read nothing of
 the other runs: a second process (``--side-phases``), started once phases
 2-2e have timed the kernel rows, runs them beside phases 3-11, and its
 output is printed after phase 11; so the wall times of phases 3-11 and of
@@ -2761,7 +2772,42 @@ def print_k1_clock_split(label, split):
                       f"({split['share_by_part'][k]:.1%})" for k in K1_CLOCK_PARTS), flush=True)
 
 
-def user_density_phase(library_hierarchical):
+def start_user_builds():
+    """Phase 12's sources (``models/source_examples.py``) and their ``nvcc``
+    builds, all started together in threads: they wait for nothing of phases
+    3-11, so they run beside them. Returns the sources' targets, the builds
+    and their futures."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pigeons_tpu_torch import _build
+    from pigeons_tpu_torch.models import source_examples as SE
+
+    dev = torch.device("cuda")
+    hier, coord = SE.hierarchical_normal_source().to(dev), SE.normal_product_source(D).to(dev)
+    model_u, custom = SE.model_u().to(dev), SE.custom_path_source(U_CUSTOM_DIM).to(dev)
+    funnel = SE.funnel_source(U_FUNNEL_DIM).to(dev)
+    sources = {"likelihood (hierarchical normal, model U)": hier.log_likelihood_fn.source,
+               "coordinate terms (product of normals)": coord.source,
+               "CustomPath": custom.path.source}
+    # this tree's libraries (and the funnel's target, which (d) holds under a
+    # variational reference), K1's user term with its clock split, and with
+    # --parent-csrc the parent's libraries of the timed sources: every nvcc at
+    # once
+    builds = {f"the {name} source": (src, (), _build.CSRC) for name, src in sources.items()}
+    builds["the funnel's target source"] = (funnel.source, (), _build.CSRC)
+    builds["the coordinate source, PIGEONS_K1_CLOCKS"] = (coord.source, ("PIGEONS_K1_CLOCKS",),
+                                                          _build.CSRC)
+    if PARENT:
+        builds.update({f"the {name} source, the parent's sources": (src, (), PARENT[1])
+                       for name, src in sources.items()})
+    pool = ThreadPoolExecutor(len(builds))
+    futures = {name: pool.submit(_build.build_user, b[0], defines=b[1], csrc=b[2])
+               for name, b in builds.items()}
+    pool.shutdown(wait=False)
+    return (hier, coord, model_u, custom, funnel), builds, futures
+
+
+def user_density_phase(library_hierarchical, user_builds):
     """Phase 12: densities a user supplies as CUDA source
     (``pigeons_tpu_torch/models/source_examples.py``), each source compiled
     into a library of its own (one ``nvcc`` each, all started together, with
@@ -2797,40 +2843,21 @@ def user_density_phase(library_hierarchical):
     term."""
     phase("12 user densities as CUDA source")
     import functools
-    from concurrent.futures import ThreadPoolExecutor
 
     from pigeons_tpu_torch import (PT, GaussianReference, Inputs, SliceSamplerCUDA,
                                    StandardNormalReference, VariationalPath, unid_target)
     from pigeons_tpu_torch import _build
-    from pigeons_tpu_torch.models import source_examples as SE
     from pigeons_tpu_torch.models import unid_analytic_log_z
     from pigeons_tpu_torch.ops import cuda_slice
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    hier, coord = SE.hierarchical_normal_source().to(dev), SE.normal_product_source(D).to(dev)
-    model_u, custom = SE.model_u().to(dev), SE.custom_path_source(U_CUSTOM_DIM).to(dev)
-    funnel = SE.funnel_source(U_FUNNEL_DIM).to(dev)
-    sources = {"likelihood (hierarchical normal, model U)": hier.log_likelihood_fn.source,
-               "coordinate terms (product of normals)": coord.source,
-               "CustomPath": custom.path.source}
-    # this tree's libraries (and the funnel's target, which (d) holds under a
-    # variational reference), K1's user term with its clock split, and with
-    # --parent-csrc the parent's libraries of the timed sources: every nvcc at
-    # once
-    builds = {f"the {name} source": (src, (), _build.CSRC) for name, src in sources.items()}
-    builds["the funnel's target source"] = (funnel.source, (), _build.CSRC)
-    builds["the coordinate source, PIGEONS_K1_CLOCKS"] = (coord.source, ("PIGEONS_K1_CLOCKS",),
-                                                          _build.CSRC)
-    if PARENT:
-        builds.update({f"the {name} source, the parent's sources": (src, (), PARENT[1])
-                       for name, src in sources.items()})
-    with ThreadPoolExecutor(len(builds)) as pool:
-        built = dict(zip(builds, pool.map(
-            lambda b: _build.build_user(b[0], defines=b[1], csrc=b[2]), builds.values())))
+    (hier, coord, model_u, custom, funnel), builds, futures = user_builds
+    built = {name: f.result() for name, f in futures.items()}
     for name, (lib, seconds) in built.items():
         print(f"nvcc for {name}: {seconds:.3f} s ({lib.name}; 0 = already built)")
-    print(f"the builds, at once: {time.perf_counter() - t_phase:.1f} s")
+    print(f"the builds, at once and beside phases 3-11: {time.perf_counter() - t_phase:.1f} s "
+          "waited for")
     libs = {name: _build.open_user(path, _build.USER_KERNELS[builds[name][0].hook])
             for name, (path, _) in built.items()}
     parent_lib = {src.key: libs[name] for name, (src, _, csrc) in builds.items()
@@ -3031,11 +3058,12 @@ def main():
     bayesian, k2v = k2_bayesian_phase(), k2_variational_phase()
     side = start_side_phases()
     try:
+        user_builds = start_user_builds()
         config1_run, hierarchical_run = main_phases(k1, k2, k1v, bayesian, k2v, delta_twin)
         join_side_phases(side)
     finally:
         side[0].kill()
-    k2u, k1u = user_density_phase(hierarchical_run)
+    k2u, k1u = user_density_phase(hierarchical_run, user_builds)
     del config1_run, hierarchical_run
     if "--profile" in sys.argv[1:]:
         profile_phase()
@@ -3085,12 +3113,221 @@ def main_phases(k1, k2, k1v, bayesian, k2v, delta_twin):
     return config1_run, hierarchical_run
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def ms_per_scan(pt) -> float:
+    rep = pt.reports[-1]
+    return rep.wall_time_s / rep.n_scans * 1e3
+
+
+def float64_sweep():
+    """The float64 forms of ``f32math`` and the float64 draws of ``rng``,
+    card against CPU, bit for bit: every form on 2^16 arguments spread over
+    its domain (and outside it), the uniforms, normals and exponentials of
+    4,096 keys x 16 (NaN equals NaN, whatever its payload). Returns the
+    names of the forms whose bits differ."""
+    from pigeons_tpu_torch import f32math, rng
+
+    g = torch.Generator().manual_seed(0)
+    n = 1 << 16
+    wide = torch.randn(n, dtype=torch.float64, generator=g) * torch.exp2(
+        torch.randint(-40, 11, (n,), generator=g).to(torch.float64))
+    unit = torch.rand(n, dtype=torch.float64, generator=g) * 2.0 - 1.0
+    pos = torch.abs(wide) + 1e-300
+    b, c = (torch.randn(n, dtype=torch.float64, generator=g) for _ in range(2))
+    forms = {
+        "fma": (f32math.fma, (wide, b, c)), "exp": (f32math.exp, (wide,)),
+        "log": (f32math.log, (pos,)), "log1p": (f32math.log1p, (torch.abs(wide) - 0.5,)),
+        "expm1": (f32math.expm1, (wide,)), "erfinv": (f32math.erfinv, (unit,)),
+        "lgamma": (f32math.lgamma, (pos,)), "logaddexp": (f32math.logaddexp, (wide, b * 30.0)),
+    }
+    keys = rng.keys_for(rng.key(SEED), torch.arange(4096))
+    draws = {
+        "uniform": lambda k: rng.uniform(k, (16,), dtype=torch.float64),
+        "normal": lambda k: rng.normal(k, (16,), dtype=torch.float64),
+        "exponential": lambda k: rng.exponential(k, (16,), dtype=torch.float64),
+    }
+
+    def same_bits(x, y):  # a NaN's payload is the backend's own
+        return bool(((x.view(torch.int64) == y.view(torch.int64))
+                     | (torch.isnan(x) & torch.isnan(y))).all())
+
+    differ = [name for name, (fn, args) in forms.items()
+              if not same_bits(fn(*(a.cuda() for a in args)).cpu(), fn(*args))]
+    differ += [name for name, draw in draws.items()
+               if not same_bits(draw(keys.cuda()).cpu(), draw(keys))]
+    print(f"float64 forms ({', '.join(forms)}) on {n} arguments and draws "
+          f"({', '.join(draws)}) of {keys.shape[0]} x 16: card and CPU bits differ in {differ}")
+    return differ
+
+
+def float64_phase():
+    """Phase 13a (side process): the float64 forms and draws card against
+    CPU bit for bit (:func:`float64_sweep`); ``tests/test_dtype.py``'s three
+    runs in float64 with its thresholds (the toy MVN at 8 rounds, not 9), the
+    deep funnel also on the CPU, its states, permutations and samples the
+    card's bit for bit; the funnel cell's target and width (d = 10, 12
+    chains x 256 ladders) with the torch ``SliceSampler(n_passes=1)``, one
+    scan in float64 and one in float32; and ``SliceSamplerCUDA`` refusing a
+    float64 run. No kernel may launch. Every time is printed beside the
+    card's name and power limit."""
+    phase("13a float64 runs")
+    from pigeons_tpu_torch import PT, Inputs, SliceSampler, SliceSamplerCUDA, toy_mvn_target
+    from pigeons_tpu_torch.models import funnel
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    f64 = torch.float64
+    SliceSamplerCUDA.reset_launches()
+    if float64_sweep():
+        raise AssertionError("float64 forms or draws: the card's bits are not the CPU's")
+    s = torch.tensor([[-100.0, 1.0, 1.0]], device="cuda")
+    lp32, lp64 = funnel(2).log_density(s), funnel(2).log_density(s.to(f64))
+    print(f"funnel(2) at y = -100: float32 {lp32.item()}, float64 {lp64.item():.6e}")
+    if torch.isfinite(lp32).any() or not torch.isfinite(lp64).all():
+        raise AssertionError("funnel at y = -100: float32 must saturate, float64 must not")
+    deep, deep_cpu = (PT(Inputs(target=funnel(2), n_chains=4, n_rounds=5, seed=1, dtype=f64,
+                                explorer=SliceSampler(n_passes=1), show_report=False,
+                                device=dev)).run() for dev in ("cuda", "cpu"))
+    sa = deep.sample_array()
+    same = (torch.equal(deep.states.cpu().view(torch.int64), deep_cpu.states.view(torch.int64))
+            and torch.equal(deep.chain_of.cpu(), deep_cpu.chain_of)
+            and torch.equal(deep.replica_of.cpu(), deep_cpu.replica_of)
+            and np.array_equal(sa.view(np.int64), deep_cpu.sample_array().view(np.int64)))
+    print(f"deep funnel: states {deep.states.dtype}, logZ {deep.reports[-1].log_z_estimate:.6f}, "
+          f"card and CPU states, permutations and samples bitwise equal: {same}; "
+          f"{ms_per_scan(deep):.1f} ms per scan ({card}), on the CPU {ms_per_scan(deep_cpu):.1f}")
+    if not (deep.states.dtype == f64 and sa.dtype == np.float64 and np.isfinite(sa).all()
+            and np.isfinite(deep.mean()).all()
+            and math.isfinite(deep.reports[-1].log_z_estimate)):
+        raise AssertionError("deep funnel in float64: a non-finite or float32 result")
+    if not same:
+        raise AssertionError("deep funnel in float64: the card's run is not the CPU's bit for bit")
+    # 8 rounds, not the JAX test's 9: on the card its 4 lanes cost about 0.1 s a scan
+    toy = PT(Inputs(target=toy_mvn_target(2), n_chains=4, n_rounds=8, seed=1, dtype=f64,
+                    show_report=False, device="cuda")).run()
+    print(f"toy MVN(2): mean {toy.mean()}, var {toy.var()}, {ms_per_scan(toy):.1f} ms per scan "
+          f"({card})")
+    if not (np.all(np.abs(toy.mean()) < 0.06) and np.all(np.abs(toy.var() - 0.1) < 0.05)):
+        raise AssertionError("toy MVN in float64: moments off the JAX test's thresholds")
+    cell = []
+    for dt in (f64, torch.float32):  # the funnel cell, one scan in each dtype
+        pt = PT(Inputs(target=funnel(9), n_chains=12, n_replicates=256, seed=1, dtype=dt,
+                       explorer=SliceSampler(n_passes=1), show_report=False, device="cuda"))
+        pt.run_round(1)
+        print(f"funnel cell, {dt}: {ms_per_scan(pt):.1f} ms per scan ({card})")
+        cell.append(np.isfinite(pt.sample_array()).all())
+    if not all(cell):
+        raise AssertionError("funnel cell: non-finite samples")
+    try:
+        PT(Inputs(target=funnel(2), dtype=f64, explorer=SliceSamplerCUDA(n_passes=1),
+                  device="cuda"))
+        raise AssertionError("SliceSamplerCUDA took a float64 run")
+    except ValueError as e:
+        if "SliceSampler(w=" not in str(e):
+            raise
+        print(f"SliceSamplerCUDA refuses float64: {str(e)[:90]}...")
+    del deep, deep_cpu, toy, pt
+    if any(SliceSamplerCUDA.launches.values()):
+        raise AssertionError(f"phase 13a launched a kernel: {SliceSamplerCUDA.launches}")
+    print(f"phase 13a: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def host_targets_phase():
+    """Phase 13b-d (side process): the host-evaluated targets on the card.
+    (b) ``NativeTarget`` (het_normal, d = 4) at 10 chains x 256 ladders
+    with its default ``AutoMALA``, 3 rounds, held to the law of the JAX slow
+    test, with the density's host round trips a scan; (c) ``StreamTarget``
+    over the compiled C++ worker, 10 chains; (d) ``ExternalTarget`` (5
+    rounds, not 7) and ``LazyTarget`` as ``tests/test_extensions.py`` runs
+    them. No kernel may launch: their densities run on the host. Every
+    time is printed beside the card's name and power limit."""
+    phase("13b-d host-evaluated targets")
+    import pickle
+
+    from pigeons_tpu_torch import (PT, AutoMALA, ExternalTarget, Inputs, LazyTarget,
+                                   SliceSamplerCUDA, pigeons, toy_mvn_target)
+    from pigeons_tpu_torch.models import register_lazy_target
+    from pigeons_tpu_torch.models.native import NativeTarget, example_library
+    from pigeons_tpu_torch.models.stream import StreamTarget, example_worker, java_seed
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    SliceSamplerCUDA.reset_launches()
+
+    print("(b) NativeTarget (het_normal), AutoMALA")
+    prec = np.array([500.0, 167.0, 56.0, 1.0])
+    native = NativeTarget(example_library("het_normal"))
+    calls = [0]
+    density = native.log_density
+
+    def counted(x):
+        calls[0] += 1
+        return density(x)
+
+    native.log_density = counted
+    pt = PT(Inputs(target=native, n_chains=10, n_replicates=256, n_rounds=3, seed=1,
+                   show_report=False, device="cuda"))
+    if not isinstance(pt.explorer, AutoMALA):
+        raise AssertionError("NativeTarget: the default explorer is not AutoMALA")
+    for _ in range(2):
+        pt.run_round()
+    before = calls[0]
+    pt.run_round()
+    trips = (calls[0] - before) / pt.reports[-1].n_scans
+    print(f"native: mean {pt.mean()}, var {pt.var()}, 1/prec {1.0 / prec}; {trips:.1f} host "
+          f"round trips per scan, {ms_per_scan(pt):.1f} ms per scan ({card})")
+    if not (np.all(np.abs(pt.mean()) < 5.0 / np.sqrt(prec))
+            and np.allclose(pt.var(), 1.0 / prec, rtol=0.5)):
+        raise AssertionError("NativeTarget: moments off the JAX test's law")
+    del pt
+
+    print("(c) StreamTarget (compiled C++ worker)")
+    binary = example_worker()
+    target = StreamTarget(lambda i: [binary, "--seed", str(java_seed(1, i)), "--dim", "2"])
+    try:
+        pt = pigeons(target=target, n_chains=10, n_rounds=6, show_report=False, device="cuda")
+        lps = pt.sample_array()[:, -1]
+        print(f"stream: mean log density {lps.mean():.4f} (-1 exact), round trips "
+              f"{pt.n_round_trips}, barrier {pt.global_barrier:.4f}, {len(target.pool.workers)} "
+              f"workers, {ms_per_scan(pt):.1f} ms per scan ({card})")
+        if not (np.isfinite(lps).all() and abs(lps.mean() + 1.0) < 0.3 and pt.n_round_trips > 0
+                and pt.global_barrier > 0.0):
+            raise AssertionError("StreamTarget: off the JAX test's law")
+    finally:
+        target.close()
+
+    print("(d) ExternalTarget and LazyTarget")
+    ext = ExternalTarget(lambda xb: (-0.5 * (xb**2).sum(axis=1) * 5.0).astype("float32"), dim=2)
+    # 5 rounds, not the JAX test's 7: a scan of 3 lanes costs about 0.4 s on the card
+    pt = pigeons(target=ext, n_chains=3, n_rounds=5, seed=1, show_report=False, device="cuda")
+    print(f"external: var {pt.var()} (0.2 exact), {ms_per_scan(pt):.1f} ms per scan ({card})")
+    if not np.allclose(pt.var(), 0.2, atol=0.07):
+        raise AssertionError("ExternalTarget: variance off the JAX test's tolerance")
+    register_lazy_target("toy3-chip", lambda: toy_mvn_target(3))
+    lazy = LazyTarget("toy3-chip")
+    if len(pickle.dumps(lazy)) >= 200:
+        raise AssertionError("LazyTarget: more than the flag pickled")
+    pt = pigeons(target=lazy, n_chains=3, n_rounds=6, seed=1, show_report=False, device="cuda")
+    print(f"lazy: var {pt.var()} (0.1 exact), {ms_per_scan(pt):.1f} ms per scan ({card})")
+    if not np.allclose(pt.var(), 0.1, atol=0.06):
+        raise AssertionError("LazyTarget: variance off the JAX test's tolerance")
+    if any(SliceSamplerCUDA.launches.values()):
+        raise AssertionError(f"phase 13b-d launched a kernel: {SliceSamplerCUDA.launches}")
+    print(f"phase 13b-d: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def side_phases():
     """The phases that read nothing of the other phases' runs and are
     timed by no kernel row: NUTS and AAPS at config 2a's width (3n), the
     determinism runs (4), the quick start (5), the small runs card against
-    CPU (6), the combinators (6c), the torch ``SliceSampler`` (7) and the
-    ordinal and Bool targets (7b). ``chip_smoke.py --side-phases`` runs them
+    CPU (6), the combinators (6c), the torch ``SliceSampler`` (7), the
+    ordinal and Bool targets (7b), the float64 runs (13a) and the
+    host-evaluated targets (13b-d). ``chip_smoke.py --side-phases`` runs them
     in a process of its own beside phases 3-11 (``start_side_phases``)."""
     nuts_aaps_runs, target2a_n = nuts_aaps_phase()
     nuts_aaps_card_vs_cpu_phase(nuts_aaps_runs, target2a_n)
@@ -3101,6 +3338,8 @@ def side_phases():
     combinators_phase()
     torch_sampler_phase()
     discrete_phase()
+    float64_phase()
+    host_targets_phase()
     print(f"side phases: all passed in {time.perf_counter() - T0:.1f} s")
 
 
@@ -3111,7 +3350,7 @@ def start_side_phases():
     it on the host. Returns the process, the file and its start."""
     import tempfile
 
-    phase("side: phases 3n, 4, 5, 6, 6c, 7 and 7b start in a process of their own; its "
+    phase("side: phases 3n, 4, 5, 6, 6c, 7, 7b and 13 start in a process of their own; its "
           "output follows phase 11")
     log = tempfile.TemporaryFile(mode="w+")
     child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--side-phases"],
@@ -3123,7 +3362,8 @@ def join_side_phases(side):
     """Waits for the side process, prints its output and raises if it
     failed."""
     child, log, t0 = side
-    phase("side: phases 3n, 4, 5, 6, 6c, 7 and 7b (their times from the side process's start)")
+    phase("side: phases 3n, 4, 5, 6, 6c, 7, 7b and 13 (their times from the side process's "
+          "start)")
     t_wait = time.perf_counter()
     rc = child.wait(timeout=1200)
     log.seek(0)

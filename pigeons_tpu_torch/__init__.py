@@ -18,12 +18,18 @@ from .inputs import Inputs
 from .invariance_test import InvarianceTestResult, invariance_test
 from .models import (
     BayesianModel,
+    BlangTarget,
     CustomPath,
     CustomPathTarget,
+    ExternalTarget,
     IsingTarget,
+    LazyTarget,
+    NativeTarget,
     PoissonCount,
     StandardNormalReference,
+    StreamTarget,
     TestSwapper,
+    TreePPLTarget,
     banana,
     bernoulli_target,
     binary_mixture_target,
@@ -67,7 +73,7 @@ from .paths import InterpolatingPath, ScaledPrecisionNormalPath, VariationalPath
 SliceSamplerPallas = SliceSamplerCUDA
 from .pt import PT, RoundReport, pigeons
 from .schedule import Schedule, equally_spaced_schedule
-from .submission import ChildProcess, MultiHostLauncher, Result, ThisProcess
+from .submission import ChildProcess, ClusterSubmission, MultiHostLauncher, Result, ThisProcess
 from .variational import GaussianReference
 
 __all__ = [
@@ -79,22 +85,27 @@ __all__ = [
     "AutoMALA",
     "BayesianModel",
     "BinaryGibbs",
+    "BlangTarget",
     "ChildProcess",
+    "ClusterSubmission",
     "Compose",
     "CustomPath",
     "CustomPathTarget",
     "DiagonalPreconditioner",
+    "ExternalTarget",
     "GaussianReference",
     "IdentityPreconditioner",
     "Inputs",
     "InterpolatingPath",
     "InvarianceTestResult",
     "IsingTarget",
+    "LazyTarget",
     "MALA",
     "Mix",
     "MixDiagonalPreconditioner",
     "MultiHostLauncher",
     "NUTS",
+    "NativeTarget",
     "NoOpExplorer",
     "PT",
     "ParallelismInvarianceError",
@@ -108,9 +119,11 @@ __all__ = [
     "SliceSamplerCUDA",
     "SliceSamplerPallas",
     "StandardNormalReference",
+    "StreamTarget",
     "TestSwapper",
     "ThisProcess",
     "ToyExplorer",
+    "TreePPLTarget",
     "VariationalPath",
     "banana",
     "bernoulli_target",

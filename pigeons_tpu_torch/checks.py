@@ -2,9 +2,8 @@
 serial re-execution in a fresh process.
 
 Counterpart of ``pigeons_tpu/checks.py`` (reference ``src/pt/checks.jl``),
-plus one check the port needs: every option of ``Inputs`` that the port does
-not implement yet raises ``NotImplementedError`` naming the ROADMAP item that
-brings it, rather than being ignored.
+plus the run's dtype (:func:`run_dtype`), which refuses a dtype the port
+does not take rather than ignoring it.
 
 ``checked_round``: the run re-executes itself from scratch, serially, in a
 ``ChildProcess`` up to that round and compares every checkpoint artifact of
@@ -28,11 +27,7 @@ import torch
 
 from .inputs import KNOWN_RECORDERS
 
-# option -> (is it set?, ROADMAP item that ports it)
-_NOT_YET = (
-    ("dtype=float64", lambda i: i.dtype is not None and str(i.dtype).endswith("float64"),
-     "queue 1, item 6c (float64 runs)"),
-)
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 # meta entries and fields that legitimately differ between a run and its
 # serial re-execution (recorders/recorder.jl:118-142 of the reference)
@@ -45,13 +40,23 @@ class ParallelismInvarianceError(AssertionError):
 
 
 def unsupported_options(inputs) -> None:
-    for name, is_set, item in _NOT_YET:
-        if is_set(inputs):
-            raise NotImplementedError(
-                f"Inputs.{name} is not ported to pigeons_tpu_torch yet (ROADMAP {item})"
-            )
-    if inputs.dtype is not None and not str(inputs.dtype).endswith("float32"):
-        raise ValueError(f"unsupported Inputs.dtype {inputs.dtype!r}")
+    """Raise for an ``Inputs`` value the port does not take: every option of
+    the JAX package is ported, so only a dtype other than float32 and
+    float64 (:func:`run_dtype`)."""
+    run_dtype(inputs)
+
+
+def run_dtype(inputs) -> torch.dtype:
+    """The run's float dtype from ``Inputs.dtype``: float32 by default, or
+    float64 given as ``torch.float64``, ``np.float64`` or ``"float64"`` (the
+    forms of the JAX package's ``jnp.float64`` that reach the port)."""
+    if inputs.dtype is None:
+        return torch.float32
+    name = str(np.dtype(inputs.dtype) if isinstance(inputs.dtype, type) else inputs.dtype)
+    name = name.rsplit(".", 1)[-1]
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported Inputs.dtype {inputs.dtype!r}: float32 or float64")
+    return _DTYPES[name]
 
 
 def check_device(device: str) -> torch.device:

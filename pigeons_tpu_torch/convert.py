@@ -58,10 +58,10 @@ def state_from_numpy(pt, arrays, round_idx: int):
     and ``replica_of [(R,) N]``, ``schedule``: the fixed leg's grid; for a
     two-leg run ``schedule_var``, the variational leg's; for a run with a
     variational reference ``ref_params_mean [d]``, ``ref_params_std [d]`` and
-    ``ref_params_active``) as the state after round ``round_idx``. Returns
-    ``pt``."""
+    ``ref_params_active``) as the state after round ``round_idx``, the
+    states in the run's dtype. Returns ``pt``."""
     R, n, d = pt.n_replicates, pt.n_chains, pt.dim
-    states = np.asarray(arrays["states"], dtype=np.float32)
+    states = np.asarray(arrays["states"], dtype=np.float64 if pt.dtype == torch.float64 else np.float32)
     chain_of = np.asarray(arrays["chain_of"])
     replica_of = np.asarray(arrays["replica_of"])
     want = (n, d) if R == 1 else (R, n, d)

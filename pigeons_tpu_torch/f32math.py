@@ -39,6 +39,10 @@ bitwise equal to XLA's on every float32 ``q`` of a sweep of 4 million over
 [-5, 5] (``tests/test_torch_library_models.py``), subnormal results flushed
 to 0 as XLA's CPU code flushes them.
 
+float64. Every function here takes a float64 tensor to its float64 form in
+:mod:`.f64math`, the one XLA's CPU code evaluates in a float64 run (its
+``exp``, glibc's ``log``, ...), so that one call site serves both dtypes.
+
 Gradients. The bit-level forwards view floats as integers, which autograd
 cannot pass through, so ``fma``, ``exp``, ``log``, ``log1p`` and ``lgamma``
 (and ``expm1`` and ``pow10``) are ``torch.autograd.Function``s whose forward is the plain function above
@@ -55,6 +59,8 @@ import math
 import struct
 
 import torch
+
+from . import f64math
 
 
 def _round(v: float) -> float:
@@ -247,12 +253,16 @@ def _pow10(q: torch.Tensor) -> torch.Tensor:
 def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.logaddexp``: ``max + log1p(exp(-|a - b|))``, ``a + b`` where
     ``a - b`` is NaN (both infinite of one sign, or a NaN operand)."""
+    if _is64(a, b):
+        return f64math.logaddexp(a, b)
     delta = a - b
     out = torch.maximum(a, b) + _log1p(_exp(-torch.abs(delta)))
     return torch.where(torch.isnan(delta), a + b, out)
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.float64:
+        return f64math.erfinv(x)
     w = -_log1p(x * -x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
@@ -289,6 +299,26 @@ def _lgamma(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _is64(*args) -> bool:
+    return any(torch.is_tensor(a) and a.dtype == torch.float64 for a in args)
+
+
+def _fma_any(a, b, c):
+    return f64math.fma(a, b, c) if _is64(a, b, c) else _fma(a, b, c)
+
+
+def _by_dtype(f32_fn, f64_fn):
+    """The float32 form, or for a float64 tensor the :mod:`.f64math` one."""
+    return lambda x: f64_fn(x) if x.dtype == torch.float64 else f32_fn(x)
+
+
+_exp_any = _by_dtype(_exp, f64math.exp)
+_log_any = _by_dtype(_log, f64math.log)
+_log1p_any = _by_dtype(_log1p, f64math.log1p)
+_lgamma_any = _by_dtype(_lgamma, f64math.lgamma)
+_expm1_any = _by_dtype(_expm1, f64math.expm1)
+
+
 def needs_grad(*args) -> bool:
     """Whether a call on ``args`` must record a gradient."""
     return torch.is_grad_enabled() and any(
@@ -305,7 +335,7 @@ class _Fma(torch.autograd.Function):
     def forward(ctx, a, b, c):
         ctx.save_for_backward(*(v if torch.is_tensor(v) else None for v in (a, b, c)))
         ctx.consts = tuple(None if torch.is_tensor(v) else v for v in (a, b))
-        return _fma(a, b, c)
+        return _fma_any(a, b, c)
 
     @staticmethod
     def backward(ctx, g):
@@ -321,7 +351,7 @@ class _Fma(torch.autograd.Function):
 class _Exp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        y = _exp(x)
+        y = _exp_any(x)
         ctx.save_for_backward(y)
         return y
 
@@ -335,7 +365,7 @@ class _Log(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return _log(x)
+        return _log_any(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -347,7 +377,7 @@ class _Log1p(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return _log1p(x)
+        return _log1p_any(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -359,7 +389,7 @@ class _Lgamma(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return _lgamma(x)
+        return _lgamma_any(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -370,7 +400,7 @@ class _Lgamma(torch.autograd.Function):
 class _Expm1(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        y = _expm1(x)
+        y = _expm1_any(x)
         ctx.save_for_backward(y)
         return y
 
@@ -396,33 +426,33 @@ class _Pow10(torch.autograd.Function):
 def fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with a single rounding (:func:`_fma`); its
     gradient is ``(g b, g a, g)``."""
-    return _Fma.apply(a, b, c) if needs_grad(a, b, c) else _fma(a, b, c)
+    return _Fma.apply(a, b, c) if needs_grad(a, b, c) else _fma_any(a, b, c)
 
 
 def exp(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``exp`` (:func:`_exp`); gradient ``g exp(x)``."""
-    return _Exp.apply(x) if needs_grad(x) else _exp(x)
+    return _Exp.apply(x) if needs_grad(x) else _exp_any(x)
 
 
 def log(y: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``log`` (:func:`_log`); gradient ``g / y``."""
-    return _Log.apply(y) if needs_grad(y) else _log(y)
+    return _Log.apply(y) if needs_grad(y) else _log_any(y)
 
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``log1p`` (:func:`_log1p`); gradient ``g / (1 + x)``."""
-    return _Log1p.apply(x) if needs_grad(x) else _log1p(x)
+    return _Log1p.apply(x) if needs_grad(x) else _log1p_any(x)
 
 
 def lgamma(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``gammaln`` for ``x >= 0.5`` (:func:`_lgamma`); gradient
     ``g digamma(x)``."""
-    return _Lgamma.apply(x) if needs_grad(x) else _lgamma(x)
+    return _Lgamma.apply(x) if needs_grad(x) else _lgamma_any(x)
 
 
 def expm1(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``expm1`` (:func:`_expm1`); gradient ``g (expm1(x) + 1)``."""
-    return _Expm1.apply(x) if needs_grad(x) else _expm1(x)
+    return _Expm1.apply(x) if needs_grad(x) else _expm1_any(x)
 
 
 def pow10(q: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,12 @@ Counterpart of ``pigeons_tpu/inputs.py`` (reference ``src/pt/Inputs.jl``),
 with one field more: ``device``, ``"cuda"`` or ``"cpu"``. A run asked for on
 ``"cuda"`` without a card raises; it never continues on the CPU.
 
-The fields of the JAX ``Inputs`` whose features the port does not have yet
-stay, so that a configuration reads the same in both packages, and
-``checks.preflight_checks`` raises ``NotImplementedError`` naming the ROADMAP
-item for any of them that is set.
+Every field of the JAX ``Inputs`` is taken. ``dtype`` is float32 (``None``)
+or float64, given as ``torch.float64``, ``np.float64`` or ``"float64"``
+(``checks.run_dtype``). The JAX package runs float64 only under JAX's x64
+mode and raises without it; torch needs no mode, so the port has no such
+switch: the run sets torch's default dtype for its own duration instead
+(``rng.default_float``).
 """
 
 from __future__ import annotations

@@ -11,6 +11,15 @@ from .distributions import (
     binomial_logpmf,
     normal_logpdf,
 )
+from .ecosystem import (
+    TreePPLBinary,
+    blang_demo_model,
+    blang_executable,
+    setup_blang,
+    tppl_compile_model,
+    tppl_construct_target,
+)
+from .external import ExternalTarget, LazyTarget, register_lazy_target
 from .ising import IsingTarget, ising_target
 from .library import (
     MVN,
@@ -30,6 +39,15 @@ from .library import (
     poisson_count_target,
     unid_analytic_log_z,
     unid_target,
+)
+from .native import NativeTarget, compile_native_model
+from .stream import (
+    BlangTarget,
+    StreamExplorer,
+    StreamTarget,
+    TreePPLTarget,
+    java_seed,
+    kill_child_processes,
 )
 from .target import CustomPath, CustomPathTarget, Reference, StandardNormalReference, Target
 from .toy_mvn import ToyMVNTarget, toy_mvn_target

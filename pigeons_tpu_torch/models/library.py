@@ -84,19 +84,27 @@ class Funnel(Target):
     def _inv_scale(self) -> float:
         return float(np.float32(1.0) / np.float32(self.scale))
 
+    def _consts(self, dtype):
+        """``(1/3, y's constant, -log(2 pi)/2, 1/scale)`` folded in ``dtype``,
+        as XLA folds them in a float32 or a float64 run."""
+        if dtype == torch.float64:
+            return 1.0 / 3.0, -(math.log(3.0) + 0.5 * LOG_2PI), -0.5 * LOG_2PI, 1.0 / self.scale
+        return _INV_3, _FUNNEL_Y_CONST, _NEG_HALF_LOG_2PI, self._inv_scale
+
     def prepare(self, y):
         """``(u, sd, lp_y)``: the log of the x's deviation, the deviation and
         y's own term."""
-        m = y * _INV_3
-        lp_y = f32math.fma(-(m * m), 0.5, _FUNNEL_Y_CONST)
-        u = y * self._inv_scale
+        inv_3, y_const, _, inv_scale = self._consts(y.dtype)
+        m = y * inv_3
+        lp_y = f32math.fma(-(m * m), 0.5, y_const)
+        u = y * inv_scale
         return u, f32math.exp(u), lp_y
 
     def term(self, x, prep):
         """The terms of ``x [..., k]``, any of the x coordinates."""
         u, sd, _ = prep
         q = x / sd[..., None]
-        return f32math.fma(q * q, -0.5, -u[..., None]) + _NEG_HALF_LOG_2PI
+        return f32math.fma(q * q, -0.5, -u[..., None]) + self._consts(x.dtype)[2]
 
     def finish(self, prep, terms):
         return prep[2] + sum_in_order(terms)
@@ -115,7 +123,7 @@ class Funnel(Target):
         """Forward simulation for keys ``[..., 2]``."""
         ky, kx = rng.split(keys).unbind(-2)
         y = 3.0 * rng.normal(ky)
-        x = f32math.exp(y * self._inv_scale)[..., None] * rng.normal(kx, (self.n_x,))
+        x = f32math.exp(y * self._consts(y.dtype)[3])[..., None] * rng.normal(kx, (self.n_x,))
         return torch.cat([y[..., None], x], dim=-1)
 
 

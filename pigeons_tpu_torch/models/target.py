@@ -183,10 +183,14 @@ class StandardNormalReference:
 
         def log_density(x):
             # -0.5 sum((x / sigma)^2) as XLA evaluates it: the division by a
-            # constant is a multiplication by its float32 reciprocal
-            return sum_squares(x * inv_sigma) * -0.5
+            # constant is a multiplication by its reciprocal in the run's dtype
+            inv = 1.0 / sigma if x.dtype == torch.float64 else inv_sigma
+            return sum_squares(x * inv) * -0.5
 
         def sample_iid(keys):
+            if rng.float_dtype() == torch.float64:
+                # a float64 run's XLA folds sigma into the normal's sqrt(2)
+                return rng.normal(keys, (dim,), scale=sigma)
             return float(np.float32(sigma)) * rng.normal(keys, (dim,))
 
         return Reference(log_density=log_density, sample_iid=sample_iid, normal_sigma=sigma)

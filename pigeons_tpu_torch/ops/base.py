@@ -39,6 +39,20 @@ def _zero_stats(B: int, device):
     return z, z, z
 
 
+def refuse_float64(explorer, xs) -> None:
+    """Raise the ``TypeError`` that the JAX package raises for this explorer
+    in a float64 run: its loop carries a float32 statistic (MALA's and
+    AutoMALA's summed acceptance, NUTS's tree statistics) to which a float64
+    acceptance is added, and ``jax.lax`` refuses a carry whose dtype
+    changes. ROADMAP §3 records this fault of the reference."""
+    if xs.dtype == torch.float64:
+        raise TypeError(
+            f"{type(explorer).__name__} does not run in float64: the JAX package's loop "
+            "carries a float32 statistic that a float64 acceptance promotes (scan body "
+            "function carry input and carry output must have equal types); use "
+            "SliceSampler() or AAPS() in a float64 run")
+
+
 class Explorer:
     extra_names: tuple = ()
 
@@ -47,6 +61,9 @@ class Explorer:
 
     def check_path(self, path) -> None:
         """Raise if this explorer cannot move along ``path``."""
+
+    def check_dtype(self, dtype) -> None:
+        """Raise if this explorer cannot run in ``dtype`` (``Inputs.dtype``)."""
 
     def init_state(self, n_chains: int, dim: int, device=None):
         """The per-chain adapted state: a dict of tensors ``[n_chains, ...]``

@@ -542,10 +542,16 @@ class SliceSamplerCUDA(Explorer):
         return self.coord_deltas and self.parallel_coords and hasattr(path, "coord_factor")
 
     def check_target(self, target) -> None:
-        """The kernels take continuous coordinates only: a target with an
-        ``integer_mask`` or a ``binary_mask`` raises. (The JAX
+        """The kernels take continuous coordinates only, with a density on
+        the device: a host-evaluated target, or one with an
+        ``integer_mask`` or a ``binary_mask``, raises. (The JAX
         ``SliceSamplerPallas`` runs its XLA sampler for such a target instead,
         without saying so.)"""
+        if getattr(target, "host_evaluated", False):
+            raise ValueError(
+                f"SliceSamplerCUDA: {type(target).__name__}'s density is evaluated on the host, "
+                "which a CUDA kernel cannot call (as the JAX runtime refuses its Pallas "
+                f"kernels for such a target). Pass explorer={self._plain()}.")
         for mask in ("integer_mask", "binary_mask"):
             if getattr(target, mask, None) is not None:
                 raise NotImplementedError(
@@ -553,6 +559,20 @@ class SliceSamplerCUDA(Explorer):
                     "coordinates), which the CUDA slice kernels do not take. Pass "
                     "explorer=SliceSampler(), the target's default explorer, which takes the "
                     "masks from the target.")
+
+    def _plain(self) -> str:
+        """The torch sampler with this sampler's values, for the refusals."""
+        return (f"SliceSampler(w={self.w}, p={self.p}, n_passes={self.n_passes}, "
+                f"max_iter={self.max_iter})")
+
+    def check_dtype(self, dtype) -> None:
+        """The kernels compute in float32: a float64 run raises. (The JAX
+        runtime runs its XLA sampler in place of ``SliceSamplerPallas`` for
+        such a run, without saying so.)"""
+        if dtype != torch.float32:
+            raise ValueError(
+                f"SliceSamplerCUDA: the CUDA slice kernels compute in float32; a {dtype} run "
+                f"takes the torch sampler: pass explorer={self._plain()}.")
 
     def check_path(self, path) -> None:
         if self._banded(path):

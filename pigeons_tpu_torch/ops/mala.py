@@ -21,7 +21,7 @@ import math
 import torch
 
 from .. import f32math, rng
-from .base import Explorer, StepOut
+from .base import Explorer, StepOut, refuse_float64
 from .hamiltonian import (LaneGradient, MixDiagonalPreconditioner, adapted_std_devs,
                           leapfrog1_cached, log_joint)
 
@@ -67,6 +67,7 @@ class GradientExplorer(Explorer):
     def _start(self, xs, betas, path, isvar, ref_params, lp, chain_params):
         """The lanes' gradient function, their density and raw gradient at
         ``xs`` (one evaluation seeds the whole step), and the chain params."""
+        refuse_float64(self, xs)
         vg = LaneGradient(path, betas, isvar, ref_params)
         lp_start, raw_grad = vg(xs)
         if chain_params is None:

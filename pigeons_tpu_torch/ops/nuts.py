@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import f32math, rng
-from .base import Explorer, StepOut
+from .base import Explorer, StepOut, refuse_float64
 from .hamiltonian import (LaneGradient, MixDiagonalPreconditioner, adapted_std_devs, lane_dot,
                           log_joint, value_and_cond_grad)
 from .mala import select
@@ -141,6 +141,7 @@ class NUTS(Explorer):
         are the summed leaf acceptances and the leaves, ``n_steps`` the
         gradient evaluations (a leaf each and the start), and the extras
         the mean leaf acceptance (``nan`` without a leaf) and the depth."""
+        refuse_float64(self, xs)
         B, d = xs.shape
         dev = xs.device
         if chain_params is None:

@@ -15,7 +15,8 @@ It takes any path with a batched torch ``log_density``, evaluated through
 :func:`~..paths.lane_log_density` as the runtime evaluates it, so it is the
 explorer for paths that the CUDA slice kernels cannot evaluate on the device
 (``SliceSamplerCUDA.check_path`` says which). It is a torch module, not a
-kernel: every iteration is a handful of eager threefry calls.
+kernel: a pass's draws and those of eight iterations of the machine are one
+batched threefry call each.
 
 Streams as the JAX sampler derives them from a lane's key: coordinate step
 ``i`` uses ``k_c = fold_in(key, i)``; the exponential comes from
@@ -52,18 +53,31 @@ from .base import Explorer, StepOut
 DOUBLE, SHRINK, CHECK, STOP = range(4)  # phases of the per-coordinate machine
 
 
-def coordinate_draws(keys, i: int):
+_AHEAD = 8  # the machine's iterations whose draws are taken in one batch
+
+
+def _block(keys, i):
+    """``keys [B, 2]`` for an int ``i``, else ``[B, 1, 2]`` against the
+    indices ``i [n]``: one threefry call gives the draws of every index."""
+    return keys if isinstance(i, int) else keys[..., None, :]
+
+
+def coordinate_draws(keys, i, dtype=torch.float32):
     """For coordinate step ``i`` and lane keys ``[B, 2]``: the step's key
-    ``k_c [B, 2]``, the exponential ``[B]`` and the window's uniform ``[B]``."""
-    k_c = rng.fold_in(keys, i)
-    e = -f32math.log1p(-rng.uniform(rng.fold_in(k_c, 0)))
-    return k_c, e, rng.uniform(rng.fold_in(k_c, 1))
+    ``k_c [B, 2]``, the exponential ``[B]`` and the window's uniform ``[B]``,
+    drawn in ``dtype``, the density's. With ``i`` a tensor of steps ``[n]``,
+    all of them at once: ``[B, n, 2]``, ``[B, n]``, ``[B, n]``."""
+    k_c = rng.fold_in(_block(keys, i), i)
+    e = rng.exponential(rng.fold_in(k_c, 0), dtype=dtype)
+    return k_c, e, rng.uniform(rng.fold_in(k_c, 1), dtype=dtype)
 
 
-def iteration_draws(k_c, it: int):
-    """The side and candidate uniforms ``(u_side, u_shr)`` of iteration ``it``."""
-    k_it = rng.fold_in(k_c, 2 + it)
-    return rng.uniform(rng.fold_in(k_it, 0)), rng.uniform(rng.fold_in(k_it, 1))
+def iteration_draws(k_c, it, dtype=torch.float32):
+    """The side and candidate uniforms ``(u_side, u_shr)`` of iteration
+    ``it``, or ``[B, n]`` of the iterations ``it [n]``."""
+    k_it = rng.fold_in(_block(k_c, it), 2 + it)
+    return (rng.uniform(rng.fold_in(k_it, 0), dtype=dtype),
+            rng.uniform(rng.fold_in(k_it, 1), dtype=dtype))
 
 
 class SliceSampler(Explorer):
@@ -93,19 +107,28 @@ class SliceSampler(Explorer):
         """One sweep over ``xs [B, d]``. ``lp [B]`` is the density of ``xs``
         when the caller has it (the runtime carries it from scan to scan)."""
         B, d = xs.shape
-        W = float(np.float32(self.w))
-        narrow_w = float(np.float32(1.1) * np.float32(self.w))
+        x = xs.clone()
+        lp_cur = lane_log_density(path, x, betas, isvar, ref_params) if lp is None else lp
+        f = lp_cur.dtype  # the draws' and the bracket's dtype, as in the JAX step
+        if f == torch.float64:
+            W, narrow_w, rtol = self.w, 1.1 * self.w, 1.5e-8
+        else:
+            W = float(np.float32(self.w))
+            narrow_w = float(np.float32(1.1) * np.float32(self.w))
+            rtol = 3.5e-4
 
         def lp_fn(x):
             return lane_log_density(path, x, betas, isvar, ref_params)
 
-        x = xs.clone()
-        lp_cur = lp_fn(x) if lp is None else lp
-        fz = torch.zeros(B, dtype=torch.float32, device=xs.device)
-        acc_sum, acc_n, n_evals = fz.clone(), fz.clone(), fz.clone()
+        z32 = torch.zeros(B, dtype=torch.float32, device=xs.device)
+        fz = torch.zeros(B, dtype=f, device=xs.device)
+        acc_sum, acc_n, n_evals = z32, z32, z32
 
         for i in range(self.n_passes * d):
             c = i % d
+            if c == 0:  # a pass's draws at once
+                pass_draws = coordinate_draws(
+                    keys, torch.arange(i, i + d, device=xs.device), f)
             old = x[:, c].clone()
 
             def lp_at(v):
@@ -120,15 +143,15 @@ class SliceSampler(Explorer):
                 lp1 = torch.where(is_one, lp_cur, lp_other)
                 lp0v = torch.where(is_one, lp_other, lp_cur)
                 p_zero = 1.0 / (1.0 + f32math.exp(lp1 - lp0v))
-                u = rng.uniform(rng.fold_in(rng.fold_in(keys, i), 0))
-                new = torch.where(u < p_zero, 0.0, 1.0)
+                u = rng.uniform(rng.fold_in(rng.fold_in(keys, i), 0), dtype=f)
+                new = torch.where(u < p_zero, 0.0, 1.0).to(x.dtype)
                 x[:, c] = new
                 lp_cur = torch.where(new == old, lp_cur, lp_other)
                 acc_sum, acc_n, n_evals = acc_sum + 1.0, acc_n + 1.0, n_evals + 1.0
                 continue
             is_int = self.integer_mask is not None and bool(self.integer_mask[c])
 
-            k_c, e, u_init = coordinate_draws(keys, i)
+            k_c, e, u_init = (v[:, c] for v in pass_draws)
             z = lp_cur - e
             L = old - torch.floor(u_init * (W + 1.0)) if is_int else f32math.fma(u_init, -W, old)
             R = L + W
@@ -140,11 +163,13 @@ class SliceSampler(Explorer):
             Lh, Rh, lpLh, lpRh = fz, fz, fz, fz
             n_shr = torch.zeros_like(phase)
             accepted = torch.zeros(B, dtype=torch.bool, device=xs.device)
-            considered, evals = fz, fz
+            considered, evals = z32, z32
 
             it = 0
             while bool((phase != STOP).any()):
-                u_side, u_shr = iteration_draws(k_c, it)
+                if it % _AHEAD == 0:
+                    ahead = iteration_draws(k_c, torch.arange(it, it + _AHEAD, device=xs.device), f)
+                u_side, u_shr = (v[:, it % _AHEAD] for v in ahead)
                 grow_left = u_side <= 0.5
                 span = R - L
                 dbl_q = torch.where(grow_left, L - span, R + span)
@@ -208,7 +233,7 @@ class SliceSampler(Explorer):
                 if is_int:  # a single candidate left
                     degenerate = (Rb - Lb) < 0.5
                 else:
-                    degenerate = torch.abs(Rb - Lb) <= 3.5e-4 * torch.maximum(torch.abs(Lb), torch.abs(Rb))
+                    degenerate = torch.abs(Rb - Lb) <= rtol * torch.maximum(torch.abs(Lb), torch.abs(Rb))
                 bail = rejected & (degenerate | (n_shr >= self.max_iter))
 
                 accepted = accepted | accept_shr | accept_chk

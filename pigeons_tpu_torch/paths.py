@@ -178,8 +178,12 @@ class ScaledPrecisionNormalPath:
         return DeviceDensity(TOY_MVN, (float(self.precision0), float(self.precision1)))
 
     def sample_at(self, keys, beta):
-        """iid draws at ``beta`` for keys ``[..., 2]``: ``[..., dim]``."""
-        beta = torch.as_tensor(beta, dtype=torch.float32, device=keys.device)
+        """iid draws at ``beta`` for keys ``[..., 2]``: ``[..., dim]``, in the
+        betas' dtype (a Python number: the default float dtype). In float64
+        XLA's ``rsqrt`` is the CPU's 14-bit estimate refined by two Newton
+        steps, which ``torch.rsqrt`` can differ from in the last bits."""
+        dtype = beta.dtype if torch.is_tensor(beta) else rng.float_dtype()
+        beta = torch.as_tensor(beta, dtype=dtype, device=keys.device)
         sd = torch.rsqrt(self.precision(beta))
         return sd[..., None] * rng.normal(keys, (self.dim,))
 

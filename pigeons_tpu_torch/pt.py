@@ -28,6 +28,17 @@ once, then every rank swaps and records the whole ladder), or whole ladders
 end). Either way every rank holds the one-process run's results bit for
 bit.
 
+A target whose density is evaluated on the host (``host_evaluated``: a
+native library, stream workers, a numpy function) runs on ``Inputs.device``
+like any other: its states and recorders stay there and only its density
+crosses, one copy of the lanes each way per batched evaluation. torch runs
+eagerly, so nothing has to order the host calls after the explorer's (the
+JAX runtime's ``lp_guard``). ``Inputs.dtype=float64`` runs the states, the
+densities and the schedule's grids in float64 inside
+:func:`~.rng.default_float` (JAX's x64 mode): the default float draws and
+constants are float64 there, the recorders keep their float32 Kahan stacks
+and the explorers' adapted state stays float32, as in the JAX runtime.
+
 Between rounds, numpy on the host estimates barriers and regrids the
 schedule. Where the JAX package traces the round into one ``lax.scan`` and
 vmaps the per-ladder work, the port runs a Python loop of scans over
@@ -41,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -56,7 +68,7 @@ from .adaptation import (
     optimal_schedule,
     rejections_from_acceptance,
 )
-from .checks import check_against_serial, check_device, preflight_checks, unsupported_options
+from .checks import check_against_serial, check_device, preflight_checks, run_dtype
 from .inputs import KNOWN_RECORDERS, Inputs
 from .parallel.sharding import ReplicaMesh, put_global
 from .paths import VariationalPath, lane_log_density
@@ -91,6 +103,20 @@ class RoundReport:
     mean_explorer_accept: float = float("nan")
 
 
+def _in_run_dtype(method):
+    """Run ``method`` with torch's default dtype the run's (``Inputs.dtype``):
+    the counterpart of JAX's x64 mode, under which the JAX runtime's default
+    float draws and constants are float64 in a float64 run."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        dtype = self.dtype if hasattr(self, "dtype") else run_dtype(args[0])
+        with rng.default_float(dtype):
+            return method(self, *args, **kwargs)
+
+    return wrapped
+
+
 def _default_extractor(x, lp):
     """A sample's record: the state with its interpolated log density."""
     return torch.cat([x, lp[..., None]], dim=-1)
@@ -102,6 +128,7 @@ class PT:
     two legs the variational leg comes first and the fixed leg follows
     reversed (module docstring)."""
 
+    @_in_run_dtype
     def __init__(self, inputs: Inputs):
         self.inputs = inputs
         target = inputs.target
@@ -109,7 +136,9 @@ class PT:
             raise ValueError(
                 "Inputs.target is required, e.g. pigeons(target=toy_mvn_target(10))"
             )
-        unsupported_options(inputs)
+        # states, densities and the schedule's grids take the run's dtype;
+        # recorders and explorer statistics stay float32 (as in the JAX runtime)
+        self.dtype = run_dtype(inputs)
         self.device = check_device(inputs.device)
         self.mesh = inputs.mesh
         if self.mesh is not None:
@@ -174,6 +203,7 @@ class PT:
             self._ref_params = self.variational.init_params(self.dim, self.device)
         self.explorer = inputs.explorer or target.default_explorer()
         self.explorer.check_target(target)
+        self.explorer.check_dtype(self.dtype)
         self.explorer.check_path(self._density_path)
         # the explorer's adapted state: a tree (tree.py) of tensors [n_chains, ...]
         # (a dict, a combinator's tuple of its components' states, or ())
@@ -205,8 +235,8 @@ class PT:
         else:
             self._key = master[None]
             init_keys = rng.keys_for(rng.fold_in(master, rng.INIT), self._gidx)[None]
-        self._states = target.initialization(init_keys).reshape(self._R_run * self._n_local,
-                                                                 self.dim)
+        self._states = target.initialization(init_keys).reshape(
+            self._R_run * self._n_local, self.dim).to(self.dtype)
         idx = torch.arange(n, dtype=torch.int64, device=self.device)
         self._chain_of = idx.repeat(self._R_run, 1)
         self._replica_of = idx.repeat(self._R_run, 1)
@@ -247,8 +277,8 @@ class PT:
 
         self._extract = inputs.extractor or _default_extractor
         # on the run's device, so that an extractor may close over tensors there
-        probe = self._extract(torch.zeros(1, self.dim, device=self.device),
-                              torch.zeros(1, device=self.device))
+        probe = self._extract(torch.zeros(1, self.dim, dtype=self.dtype, device=self.device),
+                              torch.zeros(1, dtype=self.dtype, device=self.device))
         self._extract_dim = int(probe.shape[-1])
         self._swap_graph = inputs.swap_graph
 
@@ -322,7 +352,7 @@ class PT:
         grids = self.schedule.grids
         if self.two_leg:
             grids = np.concatenate([self.schedule_var.grids, grids[::-1]])
-        return torch.as_tensor(grids, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(grids, dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------------
 
@@ -413,17 +443,18 @@ class PT:
     def _post_gathered(self, scan_idx, x_after, lp_after, lp_partner, lp_cur, out, chain_of,
                        replica_of, rec, partner_map, masks):
         """Chain sharding's one collective a scan: each lane's state, its
-        densities and its explorer statistics packed into one float32 row
-        and gathered in global replica order, then :meth:`_post_one` on the
+        densities and its explorer statistics packed into one row of the
+        run's dtype (which holds the float32 statistics exactly) and gathered in global replica order, then :meth:`_post_one` on the
         whole ladder on every rank, as the one process runs it on the same
         values (so for any extractor: the state is gathered, not its
         extract). Every rank keeps its own lanes' carried density."""
         cols = [x_after, lp_after, lp_partner, lp_cur, out.accept_sum, out.accept_n, out.n_steps]
         if out.extras_sum is not None:
             cols += [out.extras_sum, out.extras_n]
-        cols = [c.reshape(c.shape[0], -1).to(torch.float32) for c in cols]
-        gathered = self.mesh.gather(torch.cat(cols, 1))
-        parts = torch.split(gathered, [c.shape[1] for c in cols], 1)
+        cols = [c.reshape(c.shape[0], -1) for c in cols]
+        gathered = self.mesh.gather(torch.cat([c.to(self.dtype) for c in cols], 1))
+        parts = [p.to(c.dtype) for p, c in
+                 zip(torch.split(gathered, [c.shape[1] for c in cols], 1), cols)]
         x, la, lpp, lc, a_sum, a_n, steps = (parts[0], *(p[:, 0] for p in parts[1:7]))
         whole = out._replace(x=x, lp=None, accept_sum=a_sum, accept_n=a_n, n_steps=steps)
         if out.extras_sum is not None:
@@ -555,6 +586,7 @@ class PT:
         return profile(activities=activities,
                        on_trace_ready=lambda prof: prof.export_chrome_trace(trace))
 
+    @_in_run_dtype
     def run_round(self, n_scans: Optional[int] = None) -> ReducedRecorders:
         self.round_idx += 1
         if n_scans is None:
@@ -776,7 +808,8 @@ def pigeons(target=None, on=None, **kwargs):
     With ``on=ChildProcess(...)`` the run goes to a fresh process and a
     :class:`~.submission.Result` comes back; with ``on=MultiHostLauncher()``
     it is sharded over the ranks of a process group (every rank calls this),
-    with ``on=ThisProcess()`` it runs here."""
+    with ``on=ClusterSubmission(...)`` a scheduler's script is written and
+    submitted, with ``on=ThisProcess()`` it runs here."""
     if isinstance(target, str):
         from .checkpoint import load_pt
 
@@ -785,11 +818,4 @@ def pigeons(target=None, on=None, **kwargs):
     inputs = target if isinstance(target, Inputs) else Inputs(target=target, **kwargs)
     if on is None:
         return PT(inputs).run()
-    from .submission import ChildProcess, MultiHostLauncher, ThisProcess
-
-    if not isinstance(on, (ChildProcess, MultiHostLauncher, ThisProcess)):
-        raise NotImplementedError(
-            f"submission backend {type(on).__name__} is not ported yet; ChildProcess, "
-            "ThisProcess and MultiHostLauncher are (ROADMAP queue 1, item 16)"
-        )
     return on.submit(inputs)

@@ -23,6 +23,10 @@ def kadd(acc, delta):
     ladder's running sum and its compensation; ``delta`` broadcasts against
     ``acc[:, 0]``. Returns the new stack."""
     val, comp = acc[:, 0], acc[:, 1]
+    if torch.is_tensor(delta):
+        # a float64 run's deltas are folded into the float32 stack, as the
+        # JAX runtime folds them (its scan carry keeps one dtype)
+        delta = delta.to(val.dtype)
     y = delta - comp
     t = val + y
     comp_new = (t - val) - y

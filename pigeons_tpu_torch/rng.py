@@ -12,11 +12,15 @@ package, and the same normals, Gumbel draws, Bernoulli draws and integers
 A key is a ``[..., 2]`` tensor of uint32 words held as int64 (torch has no
 full uint32 arithmetic); every operation masks back to 32 bits. Leading
 dimensions batch keys, the way ``jax.vmap`` batches them in the reference.
-Nothing here touches torch's global RNG.
+Nothing here touches torch's global RNG. Float draws take the default float
+dtype where none is given (:func:`float_dtype`), as ``jax.random`` does: a
+float64 run draws its uniforms from 52 bits of two words, and its normals and
+exponentials through the float64 forms of :mod:`.f64math`, bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -60,45 +64,88 @@ def key(seed: int, device=None) -> torch.Tensor:
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` of every key in ``keys [..., 2]`` with ``data``
     (an int, or an integer tensor that broadcasts against ``keys[..., 0]``)."""
-    if not torch.is_tensor(data):
-        data = torch.tensor(int(data), dtype=torch.int64, device=keys.device)
-    data = data.to(torch.int64) & _M32
-    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
+    # an int stays a Python int: no tensor to copy to the keys' device
+    data = int(data) & _M32 if not torch.is_tensor(data) else data.to(torch.int64) & _M32
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
-def bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.bits(k, shape, uint32)`` for every key: ``[..., *shape]``
-    uint32 words as int64."""
+def _words(keys: torch.Tensor, shape):
+    """The two threefry output words of every element of ``shape`` for every
+    key (its 64-bit counter split in two words, the high one 0)."""
     shape = tuple(shape)
     n = math.prod(shape)
     lead = keys.shape[:-1]
     k1 = keys[..., 0].reshape(lead + (1,) * len(shape))
     k2 = keys[..., 1].reshape(lead + (1,) * len(shape))
     lo = torch.arange(n, dtype=torch.int64, device=keys.device).reshape(shape)
-    y0, y1 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+
+
+def bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.bits(k, shape, uint32)`` for every key: ``[..., *shape]``
+    uint32 words as int64."""
+    y0, y1 = _words(keys, shape)
     return y0 ^ y1
 
 
-def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, scaled into ``[minval, maxval)``."""
-    b = bits(keys, shape)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+scalar = f32math.f64math.scalar  # a number's 0-dim tensor, made once
+
+
+@contextlib.contextmanager
+def default_float(dtype: torch.dtype):
+    """torch's default dtype set to ``dtype`` for the duration: a run's
+    scope, so that its default float draws and the tensors made from Python
+    numbers are in its dtype, as JAX's x64 mode makes them float64."""
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(old)
+
+
+def float_dtype(dtype=None) -> torch.dtype:
+    """``dtype``, or where it is None the default float dtype, as
+    ``jax.random`` takes its default: float32, and in a float64 run (the
+    runtime sets torch's default dtype for its duration, the counterpart of
+    JAX's x64 mode) float64."""
+    return dtype if dtype is not None else torch.get_default_dtype()
+
+
+def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            dtype=None) -> torch.Tensor:
+    """``jax.random.uniform``: the mantissa's random bits under the exponent
+    of 1.0, minus 1, scaled into ``[minval, maxval)``; in float32 23 bits of
+    one word, in float64 52 bits of the two words as one 64-bit word (high
+    word first)."""
+    dtype = float_dtype(dtype)
+    if dtype == torch.float64:
+        y0, y1 = _words(keys, shape)
+        f = ((y0 << 20) | (y1 >> 12) | 0x3FF0000000000000).view(torch.float64) - 1.0
+    else:
+        f = ((bits(keys, shape) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = scalar(minval, dtype, keys.device), scalar(maxval, dtype, keys.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
-_NORMAL_LO = f32math._f(0xBF7FFFFF)  # nextafter(-1, 0) in float32
+_NORMAL_LO = {torch.float32: f32math._f(0xBF7FFFFF),  # nextafter(-1, 0)
+              torch.float64: -(1.0 - 2.0 ** -53)}
 _SQRT2 = math.sqrt(2.0)
 
 
-def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)`` with ``u``
-    uniform on ``[nextafter(-1, 0), 1)``."""
-    u = uniform(keys, shape, _NORMAL_LO, 1.0)
-    return f32math.erfinv(u) * _SQRT2
+def normal(keys: torch.Tensor, shape=(), dtype=None, scale: float = 1.0) -> torch.Tensor:
+    """``jax.random.normal``: ``sqrt(2) * erfinv(u)`` with ``u`` uniform on
+    ``[nextafter(-1, 0), 1)``. ``scale`` is a constant factor that XLA folds
+    into ``sqrt(2)``: ``scale * normal(...)`` as it computes it."""
+    dtype = float_dtype(dtype)
+    u = uniform(keys, shape, _NORMAL_LO[dtype], 1.0, dtype)
+    return f32math.erfinv(u) * (_SQRT2 * scale)
+
+
+def exponential(keys: torch.Tensor, shape=(), dtype=None) -> torch.Tensor:
+    """``jax.random.exponential``: ``-log1p(-u)``."""
+    return -f32math.log1p(-uniform(keys, shape, dtype=dtype))
 
 
 def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
@@ -109,13 +156,14 @@ def split(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
     return fold_in(keys.unsqueeze(-2), idx)
 
 
-_TINY = f32math._f(0x00800000)  # the smallest normal float32
+_TINY = {torch.float32: f32math._f(0x00800000), torch.float64: 2.0 ** -1022}  # smallest normals
 
 
-def gumbel(keys: torch.Tensor, shape=()) -> torch.Tensor:
+def gumbel(keys: torch.Tensor, shape=(), dtype=None) -> torch.Tensor:
     """``jax.random.gumbel`` in its default ``mode="low"``:
     ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
-    return -f32math.log(-f32math.log(uniform(keys, shape, _TINY, 1.0)))
+    dtype = float_dtype(dtype)
+    return -f32math.log(-f32math.log(uniform(keys, shape, _TINY[dtype], 1.0, dtype)))
 
 
 def bernoulli(keys: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:

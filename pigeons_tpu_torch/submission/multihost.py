@@ -13,6 +13,8 @@ every rank calls ``pigeons(inputs, on=MultiHostLauncher())``.
 from __future__ import annotations
 
 import datetime
+import os
+import re
 import socket
 from dataclasses import dataclass
 from typing import Optional
@@ -55,6 +57,29 @@ def host_ranks(store, rank: int, world: int, host: Optional[str] = None) -> tupl
     return hosts[:rank].count(host), max(hosts.count(h) for h in hosts)
 
 
+def first_host(nodelist: str) -> str:
+    """The first host of a SLURM node list: ``node[007-009,012],gpu1`` ->
+    ``node007``."""
+    m = re.match(r"([^,\[]+)(?:\[([^\]]+)\])?", nodelist.strip())
+    if m is None:
+        raise ValueError(f"not a SLURM node list: {nodelist!r}")
+    prefix, ranges = m.group(1), m.group(2)
+    return prefix if ranges is None else prefix + ranges.split(",")[0].split("-")[0]
+
+
+def slurm_task(env=None) -> Optional[tuple[str, int, int]]:
+    """``(host:port, world, rank)`` of a task that ``srun`` started, found as
+    ``jax.distributed.initialize`` finds them: the first host of the step's
+    node list, a port made from the job's id (``id % 4096 + 61440``),
+    ``SLURM_NTASKS`` and ``SLURM_PROCID``. None outside such a task."""
+    env = os.environ if env is None else env
+    nodes = env.get("SLURM_STEP_NODELIST") or env.get("SLURM_JOB_NODELIST")
+    if not (nodes and "SLURM_PROCID" in env and "SLURM_NTASKS" in env and "SLURM_JOB_ID" in env):
+        return None
+    port = int(env["SLURM_JOB_ID"]) % 2**12 + (65535 - 2**12 + 1)
+    return f"{first_host(nodes)}:{port}", int(env["SLURM_NTASKS"]), int(env["SLURM_PROCID"])
+
+
 @dataclass
 class MultiHostLauncher:
     """Initialize a ``torch.distributed`` process group and run with the
@@ -62,7 +87,9 @@ class MultiHostLauncher:
     rank, passing the coordinator either here (``host:port``, or an
     ``init_method`` URL such as ``file:///shared/pg``, with the process count
     and this process's id) or through torchrun's environment
-    (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``: ``env://``).
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``: ``env://``)
+    or, in a task that SLURM's ``srun`` started, through SLURM's
+    (:func:`slurm_task`).
     The ranks exchange their host names before the group is made, so the
     backend is :func:`choose_backend`'s for the ranks that really share a
     host, and each rank's card is its place among them
@@ -82,7 +109,10 @@ class MultiHostLauncher:
             return
         from torch.distributed.rendezvous import rendezvous
 
-        if self.coordinator_address is None:
+        slurm = slurm_task() if "RANK" not in os.environ else None
+        if self.coordinator_address is None and slurm is not None:
+            url, world, rank = f"tcp://{slurm[0]}", slurm[1], slurm[2]
+        elif self.coordinator_address is None:
             url, rank, world = "env://", -1, -1  # torchrun's RANK and WORLD_SIZE
         else:
             address = self.coordinator_address

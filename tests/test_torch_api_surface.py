@@ -26,21 +26,15 @@ from pigeons_tpu_torch import submission as TS
 
 # JAX names the port does not export yet, each with the ROADMAP queue-1 item
 # (ROADMAP.md section 1) that ports it
-NOT_PORTED = {
-    "ExternalTarget": "item 16", "LazyTarget": "item 16", "NativeTarget": "item 16",
-    "StreamTarget": "item 16", "BlangTarget": "item 16", "TreePPLTarget": "item 16",
-    "StanTarget": "item 16", "stan_target": "item 16",
-}
-# the submission module's names: the port has the child process and the
-# multi-process launcher; the cluster back ends are item 16
-SUBMISSION_PORTED = ["ChildProcess", "MultiHostLauncher", "ThisProcess", "Result"]
-SUBMISSION_NOT_PORTED = {
-    "ClusterSubmission": "item 16", "MPISettings": "item 16",
-    "setup_mpi": "item 16", "queue_status": "item 16", "queue_ncpus_free": "item 16",
-    "kill_job": "item 16", "watch": "item 16",
-}
+NOT_PORTED = {"StanTarget": "queue 1, item 1 (models/stan.py)",
+              "stan_target": "queue 1, item 1 (models/stan.py)"}
+# the submission module's names: every one is ported
+SUBMISSION_PORTED = ["ChildProcess", "MultiHostLauncher", "ThisProcess", "Result",
+                     "ClusterSubmission", "MPISettings", "setup_mpi", "queue_status",
+                     "queue_ncpus_free", "kill_job", "watch"]
+SUBMISSION_NOT_PORTED: dict = {}
 # Inputs options the port has but refuses, with their items (checks.py)
-REFUSED_OPTIONS = {"dtype=float64": "item 6c"}
+REFUSED_OPTIONS: dict = {}
 # the launcher's parameter after the JAX ones: the group's timeout
 LAUNCHER_EXTENSIONS = {"timeout_s"}
 # parameters the port adds after the JAX ones, all with a default: Inputs

@@ -285,9 +285,10 @@ def test_pigeons_on_a_child_process(tmp_path):
     there = result.load()
     assert there.round_idx == 2 and torch.equal(there.states, here.states)
 
+    # every JAX back end is ported (ROADMAP item 16): as the JAX entry point,
+    # pigeons(on=...) hands any back end's submit the run's Inputs
     class Cluster:
         def submit(self, inputs):
-            raise AssertionError("not reached")
+            return ("submitted", inputs.n_chains)
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T.pigeons(target=T.toy_mvn_target(2), device="cpu", on=Cluster())
+    assert T.pigeons(target=T.toy_mvn_target(2), device="cpu", on=Cluster()) == ("submitted", 10)

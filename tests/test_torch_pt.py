@@ -165,9 +165,11 @@ def test_cuda_slice_sampler_on_non_separable_path_raises():
         T.PT(T.Inputs(target=Quartic(), explorer=T.SliceSamplerCUDA(), device="cpu"))
 
 
-@pytest.mark.parametrize("option", [{"dtype": "float64"}])
+@pytest.mark.parametrize("option", [{"dtype": "float16"}])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every Inputs option of the JAX package is ported since item 6c
+    # (float64); a dtype other than float32 and float64 raises
+    with pytest.raises(ValueError, match="unsupported Inputs.dtype"):
         T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", **option))
 
 
@@ -288,8 +290,11 @@ def test_reference_override_matches_jax():
 
 
 def test_float64_still_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="6c"):
-        T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", dtype="float64"))
+    # item 6c is ported: a float64 run no longer raises, and runs in float64
+    # (held to the JAX package's x64 runs in tests/test_torch_dtype.py)
+    pt = T.PT(T.Inputs(target=T.toy_mvn_target(3), device="cpu", dtype="float64", n_rounds=1,
+                       n_chains=3, show_report=False))
+    assert pt.run().states.dtype == torch.float64
 
 
 def test_unknown_recorder_raises_at_construction():
