@@ -68,6 +68,16 @@ drives these paths end to end through
   reference's 1 / sigma), model U with Cauchy, LogNormal and Exponential
   priors and a ``CustomPath`` with a source at 10 chains x 64 ladders (each
   group bit for bit at 640 lanes);
+* Stan models (phase 14, ``pigeons_tpu_torch/models/stan.py``): eight
+  schools non-centred and Bernoulli through the CUDA source their models
+  are compiled to (``models/stan_cuda.py``), each a library of its own, on
+  K2's user instance bit for bit at every group, eight schools timed beside
+  the compiled ``kEightSchools`` at 640 and 8,192 lanes, their runs at the
+  eight-schools cell (logZ against the library run's less log 2; Bernoulli
+  against log B(3, 9)), and the invariance test of K2 on the eight-schools
+  source at beta = 0.3 (draws by rejection); the varying-slopes model
+  (matrices, ``cholesky_factor_corr``) on its default AutoMALA, card against
+  CPU, beside the side process (14c);
 * float64 runs (phase 13a) and the host-evaluated targets (13b-d), in the
   side process, no kernel:
   ``tests/test_dtype.py``'s three runs in float64 with its thresholds, the
@@ -107,8 +117,8 @@ kernel rows (phases 2-2e, and 12 after the side process has ended) are
 not. Every phase raises on failure. Without a CUDA device, or without the repository beside
 it, it exits non-zero and prints no result. The line before the last is a
 JSON object describing every kernel (time, twin's time, launches on its main
-path, bound; K2's user instance and K1's user term last); the last line is a
-JSON object naming the device.
+path, bound; K2's user instance, K1's user term and a Stan model's source on
+K2 last); the last line is a JSON object naming the device.
 
 A kernel's bound is the least time the card could take for the same work:
 the larger of the bytes it must move (inputs read once, outputs written
@@ -123,8 +133,10 @@ SHRINK iteration one draw, INIT_R and CHECK none, each its density queries.
 ``--profile`` also writes ``torch.profiler`` tables of one round of each
 path to ``chiprun_out/profile_config1.txt``, ``profile_funnel.txt``,
 ``profile_config4.txt``, ``profile_hierarchical.txt``,
-``profile_config2a.txt``, ``profile_config2b.txt`` and
-``profile_config2a_nuts.txt`` (config 2a's cell with ``NUTS()``), and prints each
+``profile_config2a.txt``, ``profile_config2b.txt``,
+``profile_config2a_nuts.txt`` (config 2a's cell with ``NUTS()``) and
+``profile_stan_varying_slopes.txt`` (phase 14c's model, one scan of its
+AutoMALA), each sorted by device time and by count, and prints each
 round's device ops, busy share, host syncs and explorer evaluations per
 scan. ``--parent-csrc
 DIR`` builds an earlier version of the CUDA sources (with this tree's entry
@@ -253,6 +265,91 @@ C_DIM, C_CHAINS, C_ROUNDS = 2, 4, 3
 # which (d) holds under a variational reference (its other cells use the
 # widths above)
 U_CUSTOM_DIM, U_FUNNEL_DIM = 4, 10
+
+# phase 14: Stan models (pigeons_tpu_torch/models/stan.py). Eight schools
+# non-centred as examples/stan_model.py writes it (J = 8, d = 10) and the
+# Bernoulli model with its beta(1, 1) prior on kernel K2 through their
+# emitted CUDA source (models/stan_cuda.py), at the eight-schools cell
+# (S_CHAINS x S_REPLICATES, S_ROUNDS) and at 8,192 lanes; the varying-slopes
+# model of examples/stan_hierarchical.py (N = 160, J = 4, P = 2,
+# cholesky_factor_corr) on its default AutoMALA, the torch path: 8 chains x
+# 128 ladders, ST_AUTOMALA_ROUNDS rounds, its density and gradient card
+# against CPU on those 1,024 states. The eight-schools logZ gate: the
+# library's kEightSchools run of phase 3f less log 2 (Stan's cauchy(0, 5) on
+# tau >= 0 is not renormalized under propto=false), within ST_LOG_Z_TOL.
+STAN_EIGHT_SCHOOLS = """
+data {
+  int<lower=0> J;
+  array[J] real y;
+  array[J] real<lower=0> sigma;
+}
+parameters {
+  vector[J] theta_trans;
+  real mu;
+  real<lower=0> tau;
+}
+transformed parameters {
+  vector[J] theta;
+  theta = theta_trans * tau + mu;
+}
+model {
+  theta_trans ~ normal(0, 1);
+  y ~ normal(theta, sigma);
+  mu ~ normal(0, 5);
+  tau ~ cauchy(0, 5);
+}
+"""
+STAN_EIGHT_SCHOOLS_DATA = {"J": 8, "y": [28, 8, -3, 7, -1, 1, 18, 12],
+                           "sigma": [15, 10, 16, 11, 9, 11, 10, 18]}
+STAN_BERNOULLI = """
+data { int<lower=0> N; array[N] int<lower=0, upper=1> y; }
+parameters { real<lower=0, upper=1> theta; }
+model { theta ~ beta(1, 1); y ~ bernoulli(theta); }
+"""
+STAN_BERNOULLI_DATA = {"N": 10, "y": [0, 1, 0, 0, 0, 0, 0, 0, 0, 1]}
+STAN_VARYING_SLOPES = """
+data {
+  int<lower=0> N;
+  int<lower=1> J;
+  int<lower=1> P;
+  array[N] int<lower=1, upper=J> g;
+  matrix[N, P] x;
+  vector[N] y;
+}
+parameters {
+  matrix[P, J] z;
+  cholesky_factor_corr[P] L_Omega;
+  vector<lower=0>[P] tau;
+  real<lower=0> sigma;
+}
+transformed parameters {
+  matrix[J, P] beta = (diag_pre_multiply(tau, L_Omega) * z)';
+}
+model {
+  to_vector(z) ~ std_normal();
+  L_Omega ~ lkj_corr_cholesky(2);
+  tau ~ cauchy(0, 2.5);
+  sigma ~ exponential(1);
+  y ~ normal(rows_dot_product(beta[g], x), sigma);
+}
+"""
+ST_WIDE_LANES, ST_LOG_Z_TOL, ST_THETA_TOL, ST_BERNOULLI_LOG_Z_TOL = 8192, 0.3, 0.04, 0.2
+ST_VS_CHAINS, ST_VS_REPLICATES, ST_AUTOMALA_ROUNDS = 8, 128, 3
+# the invariance test's beta for the emitted source, and how many proposals
+# each of its draws may take (its rejection sampler's acceptance is about 5%)
+ST_INVARIANCE_BETA, ST_REJECTION_TRIES = 0.3, 400
+
+
+def varying_slopes_data():
+    """examples/stan_hierarchical.py's data, from numpy seed 0."""
+    rs = np.random.default_rng(0)
+    N, J, P = 160, 4, 2
+    x = rs.normal(size=(N, P))
+    g = rs.integers(1, J + 1, size=N)
+    beta_true = rs.normal(size=(J, P))
+    y = np.sum(beta_true[g - 1] * x, axis=1) + 0.3 * rs.normal(size=N)
+    return {"N": N, "J": J, "P": P, "g": g, "x": x, "y": y}, beta_true
+
 
 # bench config 2b (bench.py:421-483): logistic regression 4,096 x 256 (d=257)
 # with the queued AutoMALA (queue 512, window 2), 10 chains x 819 ladders =
@@ -399,6 +496,7 @@ def cuda_ms(fn, n):
 
 
 PARENT = []  # the library built from --parent-csrc, if any, and that directory
+LIBRARY_RUNS = {}  # what phase 14 reads of the library kinds' runs (phase 3f's logZ)
 
 
 @contextlib.contextmanager
@@ -2206,8 +2304,9 @@ def quickstart_phase():
         raise AssertionError("quick start gave non-finite results")
 
 
-def profile_phase():
-    """torch.profiler over one round of each path."""
+def profile_phase(only=None):
+    """torch.profiler over one round of each path (of those named in
+    ``only``, where given)."""
     phase("8 profile")
     import os
 
@@ -2240,13 +2339,22 @@ def profile_phase():
 
     nuts = Inputs(target=logistic_regression(), n_chains=A_CHAINS, n_replicates=A_REPLICATES,
                   seed=SEED, explorer=NUTS(), show_report=False, device="cuda")
+    from pigeons_tpu_torch import stan_target
+
+    # phase 14c's varying-slopes model on its default AutoMALA, one scan
+    slopes = Inputs(target=stan_target(source=STAN_VARYING_SLOPES, data=varying_slopes_data()[0]),
+                    n_chains=ST_VS_CHAINS, n_replicates=ST_VS_REPLICATES, seed=SEED,
+                    show_report=False, device="cuda")
     for name, inputs, n_scans, kernel in (("config1", config1, WARMUP_SCANS, "banded_slice"),
                                           ("funnel", funnel_inputs(), F_WARMUP_SCANS, "slice_sweep"),
                                           ("config4", config4, V_WARMUP_SCANS, "banded_slice"),
                                           ("hierarchical", hierarchical, 8, "slice_sweep"),
                                           ("config2a", config2a, A_PROFILE_SCANS, None),
                                           ("config2b", config2b, B_PROFILE_SCANS, None),
-                                          ("config2a_nuts", nuts, A_WARMUP_SCANS, None)):
+                                          ("config2a_nuts", nuts, A_WARMUP_SCANS, None),
+                                          ("stan_varying_slopes", slopes, 1, None)):
+        if only is not None and name not in only:
+            continue
         pt = PT(inputs)
         pt.run_round(n_scans=n_scans)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2255,6 +2363,7 @@ def profile_phase():
         table = averages.table(sort_by="cuda_time_total", row_limit=40)
         with open(f"chiprun_out/profile_{name}.txt", "w") as f:
             f.write(table)
+            f.write("\nby count\n" + averages.table(sort_by="count", row_limit=40))
         dev_events = [e for e in averages
                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
         device_us = sum(e.self_device_time_total for e in dev_events)
@@ -2795,6 +2904,13 @@ def start_user_builds():
     # once
     builds = {f"the {name} source": (src, (), _build.CSRC) for name, src in sources.items()}
     builds["the funnel's target source"] = (funnel.source, (), _build.CSRC)
+    # phase 14's Stan models, emitted as sources when they are parsed
+    from pigeons_tpu_torch import stan_target
+
+    stan = {"eight schools": stan_target(source=STAN_EIGHT_SCHOOLS, data=STAN_EIGHT_SCHOOLS_DATA),
+            "Bernoulli": stan_target(source=STAN_BERNOULLI, data=STAN_BERNOULLI_DATA)}
+    for name, target in stan.items():
+        builds[f"the Stan {name} source"] = (target.device_source, (), _build.CSRC)
     builds["the coordinate source, PIGEONS_K1_CLOCKS"] = (coord.source, ("PIGEONS_K1_CLOCKS",),
                                                           _build.CSRC)
     if PARENT:
@@ -2804,7 +2920,7 @@ def start_user_builds():
     futures = {name: pool.submit(_build.build_user, b[0], defines=b[1], csrc=b[2])
                for name, b in builds.items()}
     pool.shutdown(wait=False)
-    return (hier, coord, model_u, custom, funnel), builds, futures
+    return (hier, coord, model_u, custom, funnel, stan), builds, futures
 
 
 def user_density_phase(library_hierarchical, user_builds):
@@ -2852,7 +2968,7 @@ def user_density_phase(library_hierarchical, user_builds):
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    (hier, coord, model_u, custom, funnel), builds, futures = user_builds
+    (hier, coord, model_u, custom, funnel, _), builds, futures = user_builds
     built = {name: f.result() for name, f in futures.items()}
     for name, (lib, seconds) in built.items():
         print(f"nvcc for {name}: {seconds:.3f} s ({lib.name}; 0 = already built)")
@@ -3050,6 +3166,350 @@ def user_density_phase(library_hierarchical, user_builds):
     return k2u, k1u
 
 
+def ir_ops(stmts):
+    """The operations of one evaluation of an emitted Stan source
+    (``models/stan_cuda.py``'s statements, as ``csrc`` runs them): each
+    arithmetic operation, comparison, select or conversion 1, a fused
+    multiply-add 2, the device functions as the tables above charge them, a
+    loop's body once an iteration, an ``if`` its condition and its larger
+    branch. Every loop has constant bounds, so its counter, and an index of
+    counters and constants, cost nothing: unrolled, such an index is an
+    offset in the instruction. An index that reads a data int costs its
+    arithmetic and the address's add."""
+    from pigeons_tpu_torch.models.stan_cuda import INT_KINDS
+
+    calls = {"log": LOG, "exp": EXP, "log1p": LOG1P, "softplus": SOFTPLUS,
+             "sigmoid": SIGMOID, "expm1": EXP + EXPM1_EXTRA, "tanh": EXPM1_EXTRA - ops(6),
+             "sqrt": ops(1), "fabs": ops(1)}
+
+    def static(e):
+        return e[0] in ("ic", "iv") or (e[0] in ("i+", "i-", "i*")
+                                         and static(e[1]) and static(e[2]))
+
+    def address(e):
+        return ops(0) if static(e) else i_ops(e) + ops(0, 1)
+
+    def i_ops(e):
+        if static(e):
+            return ops(0)
+        if e[0] == "ia":
+            return ops(1) + address(e[2])
+        return ops(0, 1) + i_ops(e[1]) + i_ops(e[2])
+
+    def f_ops(e):
+        k = e[0]
+        if k in ("c", "v"):
+            return ops(0)
+        if k in ("a", "x", "ve"):
+            return address(e[2])
+        if k == "i2f":
+            return ops(1) + i_ops(e[1])
+        if k == "neg":
+            return ops(1) + f_ops(e[1])
+        if k == "fma":
+            return ops(2) + sum((f_ops(a) for a in e[1:]), ops(0))
+        if k == "call":
+            return calls[e[1]] + f_ops(e[2])
+        if k == "sel":
+            return ops(1) + c_ops(e[1]) + f_ops(e[2]) + f_ops(e[3])
+        return ops(1) + f_ops(e[1]) + f_ops(e[2])
+
+    def c_ops(e):
+        if e[0] == "cmp":
+            return ops(1) + sum(((i_ops(v) if v[0] in INT_KINDS else f_ops(v)) for v in e[2:]),
+                                ops(0))
+        if e[0] == "not":
+            return ops(0, 1) + c_ops(e[1])
+        return ops(0, 1) + c_ops(e[1]) + c_ops(e[2])
+
+    total = ops(0)
+    for st in stmts:
+        k = st[0]
+        if k == "set":
+            total = total + f_ops(st[2])
+        elif k == "sete":
+            total = total + f_ops(st[3]) + i_ops(st[2])
+        elif k == "ret":
+            total = total + f_ops(st[1])
+        elif k == "for":
+            total = total + (st[3][1] - st[2][1] + 1) * ir_ops(st[4])
+        elif k == "if":
+            a, b = ir_ops(st[2]), ir_ops(st[3])
+            total = total + c_ops(st[1]) + (a if a.sum() >= b.sum() else b)
+    return total
+
+
+def ir_coord_ops(stmts):
+    """``(query, by_coord)``: the operations of one evaluation of an emitted
+    Stan source (:func:`ir_ops`) less the element writes of its loops that
+    read one coordinate an iteration, the loop counter's (a constrained
+    parameter's transform), and those writes by the coordinate each reads: a
+    query needs them only where it moves that coordinate, as the compiled
+    kinds' ``prepare`` counts them. What such a loop adds into a scalar (the
+    log-jacobian, a sum) stays in every query: an in-order sum is redone."""
+    def x_reads(node, out):
+        if isinstance(node, tuple) and node and node[0] == "x":
+            out.add((node[1], node[2]))
+        if isinstance(node, (tuple, list)):
+            for a in node:
+                x_reads(a, out)
+        return out
+
+    shared, by_coord = [], {}
+    for st in stmts:
+        reads = x_reads(st[4], set()) if st[0] == "for" else set()
+        if len(reads) == 1 and next(iter(reads))[1] == ("iv", st[1]):
+            off = next(iter(reads))[0]
+            writes = [b for b in st[4] if b[0] == "sete"]
+            shared.append(st[:4] + ([b for b in st[4] if b[0] != "sete"],))
+            for i in range(st[2][1], st[3][1] + 1):
+                by_coord[off + i] = by_coord.get(off + i, ops(0)) + ir_ops(writes)
+        else:
+            shared.append(st)
+    return ir_ops(shared), by_coord
+
+
+class TemperedDraws:
+    """iid draws of a target's path at ``beta`` under K2's reference
+    ``N(0, I)`` (unnormalized): ``exp(-(1 - beta) |x|^2 / 2) p(x)^beta`` by
+    rejection from ``N(0, I / (1 - beta))``, accepting with probability
+    ``(p(x) / M)^beta`` for a bound ``M >= p``: exact where the target's
+    density is bounded (``log_bound``). ``log_density`` is the source's torch
+    form, what the kernel evaluates. Each key takes the first of
+    ``n_tries`` proposals that it accepts; a key with none raises."""
+
+    def __init__(self, log_density, log_bound, dim, n_tries):
+        self.log_density, self.log_bound = log_density, log_bound
+        self.dim, self.n_tries = dim, n_tries
+
+    def sample_at(self, keys, beta):
+        from pigeons_tpu_torch import rng
+
+        n, t = keys.shape[0], self.n_tries
+        x = rng.normal(keys, (t, self.dim)) * float(np.float32(1.0 / math.sqrt(1.0 - beta)))
+        u = rng.uniform(rng.fold_in(keys, 1), (t,))
+        lp = torch.cat([self.log_density(c) for c in x.reshape(-1, self.dim).split(1 << 20)])
+        accept = torch.log(u) < beta * (lp.reshape(n, t) - self.log_bound)
+        if not bool(accept.any(-1).all()):
+            raise AssertionError(f"TemperedDraws: a key accepted none of {t} proposals")
+        first = accept.float().argmax(-1)
+        share = float(accept.float().mean())
+        print(f"rejection sampler at beta {beta}: acceptance {share:.4f}, {t} proposals a key")
+        return x[torch.arange(n, device=x.device), first]
+
+
+class TemperedStan:
+    """A Stan target whose path the invariance test can draw from at
+    ``beta`` (``path.sample_at``); its own path is the Stan model's (K2 on
+    the emitted source)."""
+
+    def __init__(self, stan, draws):
+        self.stan, self.path, self.dim = stan, draws, stan.dim
+
+    def to(self, device):
+        return TemperedStan(self.stan.to(device), self.path)
+
+    def default_reference(self):
+        return self.stan.default_reference()
+
+    def create_path(self, reference):
+        return self.stan.create_path(reference)
+
+
+def eight_schools_log_bound(data):
+    """A bound of the Stan eight-schools density in its unconstrained
+    coordinates: each normal term at its mode, and tau's Cauchy(0, 5) with
+    its jacobian tau at tau = 5: log(1 / (2 pi))."""
+    half = 0.5 * math.log(2.0 * math.pi)
+    sigma = np.asarray(data["sigma"], np.float64)
+    return (-len(sigma) * half + float(np.sum(-np.log(sigma) - half)) - math.log(5.0) - half
+            - math.log(2.0 * math.pi) + 1e-4)
+
+
+def stan_varying_slopes_phase():
+    """Phase 14c: the varying-slopes model of examples/stan_hierarchical.py
+    (``cholesky_factor_corr``, matrices: outside the emitter's subset, so no
+    device source) on its default AutoMALA, the torch path with no kernel:
+    density and gradient at 1,024 states on the card against the CPU within
+    1e-5 (the gradient against each state's largest component, where the
+    card is no further than the CPU from a float64 evaluation of the same
+    states, component by component; the card's spread over two evaluations
+    printed), and a
+    three-round run whose law is printed (inside its transient, not
+    gated). It reads nothing of the other phases and times no kernel, so
+    it runs beside the side process (``main``)."""
+    phase("14c Stan varying slopes on AutoMALA (beside the side process)")
+    from pigeons_tpu_torch import PT, Inputs, SliceSamplerCUDA, stan_target
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    data, beta_true = varying_slopes_data()
+    vs = stan_target(source=STAN_VARYING_SLOPES, data=data, name="varying_slopes")
+    if vs.device_source is not None:
+        raise AssertionError("varying slopes: a matrix model should have no device source")
+    lanes = ST_VS_CHAINS * ST_VS_REPLICATES
+    xs = (torch.from_numpy(np.random.default_rng(3).normal(size=(lanes, vs.dim))) * 0.3).float()
+    out = {}
+    cpu = torch.device("cpu")
+    for name, where, dtype in (("card", dev, torch.float32), ("card again", dev, torch.float32),
+                               ("CPU", cpu, torch.float32), ("float64", cpu, torch.float64)):
+        xg = xs.to(where, dtype).requires_grad_(True)
+        lp = vs.log_density(xg)
+        (g,) = torch.autograd.grad(lp.sum(), xg)
+        out[name] = (lp.detach().cpu().double().numpy(), g.cpu().double().numpy())
+
+    def distance(a, b):
+        """Density relative to max(1, |lp|); gradient component by component
+        relative to max(1, |g|), and against the state's largest component."""
+        (lp_a, g_a), (lp_b, g_b) = out[a], out[b]
+        diff = np.abs(g_a - g_b)
+        return (float(np.max(np.abs(lp_a - lp_b) / np.maximum(1.0, np.abs(lp_b)))),
+                float(np.max(diff / np.maximum(1.0, np.abs(g_b)))),
+                float(np.max(diff / np.maximum(1.0, np.abs(g_b).max(axis=1, keepdims=True)))))
+
+    pairs = {(a, b): distance(a, b) for a, b in (("card", "CPU"), ("card again", "card"),
+                                                 ("card", "float64"), ("CPU", "float64"))}
+    for (a, b), (lp_e, g_each, g_state) in pairs.items():
+        print(f"{lanes} states, {a} against {b}: density {lp_e:.3g}, gradient component by "
+              f"component {g_each:.3g}, against the state's largest component {g_state:.3g}")
+    # the card's float32 gradient is as exact as the CPU's or more: no
+    # further from the float64 evaluation of the same states, component by
+    # component. Where a component is the difference of large terms the CPU
+    # carries their rounding (2.04e-5 from float64, the card 9.3e-6: PERF.md
+    # §6), so the card is held to the CPU against each state's largest
+    # component, the density relative to max(1, |lp|)
+    lp_err, _, g_err = pairs[("card", "CPU")]
+    to_f64 = pairs[("card", "float64")][1], pairs[("CPU", "float64")][1]
+    print(f"tolerance 1e-5 card against CPU; component distances to float64, card "
+          f"{to_f64[0]:.3g} against the CPU's {to_f64[1]:.3g} (at most)")
+    if not (lp_err <= 1e-5 and g_err <= 1e-5 and to_f64[0] <= to_f64[1]):
+        raise AssertionError("varying slopes: the card's density or gradient is off the CPU's")
+    SliceSamplerCUDA.reset_launches()
+    pt = PT(Inputs(target=vs, n_chains=ST_VS_CHAINS, n_replicates=ST_VS_REPLICATES,
+                   n_rounds=ST_AUTOMALA_ROUNDS, seed=SEED, show_report=False, device="cuda"))
+    pt.run()
+    if any(SliceSamplerCUDA.launches.values()):
+        raise AssertionError(f"varying slopes launched a kernel: {SliceSamplerCUDA.launches}")
+    beta = vs.constrained_samples(pt)["beta"].mean(axis=0).astype(np.float64)
+    print(f"{type(pt.explorer).__name__}, {ST_AUTOMALA_ROUNDS} rounds, "
+          f"{pt.reports[-1].wall_time_s / pt.reports[-1].n_scans * 1e3:.1f} ms a scan; "
+          f"logZ {pt.reports[-1].log_z_estimate:.4f}, barrier {pt.global_barrier:.4f}; pooled "
+          f"beta {np.round(beta, 3).tolist()}, true {np.round(beta_true, 3).tolist()} (printed, "
+          "not gated: the run is inside its transient)")
+    del pt
+    print(f"phase 14c: {time.perf_counter() - t_phase:.1f} s")
+
+
+def stan_phase(library_eight_schools_log_z):
+    """Phase 14: Stan models (``pigeons_tpu_torch/models/stan.py``). (a) The
+    eight-schools model's emitted source on kernel K2 against its twin at
+    the eight-schools cell's 640 lanes, at the launcher's group and at 1, 8,
+    16 and 32 threads a lane (no bit may differ), timed beside the library's
+    compiled kEightSchools on the same inputs, in turns; at 8,192 lanes both
+    timed; its run at the cell (launched once a scan, no other kernel), logZ
+    within ST_LOG_Z_TOL of phase 3f's library run less log 2. (b) Bernoulli
+    (beta(1, 1), y[10] with 2 ones) the same at 640 lanes, its run's mean
+    theta within ST_THETA_TOL of 0.25 and logZ within ST_BERNOULLI_LOG_Z_TOL
+    of log B(3, 9) (``tests/test_stan.py``'s gates). (c) The varying-slopes
+    model runs beside the side process (``stan_varying_slopes_phase``).
+    (d) The exact invariance test (N = 10,000) of K2 on the eight-schools
+    source at beta = ST_INVARIANCE_BETA, its draws by rejection
+    (``TemperedDraws``), the kernel launched once. Returns the kernels
+    line's entry of the Stan row."""
+    phase("14 Stan models")
+    from pigeons_tpu_torch import SliceSamplerCUDA, eight_schools, invariance_test, stan_target
+    from pigeons_tpu_torch.ops import cuda_slice
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    B = S_CHAINS * S_REPLICATES
+
+    print("(a) eight schools, non-centred, on its emitted source")
+    es = stan_target(source=STAN_EIGHT_SCHOOLS, data=STAN_EIGHT_SCHOOLS_DATA).to(dev)
+    path = es.create_path(es.default_reference())
+    src = path.device_density().source
+    d = es.dim
+    # a query: the source's statements (less tau = exp(u), on queries of u),
+    # the reference's sum of squares, the interpolation
+    shared, by_coord = ir_coord_ops(src.torch_fn.stmts)
+    query = shared + sum_squares_ops(d) + ops(1) + INTERPOLATE
+    full = ir_ops(src.torch_fn.stmts) + sum_squares_ops(d) + ops(1) + INTERPOLATE
+    print(f"the Stan source: {full[0]:.0f} float32 and {full[1]:.0f} int32 operations an "
+          f"evaluation, {query[0]:.0f} and {query[1]:.0f} less the loops of coordinates "
+          f"{sorted(by_coord)}")
+    keep = {}
+    row = k2_mode("K2 user instance (Stan eight schools)", path, False, B, d, 1.0, query, ops(0),
+                  full, extra_bytes=4 * src.arrays[0].numel(), groups=(1, 8, 16, 32), keep=keep,
+                  coord_ops=by_coord, full_query_ops=full)
+    x, betas, seeds = keep["inputs"]
+    library = eight_schools().to(dev)
+    lib_path = library.create_path(library.default_reference())
+    turns = []
+    for _ in range(2):
+        turns.append((cuda_ms(lambda: cuda_slice.sweep_cuda(x, betas, seeds, path, n_passes=1),
+                              20),
+                      cuda_ms(lambda: cuda_slice.sweep_cuda(x, betas, seeds, lib_path,
+                                                            n_passes=1), 20)))
+    row["library_kind_ms"] = float(np.median([t[1] for t in turns]))
+    print(f"B={B}: the Stan source / the compiled kEightSchools, ms (median of 20) in turns: "
+          + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in turns) + f"; launcher's group "
+          f"{cuda_slice.launcher_group(path, B, d)}")
+    xw, bw, sw = lane_inputs(ST_WIDE_LANES, d, 1.0, 11)
+    wide = (cuda_ms(lambda: cuda_slice.sweep_cuda(xw, bw, sw, path, n_passes=1), 20),
+            cuda_ms(lambda: cuda_slice.sweep_cuda(xw, bw, sw, lib_path, n_passes=1), 20))
+    row["ms_8192"], row["library_kind_ms_8192"] = wide
+    print(f"B={ST_WIDE_LANES}: the Stan source {wide[0]:.4f} ms, kEightSchools {wide[1]:.4f} ms "
+          f"(median of 20), launcher's group {cuda_slice.launcher_group(path, ST_WIDE_LANES, d)}")
+    pt, row["launches"] = bayesian_run(es, S_CHAINS, S_REPLICATES, S_ROUNDS,
+                                       kernel="slice_sweep_user")
+    print_round(pt, B)
+    q = es.constrained_samples(pt)
+    log_z = pt.reports[-1].log_z_estimate
+    want = library_eight_schools_log_z - math.log(2.0)
+    print(f"pooled mu {float(np.mean(q['mu'])):.4f}, tau {float(np.mean(q['tau'])):.4f}; logZ "
+          f"{log_z:.6f}, phase 3f's kEightSchools run less log 2 {want:.6f}, tolerance "
+          f"{ST_LOG_Z_TOL}")
+    if not abs(log_z - want) < ST_LOG_Z_TOL:
+        raise AssertionError("Stan eight schools: logZ off the library kind's less log 2")
+    del pt
+
+    print("(b) Bernoulli, beta(1, 1), on its emitted source")
+    bern = stan_target(source=STAN_BERNOULLI, data=STAN_BERNOULLI_DATA).to(dev)
+    bpath = bern.create_path(bern.default_reference())
+    xb, bb, sb = lane_inputs(B, 1, 1.0, 11)
+    want_b = cuda_slice.sweep_reference(xb, bb, sb, bpath, n_passes=1)
+    for g in (0, 1, 8, 16, 32):
+        compare(f"K2 user instance (Stan Bernoulli), B={B}, "
+                + ("the launcher's" if g == 0 else f"{g}") + " threads per lane",
+                cuda_slice.sweep_cuda(xb, bb, sb, bpath, n_passes=1, group=g), want_b)
+    print(f"B={B}: {cuda_ms(lambda: cuda_slice.sweep_cuda(xb, bb, sb, bpath, n_passes=1), 20):.4f}"
+          " ms (median of 20)")
+    pt, _ = bayesian_run(bern, S_CHAINS, S_REPLICATES, S_ROUNDS, kernel="slice_sweep_user")
+    print_round(pt, B)
+    theta = float(np.mean(bern.constrained_samples(pt)["theta"]))
+    log_z = pt.reports[-1].log_z_estimate
+    print(f"mean theta {theta:.4f} (0.25), logZ {log_z:.6f} (log B(3, 9) = {BERNOULLI_LOG_Z:.6f})")
+    if not (abs(theta - 0.25) < ST_THETA_TOL and abs(log_z - BERNOULLI_LOG_Z) < ST_BERNOULLI_LOG_Z_TOL):
+        raise AssertionError("Stan Bernoulli: mean theta or logZ off")
+    del pt
+
+    print(f"(d) invariance of K2 on the eight-schools source at beta = {ST_INVARIANCE_BETA}")
+    draws = TemperedDraws(lambda v: src.target(v), eight_schools_log_bound(STAN_EIGHT_SCHOOLS_DATA),
+                          d, ST_REJECTION_TRIES)
+    SliceSamplerCUDA.reset_launches()
+    res = invariance_test(TemperedStan(es, draws), SliceSamplerCUDA(), n_iid_samples=I_SAMPLES,
+                          seed=I_SEED, device="cuda", beta=ST_INVARIANCE_BETA)
+    print(f"invariance: passed {res.passed}, min p-value {float(np.min(res.pvalues)):.4g}, "
+          f"launches {dict(SliceSamplerCUDA.launches)}")
+    if not (res.passed and launched_only(dict(SliceSamplerCUDA.launches), "slice_sweep_user", 1)):
+        raise AssertionError("K2 on the Stan eight-schools source: invariance test failed")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    row.update(name="slice_sweep_user (Stan eight schools, emitted source)", route="cuda",
+               source="pigeons_tpu_torch/csrc/sweep_slice.cu",
+               replaces="pigeons_tpu/ops/pallas_slice.py:94")
+    return row
+
+
 def main():
     device_phase()
     build_phase()
@@ -3060,17 +3520,19 @@ def main():
     try:
         user_builds = start_user_builds()
         config1_run, hierarchical_run = main_phases(k1, k2, k1v, bayesian, k2v, delta_twin)
+        stan_varying_slopes_phase()
         join_side_phases(side)
     finally:
         side[0].kill()
     k2u, k1u = user_density_phase(hierarchical_run, user_builds)
+    k2s = stan_phase(LIBRARY_RUNS["eight_schools_log_z"])
     del config1_run, hierarchical_run
     if "--profile" in sys.argv[1:]:
         profile_phase()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - T0:.1f} s")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    print(json.dumps({"kernels": [k1, k2, k1v, *bayesian.values(), k2v, k2u, k1u]}))
+    print(json.dumps({"kernels": [k1, k2, k1v, *bayesian.values(), k2v, k2u, k1u, k2s]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -3087,6 +3549,7 @@ def main_phases(k1, k2, k1v, bayesian, k2v, delta_twin):
     bayesian["hierarchical_normal"]["launches"], hierarchical_run = hierarchical_phase()
     bayesian["unid"]["launches"] = unid_phase()
     bayesian["eight_schools"]["launches"], mu_noncentred, log_z_noncentred = eight_schools_phase()
+    LIBRARY_RUNS["eight_schools_log_z"] = log_z_noncentred
     bayesian["logistic_regression"]["launches"] = logistic_regression_phase()
     bayesian["mrna"]["launches"] = mrna_phase()
     bayesian["bernoulli"]["launches"] = bernoulli_phase()

@@ -27,6 +27,7 @@ from .models import (
     NativeTarget,
     PoissonCount,
     StandardNormalReference,
+    StanTarget,
     StreamTarget,
     TestSwapper,
     TreePPLTarget,
@@ -41,6 +42,7 @@ from .models import (
     mrna_target,
     mvn_target,
     poisson_count_target,
+    stan_target,
     toy_mvn_target,
     unid_target,
 )
@@ -119,6 +121,7 @@ __all__ = [
     "SliceSamplerCUDA",
     "SliceSamplerPallas",
     "StandardNormalReference",
+    "StanTarget",
     "StreamTarget",
     "TestSwapper",
     "ThisProcess",
@@ -152,6 +155,7 @@ __all__ = [
     "process_sample",
     "reports_dataframe",
     "split_rhat",
+    "stan_target",
     "stepping_stone",
     "stepping_stone_pair",
     "summary",

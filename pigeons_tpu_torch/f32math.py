@@ -320,9 +320,39 @@ _expm1_any = _by_dtype(_expm1, f64math.expm1)
 
 
 def needs_grad(*args) -> bool:
-    """Whether a call on ``args`` must record a gradient."""
-    return torch.is_grad_enabled() and any(
-        torch.is_tensor(a) and a.requires_grad for a in args)
+    """Whether a call on ``args`` must go through the ``Function``: to
+    record a gradient, or under ``torch.func.vmap``, where an argument does
+    not show whether the tensor it stands for requires one, and where the
+    bit-level forwards' ``view(dtype)`` has no batching rule in every torch
+    version (the ``Function``'s vmap rule runs them on the whole batch)."""
+    return any(torch.is_tensor(a) and (_is_batched(a) or (torch.is_grad_enabled()
+                                                          and a.requires_grad)) for a in args)
+
+
+def _is_batched(a) -> bool:
+    return torch._C._functorch.is_batchedtensor(a)
+
+
+def elementwise_vmap(cls):
+    """``cls``, an elementwise ``torch.autograd.Function`` of tensors and
+    numbers, with a rule for ``torch.func.vmap``: the batched inputs' batch
+    dimensions moved to the front (and padded to the widest input's rank),
+    the function applied once to the whole batch."""
+
+    def vmap(info, in_dims, *args):
+        del info
+        rank = max((a.dim() - (d is not None) for a, d in zip(args, in_dims)
+                    if torch.is_tensor(a)), default=0)
+        out = []
+        for a, d in zip(args, in_dims):
+            if torch.is_tensor(a) and d is not None:
+                a = a.movedim(d, 0)
+                a = a.reshape(a.shape[:1] + (1,) * (rank - a.dim() + 1) + a.shape[1:])
+            out.append(a)
+        return cls.apply(*out), 0
+
+    cls.vmap = staticmethod(vmap)
+    return cls
 
 
 def _unbroadcast(g, like):
@@ -330,12 +360,16 @@ def _unbroadcast(g, like):
     return g if g.shape == like.shape else g.sum_to_size(like.shape)
 
 
+@elementwise_vmap
 class _Fma(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, c):
-        ctx.save_for_backward(*(v if torch.is_tensor(v) else None for v in (a, b, c)))
-        ctx.consts = tuple(None if torch.is_tensor(v) else v for v in (a, b))
+    def forward(a, b, c):
         return _fma_any(a, b, c)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*(v if torch.is_tensor(v) else None for v in inputs))
+        ctx.consts = tuple(None if torch.is_tensor(v) else v for v in inputs[:2])
 
     @staticmethod
     def backward(ctx, g):
@@ -348,12 +382,15 @@ class _Fma(torch.autograd.Function):
                 _unbroadcast(g, tc) if need[2] else None)
 
 
+@elementwise_vmap
 class _Exp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        y = _exp_any(x)
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return _exp_any(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):
@@ -361,11 +398,15 @@ class _Exp(torch.autograd.Function):
         return g * y
 
 
+@elementwise_vmap
 class _Log(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return _log_any(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):
@@ -373,11 +414,15 @@ class _Log(torch.autograd.Function):
         return g / x
 
 
+@elementwise_vmap
 class _Log1p(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return _log1p_any(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):
@@ -385,11 +430,15 @@ class _Log1p(torch.autograd.Function):
         return g / (x + 1.0)
 
 
+@elementwise_vmap
 class _Lgamma(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return _lgamma_any(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):
@@ -397,12 +446,15 @@ class _Lgamma(torch.autograd.Function):
         return g * torch.digamma(x)
 
 
+@elementwise_vmap
 class _Expm1(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        y = _expm1_any(x)
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return _expm1_any(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):
@@ -410,12 +462,15 @@ class _Expm1(torch.autograd.Function):
         return g * (y + 1.0)
 
 
+@elementwise_vmap
 class _Pow10(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q):
-        y = _pow10(q)
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return _pow10(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):

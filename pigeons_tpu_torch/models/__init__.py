@@ -41,6 +41,7 @@ from .library import (
     unid_target,
 )
 from .native import NativeTarget, compile_native_model
+from .stan import StanTarget, load_stan_data, stan_target
 from .stream import (
     BlangTarget,
     StreamExplorer,

@@ -74,10 +74,17 @@ class _SumInOrder(torch.autograd.Function):
     those were half of a gradient evaluation's host time)."""
 
     @staticmethod
-    def forward(ctx, terms):
-        ctx.shape = terms.shape
+    def forward(terms):
         acc = _add_in_order(terms)
         return acc.clone() if terms.shape[-1] == 1 else acc  # not a view of the input
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.shape = inputs[0].shape
+
+    @staticmethod
+    def vmap(info, in_dims, terms):
+        return _SumInOrder.apply(terms.movedim(in_dims[0], 0)), 0
 
     @staticmethod
     def backward(ctx, g):
@@ -132,6 +139,7 @@ def _finite_or_zero(v):
     return torch.where(v == float("inf"), torch.zeros_like(v), v)
 
 
+@f32math.elementwise_vmap
 class _Softplus(torch.autograd.Function):
     """The gradient of ``jnp.logaddexp(x, 0)`` is its custom JVP rule,
     ``exp(x - softplus(x))`` with ``+inf`` read as 0, not the derivative of
@@ -140,10 +148,12 @@ class _Softplus(torch.autograd.Function):
     no bits, and the emulated one is some 200 launches a call."""
 
     @staticmethod
-    def forward(ctx, x):
-        out = _softplus(x)
-        ctx.save_for_backward(x, out)
-        return out
+    def forward(x):
+        return _softplus(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, g):
@@ -151,15 +161,18 @@ class _Softplus(torch.autograd.Function):
         return g * torch.exp(_finite_or_zero(x) - _finite_or_zero(out))
 
 
+@f32math.elementwise_vmap
 class _Sigmoid(torch.autograd.Function):
     """The gradient of ``lax.logistic`` is ``s (1 - s)``; the quotient's own
     derivative is NaN where ``exp(-x)`` overflows."""
 
     @staticmethod
-    def forward(ctx, x):
-        s = _sigmoid(x)
-        ctx.save_for_backward(s)
-        return s
+    def forward(x):
+        return _sigmoid(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):

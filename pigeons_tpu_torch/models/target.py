@@ -39,6 +39,13 @@ class Target:
     # source, which kernel K2 runs under a normal reference
     source = None
 
+    @property
+    def device_source(self):
+        """The ``DeviceSource`` that kernel K2 runs: ``source`` (a target
+        that keeps something else there, a Stan program's text, sets its
+        own)."""
+        return self.source
+
     def log_density(self, x):
         raise NotImplementedError
 
@@ -67,10 +74,11 @@ class Target:
     def create_path(self, reference: Reference):
         """The linear path from ``reference``. Under ``N(0, sigma^2 I)`` the
         slice kernel K2 evaluates it from a library kind (``device_target``)
-        or from the target's ``source``; the kernel's twin then evaluates
-        the source's torch form (``sweep_endpoints``)."""
+        or from the target's ``device_source``; the kernel's twin then
+        evaluates the source's torch form beside the reference as the kernel
+        does, unnormalized (``sweep_endpoints``)."""
         device = sweep = None
-        target, source = self.device_target(), self.source
+        target, source = self.device_target(), self.device_source
         if reference.normal_sigma is not None and (target is not None or source is not None):
             inv_sigma = float(np.float32(1.0) / np.float32(reference.normal_sigma))
             if target is not None:
@@ -78,9 +86,10 @@ class Target:
                 device = DeviceDensity(kind, (inv_sigma, *params))
             else:
                 device = DeviceDensity(USER, (inv_sigma, *source.params), source.arrays, (), source)
+                kernel_ref = StandardNormalReference(self.dim, reference.normal_sigma).as_reference()
 
                 def sweep(x):
-                    return reference.log_density(x), source.target(x)
+                    return kernel_ref.log_density(x), source.target(x)
         return InterpolatingPath(
             ref_log_density=reference.log_density,
             target_log_density=self.log_density,

@@ -547,6 +547,12 @@ class SliceSamplerCUDA(Explorer):
         ``integer_mask`` or a ``binary_mask``, raises. (The JAX
         ``SliceSamplerPallas`` runs its XLA sampler for such a target instead,
         without saying so.)"""
+        refusal = getattr(target, "device_refusal", None)
+        if refusal is not None:
+            raise ValueError(
+                f"SliceSamplerCUDA: {refusal}, so no CUDA kernel can evaluate this "
+                f"{type(target).__name__}. Pass explorer={self._plain()}, or keep the "
+                "target's default explorer, AutoMALA().")
         if getattr(target, "host_evaluated", False):
             raise ValueError(
                 f"SliceSamplerCUDA: {type(target).__name__}'s density is evaluated on the host, "

@@ -118,3 +118,28 @@ def banded_slice_sweep_user(lib_path, x, betas, seeds, params, w, p, n_passes, m
                                       B, d, w, p, n_passes, max_iter,
                                       (CF * MAX_DENSITY_PARAMS)(*padded), c_arrays, c_lens, None)
     out.put((err, x_out, stats))
+
+
+class _Collect:
+    """A queue that keeps what is put on it."""
+
+    def __init__(self):
+        self.items = []
+
+    def put(self, item):
+        self.items.append(item)
+
+
+def slice_sweep_user_groups(lib_path, x, betas, seeds, params, w, p, n_passes, max_iter, arrays,
+                            groups, out):
+    """:func:`slice_sweep_user` of a target or path source (no prior table,
+    no variational reference) at each of ``groups`` in turn, in one child.
+    Puts ``(err, x_out [G, B, d], lp [G, B], stats [G, 3, B])``, ``err`` the
+    first launch's that is not 0."""
+    got = _Collect()
+    for group in groups:
+        slice_sweep_user(lib_path, x, betas, seeds, params, w, p, n_passes, max_iter, arrays, (),
+                         None, group, got)
+    errs = [item[0] for item in got.items]
+    err = next((e for e in errs if e != 0), 0)
+    out.put((err, *(np.stack([item[k] for item in got.items]) for k in (1, 2, 3))))

@@ -25,9 +25,8 @@ from pigeons_tpu_torch import checks
 from pigeons_tpu_torch import submission as TS
 
 # JAX names the port does not export yet, each with the ROADMAP queue-1 item
-# (ROADMAP.md section 1) that ports it
-NOT_PORTED = {"StanTarget": "queue 1, item 1 (models/stan.py)",
-              "stan_target": "queue 1, item 1 (models/stan.py)"}
+# (ROADMAP.md section 1) that ports it: none since models/stan.py
+NOT_PORTED: dict = {}
 # the submission module's names: every one is ported
 SUBMISSION_PORTED = ["ChildProcess", "MultiHostLauncher", "ThisProcess", "Result",
                      "ClusterSubmission", "MPISettings", "setup_mpi", "queue_status",
